@@ -1,0 +1,119 @@
+"""The port's CLI on the CPU: a fresh run and a resume of a flagship-pattern
+net (so the fused path runs, through its twin), and checkpoints that either
+package loads."""
+
+import os
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from theanet_tpu.model import NeuralNet as JaxNet
+from theanet_tpu.prms import load_params as jax_load_params
+from theanet_tpu.prms import save_checkpoint as jax_save_checkpoint
+
+from theanet_tpu_torch import train
+from theanet_tpu_torch.model import NeuralNet as TorchNet
+from theanet_tpu_torch.ops import megastep
+from theanet_tpu_torch.prms import load_params
+
+IMG, NC = 12, 4
+
+PRMS = """{
+"layers": [
+    ('ElasticLayer', {'translation': 2, 'zoom': 1.1, 'magnitude': 8,
+                      'sigma': 3, 'pflip': 0.03, 'angle': 5,
+                      'nearest': True, 'invert_image': True}),
+    ('ConvLayer', {'num_maps': 2, 'filter_sz': 3, 'stride': 1,
+                   'actvn': "relu10"}),
+    ('PoolLayer', {'pool_sz': 2}),
+    ('ConvLayer', {'num_maps': 3, 'filter_sz': 3, 'stride': 1,
+                   'actvn': "relu05"}),
+    ('PoolLayer', {'pool_sz': 2}),
+    ('HiddenLayer', {'n_out': 16, 'pdrop': .5}),
+    ('SoftmaxLayer', {'n_out': 4}),
+],
+"training_params": {'BATCH_SZ': 4, 'NUM_EPOCHS': 2, 'EPOCHS_TO_TEST': 1,
+                    'TEST_SAMP_SZ': 8, 'INIT_LEARNING_RATE': .1,
+                    'EPOCHS_TO_HALF_RATE': 1, 'SEED': 17},
+}
+"""
+
+
+@pytest.fixture
+def tiny_data(monkeypatch, tmp_path):
+    rng = np.random.RandomState(0)
+    mod = types.ModuleType("data.torch_cli_tiny")
+    mod.training_x = rng.rand(16, IMG * IMG).astype(np.float32)
+    mod.training_y = rng.randint(0, NC, 16).astype(np.int32)
+    mod.testing_x = rng.rand(8, IMG * IMG).astype(np.float32)
+    mod.testing_y = rng.randint(0, NC, 8).astype(np.int32)
+    monkeypatch.setitem(sys.modules, "data.torch_cli_tiny", mod)
+    monkeypatch.setenv("THEANET_TORCH_DEVICE", "cpu")
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "tiny.prms").write_text(PRMS)
+    return mod
+
+
+def _pkls():
+    return sorted(p for p in os.listdir(".") if p.endswith(".pkl"))
+
+
+def test_cli_fresh_run_and_resume(tiny_data, capsys):
+    launches = megastep.megastep_epoch.launches
+    trainer = train.main(["train", "torch_cli_tiny", "tiny.prms"])
+    assert trainer._mega is not None   # the fused path trained
+    out = capsys.readouterr().out
+    assert "Epoch   Cost  Tr_Error Tr_P(MLE)    Te_Error Te_P(MLE)" in out
+    assert "Device : cpu" in out
+    rows = [l for l in out.splitlines() if l[:3].strip().isdigit()]
+    assert [int(r.split()[0]) for r in rows] == [0, 1, 2]
+    assert len(_pkls()) == 1   # keep-one checkpoint
+    # on the CPU the wrapper ran the twin: no kernel launch was counted
+    assert megastep.megastep_epoch.launches == launches
+
+    _, tr, allwts = load_params(_pkls()[0])
+    assert tr["CUR_EPOCH"] == 2 and len(allwts) == 7
+    resumed = train.main(["train", "torch_cli_tiny", _pkls()[0]])
+    out = capsys.readouterr().out
+    rows = [l for l in out.splitlines() if l[:3].strip().isdigit()]
+    assert [int(r.split()[0]) for r in rows] == [2, 3, 4]
+    assert resumed.net.get_epoch() == 4
+    assert len(_pkls()) == 2   # the resume keeps its own one
+
+
+def test_port_checkpoint_predicts_the_same_in_jax(tiny_data):
+    trainer = train.main(["train", "torch_cli_tiny", "tiny.prms"])
+    layers, tr, allwts = jax_load_params(_pkls()[0])
+    jnet = JaxNet(layers, tr, allwts)
+    x = tiny_data.testing_x.reshape(-1, 1, IMG, IMG)
+    jp, _ = jnet.init_params()
+    j_feat, j_pred = jnet.predict(jp, jnp.asarray(x))
+    t_feat, t_pred = trainer.predict(x)
+    np.testing.assert_array_equal(t_pred, np.asarray(j_pred))
+    np.testing.assert_allclose(t_feat, np.asarray(j_feat), atol=1e-5)
+
+
+def test_jax_checkpoint_loads_in_the_port(tmp_path):
+    layers = [["InputLayer", {"img_sz": 8}],
+              ["ConvLayer", {"num_maps": 2, "filter_sz": 3, "stride": 1,
+                             "actvn": "relu"}],
+              ["PoolLayer", {"pool_sz": 2}],
+              ["HiddenLayer", {"n_out": 5}],
+              ["SoftmaxLayer", {"n_out": 3}]]
+    tr = {"SEED": 5, "BATCH_SZ": 2}
+    jnet = JaxNet([list(l) for l in layers], dict(tr))
+    path = str(tmp_path / "jax.pkl")
+    jax_save_checkpoint(path, jnet.get_init_params())
+    tl, ttr, tw = load_params(path)
+    tnet = TorchNet(tl, ttr, tw)
+    x = np.random.RandomState(1).rand(4, 1, 8, 8).astype(np.float32)
+    jp, _ = jnet.init_params()
+    tp, _ = tnet.init_params("cpu")
+    np.testing.assert_array_equal(
+        tnet.predict(tp, torch.tensor(x))[1].numpy(),
+        np.asarray(jnet.predict(jp, jnp.asarray(x))[1]))

@@ -1,0 +1,250 @@
+"""NeuralNet: dict spec -> layer stack -> train/eval functions on tensors.
+
+Port of ``theanet_tpu/model.py`` (reference theanet/neuralnet.py:59-333).
+The spec format and the builder's plumbing rules are the same: num_maps /
+out_sz propagate past DropOut layers, dense layers flatten their input, the
+first layer's img_sz arrives at run time. Parameters are lists of per-layer
+tensor lists in the reference ``allwts`` order and layout, so a checkpoint
+of either package loads in the other (``params_from_allwts``).
+"""
+
+from __future__ import annotations
+
+from functools import reduce
+from operator import mul
+from typing import List
+
+import numpy as np
+import torch
+
+from . import layers as layer_mod
+from .layers import (ConvLayer, DropOutLayer, ElasticLayer, HiddenLayer,
+                     InputLayer, OutputMixin, PoolLayer, SoftmaxLayer)
+from .optim import apply_updates, init_momentum, learning_rate, weight_cost
+
+__all__ = ["NeuralNet", "get_layers_info", "get_wts_info",
+           "get_training_params_info", "params_from_allwts"]
+
+
+def get_layers_info(layers):
+    """Spec pretty-printer, line for line the reference's (neuralnet.py:
+    20-27)."""
+    lines = []
+    for name, kwargs in layers:
+        lines.append(f"\n{name} : ")
+        lines.extend(f"\n\t{key} : \t{val}" for key, val in kwargs.items())
+    return "".join(lines)
+
+
+def _wt_lines(layer_idx, ww, detailed):
+    yield f"\nLayer {layer_idx}:"
+    for w in ww:
+        n_ww = reduce(mul, w.shape, 1)
+        line = f"\n\t {w.shape} {w.dtype} ❲{n_ww}❳"
+        if detailed:
+            line += f" ❲{w.min():.2e}, {w.mean():.2e}, {w.max():.2e}❳"
+        yield line
+
+
+def get_wts_info(wts, detailed=False):
+    """Weight-table pretty-printer (neuralnet.py:30-43)."""
+    n_wts = sum(reduce(mul, w.shape, 1) for ww in wts for w in ww)
+    body = "".join(line for l, ww in enumerate(wts)
+                   for line in _wt_lines(l, ww, detailed))
+    return body + f"\n\nTotal Number of Weights : {n_wts:,}"
+
+
+def get_training_params_info(training_params):
+    """Sorted key/value dump (neuralnet.py:46-51)."""
+    lines = [f"\n\t{key} : \t{training_params[key]}"
+             for key in sorted(training_params)]
+    return "Training Parameters:" + "".join(lines)
+
+
+def params_from_allwts(allwts, device):
+    """Reference-layout numpy weights (either package's ``allwts``, e.g. the
+    JAX NeuralNet's) -> the port's parameter lists of f32 tensors on
+    ``device``. The layouts are the same, so this is a copy."""
+    return [[torch.as_tensor(np.asarray(w, np.float32), device=device)
+             for w in lw] for lw in allwts]
+
+
+_INPUT_TYPES = (InputLayer, ElasticLayer)
+_DENSE_TYPES = (HiddenLayer, SoftmaxLayer)
+
+
+class NeuralNet:
+    """Builds the layer stack from the spec (reference neuralnet.py:59-111).
+
+    With ``allwts=None`` a numpy RandomState(SEED) draws the initial
+    weights in the reference's order (bit-identical to the JAX package);
+    with ``allwts`` the weights are restored and nothing is drawn."""
+
+    def __init__(self, layers, training_params, allwts=None):
+        self.rand_gen = (np.random.RandomState(training_params["SEED"])
+                         if allwts is None else None)
+        self.tr_prms = training_params
+        self.layers = layers
+        self.batch_sz = training_params["BATCH_SZ"]
+        self.net_layers: List[layer_mod.Layer] = []
+
+        input_layer_type = getattr(layer_mod, layers[0][0], None)
+        if input_layer_type not in _INPUT_TYPES:
+            raise NotImplementedError(
+                "first layer {!r}: this port takes InputLayer or "
+                "ElasticLayer (ColorLayer is queued in ROADMAP.md)".format(
+                    layers[0][0]))
+        self.net_layers.append(
+            input_layer_type(rand_gen=self.rand_gen, **layers[0][1]))
+        for i in range(1, len(layers)):
+            self._append_layer(i, allwts[i] if allwts else None)
+
+        head = self.net_layers[-1]
+        assert isinstance(head, OutputMixin), "Last layer must be an output head"
+        self.head = head
+        if "CUR_EPOCH" not in training_params:
+            training_params["CUR_EPOCH"] = 0
+        for key in ("COMPUTE_DTYPE", "REMAT", "FUSED_TAIL"):
+            if training_params.get(key):
+                raise NotImplementedError(
+                    f"training_params {key} is not ported yet (ROADMAP.md "
+                    "queue 1)")
+        self.allwts0 = [lyr.get_wts() for lyr in self.net_layers]
+
+    def _append_layer(self, i, wts):
+        """The builder ladder of theanet_tpu/model.py:216-286, for the
+        layer classes this slice ports."""
+        layer_type, layer_args = self.layers[i]
+        layer_args = dict(layer_args)
+        prev = self.net_layers[i - 1]
+        cls = getattr(layer_mod, layer_type, None)
+
+        if cls in (ElasticLayer, ConvLayer, PoolLayer):
+            # DropOut has no num_maps: shape info comes from the layer
+            # before it (neuralnet.py:123-130)
+            use = (self.net_layers[i - 2] if isinstance(prev, DropOutLayer)
+                   else prev)
+            num_prev_maps, prev_out_sz = use.num_maps, use.out_sz
+
+        if cls is ElasticLayer:
+            layer_args.pop("num_maps", None)
+            layer_args.pop("img_sz", None)
+            # the reference del-mutates the stored spec (neuralnet.py:133-136)
+            self.layers[i][1].pop("num_maps", None)
+            self.layers[i][1].pop("img_sz", None)
+            curr = cls(num_maps=num_prev_maps, img_sz=prev_out_sz,
+                       rand_gen=self.rand_gen, **layer_args)
+        elif cls is ConvLayer:
+            curr = ConvLayer(wts, self.rand_gen, self.batch_sz,
+                             num_prev_maps, prev_out_sz, **layer_args)
+        elif cls is PoolLayer:
+            curr = cls(num_maps=num_prev_maps, in_sz=prev_out_sz,
+                       **layer_args)
+        elif cls is DropOutLayer:
+            curr = DropOutLayer(self.rand_gen, prev.n_out, **layer_args)
+        elif cls in _DENSE_TYPES:
+            curr = cls(wts, self.rand_gen, prev.n_out, **layer_args)
+        else:
+            raise NotImplementedError(
+                "layer type {!r} is not ported yet (ROADMAP.md queue 1)"
+                .format(layer_type))
+        self.net_layers.append(curr)
+
+    # -- compute --------------------------------------------------------------
+
+    def forward(self, params, x, *, train, generator=None):
+        """Run the stack; returns the head-state dict."""
+        out = x
+        for i, lyr in enumerate(self.net_layers):
+            if lyr is self.head:
+                return lyr.apply_head(params[i], out, train=train,
+                                      generator=generator)
+            out = lyr.apply(params[i], out, train=train, generator=generator)
+        raise AssertionError("unreachable: head not applied")
+
+    def cost(self, params, x, y, *, generator=None):
+        """Head loss + every layer's weight cost (neuralnet.py:208-210)."""
+        hs = self.forward(params, x, train=True, generator=generator)
+        return self.head.cost(hs, y) + weight_cost(self.net_layers,
+                                                   params), hs
+
+    def train_step(self, params, moms, x, y, *, lr, generator=None):
+        """One SGD step by autograd. Returns (params, moms, cost, features,
+        logprob), the reference training fn's observables (neuralnet.py:
+        236-241). The input lists are not modified."""
+        leaves = [[p.detach().requires_grad_(True) for p in lp]
+                  for lp in params]
+        cost, hs = self.cost(leaves, x, y, generator=generator)
+        flat = [p for lp in leaves for p in lp]
+        grads_flat = torch.autograd.grad(cost, flat, allow_unused=True)
+        it = iter(grads_flat)
+        grads = [[next(it) for _ in lp] for lp in leaves]
+        grads = [[torch.zeros_like(p) if g is None else g
+                  for p, g in zip(lp, lg)] for lp, lg in zip(params, grads)]
+        with torch.no_grad():
+            new_p, new_m = apply_updates(self.net_layers, params, moms,
+                                         grads, lr)
+        return (new_p, new_m, cost.detach(), hs["features"].detach(),
+                hs["logprob"].detach())
+
+    @torch.no_grad()
+    def eval_step(self, params, x, y, *, preds_feats=False):
+        """(error rate, second statistic) of the head (outlayers.py:69-80),
+        with (features, y_preds) appended under ``preds_feats``."""
+        hs = self.forward(params, x, train=False)
+        stats = self.head.sym_and_oth_err_rate(hs, y)
+        if preds_feats:
+            return stats + self.head.features_and_predictions(hs)
+        return stats
+
+    @torch.no_grad()
+    def predict(self, params, x, *, get_output_of_layers=()):
+        """(features, y_preds, *layer outputs) on raw inputs (reference
+        get_data_test_model, neuralnet.py:282-296)."""
+        outs, out, hs = [], x, None
+        for i, lyr in enumerate(self.net_layers):
+            if lyr is self.head:
+                hs = lyr.apply_head(params[i], out, train=False)
+                out = hs["output"]
+            else:
+                out = lyr.apply(params[i], out, train=False)
+            outs.append(out)
+        return tuple([hs["features"], hs["y_preds"]]
+                     + [outs[i] for i in get_output_of_layers])
+
+    # -- state and schedule -------------------------------------------------
+
+    def init_params(self, device):
+        """Fresh (params, momentum) lists on ``device``."""
+        params = params_from_allwts(self.allwts0, device)
+        return params, init_momentum(self.net_layers, params)
+
+    def get_init_params(self):
+        """The checkpoint dict, in the reference's structure
+        (neuralnet.py:298-301)."""
+        return {
+            "layers": self.layers,
+            "training_params": self.tr_prms,
+            "allwts": [lyr.get_wts() for lyr in self.net_layers],
+        }
+
+    def snapshot_params(self, params):
+        """Copy current params (tensors) back into the layers as numpy, so
+        get_wts() and get_init_params() reflect training progress."""
+        for lyr, lp in zip(self.net_layers, params):
+            lyr.params_init = [p.detach().cpu().numpy().copy() for p in lp]
+
+    def get_rate(self):
+        return learning_rate(self.tr_prms)
+
+    def inc_epoch_set_rate(self):
+        self.tr_prms["CUR_EPOCH"] += 1
+
+    def get_epoch(self):
+        return self.tr_prms["CUR_EPOCH"]
+
+    def __str__(self):
+        return "\nLayers\n\t" + "\n\t".join(str(l) for l in self.net_layers)
+
+    def get_wts_info(self, detailed=False):
+        return get_wts_info([l.get_wts() for l in self.net_layers], detailed)

@@ -1,0 +1,675 @@
+"""Whole-epoch fused training of the 2-conv flagship net.
+
+Port of ``theanet_tpu/ops/megastep.py``. One call trains a whole epoch of
+Input/Elastic -> Conv -> Pool -> Conv -> Pool -> Hidden -> Softmax(nll):
+per step, elastic augmentation from injected bits, the forward pass, the
+hand-derived backward, L1/L2 gradients and the reference's old-accumulator
+momentum + max-norm update.
+
+  * ``megastep_epoch_reference`` is the plain PyTorch twin: the specification
+    the CUDA kernel is held to, and what CPU tensors run.
+  * ``megastep_epoch`` is the wrapper: CPU tensors go to the twin; CUDA
+    tensors launch the hand-written kernel (``csrc/megastep.cu``, built at
+    first use by ``ops/_build.py``) or raise. It counts its kernel launches
+    in ``megastep_epoch.launches``.
+
+Randomness is INJECTED: ``epoch_noise_bits`` draws one epoch of 32-bit words
+(held as int32) on the data's device; the step reads uniforms from their low
+24 bits. Shapes and the bit -> variable mapping are the JAX package's
+(``megastep.py:1338-1456``), so a test can hand the same words to both.
+
+The TPU layout workarounds (striped or grouped lane slots, the kron (hw, hw)
+smoothing operand, one-hot movement matmuls, SMEM stat blocks) are not
+carried over: both the twin and the kernel compute the same function on
+plain (batch, maps, y, x) tensors.
+
+Kernel-layout state: conv weights flatten their taps channel-minor, w1
+(M1, C0, F, F) -> (M1, F*F*C0) indexed (u*F+v)*C0 + c; biases are columns
+(conv) or rows (dense); dense weights pass through.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..layers.conv import pool_backward, pool_windows
+
+__all__ = ["LayerReg", "MegaSpec", "act_of", "spec_from_net",
+           "fused_decline_reason", "fused_plan", "FusedPlan",
+           "MEGA_LAYER_IDX", "kernel_shapes", "kernel_layout",
+           "framework_layout", "epoch_noise_bits",
+           "megastep_epoch_reference", "megastep_epoch"]
+
+# indices of the four parameterized layers in the flagship pattern
+MEGA_LAYER_IDX = (1, 3, 5, 6)
+MASK24 = 0xFFFFFF
+INV24 = 1.0 / (1 << 24)
+
+
+class LayerReg(NamedTuple):
+    L1: float
+    L2: float
+    momentum: float
+    rate: float
+    maxnorm: float
+
+
+class MegaSpec(NamedTuple):
+    """The flagship net's static description. Unlike the TPU spec it has
+    no layout knobs (group_g, n_tiles/loss_div, exact_movement, unroll): the
+    card takes the whole BATCH_SZ in one step."""
+    batch: int
+    img: int            # input H = W
+    filt1: int
+    filt2: int
+    maps1: int
+    maps2: int
+    n_hid: int
+    n_out: int
+    slope1: float       # negative slope of a 'leaky' activation
+    slope2: float
+    slope_h: float
+    pdrop: float
+    # elastic config (reference inlayers.py:30-40)
+    translation: float
+    zoom: float
+    magnitude: float
+    sigma: int
+    pflip: float
+    angle: float
+    invert: bool
+    nearest: bool
+    reg1: LayerReg
+    reg2: LayerReg
+    reg_h: LayerReg
+    reg_o: LayerReg
+    in_ch: int = 1
+    pool1: int = 2
+    pool2: int = 2
+    ib1: bool = False   # PoolLayer ignore_border
+    ib2: bool = False
+    act1: str = "leaky"  # activation kinds, see act_of
+    act2: str = "leaky"
+    act_h: str = "leaky"
+
+    @property
+    def hw(self):
+        return self.img * self.img
+
+    @property
+    def c1(self):
+        return self.img - self.filt1 + 1
+
+    @property
+    def p1(self):
+        return self.c1 // self.pool1 if self.ib1 else -(-self.c1 // self.pool1)
+
+    @property
+    def c2(self):
+        return self.p1 - self.filt2 + 1
+
+    @property
+    def p2(self):
+        return self.c2 // self.pool2 if self.ib2 else -(-self.c2 // self.pool2)
+
+    @property
+    def n_flat(self):
+        return self.maps2 * self.p2 * self.p2
+
+
+def warp_active(spec):
+    """True when the config moves coordinates (translation, elastic field,
+    zoom or rotation); pflip and invert are per pixel."""
+    return bool(spec.translation or spec.magnitude or spec.angle
+                or spec.zoom != 1)
+
+
+# ----------------------------------------------------------------- matcher
+
+_SMOOTH_ACTS = ("tanh", "scaled_tanh", "sigmoid", "softplus")
+
+
+def act_of(actvn):
+    """Fused activation tag ``(kind, slope)``: the leaky-relu family with its
+    negative slope, or one of the smooth registry activations; None when the
+    name does not fuse (softmax as a hidden activation)."""
+    if actvn == "relu":
+        return ("leaky", 0.0)
+    if actvn == "linear":
+        return ("leaky", 1.0)
+    if actvn.startswith("relu") and actvn[4:].isdigit() and len(actvn) == 6:
+        return ("leaky", int(actvn[4:]) / 100.0)
+    if actvn in _SMOOTH_ACTS:
+        return (actvn, 0.0)
+    return None
+
+
+def aug_of(layer0):
+    """Elastic config fields for a spec (identity for a plain InputLayer)."""
+    from ..layers import ElasticLayer
+
+    if type(layer0) is ElasticLayer:
+        cfg = layer0.cfg
+        return dict(translation=cfg.translation, zoom=cfg.zoom,
+                    magnitude=cfg.magnitude, sigma=int(cfg.sigma),
+                    pflip=cfg.pflip, angle=cfg.angle,
+                    invert=bool(cfg.invert_image), nearest=bool(cfg.nearest))
+    return dict(translation=0, zoom=1, magnitude=0, sigma=1, pflip=0.0,
+                angle=0, invert=False, nearest=False)
+
+
+def reg_of(lyr):
+    r = lyr.reg
+    return LayerReg(L1=float(r["L1"]), L2=float(r["L2"]),
+                    momentum=float(r["momentum"]), rate=float(r["rate"]),
+                    maxnorm=float(r["maxnorm"]))
+
+
+def _match(net):
+    """(MegaSpec, None) when ``net`` is the flagship pattern, else
+    (None, reason). The one copy of the eligibility rules."""
+    from ..layers import (ConvLayer, ElasticLayer, HiddenLayer, InputLayer,
+                          PoolLayer, SoftmaxLayer)
+
+    L = net.net_layers
+    kinds = (InputLayer, ElasticLayer)
+    if not (len(L) == 7 and type(L[0]) in kinds
+            and type(L[1]) is ConvLayer and type(L[2]) is PoolLayer
+            and type(L[3]) is ConvLayer and type(L[4]) is PoolLayer
+            and type(L[5]) is HiddenLayer and type(L[6]) is SoftmaxLayer):
+        return None, ("the layer pattern is not Input/Elastic -> Conv -> "
+                      "Pool -> Conv -> Pool -> Hidden -> Softmax (the other "
+                      "fused families are queued in ROADMAP.md)")
+    c1, p1, c2, p2, hid, head = L[1], L[2], L[3], L[4], L[5], L[6]
+    in_ch = L[0].num_maps
+    if c1.num_prev_maps != in_ch:
+        return None, "conv1's input maps differ from the input layer's"
+    for k, c in ((1, c1), (3, c2)):
+        if c.stride != 1 or c.mode != "valid":
+            return None, (f"layer {k} ConvLayer stride={c.stride} "
+                          f"mode={c.mode!r} (the flagship takes stride 1, "
+                          "'valid')")
+    if p1.pool_sz > c1.filter_sz or p2.pool_sz > c2.filter_sz:
+        return None, "a pool window is wider than the conv filter before it"
+    if head.loss != "nll":
+        return None, f"head loss {head.loss!r} (the flagship takes 'nll')"
+    acts = [act_of(c1.actvn), act_of(c2.actvn), act_of(hid.actvn)]
+    if any(a is None for a in acts):
+        return None, "an activation is outside the fused registry"
+    if any(not lyr.reg["rate"] for lyr in (c1, c2, hid, head)):
+        return None, ("a layer is frozen (rate 0); the fused layout carries "
+                      "momentum for every owned layer")
+    spec = MegaSpec(
+        batch=net.batch_sz, img=L[0].out_sz,
+        filt1=c1.filter_sz, filt2=c2.filter_sz,
+        pool1=p1.pool_sz, pool2=p2.pool_sz,
+        ib1=bool(p1.ignore_border), ib2=bool(p2.ignore_border),
+        maps1=c1.num_maps, maps2=c2.num_maps, n_hid=hid.n_out,
+        n_out=head.n_out, slope1=acts[0][1], slope2=acts[1][1],
+        slope_h=acts[2][1], act1=acts[0][0], act2=acts[1][0],
+        act_h=acts[2][0], pdrop=float(hid.pdrop), **aug_of(L[0]),
+        reg1=reg_of(c1), reg2=reg_of(c2), reg_h=reg_of(hid),
+        reg_o=reg_of(head), in_ch=in_ch,
+    )
+    if spec.p2 < 1:
+        return None, "the image is too small for two conv/pool levels"
+    return spec, None
+
+
+def spec_from_net(net):
+    """A MegaSpec when ``net`` matches the flagship pattern, else None."""
+    return _match(net)[0]
+
+
+def fused_decline_reason(net):
+    """Why ``spec_from_net(net)`` is None (None when it matches)."""
+    return _match(net)[1]
+
+
+class FusedPlan(NamedTuple):
+    """What the Trainer needs to drive a fused family: the matched spec,
+    the net layers it owns, its epoch function and layout converters."""
+    spec: object
+    layer_idx: tuple
+    epoch_fn: object
+    kernel_layout: object
+    framework_layout: object
+
+
+def fused_plan(net):
+    """FusedPlan for the flagship family, or None. The deep and flat-MLP
+    families of the JAX package are queued in ROADMAP.md."""
+    spec = spec_from_net(net)
+    if spec is None:
+        return None
+    return FusedPlan(spec, MEGA_LAYER_IDX, megastep_epoch, kernel_layout,
+                     framework_layout)
+
+
+# ------------------------------------------------------------------ layouts
+
+def kernel_shapes(spec):
+    """The 8 kernel-layout state shapes, in layout order."""
+    return [
+        (spec.maps1, spec.filt1 ** 2 * spec.in_ch), (spec.maps1, 1),
+        (spec.maps2, spec.filt2 ** 2 * spec.maps1), (spec.maps2, 1),
+        (spec.n_flat, spec.n_hid), (1, spec.n_hid),
+        (spec.n_hid, spec.n_out), (1, spec.n_out),
+    ]
+
+
+def kernel_layout(allwts, spec):
+    """Reference-layout tensors [[w1, b1], [w2, b2], [wh, bh], [wo, bo]] ->
+    the 8 contiguous kernel-layout tensors."""
+    (w1, b1), (w2, b2), (wh, bh), (wo, bo) = allwts
+    F1, F2 = spec.filt1, spec.filt2
+    out = [
+        w1.permute(0, 2, 3, 1).reshape(spec.maps1, F1 * F1 * spec.in_ch),
+        b1.reshape(spec.maps1, 1),
+        w2.permute(0, 2, 3, 1).reshape(spec.maps2, F2 * F2 * spec.maps1),
+        b2.reshape(spec.maps2, 1),
+        wh, bh.reshape(1, spec.n_hid), wo, bo.reshape(1, spec.n_out),
+    ]
+    return [t.contiguous() for t in out]
+
+
+def framework_layout(kparams, spec):
+    """Inverse of kernel_layout."""
+    w1, b1, w2, b2, wh, bh, wo, bo = kparams
+    F1, F2 = spec.filt1, spec.filt2
+    return [
+        [w1.reshape(spec.maps1, F1, F1, spec.in_ch).permute(0, 3, 1, 2)
+         .contiguous(), b1.reshape(spec.maps1)],
+        [w2.reshape(spec.maps2, F2, F2, spec.maps1).permute(0, 3, 1, 2)
+         .contiguous(), b2.reshape(spec.maps2)],
+        [wh, bh.reshape(spec.n_hid)],
+        [wo, bo.reshape(spec.n_out)],
+    ]
+
+
+# -------------------------------------------------------------------- noise
+
+def epoch_noise_bits(seed, epoch, spec, n_batches, device):
+    """One epoch of injected randomness as int32 views of 32-bit words,
+    drawn on ``device`` from a torch.Generator seeded by (seed, epoch):
+
+      ub (nb, 1, 8)          affine scalars (translation, origin, zoom, angle)
+      fb (nb, 4, HW)         Box-Muller source words of the elastic field
+      pb (nb, C0*B, HW)      pflip uniforms
+      db (nb, B, n_hid)      dropout uniforms
+
+    The same shapes and bit -> variable mapping as the JAX package's
+    ``epoch_noise_bits`` (its fb is drawn (HW, 4) and shipped transposed);
+    the words themselves differ, since the generators differ."""
+    state = np.random.SeedSequence([int(seed), int(epoch)]).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state))
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             generator=gen, device=device)
+
+    B, HW, C0 = spec.batch, spec.hw, spec.in_ch
+    return (words(n_batches, 1, 8), words(n_batches, 4, HW),
+            words(n_batches, C0 * B, HW), words(n_batches, B, spec.n_hid))
+
+
+def _u01(bits):
+    """int32 words -> uniform [0, 1) from the low 24 bits."""
+    return (bits & MASK24).to(torch.float32) * INV24
+
+
+# ------------------------------------------------------------- plain twin
+
+def _act(z, kind, slope):
+    if kind == "leaky":
+        return torch.clamp(z, min=0.0) + torch.clamp(z, max=0.0) * slope
+    if kind == "tanh":
+        return torch.tanh(z)
+    if kind == "scaled_tanh":
+        return 1.7 * torch.tanh(z * (2.0 / 3.0))
+    if kind == "sigmoid":
+        return 1.0 / (1.0 + torch.exp(-z))
+    if kind == "softplus":
+        return torch.clamp(z, min=0.0) + torch.log(1.0 + torch.exp(-z.abs()))
+    raise NotImplementedError("fused activation kind: " + kind)
+
+
+def _dact(z, kind, slope):
+    """d act / dz recomputed from the PRE-activation z."""
+    if kind == "leaky":
+        return torch.where(z > 0, 1.0, slope).to(z.dtype)
+    if kind == "tanh":
+        t = torch.tanh(z)
+        return 1.0 - t * t
+    if kind == "scaled_tanh":
+        t = torch.tanh(z * (2.0 / 3.0))
+        return (1.7 * 2.0 / 3.0) * (1.0 - t * t)
+    if kind == "sigmoid":
+        s = 1.0 / (1.0 + torch.exp(-z))
+        return s * (1.0 - s)
+    if kind == "softplus":
+        return 1.0 / (1.0 + torch.exp(-z))
+    raise NotImplementedError("fused activation kind: " + kind)
+
+
+def smoothing_factors(spec, device):
+    """(G_h, G_w) of the elastic field's Gaussian smoothing on ``device``
+    (placeholders when there is no field)."""
+    from .elastic import gaussian_band_matrices
+
+    H = spec.img
+    if not spec.magnitude:
+        z = torch.zeros((H, H), dtype=torch.float32, device=device)
+        return z, z
+    gh, gw = gaussian_band_matrices(H, H, max(int(spec.sigma), 1))
+    return (torch.as_tensor(gh, device=device),
+            torch.as_tensor(gw, device=device))
+
+
+def warp_field(spec, ub, fb, gh, gw):
+    """The step's shared warp target (ty, tx), each (HW,) f32, from its
+    affine words ``ub`` (8,) and field words ``fb`` (4, HW)."""
+    H, HW = spec.img, spec.hw
+    q = torch.arange(HW, device=ub.device)
+    ty = (q // H).to(torch.float32)
+    tx = (q % H).to(torch.float32)
+    u = 2.0 * _u01(ub) - 1.0
+    if spec.translation:
+        ty = ty + spec.translation * u[0]
+        tx = tx + spec.translation * u[1]
+    if spec.magnitude:
+        u1a = ((fb[0] & MASK24).to(torch.float32) + 0.5) * INV24
+        u2a = _u01(fb[1])
+        u1b = ((fb[2] & MASK24).to(torch.float32) + 0.5) * INV24
+        u2b = _u01(fb[3])
+        n0 = spec.magnitude * (torch.sqrt(-2.0 * torch.log(u1a))
+                               * torch.cos(2.0 * math.pi * u2a))
+        n1 = spec.magnitude * (torch.sqrt(-2.0 * torch.log(u1b))
+                               * torch.sin(2.0 * math.pi * u2b))
+        # separable Gaussian smoothing: G_h @ field @ G_w^T
+        ty = ty + (gh @ n0.reshape(H, H) @ gw.T).reshape(HW)
+        tx = tx + (gh @ n1.reshape(H, H) @ gw.T).reshape(HW)
+    if spec.zoom != 1 or spec.angle:
+        oy = (0.5 + 0.25 * u[2]) * H
+        ox = (0.5 + 0.25 * u[3]) * H
+        ty = ty - oy
+        tx = tx - ox
+        if spec.zoom != 1:
+            ty = ty * torch.exp(math.log(spec.zoom) * u[4])
+            tx = tx * torch.exp(math.log(spec.zoom) * u[5])
+        if spec.angle:
+            th = spec.angle * math.pi / 180.0 * u[6]
+            ct, st = torch.cos(th), torch.sin(th)
+            ty, tx = ct * ty + st * tx, -st * ty + ct * tx
+        ty = ty + oy
+        tx = tx + ox
+    hi = H - 1 - 0.001   # load-bearing: keeps the +1 bilinear taps in range
+    return torch.clamp(ty, 0.0, hi), torch.clamp(tx, 0.0, hi)
+
+
+def augment(spec, x, ub, fb, pb, gh, gw):
+    """Invert -> resample every row of ``x`` (C0*B, HW) at the step's one
+    warp (nearest: floor(t+.5); bilinear: 4 taps) -> pflip."""
+    H = spec.img
+    if spec.invert:
+        x = 1.0 - x
+    if warp_active(spec):
+        ty, tx = warp_field(spec, ub, fb, gh, gw)
+        if spec.nearest:
+            idx = (torch.floor(ty + 0.5).long() * H
+                   + torch.floor(tx + 0.5).long())
+            x = x[:, idx]
+        else:
+            top, left = ty.long(), tx.long()    # trunc == floor here
+            fy = ty - top.to(torch.float32)
+            fx = tx - left.to(torch.float32)
+            i00 = top * H + left
+            x = (x[:, i00] * ((1.0 - fy) * (1.0 - fx))
+                 + x[:, i00 + 1] * ((1.0 - fy) * fx)
+                 + x[:, i00 + H] * (fy * (1.0 - fx))
+                 + x[:, i00 + H + 1] * (fy * fx))
+    if spec.pflip:
+        x = torch.where(_u01(pb) < spec.pflip, 1.0 - x, x)
+    return x
+
+
+def _corr_weights(w_k, spec_f, maps_in):
+    """Kernel-layout true-conv weights (M, F*F*Cin) -> the flipped
+    cross-correlation weights (M, Cin*F*F) in F.unfold's patch order."""
+    w = w_k.reshape(w_k.shape[0], spec_f, spec_f, maps_in).permute(0, 3, 1, 2)
+    return torch.flip(w, (2, 3)).reshape(w_k.shape[0], -1)
+
+
+def _conv_true(x, w_k, spec_f, maps_in):
+    """True (flipped-filter) valid convolution with kernel-layout weights
+    (M, F*F*Cin) on (B, Cin, H, W), summed tap by tap in the kernel layout's
+    order (u, v, c), each step one f32 multiply and one f32 add — the CUDA
+    kernel sums in the same order without fused multiply-adds. The max-pool
+    that follows sends its gradient to every exact tie, and which outputs
+    tie exactly depends on the order of the sum (the +-1/sqrt(fan_in) init
+    and the clipped, resampled pixels make such coincidences common), so
+    the twin and the kernel share one order. A library convolution or GEMM
+    may sum each output in another order."""
+    side = x.shape[2] - spec_f + 1
+    M = w_k.shape[0]
+    z = torch.zeros((x.shape[0], M, side, side), dtype=x.dtype,
+                    device=x.device)
+    for u in range(spec_f):
+        for v in range(spec_f):
+            oy, ox = spec_f - 1 - u, spec_f - 1 - v
+            for c in range(maps_in):
+                w = w_k[:, (u * spec_f + v) * maps_in + c].reshape(1, M, 1, 1)
+                z = z + w * x[:, c:c + 1, oy:oy + side, ox:ox + side]
+    return z
+
+
+def _conv_true_dgrad(dz, w_k, spec_f, maps_in, side_in):
+    """d conv_true / d input: scatter each output's gradient back over its
+    patch (the transpose of the patch matrix)."""
+    dcols = _corr_weights(w_k, spec_f, maps_in).T @ dz.reshape(
+        dz.shape[0], dz.shape[1], -1)
+    return F.fold(dcols, (side_in, side_in), spec_f)
+
+
+def _conv_true_wgrad(x, dz, spec_f):
+    """d conv_true / d w in kernel layout: dw[m, (u*F+v)*C + c] =
+    sum_{b,y,x} dz[b,m,y,x] * x[b,c,y+F-1-u,x+F-1-v]. A patch matrix and
+    one product (not a conv with a dz-sized filter, which a GPU library
+    may run through FFT at a lower precision)."""
+    B, M = dz.shape[0], dz.shape[1]
+    cols = F.unfold(x, spec_f)                          # (B, C*F*F, L)
+    dwc = torch.einsum("bml,bkl->mk", dz.reshape(B, M, -1), cols)
+    dw = torch.flip(dwc.reshape(M, x.shape[1], spec_f, spec_f), (2, 3))
+    return dw.permute(0, 2, 3, 1).reshape(M, -1)
+
+
+def _pool(spec_pool, ib, h):
+    r = pool_windows(h, spec_pool, ib)
+    return r, r.amax(dim=(3, 5))
+
+
+def step_reference(spec, x, y, ub, fb, pb, db, params, gh, gw):
+    """One step of the fused kernel in plain PyTorch: augmentation, forward,
+    hand-derived backward. ``x`` (C0*B, HW) channel-major rows, ``y`` (B,)
+    int32, bits as in epoch_noise_bits (one step's slice). Returns
+    (cost, minf, grads) with grads in kernel layout; params unchanged."""
+    B, H, C0 = spec.batch, spec.img, spec.in_ch
+    M1, M2 = spec.maps1, spec.maps2
+    w1, b1, w2, b2, wh, bh, wo, bo = params
+
+    a = augment(spec, x, ub, fb, pb, gh, gw)
+    a = a.reshape(C0, B, H, H).transpose(0, 1)            # (B, C0, H, H)
+
+    z1 = _conv_true(a, w1, spec.filt1, C0) + b1.reshape(1, M1, 1, 1)
+    h1 = _act(z1, spec.act1, spec.slope1)
+    r1, p1 = _pool(spec.pool1, spec.ib1, h1)
+    z2 = _conv_true(p1, w2, spec.filt2, M1) + b2.reshape(1, M2, 1, 1)
+    h2 = _act(z2, spec.act2, spec.slope2)
+    r2, p2 = _pool(spec.pool2, spec.ib2, h2)
+    f = p2.reshape(B, spec.n_flat)
+
+    z3 = f @ wh + bh
+    h3 = _act(z3, spec.act_h, spec.slope_h)
+    if spec.pdrop:
+        mask = (_u01(db) >= spec.pdrop).to(torch.float32)  # no rescale
+        h3d = h3 * mask
+    else:
+        mask, h3d = None, h3
+    z4 = h3d @ wo + bo
+    zc = z4 - z4.amax(dim=1, keepdim=True)
+    logp = zc - torch.log(torch.exp(zc).sum(dim=1, keepdim=True))
+    onehot = F.one_hot(y.long(), spec.n_out).to(torch.float32)
+    true_logp = (logp * onehot).sum(dim=1)
+    cost = -true_logp.sum() / B
+    for reg, ts in ((spec.reg1, (w1, b1)), (spec.reg2, (w2, b2)),
+                    (spec.reg_h, (wh, bh)), (spec.reg_o, (wo, bo))):
+        if reg.L1:
+            cost = cost + reg.L1 * sum(t.abs().sum() for t in ts)
+        if reg.L2:
+            cost = cost + reg.L2 * sum((t * t).sum() for t in ts)
+    minf = true_logp.min()
+
+    # hand-derived backward
+    dz4 = (torch.exp(logp) - onehot) * (1.0 / B)
+    dwo = h3d.T @ dz4
+    dbo = dz4.sum(dim=0, keepdim=True)
+    dh3 = dz4 @ wo.T
+    if spec.pdrop:
+        dh3 = dh3 * mask
+    dz3 = dh3 * _dact(z3, spec.act_h, spec.slope_h)
+    dwh = f.T @ dz3
+    dbh = dz3.sum(dim=0, keepdim=True)
+    df = dz3 @ wh.T
+
+    dp2 = df.reshape(p2.shape)
+    dz2 = (pool_backward(r2, p2, dp2, spec.c2)
+           * _dact(z2, spec.act2, spec.slope2))
+    dw2 = _conv_true_wgrad(p1, dz2, spec.filt2)
+    db2 = dz2.sum(dim=(0, 2, 3)).reshape(M2, 1)
+    dp1 = _conv_true_dgrad(dz2, w2, spec.filt2, M1, spec.p1)
+    dz1 = (pool_backward(r1, p1, dp1, spec.c1)
+           * _dact(z1, spec.act1, spec.slope1))
+    dw1 = _conv_true_wgrad(a, dz1, spec.filt1)
+    db1 = dz1.sum(dim=(0, 2, 3)).reshape(M1, 1)
+    return cost, minf, (dw1, db1, dw2, db2, dwh, dbh, dwo, dbo)
+
+
+def reg_kinds(spec):
+    """(LayerReg, max-norm kind) per kernel-layout tensor: conv kernels are
+    rows, dense weights columns, biases clip."""
+    return [(spec.reg1, "rows"), (spec.reg1, "bias"),
+            (spec.reg2, "rows"), (spec.reg2, "bias"),
+            (spec.reg_h, "cols"), (spec.reg_h, "bias"),
+            (spec.reg_o, "cols"), (spec.reg_o, "bias")]
+
+
+def _maxnorm(p, maxnorm, kind):
+    if not maxnorm:
+        return p
+    if kind == "bias":
+        return torch.clamp(p, -maxnorm, maxnorm)
+    dim = 0 if kind == "cols" else 1
+    norms = torch.sqrt((p * p).sum(dim=dim, keepdim=True))
+    desired = torch.clamp(norms, 0.0, maxnorm)
+    return p * ((1e-7 + desired) / (1e-7 + norms))
+
+
+def apply_updates(spec, params, moms, grads, lr):
+    """Old-accumulator momentum + max-norm, in place (layer.py:82-103)."""
+    for p, a, g, (reg, kind) in zip(params, moms, grads, reg_kinds(spec)):
+        if not reg.rate:
+            continue
+        if reg.L2:
+            g = g + (2.0 * reg.L2) * p
+        if reg.L1:
+            g = g + reg.L1 * torch.sign(p)
+        p_new = _maxnorm(p - (reg.rate * lr) * a, reg.maxnorm, kind)
+        a.copy_(reg.momentum * a + (1.0 - reg.momentum) * g)
+        p.copy_(p_new)
+
+
+@torch.no_grad()
+def megastep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits, lr,
+                             spec):
+    """The plain PyTorch twin of the CUDA epoch kernel (and of the JAX
+    package's ``_kernel``). ``x_steps`` (nb, C0*B, HW) f32 channel-major
+    rows, ``y_steps`` (nb, B) int32, ``bits`` from epoch_noise_bits.
+    Returns (kparams, kmoms, cost_minf (nb, 2)) as new tensors."""
+    ub, fb, pb, db = bits
+    nb = x_steps.shape[0]
+    lr = torch.tensor(lr, dtype=torch.float32, device=x_steps.device)
+    params = [t.clone() for t in kparams]
+    moms = [t.clone() for t in kmoms]
+    gh, gw = smoothing_factors(spec, x_steps.device)
+    cm = torch.empty((nb, 2), dtype=torch.float32, device=x_steps.device)
+    for s in range(nb):
+        cost, minf, grads = step_reference(
+            spec, x_steps[s], y_steps[s], ub[s, 0], fb[s], pb[s], db[s],
+            params, gh, gw)
+        cm[s, 0], cm[s, 1] = cost, minf
+        apply_updates(spec, params, moms, grads, lr)
+    return params, moms, cm
+
+
+# --------------------------------------------------------------- the kernel
+
+def _check_inputs(kparams, kmoms, x_steps, y_steps, bits, spec):
+    nb = x_steps.shape[0]
+    B, HW, C0 = spec.batch, spec.hw, spec.in_ch
+    want = [(x_steps, (nb, C0 * B, HW), torch.float32),
+            (y_steps, (nb, B), torch.int32),
+            (bits[0], (nb, 1, 8), torch.int32),
+            (bits[1], (nb, 4, HW), torch.int32),
+            (bits[2], (nb, C0 * B, HW), torch.int32),
+            (bits[3], (nb, B, spec.n_hid), torch.int32)]
+    shapes = kernel_shapes(spec)
+    want += [(t, s, torch.float32) for t, s in zip(kparams, shapes)]
+    want += [(t, s, torch.float32) for t, s in zip(kmoms, shapes)]
+    if len(kparams) != 8 or len(kmoms) != 8:
+        raise ValueError("megastep_epoch takes 8 params and 8 moms")
+    dev = x_steps.device
+    for t, shape, dtype in want:
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"megastep_epoch: got {tuple(t.shape)} "
+                             f"{t.dtype}, expected {shape} {dtype}")
+        if t.device != dev:
+            raise ValueError("megastep_epoch: all tensors must be on "
+                             f"{dev} (got {t.device})")
+        if not t.is_contiguous():
+            raise ValueError("megastep_epoch: tensors must be contiguous")
+
+
+def megastep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
+    """Train one epoch; same contract as megastep_epoch_reference.
+
+    A CPU ``x_steps`` runs the plain twin. A CUDA ``x_steps`` launches the
+    hand-written CUDA kernel (one C call per epoch; it loops the steps on
+    the current stream) and counts the launch in
+    ``megastep_epoch.launches``; any other device raises."""
+    if x_steps.device.type == "cpu":
+        return megastep_epoch_reference(kparams, kmoms, x_steps, y_steps,
+                                        bits, lr, spec)
+    if x_steps.device.type != "cuda":
+        raise ValueError(f"megastep_epoch: no kernel for {x_steps.device}")
+    _check_inputs(kparams, kmoms, x_steps, y_steps, bits, spec)
+    from . import _build
+
+    params = [t.clone() for t in kparams]   # updated in place by the kernel
+    moms = [t.clone() for t in kmoms]
+    cm = torch.empty((x_steps.shape[0], 2), dtype=torch.float32,
+                     device=x_steps.device)
+    gh, gw = smoothing_factors(spec, x_steps.device)
+    _build.megastep_launch(spec, x_steps, y_steps, bits, gh, gw, params,
+                           moms, cm, float(lr))
+    megastep_epoch.launches += 1
+    return params, moms, cm
+
+
+megastep_epoch.launches = 0

@@ -1,0 +1,280 @@
+"""Trainer: device-resident dataset + fused or per-layer epochs.
+
+Port of ``theanet_tpu/trainer.py``. The whole dataset is uploaded to the
+device once (the reference's theano.shared + givens, train.py:126-129).
+Batches are the reference's fixed sequential batches.
+
+Two training paths:
+
+  * fused (``MEGAFUSED``, default ``"auto"``): when the net matches the
+    flagship pattern (``ops.megastep.fused_plan``), an epoch is ONE call of
+    ``megastep_epoch`` (the CUDA kernel on a card, its plain twin on the
+    CPU). Training state stays in the kernel layout between epochs and is
+    synced to the framework layout on eval, checkpoint and ``sync_net``.
+    ``MEGAFUSED=True`` raises with the decline reason when the net cannot
+    fuse; ``False`` never fuses.
+  * per-layer: autograd ``NeuralNet.train_step`` per batch, for nets the
+    matcher declines (identity augmentation only: active per-layer
+    augmentation is not ported yet, see layers/input.py).
+
+Evaluation always runs the per-layer forward in eval mode.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .device import default_device
+from .model import NeuralNet
+
+__all__ = ["Trainer", "get_test_indices", "step_generator"]
+
+
+def get_test_indices(tot_samps, batch_sz, bth_samps):
+    """Rotating-window eval batch-id generator (reference train.py:170-176)."""
+    n_bths_each = int(bth_samps / batch_sz)
+    n_bths_all = int(tot_samps / batch_sz)
+    cur = 0
+    while True:
+        yield [i % n_bths_all for i in range(cur, cur + n_bths_each)]
+        cur = (cur + n_bths_each) % n_bths_all
+
+
+def step_generator(seed, step, device):
+    """The torch.Generator of one per-layer training step (dropout)."""
+    state = np.random.SeedSequence([int(seed), 1 << 30, int(step)])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state.generate_state(1, np.uint64)[0]))
+    return gen
+
+
+class Trainer:
+    def __init__(self, net: NeuralNet, train_x, train_y, test_x, test_y,
+                 device=None):
+        self.net = net
+        self.device = default_device() if device is None else torch.device(
+            device)
+        self.batch_sz = bsz = net.batch_sz
+        self.n_train_batches = nb = train_x.shape[0] // bsz
+        self.n_test_batches = test_x.shape[0] // bsz
+        n_out = net.head.n_out
+        for name, y in (("train", train_y), ("test", test_y)):
+            y = np.asarray(y)
+            if y.size and (y.min() < 0 or y.max() >= n_out):
+                raise ValueError(f"{name} labels must lie in [0, {n_out})")
+
+        dev = self.device
+        self.d_train_x = torch.as_tensor(np.asarray(train_x, np.float32),
+                                         device=dev)
+        self.d_train_y = torch.as_tensor(np.asarray(train_y, np.int32),
+                                         device=dev)
+        self.d_test_x = torch.as_tensor(np.asarray(test_x, np.float32),
+                                        device=dev)
+        self.d_test_y = torch.as_tensor(np.asarray(test_y, np.int32),
+                                        device=dev)
+        self.params, self.moms = net.init_params(dev)
+        if net.tr_prms.get("SHUFFLE", False):
+            raise NotImplementedError(
+                "SHUFFLE is not ported yet (ROADMAP.md queue 1)")
+
+        self._mega = None
+        mode = net.tr_prms.get("MEGAFUSED", "auto")
+        if not (mode is True or mode is False or mode == "auto"):
+            raise ValueError("MEGAFUSED must be True, False, or 'auto' "
+                             f"(got {mode!r})")
+        if mode is False:
+            return
+        from .ops import megastep
+
+        plan = reason = None
+        if nb < 1:
+            reason = "empty training set"
+        elif train_x.shape[2] != train_x.shape[3]:
+            reason = "non-square input images"
+        else:
+            plan = megastep.fused_plan(net)
+            if plan is None:
+                reason = megastep.fused_decline_reason(net)
+            elif train_x.shape[1] != plan.spec.in_ch:
+                plan, reason = None, (
+                    f"training data has {train_x.shape[1]} channels but the "
+                    f"net expects {plan.spec.in_ch}")
+        if plan is None:
+            if mode is True:
+                raise ValueError("MEGAFUSED=True, but this configuration "
+                                 "cannot use the fused epoch kernel: "
+                                 + reason)
+            return
+        spec = plan.spec
+        self._mega, self._mega_plan, self._mega_spec = megastep, plan, spec
+        C0, hw = spec.in_ch, spec.hw
+        # channel-major step rows (c*B + b, HW), arranged once (a view for
+        # one-channel data)
+        self._mega_x = (self.d_train_x[:nb * bsz]
+                        .reshape(nb, bsz, C0, hw).transpose(1, 2)
+                        .reshape(nb, C0 * bsz, hw).contiguous())
+        self._mega_y = self.d_train_y[:nb * bsz].reshape(nb, bsz).contiguous()
+        self._kp = self._km = None
+        self._state_src = "frame"   # which layout holds the truth
+
+    # -- fused-path state ------------------------------------------------
+
+    def _to_kernel(self, tree):
+        return self._mega_plan.kernel_layout(
+            [tree[i] for i in self._mega_plan.layer_idx], self._mega_spec)
+
+    def _from_kernel(self, kt, template):
+        out = [list(lp) for lp in template]
+        for i, lw in zip(self._mega_plan.layer_idx,
+                         self._mega_plan.framework_layout(kt,
+                                                          self._mega_spec)):
+            out[i] = lw
+        return out
+
+    def _mega_sync_frame(self):
+        """Bring kernel-layout state back to self.params/moms; the kernel
+        copy stays valid ('both')."""
+        if self._mega is None:
+            return
+        if self._state_src == "mega":
+            self.params = self._from_kernel(self._kp, self.params)
+            self.moms = self._from_kernel(self._km, self.moms)
+            self._state_src = "both"
+
+    def _mega_dispatch_epoch(self, lr):
+        """One fused epoch, no host sync; returns the (nb, 2) cost/minf
+        tensor on the device."""
+        if self._state_src == "frame":
+            self._kp = self._to_kernel(self.params)
+            self._km = self._to_kernel(self.moms)
+        spec = self._mega_spec
+        bits = self._mega.epoch_noise_bits(
+            self.net.tr_prms["SEED"], self.net.get_epoch(), spec,
+            self.n_train_batches, self.device)
+        self._kp, self._km, cm = self._mega_plan.epoch_fn(
+            self._kp, self._km, self._mega_x, self._mega_y, bits, lr, spec)
+        self._state_src = "mega"
+        return cm
+
+    # -- per-layer path ----------------------------------------------------
+
+    def _train_batch(self, ibatch, step, lr):
+        bsz = self.batch_sz
+        x = self.d_train_x[ibatch * bsz:(ibatch + 1) * bsz]
+        y = self.d_train_y[ibatch * bsz:(ibatch + 1) * bsz]
+        gen = step_generator(self.net.tr_prms["SEED"], step, self.device)
+        self.params, self.moms, cost, feats, _ = self.net.train_step(
+            self.params, self.moms, x, y, lr=lr, generator=gen)
+        true_f = feats[torch.arange(bsz, device=self.device), y.long()]
+        return cost, true_f.min()
+
+    # -- public API --------------------------------------------------------
+
+    def run_epoch(self, lr: Optional[float] = None):
+        """Train one epoch. Returns (total cost, per-batch costs, per-batch
+        min true-class feature), the last two as numpy."""
+        lr = self.net.get_rate() if lr is None else lr
+        if self._mega is not None:
+            cm = self._mega_dispatch_epoch(lr).cpu().numpy()
+            return float(cm[:, 0].sum()), cm[:, 0], cm[:, 1]
+        nb, epoch = self.n_train_batches, self.net.get_epoch()
+        costs, minf = [], []
+        for ib in range(nb):
+            c, m = self._train_batch(ib, epoch * nb + ib, lr)
+            costs.append(c)
+            minf.append(m)
+        costs = torch.stack(costs).cpu().numpy()  # one host sync per epoch
+        return float(costs.sum()), costs, torch.stack(minf).cpu().numpy()
+
+    def run_epochs(self, k: int):
+        """Train ``k`` consecutive epochs, advancing the epoch counter (and
+        so the LR schedule) after each. Returns (totals (k,), costs (k, nb),
+        min_true_f (k, nb)) as numpy."""
+        if self._mega is None:
+            outs = []
+            for _ in range(k):
+                outs.append(self.run_epoch()[1:])
+                self.net.inc_epoch_set_rate()
+            costs = np.stack([c for c, _ in outs])
+            return costs.sum(axis=1), costs, np.stack([m for _, m in outs])
+        cms = []
+        for _ in range(k):
+            cms.append(self._mega_dispatch_epoch(self.net.get_rate()))
+            self.net.inc_epoch_set_rate()
+        all_cm = torch.stack(cms).cpu().numpy()   # one host sync
+        return all_cm[:, :, 0].sum(axis=1), all_cm[:, :, 0], all_cm[:, :, 1]
+
+    def predict(self, x, get_output_of_layers=()):
+        """(features, y_preds, *layer outputs) as numpy, on raw inputs."""
+        self._mega_sync_frame()
+        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        out = self.net.predict(self.params, x,
+                               get_output_of_layers=get_output_of_layers)
+        return tuple(o.cpu().numpy() for o in out)
+
+    def evaluate(self, which: str, batch_ids, preds_feats: bool = False):
+        """(err%, second_stat%) over a window of whole batches, scaled like
+        the reference's test_wrapper (train.py:155-161); with preds_feats
+        the window's features and predictions are appended."""
+        self._mega_sync_frame()
+        if len(batch_ids) == 0:
+            raise ValueError(
+                "empty eval window: TEST_SAMP_SZ smaller than BATCH_SZ "
+                "yields zero whole batches per rotating window; raise "
+                "TEST_SAMP_SZ to at least one batch")
+        bsz = self.batch_sz
+        idx = torch.as_tensor(
+            np.concatenate([np.arange(b * bsz, (b + 1) * bsz)
+                            for b in batch_ids]), device=self.device)
+        xs, ys = ((self.d_test_x, self.d_test_y) if which == "test"
+                  else (self.d_train_x, self.d_train_y))
+        out = self.net.eval_step(self.params, xs[idx], ys[idx],
+                                 preds_feats=preds_feats)
+        stats = (100.0 * float(out[0]), 100.0 * float(out[1]))
+        if preds_feats:
+            return stats + (out[2].cpu().numpy(), out[3].cpu().numpy())
+        return stats
+
+    def evaluate_full(self, which: str):
+        n = self.n_test_batches if which == "test" else self.n_train_batches
+        return self.evaluate(which, list(range(n)))
+
+    def checkpoint_dict(self):
+        self.sync_net()
+        return self.net.get_init_params()
+
+    def sync_net(self):
+        """Write the current device params back into the net's layers, so
+        get_wts_info() and get_init_params() reflect training."""
+        self._mega_sync_frame()
+        self.net.snapshot_params(self.params)
+
+    def snapshot_state(self):
+        """Device-side copy of the training state (in whichever layout holds
+        the truth) plus the epoch counter, for restore_state."""
+        if self._mega is not None and self._state_src in ("mega", "both"):
+            st = ("mega", [t.clone() for t in self._kp],
+                  [t.clone() for t in self._km])
+        else:
+            st = ("frame", [[p.clone() for p in lp] for lp in self.params],
+                  [[m.clone() for m in lm] for lm in self.moms])
+        return st, self.net.get_epoch()
+
+    def restore_state(self, snap):
+        """Rewind to a snapshot_state() point. The LR schedule and all
+        per-epoch randomness derive from the epoch counter, so training
+        from here reproduces the trajectory."""
+        (kind, p, m), epoch = snap
+        if kind == "mega":
+            self._kp = [t.clone() for t in p]
+            self._km = [t.clone() for t in m]
+            self._state_src = "mega"
+        else:
+            self.params = [[t.clone() for t in lp] for lp in p]
+            self.moms = [[t.clone() for t in lm] for lm in m]
+            if self._mega is not None:
+                self._state_src = "frame"
+        self.net.tr_prms["CUR_EPOCH"] = epoch
