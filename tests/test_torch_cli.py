@@ -1,6 +1,6 @@
 """The port's CLI on the CPU: a fresh run and a resume of a flagship-pattern
-net (so the fused path runs, through its twin), and checkpoints that either
-package loads."""
+net (so the fused path runs, through its twin), galaxy-shaped and LOGIT nets
+through the deep family, and checkpoints that either package loads."""
 
 import os
 import sys
@@ -18,7 +18,7 @@ from theanet_tpu.prms import save_checkpoint as jax_save_checkpoint
 
 from theanet_tpu_torch import train
 from theanet_tpu_torch.model import NeuralNet as TorchNet
-from theanet_tpu_torch.ops import megastep
+from theanet_tpu_torch.ops import megastep, megastep_deep
 from theanet_tpu_torch.prms import load_params
 
 IMG, NC = 12, 4
@@ -117,3 +117,76 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path):
     np.testing.assert_array_equal(
         tnet.predict(tp, torch.tensor(x))[1].numpy(),
         np.asarray(jnet.predict(jp, jnp.asarray(x))[1]))
+
+
+GALAXY_PRMS = """{
+"layers": [
+    ('ColorLayer', {'balance': 1.2, 'gamma': 1.2, 'maxval': 1}),
+    ('ElasticLayer', {'translation': 2, 'zoom': 1.1, 'magnitude': 8,
+                      'sigma': 3, 'pflip': 0.0, 'angle': 5,
+                      'nearest': False, 'invert_image': False}),
+    ('ConvLayer', {'num_maps': 2, 'filter_sz': 3, 'stride': 1,
+                   'actvn': "relu10"}),
+    ('PoolLayer', {'pool_sz': 2}),
+    ('HiddenLayer', {'n_out': 12, 'pdrop': .5}),
+    ('DropOutLayer', {'pdrop': .25}),
+    ('CenteredOutLayer', {'n_features': 6, 'n_classes': 4, 'kind': 'RBF',
+                          'learn_centers': True, 'junk_dist': 50.0}),
+],
+"training_params": {'BATCH_SZ': 4, 'NUM_EPOCHS': 2, 'EPOCHS_TO_TEST': 1,
+                    'TEST_SAMP_SZ': 8, 'INIT_LEARNING_RATE': .05,
+                    'EPOCHS_TO_HALF_RATE': 2, 'SEED': 23},
+}
+"""
+
+
+@pytest.fixture
+def tiny_rgb(monkeypatch, tmp_path):
+    rng = np.random.RandomState(1)
+    mod = types.ModuleType("data.torch_cli_rgb")
+    mod.training_x = rng.rand(16, 3, IMG, IMG).astype(np.float32)
+    mod.training_y = rng.randint(0, NC, 16).astype(np.int32)
+    mod.testing_x = rng.rand(8, 3, IMG, IMG).astype(np.float32)
+    mod.testing_y = rng.randint(0, NC, 8).astype(np.int32)
+    monkeypatch.setitem(sys.modules, "data.torch_cli_rgb", mod)
+    monkeypatch.setenv("THEANET_TORCH_DEVICE", "cpu")
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "galaxy.prms").write_text(GALAXY_PRMS)
+    (tmp_path / "logit.prms").write_text(
+        GALAXY_PRMS.replace("'kind': 'RBF'", "'kind': 'LOGIT'")
+        .replace("'learn_centers': True, 'junk_dist': 50.0", ""))
+    return mod
+
+
+def test_cli_galaxy_shaped_net_checkpoint_loads_in_jax(tiny_rgb, capsys):
+    """Color -> Elastic -> Conv -> Pool -> Hidden -> DropOut -> CenteredOut
+    RBF (learned centers) trains through the deep family's twin; the JAX
+    NeuralNet loads its checkpoint, centers included, and predicts the
+    same."""
+    trainer = train.main(["train", "torch_cli_rgb", "galaxy.prms"])
+    assert trainer._mega_plan.epoch_fn is megastep_deep.deep_epoch
+    out = capsys.readouterr().out
+    rows = [l for l in out.splitlines() if l[:3].strip().isdigit()]
+    assert [int(r.split()[0]) for r in rows] == [0, 1, 2]
+    layers, tr, allwts = jax_load_params(_pkls()[0])
+    assert len(allwts[-1]) == 3          # [w, b, centers]
+    jnet = JaxNet(layers, tr, allwts)
+    np.testing.assert_array_equal(
+        np.asarray(jnet.net_layers[-1].params_init[2]),
+        trainer.params[-1][2].numpy())
+    jp, _ = jnet.init_params()
+    j_feat, j_pred = jnet.predict(jp, jnp.asarray(tiny_rgb.testing_x))
+    t_feat, t_pred = trainer.predict(tiny_rgb.testing_x)
+    np.testing.assert_array_equal(t_pred, np.asarray(j_pred))
+    np.testing.assert_allclose(t_feat, np.asarray(j_feat), atol=1e-5)
+
+
+def test_cli_logit_head_reports_bit_error(tiny_rgb, capsys):
+    trainer = train.main(["train", "torch_cli_rgb", "logit.prms"])
+    assert trainer._mega_plan.epoch_fn is megastep_deep.deep_epoch
+    out = capsys.readouterr().out
+    assert "Epoch   Cost  Tr_Error Tr_BitErr    Te_Error Te_BitErr" in out
+    # frozen LOGIT centers ride in the checkpoint after w and b
+    _, _, allwts = load_params(_pkls()[0])
+    assert len(allwts[-1]) == 3
+    assert set(np.unique(allwts[-1][2])) <= {0.0, 1.0}

@@ -12,6 +12,7 @@ import torch
 
 from theanet_tpu import activations as jax_acts
 from theanet_tpu.data import synth as jax_synth
+from theanet_tpu.data import synth3 as jax_synth3
 from theanet_tpu.data import synth_hard as jax_synth_hard
 from theanet_tpu.model import NeuralNet as JaxNet
 from theanet_tpu.prms import load_params as jax_load_params
@@ -19,6 +20,7 @@ from theanet_tpu.prms import load_params as jax_load_params
 from theanet_tpu_torch import activations as torch_acts
 from theanet_tpu_torch.data import load_dataset
 from theanet_tpu_torch.data import synth as torch_synth
+from theanet_tpu_torch.data import synth3 as torch_synth3
 from theanet_tpu_torch.data import synth_hard as torch_synth_hard
 from theanet_tpu_torch.model import NeuralNet as TorchNet
 from theanet_tpu_torch.prms import fixdim, load_params
@@ -40,6 +42,43 @@ def test_mnist_cnn_init_is_bit_equal(seed):
             np.testing.assert_array_equal(a, b)
 
 
+def _shipped_nets(name, n_maps, seed, **color):
+    out = []
+    for load, cls in ((load_params, TorchNet), (jax_load_params, JaxNet)):
+        layers, tr, _ = load(f"params/{name}.prms")
+        layers[0][1].update(img_sz=28, **color)
+        if n_maps != 1:
+            layers[0][1]["num_maps"] = n_maps
+        tr["SEED"] = seed
+        out.append(cls(layers, tr).allwts0)
+    return out
+
+
+@pytest.mark.parametrize("name,n_maps", [("galaxy_rbf", 3),
+                                         ("logit_centered", 1)])
+def test_centered_configs_init_is_bit_equal(name, n_maps):
+    """Every drawn tensor, the CenteredOut centers included (uniform for
+    RBF after the weights, binomial for LOGIT), and galaxy_rbf's
+    ColorLayer stream-seed draw before them all."""
+    ours, ref = _shipped_nets(name, n_maps, 4321)
+    assert len(ours) == len(ref)
+    for lo, lr in zip(ours, ref):
+        assert len(lo) == len(lr)
+        for a, b in zip(lo, lr):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    centers = ours[-1][2]
+    assert centers.shape == (10, 32 if name == "galaxy_rbf" else 24)
+    if name == "logit_centered":
+        assert set(np.unique(centers)) <= {0.0, 1.0}
+    else:
+        # an identity ColorLayer draws no stream seed, so the conv weights
+        # after it come from an earlier point of the stream
+        ident, jident = _shipped_nets(name, n_maps, 4321, balance=1, gamma=1)
+        np.testing.assert_array_equal(ident[2][0], jident[2][0])
+        assert not np.array_equal(ident[2][0], ours[2][0])
+
+
 def test_dropout_layer_consumes_the_stream_seed():
     """A DropOut layer draws one stream seed (reference dropout.py:10-11);
     the weights after it must still match."""
@@ -59,6 +98,7 @@ def test_dropout_layer_consumes_the_stream_seed():
 @pytest.mark.parametrize("name,mine,theirs", [
     ("synth", torch_synth, jax_synth),
     ("synth_hard", torch_synth_hard, jax_synth_hard),
+    ("synth3", torch_synth3, jax_synth3),
 ])
 def test_dataset_arrays_are_bit_equal(name, mine, theirs):
     for attr in ("training_x", "training_y", "testing_x", "testing_y"):

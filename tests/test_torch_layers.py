@@ -154,3 +154,56 @@ def test_pool_gradient_skips_non_maxima():
     x = torch.tensor([[[[1.0, 3.0], [3.0, 2.0]]]], requires_grad=True)
     maxpool(x, 2, False).sum().backward()
     assert x.grad.tolist() == [[[[0.0, 1.0], [1.0, 0.0]]]]
+
+
+@pytest.mark.parametrize("kind", ["LOGIT", "RBF"])
+def test_centered_out_eval_matches_jax(kind):
+    """CenteredOut eval: features, predictions, the error rate and the
+    second statistic (mean true-class probability; for LOGIT the share of
+    true-class bits below one half)."""
+    layers = _layers()[:-1] + [["CenteredOutLayer", {
+        "n_features": 6, "n_classes": NC, "kind": kind,
+        "learn_centers": kind == "RBF",
+        "junk_dist": 3.0 if kind == "RBF" else np.inf, "reg": REGO}]]
+    jnet = JaxNet([list(l) for l in layers], _tr())
+    tnet = TorchNet([list(l) for l in layers], _tr())
+    xs, ys = _data(1, seed=5)
+    jp, _ = jnet.init_params()
+    tp, _ = tnet.init_params("cpu")
+    j_err, j_p, j_f, j_y = jnet.eval_step(jp, jnp.asarray(xs[0]),
+                                          jnp.asarray(ys[0]), preds_feats=True)
+    t_err, t_p, t_f, t_y = tnet.eval_step(tp, torch.tensor(xs[0]),
+                                          torch.tensor(ys[0]),
+                                          preds_feats=True)
+    np.testing.assert_allclose(t_f.numpy(), np.asarray(j_f), atol=2e-6)
+    np.testing.assert_array_equal(t_y.numpy(), np.asarray(j_y))
+    assert abs(float(t_err) - float(j_err)) < 1e-7
+    assert abs(float(t_p) - float(j_p)) < 1e-6
+    tf, ty = tnet.predict(tp, torch.tensor(xs[0]))
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(j_y))
+
+
+def test_color_layer_eval_is_identity_and_trains_only_fused():
+    active = ("ColorLayer", {"img_sz": IMG, "num_maps": 1, "balance": 1.3,
+                             "gamma": 1.2})
+    tnet = TorchNet(_layers(active), _tr())
+    jnet = JaxNet(_layers(active), _tr())
+    xs, ys = _data(1, seed=6)
+    x = torch.tensor(xs[0])
+    assert torch.equal(tnet.net_layers[0].apply([], x, train=False), x)
+    tp, tm = tnet.init_params("cpu")
+    jp, _ = jnet.init_params()
+    t_err, t_p = tnet.eval_step(tp, x, torch.tensor(ys[0]))
+    j_err, j_p = jnet.eval_step(jp, jnp.asarray(xs[0]), jnp.asarray(ys[0]))
+    assert abs(float(t_p) - float(j_p)) < 1e-6
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tnet.train_step(tp, tm, x, torch.tensor(ys[0]), lr=0.1)
+    # an identity ColorLayer (balance = gamma = 1) trains per layer
+    ident = ("ColorLayer", {"img_sz": IMG, "num_maps": 1})
+    tnet, jnet = TorchNet(_layers(ident), _tr()), JaxNet(_layers(ident), _tr())
+    tp, tm = tnet.init_params("cpu")
+    jp, jm = jnet.init_params()
+    cost_t = tnet.train_step(tp, tm, x, torch.tensor(ys[0]), lr=0.1)[2]
+    cost_j = jnet.train_step(jp, jm, jnp.asarray(xs[0]), jnp.asarray(ys[0]),
+                             key=jnet.base_key, lr=0.1)[2]
+    assert abs(float(cost_t) - float(cost_j)) < 2e-5

@@ -35,9 +35,7 @@
 // (persistent kernels, CUDA graphs, wgmma) are later work; PERF.md has the
 // measured times.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "stages.cuh"
 
 namespace {
 
@@ -52,18 +50,11 @@ enum {
   F_SLOPE1, F_SLOPE2, F_SLOPEH, F_PDROP, F_TRANS, F_LOGZOOM, F_MAG, F_PFLIP,
   F_ANGLE, F_CLIPHI, F_REG0
 };
-enum { R_L1, R_L2X2, R_L2, R_MOM, R_OMM, R_RATE, R_MAXNORM, N_REG };
 // ---- pointer table
 enum {
   P_X, P_Y, P_UB, P_FB, P_PB, P_DB, P_GH, P_GW, P_PARAMS,
   P_MOMS = P_PARAMS + 8, P_CM = P_MOMS + 8, N_PTRS
 };
-
-constexpr int MASK24 = 0xFFFFFF;
-constexpr float INV24 = 1.0f / 16777216.0f;
-constexpr float TWO_PI = 6.28318530717958647692f;
-constexpr int ACT_LEAKY = 0, ACT_TANH = 1, ACT_STANH = 2, ACT_SIGMOID = 3,
-              ACT_SOFTPLUS = 4;
 
 struct Dims {
   int B, C0, H, HW, F1, F2, M1, M2, NH, NC, pool1, pool2;
@@ -89,127 +80,6 @@ Dims make_dims(const int* is, const float* fs) {
   d.slope1 = fs[F_SLOPE1]; d.slope2 = fs[F_SLOPE2]; d.slopeh = fs[F_SLOPEH];
   d.pdrop = fs[F_PDROP];
   return d;
-}
-
-__device__ __forceinline__ float u01(int bits) {
-  return (float)(bits & MASK24) * INV24;
-}
-
-__device__ __forceinline__ float act_fn(float z, int kind, float slope) {
-  switch (kind) {
-    case ACT_LEAKY: return fmaxf(z, 0.0f) + fminf(z, 0.0f) * slope;
-    case ACT_TANH: return tanhf(z);
-    case ACT_STANH: return 1.7f * tanhf(z * (2.0f / 3.0f));
-    case ACT_SIGMOID: return 1.0f / (1.0f + expf(-z));
-    default: return fmaxf(z, 0.0f) + logf(1.0f + expf(-fabsf(z)));
-  }
-}
-
-__device__ __forceinline__ float dact_fn(float z, int kind, float slope) {
-  switch (kind) {
-    case ACT_LEAKY: return z > 0.0f ? 1.0f : slope;
-    case ACT_TANH: { float t = tanhf(z); return 1.0f - t * t; }
-    case ACT_STANH: {
-      float t = tanhf(z * (2.0f / 3.0f));
-      return (1.7f * 2.0f / 3.0f) * (1.0f - t * t);
-    }
-    case ACT_SIGMOID: {
-      float s = 1.0f / (1.0f + expf(-z));
-      return s * (1.0f - s);
-    }
-    default: return 1.0f / (1.0f + expf(-z));
-  }
-}
-
-struct WarpParams {
-  int trans, mag, zoom, angle;
-  float translation, logzoom, magnitude, angle_rad, clip_hi;
-};
-
-// The step's shared warp target (ty, tx) -> tyx[0:HW], tyx[HW:2HW].
-// One block; dynamic shared memory holds the two noise fields and their
-// half-smoothed products (4*HW floats).
-__global__ void k_warp(Dims d, WarpParams w, const int* __restrict__ ub,
-                       const int* __restrict__ fb, const float* __restrict__ gh,
-                       const float* __restrict__ gw, float* __restrict__ tyx) {
-  extern __shared__ float sm[];
-  const int H = d.H, HW = d.HW;
-  float* n0 = sm;
-  float* n1 = sm + HW;
-  float* t0 = sm + 2 * HW;
-  float* t1 = sm + 3 * HW;
-  float u[8];
-  for (int j = 0; j < 8; ++j) u[j] = 2.0f * u01(ub[j]) - 1.0f;
-
-  if (w.mag) {
-    for (int p = threadIdx.x; p < HW; p += blockDim.x) {
-      float u1a = ((float)(fb[p] & MASK24) + 0.5f) * INV24;
-      float u2a = u01(fb[HW + p]);
-      float u1b = ((float)(fb[2 * HW + p] & MASK24) + 0.5f) * INV24;
-      float u2b = u01(fb[3 * HW + p]);
-      n0[p] = w.magnitude * (sqrtf(-2.0f * logf(u1a)) * cosf(TWO_PI * u2a));
-      n1[p] = w.magnitude * (sqrtf(-2.0f * logf(u1b)) * sinf(TWO_PI * u2b));
-    }
-    __syncthreads();
-    for (int p = threadIdx.x; p < HW; p += blockDim.x) {  // T = G_h @ N
-      int i = p / H, j = p % H;
-      float a0 = 0.0f, a1 = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        float g = gh[i * H + k];
-        a0 += g * n0[k * H + j];
-        a1 += g * n1[k * H + j];
-      }
-      t0[p] = a0;
-      t1[p] = a1;
-    }
-    __syncthreads();
-    for (int p = threadIdx.x; p < HW; p += blockDim.x) {  // S = T @ G_w^T
-      int i = p / H, j = p % H;
-      float a0 = 0.0f, a1 = 0.0f;
-      for (int k = 0; k < H; ++k) {
-        float g = gw[j * H + k];
-        a0 += t0[i * H + k] * g;
-        a1 += t1[i * H + k] * g;
-      }
-      n0[p] = a0;   // n0/n1 are no longer read: reuse them for S
-      n1[p] = a1;
-    }
-    __syncthreads();
-  }
-
-  for (int p = threadIdx.x; p < HW; p += blockDim.x) {
-    float ty = (float)(p / H), tx = (float)(p % H);
-    if (w.trans) {
-      ty = ty + w.translation * u[0];
-      tx = tx + w.translation * u[1];
-    }
-    if (w.mag) {
-      ty = ty + n0[p];
-      tx = tx + n1[p];
-    }
-    if (w.zoom || w.angle) {
-      float oy = (0.5f + 0.25f * u[2]) * (float)H;
-      float ox = (0.5f + 0.25f * u[3]) * (float)H;
-      ty = ty - oy;
-      tx = tx - ox;
-      if (w.zoom) {
-        ty = ty * expf(w.logzoom * u[4]);
-        tx = tx * expf(w.logzoom * u[5]);
-      }
-      if (w.angle) {
-        float th = w.angle_rad * u[6];
-        float ct = cosf(th), st = sinf(th);
-        float ny = ct * ty + st * tx;
-        float nx = -st * ty + ct * tx;
-        ty = ny;
-        tx = nx;
-      }
-      ty = ty + oy;
-      tx = tx + ox;
-    }
-    tyx[p] = fminf(fmaxf(ty, 0.0f), w.clip_hi);
-    tyx[HW + p] = fminf(fmaxf(tx, 0.0f), w.clip_hi);
-  }
 }
 
 // Invert -> resample at the shared warp -> pflip, one thread per pixel of
@@ -323,100 +193,6 @@ __global__ void k_conv2_pool(Dims d, const float* __restrict__ p1,
   f[idx] = best;  // idx == b*NF + m*P2*P2 + i*P2 + j
 }
 
-// C[M,N] = A(M,K) @ B(K,N) (+ bias[N]); A(m,k) = TA ? A[k*lda+m] : A[m*lda+k],
-// B(k,n) = TB ? B[n*ldb+k] : B[k*ldb+n]. 16x16 shared-memory tiles, loads
-// coalesced along the stored rows in every transpose case.
-constexpr int TILE = 16;
-
-template <bool TA, bool TB>
-__global__ void k_gemm(int M, int N, int K, const float* __restrict__ A,
-                       int lda, const float* __restrict__ Bm, int ldb,
-                       const float* __restrict__ bias, float* __restrict__ C,
-                       int ldc) {
-  __shared__ float As[TILE][TILE + 1];  // As[m][k]
-  __shared__ float Bs[TILE][TILE + 1];  // Bs[k][n]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  float acc = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += TILE) {
-    if (TA) {
-      int m = m0 + tx, k = k0 + ty;
-      As[tx][ty] = (m < M && k < K) ? A[(size_t)k * lda + m] : 0.0f;
-    } else {
-      int m = m0 + ty, k = k0 + tx;
-      As[ty][tx] = (m < M && k < K) ? A[(size_t)m * lda + k] : 0.0f;
-    }
-    if (TB) {
-      int n = n0 + ty, k = k0 + tx;
-      Bs[tx][ty] = (n < N && k < K) ? Bm[(size_t)n * ldb + k] : 0.0f;
-    } else {
-      int k = k0 + ty, n = n0 + tx;
-      Bs[ty][tx] = (n < N && k < K) ? Bm[(size_t)k * ldb + n] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TILE; ++kk) acc += As[ty][kk] * Bs[kk][tx];
-    __syncthreads();
-  }
-  int m = m0 + ty, n = n0 + tx;
-  if (m < M && n < N) C[(size_t)m * ldc + n] = bias ? acc + bias[n] : acc;
-}
-
-template <bool TA, bool TB>
-cudaError_t gemm(cudaStream_t s, int M, int N, int K, const float* A,
-                 int lda, const float* Bm, int ldb, const float* bias,
-                 float* C) {
-  dim3 block(TILE, TILE), grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  k_gemm<TA, TB><<<grid, block, 0, s>>>(M, N, K, A, lda, Bm, ldb, bias, C, N);
-  return cudaGetLastError();
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Block-wide sum over blockDim.x (a multiple of 32, <= 1024); every thread
-// gets the total. ``red`` is >= 32 floats of shared memory.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  int nw = blockDim.x >> 5;
-  float t = lane < nw ? red[lane] : 0.0f;
-  return warp_sum(t);
-}
-
-struct Tensors8 {
-  float* p[8];
-  int n[8];
-};
-
-struct RegTable {
-  float L1[8], L2[8];
-};
-
-// L1/L2 weight cost of the pre-update parameters: one block.
-__global__ void k_wcost(Tensors8 t, RegTable r, float* __restrict__ out) {
-  __shared__ float red[32];
-  float total = 0.0f;
-  for (int k = 0; k < 8; ++k) {
-    if (r.L1[k] == 0.0f && r.L2[k] == 0.0f) continue;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int i = threadIdx.x; i < t.n[k]; i += blockDim.x) {
-      float v = t.p[k][i];
-      s1 += fabsf(v);
-      s2 += v * v;
-    }
-    s1 = block_sum(s1, red);
-    s2 = block_sum(s2, red);
-    total += r.L1[k] * s1 + r.L2[k] * s2;
-  }
-  if (threadIdx.x == 0) out[0] = total;
-}
-
 // The dense tail's head and everything that needs a batch-wide view, in
 // one block: dropout mask, scores, log-softmax NLL, (cost, minf), dL/dz4,
 // dwo, dbo, dz3 = (dz4 wo^T) * mask * act_h'(z3), dbh.
@@ -521,38 +297,6 @@ __global__ void k_pool2_bwd(Dims d, const float* __restrict__ z2,
   dz2[idx] = g;
 }
 
-// Weight gradient of a true valid convolution, in kernel layout:
-// dw[m, (u*F+v)*Cin + c] = sum_{b,y,x<e} dz[b,m,y,x] * in[b,c,y+F-1-u,x+F-1-v],
-// and (blockIdx.y == F*F*Cin) the bias gradient sum_{b,y,x} dz[b,m,y,x].
-// One block per output. ``in`` is addressed as b*sb + c*sc + yy*W + xx.
-__global__ void k_conv_wgrad(int B, int M, int Cin, int F, int cs, int e,
-                             const float* __restrict__ dz,
-                             const float* __restrict__ in, int sb, int sc,
-                             int W, float* __restrict__ dw,
-                             float* __restrict__ dbias) {
-  __shared__ float red[32];
-  const int m = blockIdx.x, o = blockIdx.y;
-  const bool bias = o == F * F * Cin;
-  int u = 0, v = 0, c = 0;
-  if (!bias) {
-    c = o % Cin;
-    u = (o / Cin) / F;
-    v = (o / Cin) % F;
-  }
-  float s = 0.0f;
-  for (int t = threadIdx.x; t < B * e * e; t += blockDim.x) {
-    int b = t / (e * e), y = (t / e) % e, x = t % e;
-    float g = dz[((b * M + m) * cs + y) * cs + x];
-    s += bias ? g
-              : g * in[b * sb + c * sc + (y + F - 1 - u) * W + (x + F - 1 - v)];
-  }
-  s = block_sum(s, red);
-  if (threadIdx.x == 0) {
-    if (bias) dbias[m] = s;
-    else dw[m * F * F * Cin + o] = s;
-  }
-}
-
 // conv2 input gradient + pool1 backward + act1': one thread per pooled1
 // position; writes dz1 for the members of its window.
 __global__ void k_conv2_dgrad_pool1_bwd(Dims d, const float* __restrict__ w2,
@@ -592,62 +336,9 @@ __global__ void k_conv2_dgrad_pool1_bwd(Dims d, const float* __restrict__ w2,
   }
 }
 
-struct UpdateTable {
-  float* p[8];
-  float* a[8];
-  const float* g[8];
-  int off[9];  // prefix offsets of the 8 tensors in one flat index space
-  float L1[8], L2x2[8], mom[8], omm[8], rate[8], clip[8];
-};
-
-// L1/L2 gradient + old-accumulator momentum step, all 8 tensors in one
-// launch; bias max-norm (a clip) is elementwise and happens here too.
-__global__ void k_update(UpdateTable t, float lr) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= t.off[8]) return;
-  int k = 0;
-  while (i >= t.off[k + 1]) ++k;
-  if (t.rate[k] == 0.0f) return;
-  int j = i - t.off[k];
-  float p = t.p[k][j], a = t.a[k][j], g = t.g[k][j];
-  if (t.L2x2[k] != 0.0f) g = g + t.L2x2[k] * p;
-  if (t.L1[k] != 0.0f) g = g + t.L1[k] * (float)((p > 0.0f) - (p < 0.0f));
-  float pn = p - (t.rate[k] * lr) * a;
-  if (t.clip[k] > 0.0f) pn = fminf(fmaxf(pn, -t.clip[k]), t.clip[k]);
-  t.a[k][j] = t.mom[k] * a + t.omm[k] * g;
-  t.p[k][j] = pn;
-}
-
-__device__ __forceinline__ float maxnorm_scale(float norm, float maxnorm) {
-  float desired = fminf(fmaxf(norm, 0.0f), maxnorm);
-  return (1e-7f + desired) / (1e-7f + norm);
-}
-
-// Max-norm over rows (conv kernels in kernel layout): one block per row.
-__global__ void k_maxnorm_rows(float* __restrict__ p, int cols,
-                               float maxnorm) {
-  __shared__ float red[32];
-  float* row = p + (size_t)blockIdx.x * cols;
-  float s = 0.0f;
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) s += row[c] * row[c];
-  float scale = maxnorm_scale(sqrtf(block_sum(s, red)), maxnorm);
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) row[c] *= scale;
-}
-
-// Max-norm over columns (dense weights): one thread per column.
-__global__ void k_maxnorm_cols(float* __restrict__ p, int rows, int cols,
-                               float maxnorm) {
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  float s = 0.0f;
-  for (int r = 0; r < rows; ++r) s += p[(size_t)r * cols + c] * p[(size_t)r * cols + c];
-  float scale = maxnorm_scale(sqrtf(s), maxnorm);
-  for (int r = 0; r < rows; ++r) p[(size_t)r * cols + c] *= scale;
-}
-
 struct Workspace {
   float *tyx, *a, *z1, *p1, *z2, *f, *z3, *h3d, *dz3, *df, *dz2, *dz1,
-      *grads, *wcost;
+      *grads, *wcost, *wpart;
   long long total;
 };
 
@@ -673,20 +364,12 @@ Workspace carve(const Dims& d, float* base) {
                  + d.NC;
   w.grads = take(np);
   w.wcost = take(1);
+  w.wpart = take(WCOST_BLOCKS);
   w.total = o;
   return w;
 }
 
-inline int blocks(long long n, int t) { return (int)((n + t - 1) / t); }
-
 }  // namespace
-
-#define CHECK(expr)                  \
-  do {                               \
-    cudaError_t e_ = (expr);         \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
-#define LAUNCHED() CHECK(cudaGetLastError())
 
 extern "C" {
 
@@ -746,27 +429,22 @@ int megastep_epoch(const int* is, const float* fs, void* const* ptrs,
   const float pflip = is[I_PFLIP] ? fs[F_PFLIP] : 0.0f;
 
   const size_t warp_smem = 4 * sizeof(float) * (size_t)d.HW;
-  if (warp && warp_smem > 48 * 1024) {
-    if (warp_smem > 227 * 1024) return -1;
-    CHECK(cudaFuncSetAttribute(k_warp,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)warp_smem));
-  }
+  if (warp && !warp_smem_ok(warp_smem)) return -1;
   const size_t head_smem = sizeof(float) * (size_t)(2 * d.B * d.NC + d.B);
   if (head_smem > 48 * 1024) return -2;
 
   const float* reg = fs + F_REG0;  // conv1, conv2, hidden, out
-  Tensors8 t8;
-  RegTable rt;
+  WcostTable t8;
   UpdateTable ut;
+  t8.count = ut.count = 8;
   bool any_wcost = false;
   ut.off[0] = 0;
   for (int k = 0; k < 8; ++k) {
     const float* r = reg + (k / 2) * N_REG;
     t8.p[k] = prm[k];
     t8.n[k] = sizes[k];
-    rt.L1[k] = r[R_L1];
-    rt.L2[k] = r[R_L2];
+    t8.L1[k] = r[R_L1];
+    t8.L2[k] = r[R_L2];
     any_wcost = any_wcost || r[R_L1] != 0.0f || r[R_L2] != 0.0f;
     ut.p[k] = prm[k];
     ut.a[k] = mom[k];
@@ -787,7 +465,7 @@ int megastep_epoch(const int* is, const float* fs, void* const* ptrs,
     const int* pbs = pb + (size_t)st * d.C0 * d.B * d.HW;
     const int* dbs = db + (size_t)st * d.B * d.NH;
     if (warp) {
-      k_warp<<<1, 256, warp_smem, s>>>(d, wp, ub + (size_t)st * 8,
+      k_warp<<<1, 256, warp_smem, s>>>(d.H, wp, ub + (size_t)st * 8,
                                         fb + (size_t)st * 4 * d.HW, gh, gw,
                                         w.tyx);
       LAUNCHED();
@@ -803,10 +481,7 @@ int megastep_epoch(const int* is, const float* fs, void* const* ptrs,
     LAUNCHED();
     CHECK((gemm<false, false>(s, d.B, d.NH, d.NF, w.f, d.NF, prm[4], d.NH,
                               prm[5], w.z3)));
-    if (any_wcost) {
-      k_wcost<<<1, 1024, 0, s>>>(t8, rt, w.wcost);
-      LAUNCHED();
-    }
+    if (any_wcost) CHECK(wcost(s, t8, w.wpart, w.wcost));
     k_head<<<1, 1024, head_smem, s>>>(d, w.z3, prm[6], prm[7], dbs, ys,
                                        any_wcost ? w.wcost : nullptr, w.h3d,
                                        w.dz3, grad[6], grad[7], grad[5],

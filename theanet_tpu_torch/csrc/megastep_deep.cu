@@ -1,0 +1,747 @@
+// Whole-epoch fused training of conv stacks of any depth and of flat nets,
+// for Hopper (sm_90a).
+//
+// Replaces theanet_tpu/ops/megastep_deep.py::_kernel_deep (body
+// _deep_fwd_bwd) and, at a zero-level table, megastep_mlp.py::_kernel_mlp.
+// Its plain PyTorch twin, the specification this file is held to, is
+// theanet_tpu_torch/ops/megastep_deep.py::deep_epoch_reference.
+//
+// What it computes, per step of the epoch, for [Color ->] Input/Elastic ->
+// (Conv -> [Pool])*n -> (Hidden -> [DropOut])*m -> Softmax | CenteredOut:
+// the color jitter and elastic augmentation from the injected bits; every
+// conv level (true valid convolution, activation, max-pool of any size with
+// or without ignore_border, or the identity pool); the dense tail with
+// dropout masks from the step's dropout words (pre-hidden j reads lanes
+// [off_j, off_j + width_j), the final hidden the last n_hid lanes); the
+// head (log-softmax NLL, LOGIT bit probabilities, or RBF distances by the
+// expansion ||v||^2 - 2 v.c + ||c||^2 with a junk column in the partition
+// sum); the hand-derived backward through all of it (pool gradients reach
+// every tied maximum); then L1/L2 gradients, the old-accumulator momentum
+// step and max-norm of every state tensor.
+//
+// What bounds it on the card. At galaxy_rbf's shapes (batch 20, 3 x 28 x 28,
+// maps 8/16, hidden 200, 32 RBF features) a step is ~10 M multiply-adds and
+// depends on the previous step's parameters, so, as for the flagship, the
+// epoch is bound by the latency of its dependent stages, not by FLOPs or
+// bytes; flat_mlp (784 x 1000 hidden) moves most bytes in its dense
+// products, still far below the card's rate at batch 20.
+//
+// What the design does about it (the simplest correct form, first): the
+// flagship kernel's design, parameterised at run time. One C call per epoch
+// loops the steps on the caller's stream; a level table (input maps, maps,
+// filter, input side, conv side, pooled side, pool, ignore_border,
+// activation, slope) drives one conv+pool stage, one pool-backward stage,
+// one weight-gradient stage and one input-gradient stage per level; the
+// dense stages loop over the pre-hidden stack and then the final hidden;
+// a GEMM computes the scores, one single-block head stage the Softmax,
+// LOGIT or RBF loss down to dL/dscores (and the RBF centers' gradient when
+// they are learned), spread over (sample, output) pairs; the weight cost is a
+// two-pass grid reduction; one update launch covers every state tensor.
+// Conv sums are tap by tap in the kernel layout's order with
+// separately rounded multiplies and adds, as in the twin: which pool
+// windows tie exactly depends on that order. Nothing is computed by a
+// library kernel.
+
+#include "stages.cuh"
+
+namespace {
+
+// ---- integer spec (order fixed by theanet_tpu_torch/ops/_build.py): the
+// header, then N_ILEV ints per conv level, N_IPRE per pre-hidden layer and
+// N_ITEN per state tensor
+enum {
+  I_B, I_C0, I_H, I_NLEV, I_NPRE, I_NH, I_NO, I_NC, I_HEAD, I_ACTH, I_COLOR,
+  I_INVERT, I_NEAREST, I_TRANS, I_MAG, I_ZOOM, I_ANGLE, I_LEARNC, I_FBL,
+  I_DBL, I_NSTATE, N_IHEAD
+};
+enum { L_CIN, L_M, L_F, L_S, L_C, L_P, L_POOL, L_IB, L_ACT, N_ILEV };
+enum { H_W, H_ACT, N_IPRE };
+enum { T_SIZE, T_KIND, T_ROWS, T_COLS, N_ITEN };
+// ---- float spec: the header, then 1 per level (slope), 2 per pre-hidden
+// layer (slope, pdrop) and N_REG per state tensor
+enum {
+  F_SLOPEH, F_PDROP, F_TRANS, F_LOGZOOM, F_MAG, F_PFLIP, F_ANGLE, F_CLIPHI,
+  F_LOGBAL, F_LOGGAM, F_MAXVAL, F_INVMAX, F_JUNK, N_FHEAD
+};
+// ---- pointer table: then n_state params, n_state moms, cost_minf
+enum { P_X, P_Y, P_UB, P_FB, P_PB, P_DB, P_GH, P_GW, P_CENTERS, P_STATE };
+
+constexpr int MAX_LEVELS = 8, MAX_PRE = 8;
+constexpr int HEAD_SOFTMAX = 0, HEAD_LOGIT = 1, HEAD_RBF = 2;
+constexpr int KIND_ROWS = 0, KIND_COLS = 1, KIND_BIAS = 2;
+constexpr float LOGIT_EPS = 0.001f;
+
+struct Level {
+  int cin, m, f, s, c, p, pool, ib, act, e;  // e: extent inside windows
+  float slope;
+};
+struct Pre {
+  int w, act;
+  float slope, pdrop;
+};
+
+struct Net {
+  int B, C0, H, HW, nlev, npre, NH, NO, NC, head, acth, learnc, fbl, dbl,
+      nstate, NF;
+  float slopeh, pdrop, junk;
+  Level lv[MAX_LEVELS];
+  Pre pre[MAX_PRE];
+  const int* ten;     // N_ITEN ints per state tensor
+  const float* reg;   // N_REG floats per state tensor
+};
+
+// 0, or a negative code for deep_error_string.
+int parse(const int* is, const float* fs, Net* n) {
+  n->B = is[I_B]; n->C0 = is[I_C0]; n->H = is[I_H]; n->HW = n->H * n->H;
+  n->nlev = is[I_NLEV]; n->npre = is[I_NPRE]; n->NH = is[I_NH];
+  n->NO = is[I_NO]; n->NC = is[I_NC]; n->head = is[I_HEAD];
+  n->acth = is[I_ACTH]; n->learnc = is[I_LEARNC]; n->fbl = is[I_FBL];
+  n->dbl = is[I_DBL]; n->nstate = is[I_NSTATE];
+  n->slopeh = fs[F_SLOPEH]; n->pdrop = fs[F_PDROP]; n->junk = fs[F_JUNK];
+  if (n->nlev > MAX_LEVELS || n->npre > MAX_PRE) return -3;
+  if (n->nstate > MAX_TENSORS) return -3;
+  const int* li = is + N_IHEAD;
+  const float* lf = fs + N_FHEAD;
+  for (int k = 0; k < n->nlev; ++k, li += N_ILEV, ++lf) {
+    Level& L = n->lv[k];
+    L.cin = li[L_CIN]; L.m = li[L_M]; L.f = li[L_F]; L.s = li[L_S];
+    L.c = li[L_C]; L.p = li[L_P]; L.pool = li[L_POOL]; L.ib = li[L_IB];
+    L.act = li[L_ACT];
+    L.e = L.ib ? L.p * L.pool : L.c;
+    L.slope = lf[0];
+  }
+  for (int j = 0; j < n->npre; ++j, li += N_IPRE, lf += 2) {
+    n->pre[j].w = li[H_W]; n->pre[j].act = li[H_ACT];
+    n->pre[j].slope = lf[0]; n->pre[j].pdrop = lf[1];
+  }
+  n->ten = li;
+  n->reg = lf;
+  if (n->nlev) {
+    const Level& L = n->lv[n->nlev - 1];
+    n->NF = L.m * L.p * L.p;
+  } else {
+    n->NF = n->C0 * n->HW;
+  }
+  return 0;
+}
+
+struct AugParams {
+  int warp, nearest, invert, color;
+  float pflip, maxval, inv_maxval, logbal, loggam;
+};
+
+// x ** g for x in [0, 1] as exp(g log x), x == 0 giving 0 exactly.
+__device__ __forceinline__ float pow01(float x, float g) {
+  return x > 0.0f ? expf(__fmul_rn(g, logf(fmaxf(x, 1e-30f)))) : 0.0f;
+}
+
+// [Color ->] invert -> resample at the shared warp -> pflip. One thread per
+// output pixel, written sample-major (b, c, p) = the conv input layout and
+// the flat nets' flatten order; the input rows and the pflip and color
+// words are channel-major (r = c*B + b). Products and sums are rounded one
+// by one, as in the twin.
+__global__ void k_augment(int B, int C0, int H, AugParams g,
+                          const float* __restrict__ x,
+                          const float* __restrict__ tyx,
+                          const int* __restrict__ fb,
+                          const int* __restrict__ pb, float* __restrict__ a) {
+  const int HW = H * H;
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * C0 * HW) return;
+  const int p = idx % HW, c = (idx / HW) % C0, b = idx / (HW * C0);
+  const int r = c * B + b;
+  const float* row = x + (size_t)r * HW;
+  float f0 = 1.0f, f1 = 1.0f, f2 = 1.0f;
+  if (g.color) {   // per-row factors from field-word rows 4-6, column r
+    f0 = expf(__fmul_rn(g.logbal, 2.0f * u01(fb[4 * HW + r]) - 1.0f));
+    f1 = expf(__fmul_rn(g.loggam, 2.0f * u01(fb[5 * HW + r]) - 1.0f));
+    f2 = expf(__fmul_rn(g.loggam, 2.0f * u01(fb[6 * HW + r]) - 1.0f));
+  }
+  auto tap = [&](int q) {
+    float v = row[q];
+    if (g.color) {
+      float xm = __fmul_rn(v, g.inv_maxval);
+      xm = fminf(fmaxf(__fmul_rn(xm, f0), 0.0f), 1.0f);
+      xm = pow01(xm, f1);
+      xm = 1.0f - pow01(1.0f - xm, f2);
+      v = __fmul_rn(xm, g.maxval);
+    }
+    return g.invert ? 1.0f - v : v;
+  };
+  float v;
+  if (!g.warp) {
+    v = tap(p);
+  } else if (g.nearest) {
+    int vy = (int)floorf(tyx[p] + 0.5f);
+    int vx = (int)floorf(tyx[HW + p] + 0.5f);
+    v = tap(vy * H + vx);
+  } else {
+    float ty = tyx[p], tx = tyx[HW + p];
+    int top = (int)ty, left = (int)tx;
+    float fy = ty - (float)top, fx = tx - (float)left;
+    int i00 = top * H + left;
+    float gy = 1.0f - fy, gx = 1.0f - fx;
+    v = __fadd_rn(__fadd_rn(__fadd_rn(
+            __fmul_rn(tap(i00), __fmul_rn(gy, gx)),
+            __fmul_rn(tap(i00 + 1), __fmul_rn(gy, fx))),
+            __fmul_rn(tap(i00 + H), __fmul_rn(fy, gx))),
+            __fmul_rn(tap(i00 + H + 1), __fmul_rn(fy, fx)));
+  }
+  if (g.pflip > 0.0f && u01(pb[(size_t)r * HW + p]) < g.pflip) v = 1.0f - v;
+  a[idx] = v;
+}
+
+// One conv level (true valid convolution) + bias + act + max-pool: one
+// thread per pooled output; writes the pre-activations z of its window and
+// the pooled max. ``in`` (B, Cin, S, S) is addressed as b*sb + c*sc + y*S + x.
+// Taps are summed in the twin's order with separately rounded multiplies
+// and adds (no FMA): the pool's gradient goes to every exact tie, and which
+// outputs tie depends on the order of the sum.
+__global__ void k_conv_pool(int B, Level L, const float* __restrict__ in,
+                            int sb, int sc, const float* __restrict__ w,
+                            const float* __restrict__ bias,
+                            float* __restrict__ z, float* __restrict__ pout) {
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * L.m * L.p * L.p) return;
+  const int F = L.f, Cin = L.cin, S = L.s, c = L.c;
+  int j = idx % L.p, i = (idx / L.p) % L.p;
+  int m = (idx / (L.p * L.p)) % L.m, b = idx / (L.p * L.p * L.m);
+  const float* wm = w + m * F * F * Cin;
+  const float* ib = in + (size_t)b * sb;
+  float best = -INFINITY;
+  for (int dy = 0; dy < L.pool; ++dy) {
+    int y = i * L.pool + dy;
+    if (y >= c) break;
+    for (int dx = 0; dx < L.pool; ++dx) {
+      int xx = j * L.pool + dx;
+      if (xx >= c) break;
+      float acc = 0.0f;
+      for (int u = 0; u < F; ++u)
+        for (int v = 0; v < F; ++v)
+          for (int ci = 0; ci < Cin; ++ci)
+            acc = __fadd_rn(acc, __fmul_rn(
+                wm[(u * F + v) * Cin + ci],
+                ib[ci * sc + (y + F - 1 - u) * S + (xx + F - 1 - v)]));
+      float zz = acc + bias[m];
+      z[((b * L.m + m) * c + y) * c + xx] = zz;
+      best = fmaxf(best, act_fn(zz, L.act, L.slope));
+    }
+  }
+  pout[idx] = best;
+}
+
+// Pool backward + act': one thread per conv output position; the window's
+// gradient reaches every element equal to its max, positions outside the
+// windows (ignore_border) get none.
+__global__ void k_pool_bwd(int B, Level L, const float* __restrict__ z,
+                           const float* __restrict__ pout,
+                           const float* __restrict__ dp,
+                           float* __restrict__ dz) {
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * L.m * L.c * L.c) return;
+  int x = idx % L.c, y = (idx / L.c) % L.c;
+  int m = (idx / (L.c * L.c)) % L.m, b = idx / (L.c * L.c * L.m);
+  float g = 0.0f;
+  if (y < L.e && x < L.e) {
+    float zz = z[idx];
+    int o = ((b * L.m + m) * L.p + y / L.pool) * L.p + x / L.pool;
+    if (act_fn(zz, L.act, L.slope) == pout[o])
+      g = dp[o] * dact_fn(zz, L.act, L.slope);
+  }
+  dz[idx] = g;
+}
+
+// Input gradient of a conv level: one thread per input position (b, c, i,
+// j) of the level's (B, Cin, S, S) input, which is the previous level's
+// pooled output.
+__global__ void k_conv_dgrad(int B, Level L, const float* __restrict__ w,
+                             const float* __restrict__ dz,
+                             float* __restrict__ din) {
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int S = L.s, F = L.f, Cin = L.cin;
+  if (idx >= B * Cin * S * S) return;
+  int j = idx % S, i = (idx / S) % S;
+  int ci = (idx / (S * S)) % Cin, b = idx / (S * S * Cin);
+  float s = 0.0f;
+  for (int m = 0; m < L.m; ++m)
+    for (int u = 0; u < F; ++u) {
+      int y = i - (F - 1 - u);
+      if (y < 0 || y >= L.e) continue;
+      for (int v = 0; v < F; ++v) {
+        int x = j - (F - 1 - v);
+        if (x < 0 || x >= L.e) continue;
+        s += w[m * F * F * Cin + (u * F + v) * Cin + ci]
+             * dz[((b * L.m + m) * L.c + y) * L.c + x];
+      }
+    }
+  din[idx] = s;
+}
+
+// The dropout mask of element (b, n) of a dense layer: kept when its word's
+// uniform is at least pdrop.
+__device__ __forceinline__ bool kept(const int* db, int dbl, int off, int b,
+                                     int n, float pdrop) {
+  return !(pdrop > 0.0f) || u01(db[b * dbl + off + n]) >= pdrop;
+}
+
+// A pre-hidden layer's act + dropout: hd = act(z) * mask.
+__global__ void k_act_drop(int B, int W, int act, float slope, float pdrop,
+                           const int* __restrict__ db, int dbl, int off,
+                           const float* __restrict__ z,
+                           float* __restrict__ hd) {
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= B * W) return;
+  float h = act_fn(z[e], act, slope);
+  hd[e] = kept(db, dbl, off, e / W, e % W, pdrop) ? h : 0.0f * h;
+}
+
+// A pre-hidden layer's backward below its output: dz = dh * mask * act'(z)
+// and the bias gradient, one thread per column.
+__global__ void k_dense_bwd(int B, int W, int act, float slope, float pdrop,
+                            const int* __restrict__ db, int dbl, int off,
+                            const float* __restrict__ z,
+                            const float* __restrict__ dh,
+                            float* __restrict__ dz, float* __restrict__ gb) {
+  int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= W) return;
+  float s = 0.0f;
+  for (int b = 0; b < B; ++b) {
+    float g = dh[b * W + n];
+    if (!kept(db, dbl, off, b, n, pdrop)) g = 0.0f * g;
+    float d = g * dact_fn(z[b * W + n], act, slope);
+    dz[b * W + n] = d;
+    s += d;
+  }
+  gb[n] = s;
+}
+
+struct HeadArgs {
+  int B, NO, NC, kind;
+  float junk;
+};
+
+// The head's loss and what needs a batch-wide view, in one block: from the
+// scores z4 = h3d wo + bo (a grid GEMM before it), (cost, minf), dL/dz4,
+// dbo and (learned RBF centers) dcenters. The work is spread over
+// (sample, output) pairs; only each sample's normalisation loops over its
+// own classes. The dense backward below the scores runs in the grid stages
+// after it.
+__global__ void __launch_bounds__(1024)
+k_head(HeadArgs h, const float* __restrict__ z4g,
+       const float* __restrict__ cen, const int* __restrict__ y,
+       const float* __restrict__ wcost, float* __restrict__ dz4,
+       float* __restrict__ gbo, float* __restrict__ gcen,
+       float* __restrict__ cm) {
+  extern __shared__ float sm[];
+  const int B = h.B, NO = h.NO, NC = h.NC;
+  float* z4 = sm;               // B*NO scores (features' pre-activations)
+  float* v = z4 + B * NO;       // B*NO RBF features 1.7 tanh(2/3 z4)
+  float* dd = v + B * NO;       // B*NC RBF: -dists, then dL/d dists
+  float* csq = dd + B * NC;     // NC RBF ||c||^2
+  float* ssv = csq + NC;        // B RBF ||v||^2
+  float* rs = ssv + B;          // B RBF sum over classes of dL/d dists
+  float* tl = rs + B;           // B true-class log-probs
+  float* mf = tl + B;           // B watchdog features
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float invB = 1.0f / (float)B;
+  const bool rbf = h.kind == HEAD_RBF;
+
+  for (int e = tid; e < B * NO; e += nt) z4[e] = z4g[e];
+  if (rbf)
+    for (int c = tid; c < NC; c += nt) {
+      float s = 0.0f;
+      for (int f = 0; f < NO; ++f) s += cen[c * NO + f] * cen[c * NO + f];
+      csq[c] = s;
+    }
+  __syncthreads();
+  if (rbf) {
+    for (int e = tid; e < B * NO; e += nt)
+      v[e] = 1.7f * tanhf(z4[e] * (2.0f / 3.0f));
+    __syncthreads();
+    for (int b = tid; b < B; b += nt) {
+      float s = 0.0f;
+      for (int f = 0; f < NO; ++f) s += v[b * NO + f] * v[b * NO + f];
+      ssv[b] = s;
+    }
+    __syncthreads();
+    for (int e = tid; e < B * NC; e += nt) {  // -dists, by the expansion
+      int b = e / NC, c = e % NC;
+      float dot = 0.0f;
+      for (int f = 0; f < NO; ++f) dot += v[b * NO + f] * cen[c * NO + f];
+      dd[e] = -((ssv[b] - 2.0f * dot) + csq[c]);
+    }
+    __syncthreads();
+  }
+  for (int b = tid; b < B; b += nt) {
+    const int yb = y[b];
+    const bool ok = yb >= 0 && yb < NC;
+    const int yc = max(0, min(yb, NO - 1));   // the watchdog's feature
+    const float* zb = z4 + b * NO;
+    float* gb = dz4 + b * NO;
+    float t = NAN;  // a label outside [0, NC) poisons the cost
+    if (h.kind == HEAD_SOFTMAX) {
+      float mx = -INFINITY;
+      for (int c = 0; c < NO; ++c) mx = fmaxf(mx, zb[c]);
+      float se = 0.0f;
+      for (int c = 0; c < NO; ++c) se += expf(zb[c] - mx);
+      float lse = logf(se);
+      for (int c = 0; c < NO; ++c) {
+        float lp = (zb[c] - mx) - lse;
+        if (c == yb) t = lp;
+        gb[c] = (expf(lp) - (c == yb ? 1.0f : 0.0f)) * invB;
+      }
+      mf[b] = t;
+    } else if (h.kind == HEAD_LOGIT) {
+      // features squeezed into [eps, 1-eps]; bit probabilities against the
+      // true class's center row
+      float s = 0.0f;
+      for (int f = 0; f < NO; ++f) {
+        float sg = 1.0f / (1.0f + expf(-zb[f]));
+        float vf = sg * (1.0f - 2.0f * LOGIT_EPS) + LOGIT_EPS;
+        float c = ok ? cen[yb * NO + f] : NAN;
+        float bp = c * vf + (1.0f - c) * (1.0f - vf);
+        s += logf(bp);
+        gb[f] = (1.0f - 2.0f * c) / ((float)B * bp)
+                * (1.0f - 2.0f * LOGIT_EPS) * sg * (1.0f - sg);
+      }
+      if (ok) t = s;
+      mf[b] = 1.0f / (1.0f + expf(-zb[yc]));
+    } else {   // the junk column joins the partition sum only
+      float* db_ = dd + b * NC;
+      float mx = -h.junk;
+      for (int c = 0; c < NC; ++c) mx = fmaxf(mx, db_[c]);
+      float se = 0.0f;
+      for (int c = 0; c < NC; ++c) se += expf(db_[c] - mx);
+      float lse = logf(se + expf(-h.junk - mx));
+      float r = 0.0f;
+      for (int c = 0; c < NC; ++c) {
+        float lp = db_[c] - mx - lse;
+        if (c == yb) t = lp;
+        db_[c] = -((expf(lp) - (c == yb ? 1.0f : 0.0f)) * invB);
+        r += db_[c];
+      }
+      rs[b] = r;
+      mf[b] = v[b * NO + yc];
+    }
+    tl[b] = t;
+  }
+  __syncthreads();
+  if (rbf)
+    for (int e = tid; e < B * NO; e += nt) {  // through the features
+      int b = e / NO, f = e % NO;
+      float s = 0.0f;
+      for (int c = 0; c < NC; ++c) s += dd[b * NC + c] * cen[c * NO + f];
+      float tf = tanhf(z4[e] * (2.0f / 3.0f));
+      float dv = 2.0f * (v[e] * rs[b] - s);
+      dz4[e] = dv * 1.7f * (2.0f / 3.0f) * (1.0f - tf * tf);
+    }
+  if (tid == 0) {
+    float s = 0.0f, mn = INFINITY;
+    for (int b = 0; b < B; ++b) {
+      s += tl[b];
+      mn = fminf(mn, mf[b]);
+    }
+    cm[0] = -s / (float)B + (wcost ? wcost[0] : 0.0f);
+    cm[1] = mn;
+  }
+  __syncthreads();   // dz4 is read back below
+  for (int c = tid; c < NO; c += nt) {
+    float s = 0.0f;
+    for (int b = 0; b < B; ++b) s += dz4[b * NO + c];
+    gbo[c] = s;
+  }
+  if (rbf && gcen)
+    for (int e = tid; e < NC * NO; e += nt) {
+      int c = e / NO, f = e % NO;
+      float cs = 0.0f, s = 0.0f;
+      for (int b = 0; b < B; ++b) {
+        float g = dd[b * NC + c];
+        cs += g;
+        s += g * v[b * NO + f];
+      }
+      gcen[e] = 2.0f * (cen[e] * cs - s);
+    }
+}
+
+size_t head_smem(const Net& n) {
+  return sizeof(float) * (size_t)(2 * n.B * n.NO + n.B * n.NC + n.NC
+                                  + 4 * n.B);
+}
+
+struct Workspace {
+  float *tyx, *a, *grads, *wcost, *wpart;
+  float *z[MAX_LEVELS], *p[MAX_LEVELS], *dz[MAX_LEVELS], *dp[MAX_LEVELS];
+  float *pz[MAX_PRE], *phd[MAX_PRE], *pdh[MAX_PRE], *pdz[MAX_PRE];
+  float *z3, *h3d, *z4, *dz4, *dh3, *dz3;
+  long long total;
+};
+
+Workspace carve(const Net& n, float* base) {
+  Workspace w;
+  long long o = 0;
+  auto take = [&](long long k) { float* p = base ? base + o : nullptr; o += k; return p; };
+  const long long B = n.B;
+  w.tyx = take(2LL * n.HW);
+  w.a = take(B * n.C0 * n.HW);
+  for (int k = 0; k < n.nlev; ++k) {
+    const Level& L = n.lv[k];
+    w.z[k] = take(B * L.m * L.c * L.c);
+    w.dz[k] = take(B * L.m * L.c * L.c);
+    w.p[k] = take(B * L.m * L.p * L.p);
+    w.dp[k] = take(B * L.m * L.p * L.p);
+  }
+  for (int j = 0; j < n.npre; ++j) {
+    w.pz[j] = take(B * n.pre[j].w);
+    w.phd[j] = take(B * n.pre[j].w);
+    w.pdh[j] = take(B * n.pre[j].w);
+    w.pdz[j] = take(B * n.pre[j].w);
+  }
+  w.z3 = take(B * n.NH);
+  w.h3d = take(B * n.NH);
+  w.z4 = take(B * n.NO);
+  w.dz4 = take(B * n.NO);
+  w.dh3 = take(B * n.NH);
+  w.dz3 = take(B * n.NH);
+  long long np = 0;
+  for (int t = 0; t < n.nstate; ++t) np += n.ten[t * N_ITEN + T_SIZE];
+  w.grads = take(np);
+  w.wcost = take(1);
+  w.wpart = take(WCOST_BLOCKS);
+  w.total = o;
+  return w;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch the wrapper must allocate for one epoch call (-1 when
+// the tables are out of range).
+long long deep_workspace_floats(const int* is, const float* fs) {
+  Net n;
+  if (parse(is, fs, &n) != 0) return -1;
+  return carve(n, nullptr).total;
+}
+
+const char* deep_error_string(int code) {
+  if (code == -1) return "warp field needs more shared memory than a block has";
+  if (code == -2) return "the head's batch x widths exceed the head kernel's shared memory";
+  if (code == -3) return "more conv levels, hidden layers or state tensors than the kernel's tables hold";
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// One epoch: n_steps steps on ``stream`` of ``device``; parameters and
+// momentum in the pointer table are updated in place, cost_minf (n_steps,
+// 2) is written. Returns 0, a negative code (deep_error_string), or the
+// first CUDA error (the launch that failed never ran).
+int deep_epoch(const int* is, const float* fs, void* const* ptrs,
+               int n_steps, float lr, float* ws, int device, void* stream_) {
+  Net n;
+  int rc = parse(is, fs, &n);
+  if (rc != 0) return rc;
+  CHECK(cudaSetDevice(device));
+  cudaStream_t s = (cudaStream_t)stream_;
+  const Workspace w = carve(n, ws);
+  const float* x = (const float*)ptrs[P_X];
+  const int* y = (const int*)ptrs[P_Y];
+  const int* ub = (const int*)ptrs[P_UB];
+  const int* fb = (const int*)ptrs[P_FB];
+  const int* pb = (const int*)ptrs[P_PB];
+  const int* db = (const int*)ptrs[P_DB];
+  const float* gh = (const float*)ptrs[P_GH];
+  const float* gw = (const float*)ptrs[P_GW];
+  const int NS = n.nstate;
+  float* prm[MAX_TENSORS];
+  float* mom[MAX_TENSORS];
+  float* grad[MAX_TENSORS];
+  float* cm = (float*)ptrs[P_STATE + 2 * NS];
+
+  WcostTable wt;
+  UpdateTable ut;
+  wt.count = ut.count = NS;
+  ut.off[0] = 0;
+  bool any_wcost = false;
+  float* g = w.grads;
+  for (int t = 0; t < NS; ++t) {
+    const int* ti = n.ten + t * N_ITEN;
+    const float* r = n.reg + t * N_REG;
+    prm[t] = (float*)ptrs[P_STATE + t];
+    mom[t] = (float*)ptrs[P_STATE + NS + t];
+    grad[t] = g;
+    g += ti[T_SIZE];
+    wt.p[t] = prm[t];
+    wt.n[t] = ti[T_SIZE];
+    wt.L1[t] = r[R_L1];
+    wt.L2[t] = r[R_L2];
+    any_wcost = any_wcost || r[R_L1] != 0.0f || r[R_L2] != 0.0f;
+    ut.p[t] = prm[t];
+    ut.a[t] = mom[t];
+    ut.g[t] = grad[t];
+    ut.off[t + 1] = ut.off[t] + ti[T_SIZE];
+    ut.L1[t] = r[R_L1];
+    ut.L2x2[t] = r[R_L2X2];
+    ut.mom[t] = r[R_MOM];
+    ut.omm[t] = r[R_OMM];
+    ut.rate[t] = r[R_RATE];
+    ut.clip[t] = ti[T_KIND] == KIND_BIAS ? r[R_MAXNORM] : 0.0f;
+  }
+  // the head's tensors follow the convs' and the pre-hiddens'
+  const int th = 2 * n.nlev + 2 * n.npre;   // wh; then bh, wo, bo(, cen)
+  const float* cen = n.learnc ? prm[th + 4] : (const float*)ptrs[P_CENTERS];
+
+  WarpParams wp;
+  wp.trans = is[I_TRANS]; wp.mag = is[I_MAG]; wp.zoom = is[I_ZOOM];
+  wp.angle = is[I_ANGLE];
+  wp.translation = fs[F_TRANS]; wp.logzoom = fs[F_LOGZOOM];
+  wp.magnitude = fs[F_MAG]; wp.angle_rad = fs[F_ANGLE];
+  wp.clip_hi = fs[F_CLIPHI];
+  AugParams ag;
+  ag.warp = wp.trans || wp.mag || wp.zoom || wp.angle;
+  ag.nearest = is[I_NEAREST]; ag.invert = is[I_INVERT];
+  ag.color = is[I_COLOR]; ag.pflip = fs[F_PFLIP]; ag.maxval = fs[F_MAXVAL];
+  ag.inv_maxval = fs[F_INVMAX];
+  ag.logbal = fs[F_LOGBAL]; ag.loggam = fs[F_LOGGAM];
+  const size_t warp_smem = 4 * sizeof(float) * (size_t)n.HW;
+  if (ag.warp && !warp_smem_ok(warp_smem)) return -1;
+  const size_t hsm = head_smem(n);
+  if (hsm > 48 * 1024) return -2;
+  HeadArgs ha;
+  ha.B = n.B; ha.NO = n.NO; ha.NC = n.NC; ha.kind = n.head;
+  ha.junk = n.junk;
+  const int dboff = n.dbl - n.NH;   // the final hidden's dropout lanes
+
+  const int T = 256, B = n.B, HW = n.HW;
+  const bool need_df = n.nlev > 0 || n.npre > 0;
+  for (int st = 0; st < n_steps; ++st) {
+    const float* xs = x + (size_t)st * n.C0 * B * HW;
+    const int* ys = y + (size_t)st * B;
+    const int* fbs = fb + (size_t)st * n.fbl * HW;
+    const int* pbs = pb + (size_t)st * n.C0 * B * HW;
+    const int* dbs = db + (size_t)st * B * n.dbl;
+    if (ag.warp) {
+      k_warp<<<1, 256, warp_smem, s>>>(n.H, wp, ub + (size_t)st * 8, fbs, gh,
+                                        gw, w.tyx);
+      LAUNCHED();
+    }
+    k_augment<<<blocks((long long)B * n.C0 * HW, T), T, 0, s>>>(
+        B, n.C0, n.H, ag, xs, w.tyx, fbs, pbs, w.a);
+    LAUNCHED();
+    // forward: conv levels (input (B, Cin, S, S) at strides sb, sc)
+    const float* in = w.a;
+    int sb = n.C0 * HW, sc = HW;
+    for (int k = 0; k < n.nlev; ++k) {
+      const Level& L = n.lv[k];
+      k_conv_pool<<<blocks((long long)B * L.m * L.p * L.p, T), T, 0, s>>>(
+          B, L, in, sb, sc, prm[2 * k], prm[2 * k + 1], w.z[k], w.p[k]);
+      LAUNCHED();
+      in = w.p[k];
+      sb = L.m * L.p * L.p;
+      sc = L.p * L.p;
+    }
+    // dense tail: f is the flatten, then each pre-hidden's dropped output
+    const float* f = in;
+    int fw = n.NF, off = 0;
+    for (int j = 0; j < n.npre; ++j) {
+      const Pre& P = n.pre[j];
+      const int t = 2 * n.nlev + 2 * j;
+      CHECK((gemm<false, false>(s, B, P.w, fw, f, fw, prm[t], P.w,
+                                prm[t + 1], w.pz[j])));
+      k_act_drop<<<blocks((long long)B * P.w, T), T, 0, s>>>(
+          B, P.w, P.act, P.slope, P.pdrop, dbs, n.dbl, off, w.pz[j],
+          w.phd[j]);
+      LAUNCHED();
+      f = w.phd[j];
+      fw = P.w;
+      off += P.w;
+    }
+    CHECK((gemm<false, false>(s, B, n.NH, fw, f, fw, prm[th], n.NH,
+                              prm[th + 1], w.z3)));
+    k_act_drop<<<blocks((long long)B * n.NH, T), T, 0, s>>>(
+        B, n.NH, n.acth, n.slopeh, n.pdrop, dbs, n.dbl, dboff, w.z3, w.h3d);
+    LAUNCHED();
+    CHECK((gemm<false, false>(s, B, n.NO, n.NH, w.h3d, n.NH, prm[th + 2],
+                              n.NO, prm[th + 3], w.z4)));
+    if (any_wcost) CHECK(wcost(s, wt, w.wpart, w.wcost));
+    k_head<<<1, 1024, hsm, s>>>(ha, w.z4, cen, ys,
+                                any_wcost ? w.wcost : nullptr, w.dz4,
+                                grad[th + 3],
+                                n.learnc ? grad[th + 4] : nullptr,
+                                cm + 2 * (size_t)st);
+    LAUNCHED();
+    // dwo = h3d^T dz4; dz3 = (dz4 wo^T) * mask * act'(z3), dbh
+    CHECK((gemm<true, false>(s, n.NH, n.NO, B, w.h3d, n.NH, w.dz4, n.NO,
+                             nullptr, grad[th + 2])));
+    CHECK((gemm<false, true>(s, B, n.NH, n.NO, w.dz4, n.NO, prm[th + 2],
+                             n.NO, nullptr, w.dh3)));
+    k_dense_bwd<<<blocks(n.NH, T), T, 0, s>>>(
+        B, n.NH, n.acth, n.slopeh, n.pdrop, dbs, n.dbl, dboff, w.z3, w.dh3,
+        w.dz3, grad[th + 1]);
+    LAUNCHED();
+    // backward through the dense tail: dwh = f^T dz3; df = dz3 wh^T lands
+    // in the gradient buffer of f (the last pre-hidden's output or the
+    // last level's pooled output)
+    CHECK((gemm<true, false>(s, fw, n.NH, B, f, fw, w.dz3, n.NH, nullptr,
+                             grad[th])));
+    if (need_df) {
+      float* dst = n.npre ? w.pdh[n.npre - 1] : w.dp[n.nlev - 1];
+      CHECK((gemm<false, true>(s, B, fw, n.NH, w.dz3, n.NH, prm[th], n.NH,
+                               nullptr, dst)));
+    }
+    for (int j = n.npre - 1; j >= 0; --j) {
+      const Pre& P = n.pre[j];
+      const int t = 2 * n.nlev + 2 * j;
+      off -= P.w;
+      const float* fin = j ? w.phd[j - 1] : (n.nlev ? w.p[n.nlev - 1] : w.a);
+      const int inw = j ? n.pre[j - 1].w : n.NF;
+      k_dense_bwd<<<blocks(P.w, T), T, 0, s>>>(
+          B, P.w, P.act, P.slope, P.pdrop, dbs, n.dbl, off, w.pz[j],
+          w.pdh[j], w.pdz[j], grad[t + 1]);
+      LAUNCHED();
+      CHECK((gemm<true, false>(s, inw, P.w, B, fin, inw, w.pdz[j], P.w,
+                               nullptr, grad[t])));
+      if (j || n.nlev) {
+        float* dst = j ? w.pdh[j - 1] : w.dp[n.nlev - 1];
+        CHECK((gemm<false, true>(s, B, inw, P.w, w.pdz[j], P.w, prm[t], P.w,
+                                 nullptr, dst)));
+      }
+    }
+    // backward through the conv levels
+    for (int k = n.nlev - 1; k >= 0; --k) {
+      const Level& L = n.lv[k];
+      k_pool_bwd<<<blocks((long long)B * L.m * L.c * L.c, T), T, 0, s>>>(
+          B, L, w.z[k], w.p[k], w.dp[k], w.dz[k]);
+      LAUNCHED();
+      const float* lin = k ? w.p[k - 1] : w.a;
+      const int lsb = k ? L.cin * L.s * L.s : n.C0 * HW;
+      k_conv_wgrad<<<dim3(L.m, L.f * L.f * L.cin + 1), T, 0, s>>>(
+          B, L.m, L.cin, L.f, L.c, L.e, w.dz[k], lin, lsb, L.s * L.s, L.s,
+          grad[2 * k], grad[2 * k + 1]);
+      LAUNCHED();
+      if (k) {
+        k_conv_dgrad<<<blocks((long long)B * L.cin * L.s * L.s, T), T, 0, s>>>(
+            B, L, prm[2 * k], w.dz[k], w.dp[k - 1]);
+        LAUNCHED();
+      }
+    }
+    k_update<<<blocks(ut.off[NS], T), T, 0, s>>>(ut, lr);
+    LAUNCHED();
+    for (int t = 0; t < NS; ++t) {   // weight max-norm (biases clipped)
+      const int* ti = n.ten + t * N_ITEN;
+      const float* r = n.reg + t * N_REG;
+      if (r[R_MAXNORM] == 0.0f || r[R_RATE] == 0.0f) continue;
+      if (ti[T_KIND] == KIND_ROWS) {
+        k_maxnorm_rows<<<ti[T_ROWS], T, 0, s>>>(prm[t], ti[T_COLS],
+                                                r[R_MAXNORM]);
+      } else if (ti[T_KIND] == KIND_COLS) {
+        k_maxnorm_cols<<<blocks(ti[T_COLS], T), T, 0, s>>>(
+            prm[t], ti[T_ROWS], ti[T_COLS], r[R_MAXNORM]);
+      } else {
+        continue;
+      }
+      LAUNCHED();
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"

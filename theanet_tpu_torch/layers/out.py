@@ -1,19 +1,20 @@
-"""Output heads: SoftmaxLayer (port of ``theanet_tpu/layers/out.py``;
-reference theanet/layer/outlayers.py).
+"""Output heads: SoftmaxLayer and CenteredOutLayer (LOGIT / RBF) (port of
+``theanet_tpu/layers/out.py``; reference theanet/layer/outlayers.py).
 
 ``apply_head`` returns a head-state dict (output, probs, logprob, features,
-y_preds) that ``cost`` and ``sym_and_oth_err_rate`` read, as in the JAX
-package. This slice ports the Softmax head with the 'nll' loss; the other
-heads and losses are queued in ROADMAP.md.
+y_preds, and bitprob for LOGIT) that ``cost`` and ``sym_and_oth_err_rate``
+read, as in the JAX package. The port takes the 'nll' loss; the other
+losses and the Hinge and ExpLoss heads are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .dense import HiddenLayer
 
-__all__ = ["OutputMixin", "SoftmaxLayer"]
+__all__ = ["OutputMixin", "SoftmaxLayer", "CenteredOutLayer"]
 
 
 def _true_class(mat, y):
@@ -38,8 +39,13 @@ class OutputMixin:
         return hs["features"], hs["y_preds"]
 
     def sym_and_oth_err_rate(self, hs, y):
-        """(error rate, mean true-class probability), outlayers.py:69-80."""
+        """(error rate, second statistic), outlayers.py:69-80: the mean
+        true-class probability, or for LOGIT heads the share of true-class
+        bits below one half."""
         sym_err_rate = torch.mean((hs["y_preds"] != y).to(torch.float32))
+        if self.kind == "LOGIT":
+            return sym_err_rate, torch.mean(
+                (_true_class(hs["bitprob"], y) < 0.5).to(torch.float32))
         return sym_err_rate, torch.mean(_true_class(hs["probs"], y))
 
 
@@ -72,3 +78,80 @@ class SoftmaxLayer(HiddenLayer, OutputMixin):
 
     def apply(self, wts, x, *, train, generator=None):
         return self.apply_head(wts, x, train=train)["output"]
+
+
+_CENTERED_ACTIVS = {"LOGIT": "sigmoid", "RBF": "scaled_tanh"}
+
+
+class CenteredOutLayer(HiddenLayer, OutputMixin):
+    """Feature layer + class centers (outlayers.py:153-224).
+
+    LOGIT: sigmoid features squeezed into [eps, 1-eps] (eps .001), binary
+    centers ~ Binomial(.5), per-bit probability c*v + (1-c)(1-v), log prob
+    the sum of bit log-probs. RBF: scaled_tanh features, uniform centers,
+    squared distances plus a constant junk_dist column, probs =
+    softmax(-dists) over n_classes+1 outputs. ``get_wts`` returns
+    [w, b, centers]; only learned centers (RBF) are trained."""
+
+    def __init__(self, wts, centers, rand_gen=None, n_in=None,
+                 n_features=None, n_classes=None, kind="LOGIT",
+                 learn_centers=False, junk_dist=np.inf, reg=(), loss="nll"):
+        assert kind in _CENTERED_ACTIVS
+        assert n_in or wts
+        assert n_features or wts or centers is not None
+        assert n_classes or centers is not None
+        assert kind == "RBF" or not learn_centers
+        HiddenLayer.__init__(self, wts, rand_gen, n_in, n_out=n_features,
+                             actvn=_CENTERED_ACTIVS[kind], pdrop=0, reg=reg)
+        n_features = self.n_out
+        if centers is None:   # drawn after the weights (outlayers.py)
+            if kind == "LOGIT":
+                centers = rand_gen.binomial(n=1, p=0.5,
+                                            size=(n_classes, n_features))
+            else:
+                centers = rand_gen.uniform(low=0, high=1,
+                                           size=(n_classes, n_features))
+        centers = np.asarray(centers, dtype=np.float32)
+        self.n_classes = int(centers.shape[0])
+        self.learn_centers = learn_centers
+        self.centers_init = centers
+        if learn_centers:
+            self.params_init = [*self.params_init, centers]
+        self.kind = kind
+        self.junk_dist = junk_dist
+        self.loss = loss
+        self.representation = (
+            "CenteredOut Kind:{} In:{:3d} Hidden:{:3d} Out:{:3d} "
+            "learn_centers:{} junk_dist:{}".format(
+                kind, self.n_in, n_features, self.n_classes, learn_centers,
+                junk_dist))
+
+    def get_wts(self):
+        wts = [np.asarray(p) for p in self.params_init]
+        return wts if self.learn_centers else wts + [
+            np.asarray(self.centers_init)]
+
+    def apply_head(self, wts, x, *, train, generator=None):
+        feats = HiddenLayer.apply(self, wts[:2], x, train=train)
+        centers = (wts[2] if self.learn_centers else torch.as_tensor(
+            self.centers_init, device=feats.device))
+        c = centers[None, :, :]       # (1, nC, nF)
+        v = feats[:, None, :]         # (B, 1, nF)
+        hs = {"output": feats, "features": feats}
+        if self.kind == "LOGIT":
+            eps = 0.001
+            v = v * (1 - 2 * eps) + eps
+            bitprob = c * v + (1 - c) * (1 - v)
+            logprob = torch.sum(torch.log(bitprob), dim=2)
+            hs.update(bitprob=bitprob, logprob=logprob,
+                      probs=torch.exp(logprob),
+                      y_preds=torch.argmax(logprob, dim=1))
+        else:
+            dists = torch.sum((v - c) ** 2, dim=2)           # (B, nC)
+            junk = torch.full((dists.shape[0], 1), float(self.junk_dist),
+                              dtype=dists.dtype, device=dists.device)
+            dists = torch.cat([dists, junk], dim=1)
+            probs = torch.softmax(-dists, dim=-1)            # (B, nC+1)
+            hs.update(logprob=torch.log_softmax(-dists, dim=-1), probs=probs,
+                      y_preds=torch.argmax(probs, dim=1))
+        return hs

@@ -18,8 +18,9 @@ import numpy as np
 import torch
 
 from . import layers as layer_mod
-from .layers import (ConvLayer, DropOutLayer, ElasticLayer, HiddenLayer,
-                     InputLayer, OutputMixin, PoolLayer, SoftmaxLayer)
+from .layers import (CenteredOutLayer, ColorLayer, ConvLayer, DropOutLayer,
+                     ElasticLayer, HiddenLayer, InputLayer, OutputMixin,
+                     PoolLayer, SoftmaxLayer)
 from .optim import apply_updates, init_momentum, learning_rate, weight_cost
 
 __all__ = ["NeuralNet", "get_layers_info", "get_wts_info",
@@ -69,7 +70,7 @@ def params_from_allwts(allwts, device):
              for w in lw] for lw in allwts]
 
 
-_INPUT_TYPES = (InputLayer, ElasticLayer)
+_INPUT_TYPES = (InputLayer, ElasticLayer, ColorLayer)
 _DENSE_TYPES = (HiddenLayer, SoftmaxLayer)
 
 
@@ -91,9 +92,8 @@ class NeuralNet:
         input_layer_type = getattr(layer_mod, layers[0][0], None)
         if input_layer_type not in _INPUT_TYPES:
             raise NotImplementedError(
-                "first layer {!r}: this port takes InputLayer or "
-                "ElasticLayer (ColorLayer is queued in ROADMAP.md)".format(
-                    layers[0][0]))
+                "first layer {!r}: the first layer must be an InputLayer, "
+                "ElasticLayer or ColorLayer".format(layers[0][0]))
         self.net_layers.append(
             input_layer_type(rand_gen=self.rand_gen, **layers[0][1]))
         for i in range(1, len(layers)):
@@ -113,20 +113,20 @@ class NeuralNet:
 
     def _append_layer(self, i, wts):
         """The builder ladder of theanet_tpu/model.py:216-286, for the
-        layer classes this slice ports."""
+        layer classes the port has."""
         layer_type, layer_args = self.layers[i]
         layer_args = dict(layer_args)
         prev = self.net_layers[i - 1]
         cls = getattr(layer_mod, layer_type, None)
 
-        if cls in (ElasticLayer, ConvLayer, PoolLayer):
+        if cls in (ElasticLayer, ColorLayer, ConvLayer, PoolLayer):
             # DropOut has no num_maps: shape info comes from the layer
             # before it (neuralnet.py:123-130)
             use = (self.net_layers[i - 2] if isinstance(prev, DropOutLayer)
                    else prev)
             num_prev_maps, prev_out_sz = use.num_maps, use.out_sz
 
-        if cls is ElasticLayer:
+        if cls in (ElasticLayer, ColorLayer):
             layer_args.pop("num_maps", None)
             layer_args.pop("img_sz", None)
             # the reference del-mutates the stored spec (neuralnet.py:133-136)
@@ -144,6 +144,20 @@ class NeuralNet:
             curr = DropOutLayer(self.rand_gen, prev.n_out, **layer_args)
         elif cls in _DENSE_TYPES:
             curr = cls(wts, self.rand_gen, prev.n_out, **layer_args)
+        elif cls is CenteredOutLayer:
+            # centers travel with the weights: [w, b, centers], or the
+            # reference's unpack index 3 (neuralnet.py:184-187)
+            centers = None
+            if wts:
+                if len(wts) < 3:
+                    raise ValueError(
+                        "CenteredOutLayer checkpoint entry has no centers "
+                        "(got {} tensors, need [w, b, centers])".format(
+                            len(wts)))
+                centers = wts[3] if len(wts) >= 4 else wts[2]
+                wts = wts[:2]
+            curr = CenteredOutLayer(wts, centers, self.rand_gen, prev.n_out,
+                                    **layer_args)
         else:
             raise NotImplementedError(
                 "layer type {!r} is not ported yet (ROADMAP.md queue 1)"
@@ -230,9 +244,12 @@ class NeuralNet:
 
     def snapshot_params(self, params):
         """Copy current params (tensors) back into the layers as numpy, so
-        get_wts() and get_init_params() reflect training progress."""
+        get_wts() and get_init_params() reflect training progress. Only the
+        trainable tensors write back: a frozen-centers CenteredOut entry
+        carries its constant centers after them (as get_wts does)."""
         for lyr, lp in zip(self.net_layers, params):
-            lyr.params_init = [p.detach().cpu().numpy().copy() for p in lp]
+            lyr.params_init = [p.detach().cpu().numpy().copy()
+                               for p in lp[:len(lyr.params_init)]]
 
     def get_rate(self):
         return learning_rate(self.tr_prms)

@@ -1,17 +1,18 @@
 """Build and bind the hand-written CUDA kernels.
 
-``csrc/megastep.cu`` is compiled at first use with
+Each library of ``LIBRARIES`` (one ``csrc/*.cu`` source, which includes
+``csrc/stages.cuh``) is compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
 
-into a shared library with a plain C interface, loaded with ``ctypes``. No
-``--use_fast_math``: the twin's log/sqrt/cos/sin/exp and floor(t+.5) must
-round the same way. The library lands in ``theanet_tpu_torch/_build/``
-(listed in .gitignore), named by a hash of the source, so an edited source
-rebuilds and an unchanged one is built once per checkout. Nothing here runs
-at import time: the CPU tests import every module on a machine without
-nvcc.
+into a shared library with a plain C interface, loaded with ``ctypes``. All
+sources build at once, one nvcc process each. No ``--use_fast_math``: the
+twins' log/sqrt/cos/sin/exp and floor(t+.5) must round the same way. The
+libraries land in ``theanet_tpu_torch/_build/`` (listed in .gitignore),
+named by a hash of the sources, so an edited source rebuilds and an
+unchanged one is built once per checkout. Nothing here runs at import
+time: the CPU tests import every module on a machine without nvcc.
 """
 
 from __future__ import annotations
@@ -27,18 +28,23 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "megastep_launch"]
+__all__ = ["build", "megastep_launch", "deep_launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "megastep.cu"
+CSRC = _PKG / "csrc"
+LIBRARIES = ("megastep", "megastep_deep")     # csrc/<name>.cu each
+HEADERS = ("stages.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# activation kinds in the order of megastep.cu's ACT_* codes
+# activation kinds in the order of stages.cuh's ACT_* codes
 ACT_KINDS = ("leaky", "tanh", "scaled_tanh", "sigmoid", "softplus")
+# head kinds and max-norm kinds in the order of megastep_deep.cu's codes
+HEAD_KINDS = ("softmax", "logit", "rbf")
+NORM_KINDS = ("rows", "cols", "bias")
 
-_lib = None
-build_log = ""   # compiler output of the build this process ran, if any
+_libs = {}
+build_log = {}   # compiler output of the builds this process ran, by name
 
 
 def _nvcc():
@@ -51,79 +57,169 @@ def _nvcc():
                        "kernels are built from source at first use")
 
 
+def _so_path(name, flags):
+    h = hashlib.sha1(" ".join(flags).encode())
+    for f in (name + ".cu",) + HEADERS:
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
+
+
 def build(verbose=False):
-    """Compile (if needed) and load the kernel library; returns the ctypes
-    handle. ``verbose`` adds ``-Xptxas -v`` and keeps its report in
-    ``build_log``."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"megastep_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = ([_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-               + ["-o", tmp, str(SOURCE)])
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
+    """Compile (where needed, all sources at once) and load every kernel
+    library; returns {name: ctypes handle}. ``verbose`` adds ``-Xptxas -v``
+    and keeps its report in ``build_log``."""
+    if len(_libs) == len(LIBRARIES):
+        return _libs
+    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+    jobs = []
+    for name in LIBRARIES:
+        so = _so_path(name, NVCC_FLAGS)
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc()] + flags + ["-o", tmp, str(CSRC / (name + ".cu"))]
+            jobs.append((name, so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    failed = []
+    for name, so, tmp, proc in jobs:
+        build_log[name] = proc.communicate()[0]
+        if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError("nvcc failed building %s:\n%s"
-                               % (SOURCE.name, build_log))
-        os.replace(tmp, so)   # atomic: concurrent builders cannot collide
-    lib = ctypes.CDLL(str(so))
+            failed.append(name)
+        else:
+            os.replace(tmp, so)   # atomic: concurrent builds cannot collide
+    if failed:
+        raise RuntimeError("nvcc failed building %s:\n%s" % (
+            ", ".join(failed), "\n".join(build_log[n] for n in failed)))
+    for name in LIBRARIES:
+        _libs[name] = _bind(name, ctypes.CDLL(str(_so_path(name,
+                                                          NVCC_FLAGS))))
+    return _libs
+
+
+def _bind(name, lib):
     ip, fp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
-    lib.megastep_workspace_floats.argtypes = [ip, fp]
-    lib.megastep_workspace_floats.restype = ctypes.c_longlong
-    lib.megastep_error_string.argtypes = [ctypes.c_int]
-    lib.megastep_error_string.restype = ctypes.c_char_p
-    lib.megastep_epoch.argtypes = [ip, fp, ctypes.POINTER(ctypes.c_void_p),
-                                   ctypes.c_int, ctypes.c_float,
-                                   ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_void_p]
-    lib.megastep_epoch.restype = ctypes.c_int
-    _lib = lib
+    prefix = "megastep" if name == "megastep" else "deep"
+    ws = getattr(lib, prefix + "_workspace_floats")
+    ws.argtypes = [ip, fp]
+    ws.restype = ctypes.c_longlong
+    err = getattr(lib, prefix + "_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    epoch = getattr(lib, prefix + "_epoch")
+    epoch.argtypes = [ip, fp, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                      ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p]
+    epoch.restype = ctypes.c_int
     return lib
 
 
+def _arrays(ints, floats):
+    return ((ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * len(floats))(*floats))
+
+
+def _warp_flags(spec):
+    return [int(bool(spec.translation)), int(bool(spec.magnitude)),
+            int(spec.zoom != 1), int(bool(spec.angle))]
+
+
+def _warp_floats(spec):
+    return [spec.translation, math.log(spec.zoom), spec.magnitude,
+            spec.pflip, spec.angle * math.pi / 180.0, spec.img - 1 - 0.001]
+
+
+def _reg_floats(r):
+    return [r.L1, 2.0 * r.L2, r.L2, r.momentum, 1.0 - r.momentum, r.rate,
+            r.maxnorm]
+
+
 def _spec_arrays(spec):
-    """The kernel's integer and float spec tables (order fixed by the
-    enums at the top of megastep.cu)."""
+    """The flagship kernel's integer and float spec tables (order fixed by
+    the enums at the top of megastep.cu)."""
     ints = [spec.batch, spec.in_ch, spec.img, spec.filt1, spec.filt2,
             spec.maps1, spec.maps2, spec.n_hid, spec.n_out, spec.pool1,
             spec.pool2, int(spec.ib1), int(spec.ib2),
             ACT_KINDS.index(spec.act1), ACT_KINDS.index(spec.act2),
             ACT_KINDS.index(spec.act_h), int(spec.invert), int(spec.nearest),
-            int(bool(spec.translation)), int(bool(spec.magnitude)),
-            int(spec.zoom != 1), int(bool(spec.angle)),
-            int(bool(spec.pflip)), int(bool(spec.pdrop))]
-    floats = [spec.slope1, spec.slope2, spec.slope_h, spec.pdrop,
-              spec.translation, math.log(spec.zoom), spec.magnitude,
-              spec.pflip, spec.angle * math.pi / 180.0,
-              spec.img - 1 - 0.001]
+            *_warp_flags(spec), int(bool(spec.pflip)), int(bool(spec.pdrop))]
+    floats = [spec.slope1, spec.slope2, spec.slope_h, spec.pdrop]
+    floats += _warp_floats(spec)
     for r in (spec.reg1, spec.reg2, spec.reg_h, spec.reg_o):
-        floats += [r.L1, 2.0 * r.L2, r.L2, r.momentum, 1.0 - r.momentum,
-                   r.rate, r.maxnorm]
-    return ((ctypes.c_int * len(ints))(*ints),
-            (ctypes.c_float * len(floats))(*floats))
+        floats += _reg_floats(r)
+    return _arrays(ints, floats)
+
+
+def _deep_arrays(spec):
+    """The deep kernel's integer and float tables (order fixed by the enums
+    at the top of megastep_deep.cu): a header, one entry per conv level,
+    per pre-hidden layer and per state tensor."""
+    from .megastep import db_lanes, fb_lanes
+    from .megastep_deep import deep_kernel_shapes, deep_reg_kinds
+
+    shapes, kinds = deep_kernel_shapes(spec), deep_reg_kinds(spec)
+    ints = [spec.batch, spec.in_ch, spec.img, spec.n_levels,
+            len(spec.pre_hidden), spec.n_hid, spec.n_out, spec.n_classes,
+            HEAD_KINDS.index(spec.head), ACT_KINDS.index(spec.act_h),
+            int(spec.color), int(spec.invert), int(spec.nearest),
+            *_warp_flags(spec), int(spec.learn_centers), fb_lanes(spec),
+            db_lanes(spec), len(shapes)]
+    floats = [spec.slope_h, spec.pdrop, spec.translation, math.log(spec.zoom),
+              spec.magnitude, spec.pflip, spec.angle * math.pi / 180.0,
+              spec.img - 1 - 0.001, math.log(spec.balance),
+              math.log(spec.gamma), spec.maxval, 1.0 / spec.maxval,
+              spec.junk_dist]
+    cin = spec.in_ch
+    for k, (side, c, po) in enumerate(spec.sides):
+        ints += [cin, spec.maps[k], spec.filts[k], side, c, po,
+                 spec.pools[k], int(spec.ibs[k]),
+                 ACT_KINDS.index(spec.acts[k])]
+        floats.append(spec.slopes[k])
+        cin = spec.maps[k]
+    for width, act, slope, pd in spec.pre_hidden:
+        ints += [width, ACT_KINDS.index(act)]
+        floats += [slope, pd]
+    for (rows, cols), (reg, kind) in zip(shapes, kinds):
+        ints += [rows * cols, NORM_KINDS.index(kind), rows, cols]
+        floats += _reg_floats(reg)
+    return _arrays(ints, floats)
+
+
+def _run(prefix, lib, ispec, fspec, tensors, n_steps, lr, dev):
+    n_ws = getattr(lib, prefix + "_workspace_floats")(ispec, fspec)
+    if n_ws < 0:
+        raise ValueError(f"{prefix} CUDA kernel: the spec's tables are out "
+                         "of the kernel's range")
+    ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[0 if t is None else t.data_ptr() for t in tensors])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = getattr(lib, prefix + "_epoch")(ispec, fspec, ptrs, n_steps, lr,
+                                         ws.data_ptr(), dev.index or 0,
+                                         stream)
+    if rc != 0:
+        raise RuntimeError("%s CUDA kernel failed: %s" % (
+            prefix, getattr(lib, prefix + "_error_string")(rc).decode()))
 
 
 def megastep_launch(spec, x, y, bits, gh, gw, params, moms, cm, lr):
-    """One epoch of the CUDA kernel on the current stream: ``params`` and
-    ``moms`` (8 each) are updated in place, ``cm`` (n_steps, 2) written.
-    The caller has checked devices, dtypes, shapes and contiguity."""
-    lib = build()
+    """One epoch of the flagship CUDA kernel on the current stream:
+    ``params`` and ``moms`` (8 each) are updated in place, ``cm`` (n_steps,
+    2) written. The caller has checked devices, dtypes, shapes and
+    contiguity."""
     ispec, fspec = _spec_arrays(spec)
-    ws = torch.empty(lib.megastep_workspace_floats(ispec, fspec),
-                     dtype=torch.float32, device=x.device)
-    tensors = [x, y, *bits, gh, gw, *params, *moms, cm]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.megastep_epoch(ispec, fspec, ptrs, x.shape[0], lr,
-                            ws.data_ptr(), x.device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError("megastep CUDA kernel failed: %s"
-                           % lib.megastep_error_string(rc).decode())
+    _run("megastep", build()["megastep"], ispec, fspec,
+         [x, y, *bits, gh, gw, *params, *moms, cm], x.shape[0], lr,
+         x.device)
+
+
+def deep_launch(spec, x, y, bits, gh, gw, centers, params, moms, cm, lr):
+    """One epoch of the deep CUDA kernel (a DeepSpec; the flat-MLP family
+    passes its zero-level one) on the current stream, as megastep_launch;
+    ``centers`` are the frozen CenteredOut centers or None."""
+    ispec, fspec = _deep_arrays(spec)
+    _run("deep", build()["megastep_deep"], ispec, fspec,
+         [x, y, *bits, gh, gw, centers, *params, *moms, cm], x.shape[0], lr,
+         x.device)

@@ -13,10 +13,16 @@ momentum + max-norm update.
     first use by ``ops/_build.py``) or raise. It counts its kernel launches
     in ``megastep_epoch.launches``.
 
+This module also holds what the three fused families share (the deep family
+in ``megastep_deep.py``, the flat MLP in ``megastep_mlp.py``): the noise
+words, the augmentation with its ColorLayer transform, the Softmax and
+CenteredOut heads, the update, and ``fused_plan``, which tries the families
+in the JAX package's order: flagship, flat MLP, deep.
+
 Randomness is INJECTED: ``epoch_noise_bits`` draws one epoch of 32-bit words
 (held as int32) on the data's device; the step reads uniforms from their low
 24 bits. Shapes and the bit -> variable mapping are the JAX package's
-(``megastep.py:1338-1456``), so a test can hand the same words to both.
+(``megastep.py:1297-1456``), so a test can hand the same words to both.
 
 The TPU layout workarounds (striped or grouped lane slots, the kron (hw, hw)
 smoothing operand, one-hot movement matmuls, SMEM stat blocks) are not
@@ -42,7 +48,8 @@ from ..layers.conv import pool_backward, pool_windows
 __all__ = ["LayerReg", "MegaSpec", "act_of", "spec_from_net",
            "fused_decline_reason", "fused_plan", "FusedPlan",
            "MEGA_LAYER_IDX", "kernel_shapes", "kernel_layout",
-           "framework_layout", "epoch_noise_bits",
+           "framework_layout", "db_lanes", "fb_lanes", "epoch_noise_bits",
+           "color_rows", "softmax_nll", "centered_nll",
            "megastep_epoch_reference", "megastep_epoch"]
 
 # indices of the four parameterized layers in the flagship pattern
@@ -170,9 +177,9 @@ def reg_of(lyr):
                     maxnorm=float(r["maxnorm"]))
 
 
-def _match(net):
-    """(MegaSpec, None) when ``net`` is the flagship pattern, else
-    (None, reason). The one copy of the eligibility rules."""
+def spec_from_net(net):
+    """A MegaSpec when ``net`` matches the flagship pattern, else None (the
+    deep family, whose grammar holds this one, names the reason)."""
     from ..layers import (ConvLayer, ElasticLayer, HiddenLayer, InputLayer,
                           PoolLayer, SoftmaxLayer)
 
@@ -182,28 +189,16 @@ def _match(net):
             and type(L[1]) is ConvLayer and type(L[2]) is PoolLayer
             and type(L[3]) is ConvLayer and type(L[4]) is PoolLayer
             and type(L[5]) is HiddenLayer and type(L[6]) is SoftmaxLayer):
-        return None, ("the layer pattern is not Input/Elastic -> Conv -> "
-                      "Pool -> Conv -> Pool -> Hidden -> Softmax (the other "
-                      "fused families are queued in ROADMAP.md)")
+        return None
     c1, p1, c2, p2, hid, head = L[1], L[2], L[3], L[4], L[5], L[6]
     in_ch = L[0].num_maps
-    if c1.num_prev_maps != in_ch:
-        return None, "conv1's input maps differ from the input layer's"
-    for k, c in ((1, c1), (3, c2)):
-        if c.stride != 1 or c.mode != "valid":
-            return None, (f"layer {k} ConvLayer stride={c.stride} "
-                          f"mode={c.mode!r} (the flagship takes stride 1, "
-                          "'valid')")
-    if p1.pool_sz > c1.filter_sz or p2.pool_sz > c2.filter_sz:
-        return None, "a pool window is wider than the conv filter before it"
-    if head.loss != "nll":
-        return None, f"head loss {head.loss!r} (the flagship takes 'nll')"
     acts = [act_of(c1.actvn), act_of(c2.actvn), act_of(hid.actvn)]
-    if any(a is None for a in acts):
-        return None, "an activation is outside the fused registry"
-    if any(not lyr.reg["rate"] for lyr in (c1, c2, hid, head)):
-        return None, ("a layer is frozen (rate 0); the fused layout carries "
-                      "momentum for every owned layer")
+    if (c1.num_prev_maps != in_ch
+            or any(c.stride != 1 or c.mode != "valid" for c in (c1, c2))
+            or p1.pool_sz > c1.filter_sz or p2.pool_sz > c2.filter_sz
+            or head.loss != "nll" or any(a is None for a in acts)
+            or any(not lyr.reg["rate"] for lyr in (c1, c2, hid, head))):
+        return None
     spec = MegaSpec(
         batch=net.batch_sz, img=L[0].out_sz,
         filt1=c1.filter_sz, filt2=c2.filter_sz,
@@ -216,19 +211,7 @@ def _match(net):
         reg1=reg_of(c1), reg2=reg_of(c2), reg_h=reg_of(hid),
         reg_o=reg_of(head), in_ch=in_ch,
     )
-    if spec.p2 < 1:
-        return None, "the image is too small for two conv/pool levels"
-    return spec, None
-
-
-def spec_from_net(net):
-    """A MegaSpec when ``net`` matches the flagship pattern, else None."""
-    return _match(net)[0]
-
-
-def fused_decline_reason(net):
-    """Why ``spec_from_net(net)`` is None (None when it matches)."""
-    return _match(net)[1]
+    return spec if spec.p2 >= 1 else None
 
 
 class FusedPlan(NamedTuple):
@@ -242,13 +225,37 @@ class FusedPlan(NamedTuple):
 
 
 def fused_plan(net):
-    """FusedPlan for the flagship family, or None. The deep and flat-MLP
-    families of the JAX package are queued in ROADMAP.md."""
+    """FusedPlan of the first family that matches ``net``, in the JAX
+    package's order (megastep.py:569-600): the 2-conv flagship, then the
+    bare flat MLP, then the deep family (any other conv depth, flat nets the
+    MLP declines, CenteredOut heads, Color prefixes); else None."""
+    from . import megastep_deep as deep
+    from . import megastep_mlp as mlp
+
     spec = spec_from_net(net)
-    if spec is None:
+    if spec is not None:
+        return FusedPlan(spec, MEGA_LAYER_IDX, megastep_epoch, kernel_layout,
+                         framework_layout)
+    mspec = mlp.mlp_spec_from_net(net)
+    if mspec is not None:
+        return FusedPlan(mspec, mlp.MLP_LAYER_IDX, mlp.mlp_epoch,
+                         mlp.kernel_layout_mlp, mlp.framework_layout_mlp)
+    dspec = deep.deep_spec_from_net(net)
+    if dspec is not None:
+        return FusedPlan(dspec, deep.deep_layer_idx(net), deep.deep_epoch,
+                         deep.kernel_layout_deep, deep.framework_layout_deep)
+    return None
+
+
+def fused_decline_reason(net):
+    """Why ``fused_plan(net)`` is None (None when a family matches). The
+    deep family's grammar holds the others', so its matcher names the
+    reason."""
+    from . import megastep_deep as deep
+
+    if fused_plan(net) is not None:
         return None
-    return FusedPlan(spec, MEGA_LAYER_IDX, megastep_epoch, kernel_layout,
-                     framework_layout)
+    return deep.deep_decline_reason(net)
 
 
 # ------------------------------------------------------------------ layouts
@@ -294,18 +301,37 @@ def framework_layout(kparams, spec):
 
 # -------------------------------------------------------------------- noise
 
+def db_lanes(spec):
+    """Dropout words per sample and step: the final hidden's width plus the
+    pre-hidden widths (megastep.py:218-227). Pre-hidden j reads lanes
+    [off_j, off_j + width_j); the final hidden reads the last n_hid."""
+    return spec.n_hid + sum(ph[0] for ph in getattr(spec, "pre_hidden", ()))
+
+
+def fb_lanes(spec):
+    """Rows of field words per step: the elastic field's 4, and 4 more when
+    a ColorLayer draws its 3 per-row factors from rows 4-6."""
+    return 8 if getattr(spec, "color", False) else 4
+
+
 def epoch_noise_bits(seed, epoch, spec, n_batches, device):
     """One epoch of injected randomness as int32 views of 32-bit words,
     drawn on ``device`` from a torch.Generator seeded by (seed, epoch):
 
-      ub (nb, 1, 8)          affine scalars (translation, origin, zoom, angle)
-      fb (nb, 4, HW)         Box-Muller source words of the elastic field
-      pb (nb, C0*B, HW)      pflip uniforms
-      db (nb, B, n_hid)      dropout uniforms
+      ub (nb, 1, 8)            affine scalars (translation, origin, zoom,
+                               angle)
+      fb (nb, fb_lanes, HW)    Box-Muller source words of the elastic field
+                               (rows 0-3), ColorLayer factors (rows 4-6 at
+                               columns c*B + b)
+      pb (nb, C0*B, HW)        pflip uniforms
+      db (nb, B, db_lanes)     dropout uniforms
 
     The same shapes and bit -> variable mapping as the JAX package's
-    ``epoch_noise_bits`` (its fb is drawn (HW, 4) and shipped transposed);
-    the words themselves differ, since the generators differ."""
+    ``epoch_noise_bits`` (its fb is drawn (HW, lanes) and shipped
+    transposed); the words themselves differ, since the generators differ.
+    Any spec with ``batch``, ``hw``, ``in_ch`` and ``n_hid`` (and the deep
+    family's ``color`` and ``pre_hidden``) works; the flagship's words for
+    a seed do not change with the extra fields."""
     state = np.random.SeedSequence([int(seed), int(epoch)]).generate_state(
         1, np.uint64)[0]
     gen = torch.Generator(device=device)
@@ -316,8 +342,8 @@ def epoch_noise_bits(seed, epoch, spec, n_batches, device):
                              generator=gen, device=device)
 
     B, HW, C0 = spec.batch, spec.hw, spec.in_ch
-    return (words(n_batches, 1, 8), words(n_batches, 4, HW),
-            words(n_batches, C0 * B, HW), words(n_batches, B, spec.n_hid))
+    return (words(n_batches, 1, 8), words(n_batches, fb_lanes(spec), HW),
+            words(n_batches, C0 * B, HW), words(n_batches, B, db_lanes(spec)))
 
 
 def _u01(bits):
@@ -373,6 +399,21 @@ def smoothing_factors(spec, device):
             torch.as_tensor(gw, device=device))
 
 
+def _smooth(gh, n, gw):
+    """The separable Gaussian smoothing G_h @ n @ G_w^T, each sum taken
+    k = 0, 1, ... with one f32 multiply and one f32 add a term: the order
+    of the CUDA kernels' k_warp (csrc/stages.cuh). A library product may
+    sum in another order, and the warp's last bits decide which resampled
+    pixels, and so which pool windows, tie exactly."""
+    t = torch.zeros_like(n)
+    for k in range(n.shape[0]):
+        t = t + gh[:, k:k + 1] * n[k:k + 1, :]
+    s = torch.zeros_like(n)
+    for k in range(n.shape[0]):
+        s = s + t[:, k:k + 1] * gw[None, :, k]
+    return s
+
+
 def warp_field(spec, ub, fb, gh, gw):
     """The step's shared warp target (ty, tx), each (HW,) f32, from its
     affine words ``ub`` (8,) and field words ``fb`` (4, HW)."""
@@ -393,9 +434,8 @@ def warp_field(spec, ub, fb, gh, gw):
                                * torch.cos(2.0 * math.pi * u2a))
         n1 = spec.magnitude * (torch.sqrt(-2.0 * torch.log(u1b))
                                * torch.sin(2.0 * math.pi * u2b))
-        # separable Gaussian smoothing: G_h @ field @ G_w^T
-        ty = ty + (gh @ n0.reshape(H, H) @ gw.T).reshape(HW)
-        tx = tx + (gh @ n1.reshape(H, H) @ gw.T).reshape(HW)
+        ty = ty + _smooth(gh, n0.reshape(H, H), gw).reshape(HW)
+        tx = tx + _smooth(gh, n1.reshape(H, H), gw).reshape(HW)
     if spec.zoom != 1 or spec.angle:
         oy = (0.5 + 0.25 * u[2]) * H
         ox = (0.5 + 0.25 * u[3]) * H
@@ -414,10 +454,37 @@ def warp_field(spec, ub, fb, gh, gw):
     return torch.clamp(ty, 0.0, hi), torch.clamp(tx, 0.0, hi)
 
 
+def _pow01(x, g):
+    """x**g for x in [0, 1] as exp(g log x), with x == 0 giving 0 exactly
+    (megastep.py:1290-1294)."""
+    return torch.where(x > 0.0,
+                       torch.exp(g * torch.log(torch.clamp(x, min=1e-30))),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def color_rows(spec, x, cbits):
+    """The ColorLayer train transform (color.py:37-43; megastep.py:
+    1297-1311) on channel-major rows (c*B + b, HW): white balance
+    exp(ln b * u), clip to [0, 1], gamma x**g1, inverse gamma 1-(1-x)**g2,
+    with u = 2*U - 1 drawn per row from ``cbits`` (rows, 3)."""
+    def pos_rand(col, a):
+        u = 2.0 * _u01(cbits[:, col:col + 1]) - 1.0
+        return torch.exp(math.log(a) * u)
+
+    xm = x * (1.0 / spec.maxval)
+    xm = torch.clamp(xm * pos_rand(0, spec.balance), 0.0, 1.0)
+    xm = _pow01(xm, pos_rand(1, spec.gamma))
+    xm = 1.0 - _pow01(1.0 - xm, pos_rand(2, spec.gamma))
+    return xm * spec.maxval
+
+
 def augment(spec, x, ub, fb, pb, gh, gw):
-    """Invert -> resample every row of ``x`` (C0*B, HW) at the step's one
-    warp (nearest: floor(t+.5); bilinear: 4 taps) -> pflip."""
+    """[Color ->] invert -> resample every row of ``x`` (C0*B, HW) at the
+    step's one warp (nearest: floor(t+.5); bilinear: 4 taps) -> pflip. The
+    color factors of row r come from field-word rows 4-6, column r."""
     H = spec.img
+    if getattr(spec, "color", False):
+        x = color_rows(spec, x, fb[4:7, :x.shape[0]].T)
     if spec.invert:
         x = 1.0 - x
     if warp_active(spec):
@@ -523,21 +590,12 @@ def step_reference(spec, x, y, ub, fb, pb, db, params, gh, gw):
     else:
         mask, h3d = None, h3
     z4 = h3d @ wo + bo
-    zc = z4 - z4.amax(dim=1, keepdim=True)
-    logp = zc - torch.log(torch.exp(zc).sum(dim=1, keepdim=True))
-    onehot = F.one_hot(y.long(), spec.n_out).to(torch.float32)
-    true_logp = (logp * onehot).sum(dim=1)
-    cost = -true_logp.sum() / B
-    for reg, ts in ((spec.reg1, (w1, b1)), (spec.reg2, (w2, b2)),
-                    (spec.reg_h, (wh, bh)), (spec.reg_o, (wo, bo))):
-        if reg.L1:
-            cost = cost + reg.L1 * sum(t.abs().sum() for t in ts)
-        if reg.L2:
-            cost = cost + reg.L2 * sum((t * t).sum() for t in ts)
-    minf = true_logp.min()
+    cost, minf, dz4 = softmax_nll(z4, y, B)
+    cost = cost + weight_cost(
+        [(spec.reg1, (w1, b1)), (spec.reg2, (w2, b2)),
+         (spec.reg_h, (wh, bh)), (spec.reg_o, (wo, bo))])
 
     # hand-derived backward
-    dz4 = (torch.exp(logp) - onehot) * (1.0 / B)
     dwo = h3d.T @ dz4
     dbo = dz4.sum(dim=0, keepdim=True)
     dh3 = dz4 @ wo.T
@@ -561,6 +619,77 @@ def step_reference(spec, x, y, ub, fb, pb, db, params, gh, gw):
     return cost, minf, (dw1, db1, dw2, db2, dwh, dbh, dwo, dbo)
 
 
+def softmax_nll(z4, y, batch):
+    """Softmax head, loss nll (megastep.py:1552-1557, 1681-1682): (mean
+    NLL, min true-class log-prob, dL/dz4)."""
+    zc = z4 - z4.amax(dim=1, keepdim=True)
+    logp = zc - torch.log(torch.exp(zc).sum(dim=1, keepdim=True))
+    onehot = F.one_hot(y.long(), z4.shape[1]).to(torch.float32)
+    true_logp = (logp * onehot).sum(dim=1)
+    dz4 = (torch.exp(logp) - onehot) * (1.0 / batch)
+    return -true_logp.sum() / batch, true_logp.min(), dz4
+
+
+LOGIT_EPS = 0.001
+
+
+def centered_nll(spec, z4, y, centers):
+    """CenteredOut head, loss nll, forward and backward (megastep.py:
+    1568-1657): (mean NLL, min watchdog feature, dL/dz4, dL/dcenters or
+    None). ``centers`` (n_classes, n_feats).
+
+    LOGIT: sigmoid features squeezed into [eps, 1-eps] before the bit
+    probabilities; the watchdog reads the raw sigmoid. RBF: squared
+    distances by the expansion ||v||^2 - 2 v.c + ||c||^2, the junk column
+    only in the partition sum. The watchdog feature is features[b, y] with
+    y clamped to the feature width (n_classes may exceed it)."""
+    B, NF = z4.shape
+    yl = y.long()
+    if spec.head == "logit":
+        s = 1.0 / (1.0 + torch.exp(-z4))
+        v = s * (1.0 - 2.0 * LOGIT_EPS) + LOGIT_EPS
+        cy = centers[yl]                      # the true class's row
+        bp = cy * v + (1.0 - cy) * (1.0 - v)
+        true_logp = torch.log(bp).sum(dim=1)
+        feats = s
+        dv = (1.0 - 2.0 * cy) / (B * bp)
+        dz4 = dv * (1.0 - 2.0 * LOGIT_EPS) * s * (1.0 - s)
+        dcenters = None
+    else:
+        onehot = F.one_hot(yl, spec.n_classes).to(torch.float32)
+        t = torch.tanh(z4 * (2.0 / 3.0))
+        v = 1.7 * t
+        d = ((v * v).sum(dim=1, keepdim=True) - 2.0 * (v @ centers.T)
+             + (centers * centers).sum(dim=1)[None, :])
+        zc = -d
+        m = torch.clamp(zc.amax(dim=1, keepdim=True), min=-spec.junk_dist)
+        lse = torch.log(torch.exp(zc - m).sum(dim=1, keepdim=True)
+                        + torch.exp(-spec.junk_dist - m))
+        logp = zc - m - lse
+        true_logp = (logp * onehot).sum(dim=1)
+        feats = v
+        dd = -((torch.exp(logp) - onehot) * (1.0 / B))    # dL/d dists
+        rs = dd.sum(dim=1, keepdim=True)
+        dv = 2.0 * (v * rs - dd @ centers)
+        dz4 = dv * 1.7 * (2.0 / 3.0) * (1.0 - t * t)
+        dcenters = (2.0 * (centers * dd.sum(dim=0)[:, None] - dd.T @ v)
+                    if spec.learn_centers else None)
+    yc = torch.clamp(yl, max=NF - 1)
+    minf = feats[torch.arange(B, device=z4.device), yc].min()
+    return -true_logp.sum() / B, minf, dz4, dcenters
+
+
+def weight_cost(groups):
+    """L1/L2 weight cost of (LayerReg, tensors) groups (layer.py:109-117)."""
+    cost = 0.0
+    for reg, ts in groups:
+        if reg.L1:
+            cost = cost + reg.L1 * sum(t.abs().sum() for t in ts)
+        if reg.L2:
+            cost = cost + reg.L2 * sum((t * t).sum() for t in ts)
+    return cost
+
+
 def reg_kinds(spec):
     """(LayerReg, max-norm kind) per kernel-layout tensor: conv kernels are
     rows, dense weights columns, biases clip."""
@@ -581,9 +710,10 @@ def _maxnorm(p, maxnorm, kind):
     return p * ((1e-7 + desired) / (1e-7 + norms))
 
 
-def apply_updates(spec, params, moms, grads, lr):
-    """Old-accumulator momentum + max-norm, in place (layer.py:82-103)."""
-    for p, a, g, (reg, kind) in zip(params, moms, grads, reg_kinds(spec)):
+def apply_updates(kinds, params, moms, grads, lr):
+    """Old-accumulator momentum + max-norm, in place (layer.py:82-103);
+    ``kinds`` is the (LayerReg, max-norm kind) list of the state tensors."""
+    for p, a, g, (reg, kind) in zip(params, moms, grads, kinds):
         if not reg.rate:
             continue
         if reg.L2:
@@ -614,36 +744,39 @@ def megastep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits, lr,
             spec, x_steps[s], y_steps[s], ub[s, 0], fb[s], pb[s], db[s],
             params, gh, gw)
         cm[s, 0], cm[s, 1] = cost, minf
-        apply_updates(spec, params, moms, grads, lr)
+        apply_updates(reg_kinds(spec), params, moms, grads, lr)
     return params, moms, cm
 
 
 # --------------------------------------------------------------- the kernel
 
-def _check_inputs(kparams, kmoms, x_steps, y_steps, bits, spec):
+def check_epoch_inputs(name, kparams, kmoms, x_steps, y_steps, bits, spec,
+                       shapes):
+    """Raise unless every tensor of an epoch call has the shape, dtype,
+    device and contiguity its kernel reads; ``shapes`` are the state's."""
     nb = x_steps.shape[0]
     B, HW, C0 = spec.batch, spec.hw, spec.in_ch
     want = [(x_steps, (nb, C0 * B, HW), torch.float32),
             (y_steps, (nb, B), torch.int32),
             (bits[0], (nb, 1, 8), torch.int32),
-            (bits[1], (nb, 4, HW), torch.int32),
+            (bits[1], (nb, fb_lanes(spec), HW), torch.int32),
             (bits[2], (nb, C0 * B, HW), torch.int32),
-            (bits[3], (nb, B, spec.n_hid), torch.int32)]
-    shapes = kernel_shapes(spec)
+            (bits[3], (nb, B, db_lanes(spec)), torch.int32)]
     want += [(t, s, torch.float32) for t, s in zip(kparams, shapes)]
     want += [(t, s, torch.float32) for t, s in zip(kmoms, shapes)]
-    if len(kparams) != 8 or len(kmoms) != 8:
-        raise ValueError("megastep_epoch takes 8 params and 8 moms")
+    if len(kparams) != len(shapes) or len(kmoms) != len(shapes):
+        raise ValueError(f"{name} takes {len(shapes)} params and "
+                         f"{len(shapes)} moms")
     dev = x_steps.device
     for t, shape, dtype in want:
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
-            raise ValueError(f"megastep_epoch: got {tuple(t.shape)} "
+            raise ValueError(f"{name}: got {tuple(t.shape)} "
                              f"{t.dtype}, expected {shape} {dtype}")
         if t.device != dev:
-            raise ValueError("megastep_epoch: all tensors must be on "
+            raise ValueError(f"{name}: all tensors must be on "
                              f"{dev} (got {t.device})")
         if not t.is_contiguous():
-            raise ValueError("megastep_epoch: tensors must be contiguous")
+            raise ValueError(f"{name}: tensors must be contiguous")
 
 
 def megastep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
@@ -658,7 +791,8 @@ def megastep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
                                         bits, lr, spec)
     if x_steps.device.type != "cuda":
         raise ValueError(f"megastep_epoch: no kernel for {x_steps.device}")
-    _check_inputs(kparams, kmoms, x_steps, y_steps, bits, spec)
+    check_epoch_inputs("megastep_epoch", kparams, kmoms, x_steps, y_steps,
+                       bits, spec, kernel_shapes(spec))
     from . import _build
 
     params = [t.clone() for t in kparams]   # updated in place by the kernel

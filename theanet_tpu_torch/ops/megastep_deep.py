@@ -1,0 +1,507 @@
+"""Whole-epoch fused training of conv stacks of any depth and of flat nets.
+
+Port of ``theanet_tpu/ops/megastep_deep.py``. One call trains a whole epoch
+of ``[Color ->] Input/Elastic -> (Conv -> [Pool])*n -> (Hidden ->
+[DropOut])*m -> Head`` for n >= 0 and m >= 1: per step, the color jitter
+and elastic augmentation from injected bits, the forward pass, the
+hand-derived backward, L1/L2 gradients and the old-accumulator momentum +
+max-norm update of every state tensor.
+
+  * ``deep_epoch_reference`` is the plain PyTorch twin (of the JAX
+    package's ``_kernel_deep`` and of the CUDA kernel): the specification
+    the kernel is held to, and what CPU tensors run.
+  * ``deep_epoch`` is the wrapper: CPU tensors go to the twin; CUDA tensors
+    launch ``csrc/megastep_deep.cu`` (one C call per epoch) or raise. It
+    counts its kernel launches in ``deep_epoch.launches``.
+
+The grammar the port takes (the JAX family's, less what ROADMAP.md queues):
+valid stride-1 convs, each followed by a PoolLayer of any size (with or
+without ignore_border) or by none (the identity pool); Hidden layers each
+with an optional DropOutLayer, whose rate folds into the layer's as
+1-(1-p1)(1-p2); a Softmax(nll) head or a CenteredOut(nll) head, LOGIT
+(frozen centers) or RBF (learned or frozen centers). The bare 2-conv
+Softmax(nll) pattern stays with the flagship family when its matcher takes
+it, and the bare flat Input/Elastic -> Hidden -> Softmax(nll) pattern with
+the flat-MLP family (``fused_plan`` tries flagship, MLP, deep). The TPU's
+VMEM gate and grouped lane-slot layout have no counterpart: the card holds
+every shipped net whole.
+
+Kernel-layout state, per conv level the weights (M, F*F*Cin) indexed
+(u*F+v)*Cin + c and the bias column (M, 1); per dense layer the weights
+(in, out) and the bias row (1, out); learned RBF centers last.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .megastep import (LayerReg, _act, _conv_true, _conv_true_dgrad,
+                       _conv_true_wgrad, _dact, _pool, _u01, act_of, aug_of,
+                       apply_updates, augment, centered_nll,
+                       check_epoch_inputs, reg_of, smoothing_factors,
+                       softmax_nll, spec_from_net, weight_cost)
+from ..layers.conv import pool_backward
+
+__all__ = ["DeepSpec", "deep_spec_from_net", "deep_decline_reason",
+           "deep_layer_idx", "deep_kernel_shapes", "deep_reg_kinds",
+           "kernel_layout_deep", "framework_layout_deep",
+           "deep_epoch_reference", "deep_epoch"]
+
+HEADS = ("softmax", "logit", "rbf")
+
+
+class DeepSpec(NamedTuple):
+    """The JAX DeepSpec's fields for the port's grammar, without the TPU
+    layout fields (group_g, exact_movement)."""
+    batch: int
+    img: int            # input H = W
+    filts: tuple        # filter size per conv level
+    pools: tuple        # pool window/stride per level (1: no PoolLayer)
+    ibs: tuple          # PoolLayer ignore_border per level
+    maps: tuple         # output maps per conv level
+    slopes: tuple       # conv activation slope per level (see act_of)
+    n_hid: int          # the final hidden layer's width
+    n_out: int          # head width: classes (softmax) or features
+    slope_h: float
+    pdrop: float        # the final hidden's dropout, DropOut folded in
+    translation: float
+    zoom: float
+    magnitude: float
+    sigma: int
+    pflip: float
+    angle: float
+    invert: bool
+    nearest: bool
+    regs: tuple         # LayerReg per conv level
+    reg_h: LayerReg
+    reg_o: LayerReg
+    in_ch: int = 1
+    head: str = "softmax"        # 'softmax' | 'logit' | 'rbf'
+    n_classes: int = 0
+    junk_dist: float = 0.0       # RBF junk column, inf clamped to 1e30
+    learn_centers: bool = False
+    centers_bytes: bytes = b""   # frozen centers (f32 row-major)
+    color: bool = False          # a ColorLayer that is not the identity
+    balance: float = 1.0
+    gamma: float = 1.0
+    maxval: float = 1.0
+    acts: tuple = ()             # activation kind per conv level
+    act_h: str = "leaky"
+    # hidden layers before the final one: (width, act kind, slope, pdrop)
+    pre_hidden: tuple = ()
+    regs_pre: tuple = ()
+
+    @property
+    def hw(self):
+        return self.img * self.img
+
+    @property
+    def n_levels(self):
+        return len(self.filts)
+
+    @property
+    def sides(self):
+        """Per level (input side, conv output side, pooled side)."""
+        out, s = [], self.img
+        for f, p, ib in zip(self.filts, self.pools, self.ibs):
+            c = s - f + 1
+            po = c // p if ib else -(-c // p)
+            out.append((s, c, po))
+            s = po
+        return tuple(out)
+
+    @property
+    def n_flat(self):
+        if not self.maps:
+            return self.in_ch * self.hw
+        return self.maps[-1] * self.sides[-1][2] ** 2
+
+
+# ----------------------------------------------------------------- matcher
+
+_QUEUED = "queued in ROADMAP.md as the next deep-family slice"
+
+
+def _head_reason(head):
+    """Decline reason of a head layer the port's deep family does not take
+    (None when it takes it)."""
+    name = type(head).__name__
+    if name in ("HingeLayer", "ExpLossLayer", "SoftAuxLayer"):
+        return (f"{name} head: the port's fused families take Softmax(nll) "
+                f"and CenteredOut(nll) heads ({name} is {_QUEUED})")
+    if name == "SoftmaxLayer" and head.loss != "nll":
+        kind = ("nllsq" if head.loss == "nllsq" else "truncated nll<NN>"
+                if head.loss.startswith("nll") else head.loss)
+        return (f"head loss {head.loss!r} ({kind}): the port's fused heads "
+                f"take 'nll' ({kind} is {_QUEUED})")
+    if name == "CenteredOutLayer" and head.loss != "nll":
+        return (f"CenteredOutLayer loss {head.loss!r}: the fused centered "
+                "head is derived for 'nll'")
+    if name not in ("SoftmaxLayer", "CenteredOutLayer"):
+        return f"the last layer {name} is not an output head"
+    return None
+
+
+def _match(net):
+    """(DeepSpec, None) when ``net`` is in the port's deep grammar, else
+    (None, reason). The one copy of the family's eligibility rules."""
+    from ..layers import (CenteredOutLayer, ColorLayer, ConvLayer,
+                          DropOutLayer, ElasticLayer, HiddenLayer,
+                          InputLayer, PoolLayer, SoftmaxLayer)
+
+    L = net.net_layers
+    reason = _head_reason(L[-1])
+    if reason:
+        return None, reason
+    for k, lyr in enumerate(L):
+        name = type(lyr).__name__
+        if name in ("MeanLayer", "AuxConcatLayer"):
+            return None, f"layer {k} {name} ({name} is {_QUEUED})"
+        if type(lyr) is ConvLayer and lyr.mode != "valid":
+            return None, (f"layer {k} ConvLayer mode={lyr.mode!r}: the "
+                          "port's fused families take 'valid' convs "
+                          f"('same' and 'full' are {_QUEUED})")
+        if type(lyr) is ConvLayer and lyr.stride != 1:
+            return None, (f"layer {k} ConvLayer stride={lyr.stride}: the "
+                          "port's fused families take stride 1 (strided "
+                          f"convs are {_QUEUED})")
+        actvn = getattr(lyr, "actvn", None)
+        if (actvn is not None and act_of(actvn) is None
+                and not isinstance(lyr, (SoftmaxLayer, CenteredOutLayer))):
+            return None, (f"layer {k} activation {actvn!r} is outside the "
+                          "fused registry")
+        reg = getattr(lyr, "reg", None)
+        if isinstance(reg, dict) and not reg["rate"]:
+            return None, (f"layer {k} {name} is frozen (rate 0); the fused "
+                          "layouts carry momentum for every owned layer")
+    grammar = ("the layer pattern is outside the fused grammar ([Color ->] "
+               "Input/Elastic -> (Conv -> [Pool])*n -> (Hidden -> "
+               "[DropOut])*m -> Softmax/CenteredOut, m >= 1)")
+
+    i, color = 0, dict(color=False)
+    if type(L[0]) is ColorLayer:
+        cl = L[0]
+        if not cl.identity:
+            if cl.num_maps * net.batch_sz > cl.out_sz ** 2:
+                return None, ("the ColorLayer's draws ride in the field "
+                              "words' columns: num_maps x BATCH_SZ must be "
+                              "at most img_sz^2")
+            color = dict(color=True, balance=float(cl.balance),
+                         gamma=float(cl.gamma), maxval=float(cl.maxval))
+        i = 2 if len(L) > 1 and type(L[1]) is ElasticLayer else 1
+    elif type(L[0]) in (InputLayer, ElasticLayer):
+        i = 1
+    aug_src = L[i - 1]
+
+    convs, pools = [], []
+    while i < len(L) and type(L[i]) is ConvLayer:
+        convs.append(L[i])
+        i += 1
+        if i < len(L) and type(L[i]) is PoolLayer:
+            pools.append((L[i].pool_sz, bool(L[i].ignore_border)))
+            i += 1
+        else:
+            pools.append((1, False))      # no PoolLayer: the identity pool
+    hid_groups = []
+    while i < len(L) and type(L[i]) is HiddenLayer:
+        h, pd = L[i], 0.0
+        i += 1
+        if i < len(L) and type(L[i]) is DropOutLayer:
+            pd = float(L[i].pdrop)
+            i += 1
+        hid_groups.append((h, 1.0 - (1.0 - float(h.pdrop)) * (1.0 - pd)))
+    if not hid_groups or i != len(L) - 1:
+        return None, grammar
+    head = L[i]
+    hid, pdrop = hid_groups[-1]
+    n = len(convs)
+    if spec_from_net(net) is not None:   # as megastep_deep.py:480-493
+        return None, "the 2-conv Softmax pattern is the flagship family's"
+    in_ch = L[0].num_maps
+    if n and convs[0].num_prev_maps != in_ch:
+        return None, "the first conv's input maps differ from the input's"
+    if type(head) is CenteredOutLayer:
+        head_cfg = dict(head=head.kind.lower(), n_classes=head.n_classes,
+                        junk_dist=min(float(head.junk_dist), 1e30),
+                        learn_centers=bool(head.learn_centers))
+        if not head.learn_centers:
+            head_cfg["centers_bytes"] = np.ascontiguousarray(
+                head.centers_init, np.float32).tobytes()
+    else:
+        head_cfg = dict(head="softmax", n_classes=head.n_out)
+    conv_acts = [act_of(c.actvn) for c in convs]
+    act_h = act_of(hid.actvn)
+    pre = tuple((h.n_out, *act_of(h.actvn), pd) for h, pd in hid_groups[:-1])
+    spec = DeepSpec(
+        batch=net.batch_sz, img=L[0].out_sz,
+        filts=tuple(c.filter_sz for c in convs),
+        pools=tuple(p for p, _ in pools), ibs=tuple(ib for _, ib in pools),
+        maps=tuple(c.num_maps for c in convs),
+        slopes=tuple(s for _, s in conv_acts),
+        acts=tuple(k for k, _ in conv_acts),
+        n_hid=hid.n_out, n_out=head.n_out, slope_h=act_h[1], act_h=act_h[0],
+        pdrop=pdrop, **aug_of(aug_src),
+        regs=tuple(reg_of(c) for c in convs), reg_h=reg_of(hid),
+        reg_o=reg_of(head), in_ch=in_ch, pre_hidden=pre,
+        regs_pre=tuple(reg_of(h) for h, _ in hid_groups[:-1]),
+        **head_cfg, **color)
+    if any(c <= 0 or po <= 0 for _, c, po in spec.sides):
+        return None, "the image is too small for the conv/pool levels"
+    return spec, None
+
+
+def deep_spec_from_net(net):
+    """A DeepSpec when ``net`` is in the port's deep grammar, else None."""
+    return _match(net)[0]
+
+
+def deep_decline_reason(net):
+    """Why ``deep_spec_from_net(net)`` is None (None when it matches)."""
+    return _match(net)[1]
+
+
+def deep_layer_idx(net):
+    """Net-layer indices of the parameterized layers of a matched net: the
+    convs, the hiddens and the head (heads are HiddenLayer subclasses)."""
+    from ..layers import ConvLayer, HiddenLayer
+
+    return tuple(i for i, lyr in enumerate(net.net_layers)
+                 if isinstance(lyr, (ConvLayer, HiddenLayer)))
+
+
+# ------------------------------------------------------------------ layouts
+
+def deep_kernel_shapes(spec):
+    """The kernel-layout state shapes, in layout order."""
+    shapes, prev = [], spec.in_ch
+    for F_, m in zip(spec.filts, spec.maps):
+        shapes += [(m, F_ * F_ * prev), (m, 1)]
+        prev = m
+    prev = spec.n_flat
+    for nh in (ph[0] for ph in spec.pre_hidden):
+        shapes += [(prev, nh), (1, nh)]
+        prev = nh
+    shapes += [(prev, spec.n_hid), (1, spec.n_hid),
+               (spec.n_hid, spec.n_out), (1, spec.n_out)]
+    if spec.learn_centers:
+        shapes.append((spec.n_classes, spec.n_out))
+    return shapes
+
+
+def deep_reg_kinds(spec):
+    """(LayerReg, max-norm kind) per kernel-layout tensor: conv kernels are
+    rows, dense weights and centers columns, biases clip."""
+    out = []
+    for reg in spec.regs:
+        out += [(reg, "rows"), (reg, "bias")]
+    for reg in spec.regs_pre + (spec.reg_h, spec.reg_o):
+        out += [(reg, "cols"), (reg, "bias")]
+    if spec.learn_centers:
+        out.append((spec.reg_o, "cols"))
+    return out
+
+
+def kernel_layout_deep(allwts, spec):
+    """Reference-layout tensors of the owned layers (convs, hiddens, head)
+    -> the contiguous kernel-layout state. A frozen-centers head's third
+    tensor stays out of the state."""
+    out, prev = [], spec.in_ch
+    for k, (F_, m) in enumerate(zip(spec.filts, spec.maps)):
+        w, b = allwts[k][0], allwts[k][1]
+        out += [w.permute(0, 2, 3, 1).reshape(m, F_ * F_ * prev),
+                b.reshape(m, 1)]
+        prev = m
+    for lw in allwts[spec.n_levels:]:
+        out += [lw[0], lw[1].reshape(1, -1)]
+    if spec.learn_centers:
+        out.append(allwts[-1][2])
+    return [t.contiguous() for t in out]
+
+
+def framework_layout_deep(kparams, spec):
+    """Inverse of kernel_layout_deep: one [w, b(, centers)] list per owned
+    layer."""
+    out, prev = [], spec.in_ch
+    for k, (F_, m) in enumerate(zip(spec.filts, spec.maps)):
+        w = kparams[2 * k].reshape(m, F_, F_, prev).permute(0, 3, 1, 2)
+        out.append([w.contiguous(), kparams[2 * k + 1].reshape(m)])
+        prev = m
+    j = 2 * spec.n_levels
+    while j + 1 < len(kparams):
+        out.append([kparams[j], kparams[j + 1].reshape(-1)])
+        j += 2
+    if spec.learn_centers:
+        out[-1].append(kparams[-1])
+    return out
+
+
+def frozen_centers(spec, device):
+    """The frozen CenteredOut centers (n_classes, n_feats) on ``device``, or
+    None when the head has none (softmax, learned centers)."""
+    if spec.head == "softmax" or spec.learn_centers:
+        return None
+    c = np.frombuffer(spec.centers_bytes, np.float32).reshape(
+        spec.n_classes, spec.n_out)
+    return torch.as_tensor(c.copy(), device=device)
+
+
+# ------------------------------------------------------------- plain twin
+
+def deep_step_reference(spec, x, y, ub, fb, pb, db, params, centers, gh, gw):
+    """One step of the deep family in plain PyTorch (``_deep_fwd_bwd``,
+    megastep_deep.py:1176-1524): augmentation, forward, hand-derived
+    backward. ``x`` (C0*B, HW) channel-major rows, ``y`` (B,) int32, one
+    step's noise words. Returns (cost, minf, grads) in kernel layout."""
+    B, H, C0, n = spec.batch, spec.img, spec.in_ch, spec.n_levels
+    m = len(spec.pre_hidden)
+    ws, bs = params[0:2 * n:2], params[1:2 * n:2]
+    pre = [(params[2 * n + 2 * j], params[2 * n + 2 * j + 1])
+           for j in range(m)]
+    wh, bh, wo, bo = params[2 * n + 2 * m:2 * n + 2 * m + 4]
+    if spec.learn_centers:
+        centers = params[-1]
+
+    a = augment(spec, x, ub, fb, pb, gh, gw)
+    inp = a.reshape(C0, B, H, H).transpose(0, 1)           # (B, C0, H, H)
+    saved, cin = [], C0
+    for k in range(n):
+        M = spec.maps[k]
+        z = _conv_true(inp, ws[k], spec.filts[k], cin) + bs[k].reshape(
+            1, M, 1, 1)
+        r, p = _pool(spec.pools[k], spec.ibs[k],
+                     _act(z, spec.acts[k], spec.slopes[k]))
+        saved.append((inp, z, r, p))
+        inp, cin = p, M
+    f = inp.reshape(B, -1)       # flat nets: (B, C0*HW), flatten(2) order
+
+    # dense tail: pre-hiddens read db lanes [off, off + width), the final
+    # hidden the last n_hid lanes
+    pre_saved, off = [], 0
+    for (nh, kind, slope, pd), (w, b) in zip(spec.pre_hidden, pre):
+        z = f @ w + b
+        h = _act(z, kind, slope)
+        mask = ((_u01(db[:, off:off + nh]) >= pd).to(torch.float32)
+                if pd else None)
+        pre_saved.append((f, z, mask))
+        f = h * mask if pd else h
+        off += nh
+    z3 = f @ wh + bh
+    h3 = _act(z3, spec.act_h, spec.slope_h)
+    mask3 = ((_u01(db[:, db.shape[1] - spec.n_hid:]) >= spec.pdrop)
+             .to(torch.float32) if spec.pdrop else None)
+    h3d = h3 * mask3 if spec.pdrop else h3
+    z4 = h3d @ wo + bo
+    if spec.head == "softmax":
+        cost, minf, dz4 = softmax_nll(z4, y, B)
+        dcenters = None
+    else:
+        cost, minf, dz4, dcenters = centered_nll(spec, z4, y, centers)
+    head_wts = (wo, bo, centers) if spec.learn_centers else (wo, bo)
+    cost = cost + weight_cost(
+        list(zip(spec.regs, zip(ws, bs))) + list(zip(spec.regs_pre, pre))
+        + [(spec.reg_h, (wh, bh)), (spec.reg_o, head_wts)])
+
+    # hand-derived backward
+    dwo = h3d.T @ dz4
+    dbo = dz4.sum(dim=0, keepdim=True)
+    dh3 = dz4 @ wo.T
+    if spec.pdrop:
+        dh3 = dh3 * mask3
+    dz3 = dh3 * _dact(z3, spec.act_h, spec.slope_h)
+    dwh = f.T @ dz3
+    dbh = dz3.sum(dim=0, keepdim=True)
+    df = dz3 @ wh.T if (n or m) else None
+    dpre = []
+    for j in range(m - 1, -1, -1):
+        f_in, z, mask = pre_saved[j]
+        _, kind, slope, pd = spec.pre_hidden[j]
+        dz = (df * mask if pd else df) * _dact(z, kind, slope)
+        dpre.append((f_in.T @ dz, dz.sum(dim=0, keepdim=True)))
+        df = dz @ pre[j][0].T if (j or n) else None
+    dpre.reverse()
+    dconv = []
+    if n:
+        dp = df.reshape(saved[-1][3].shape)
+    for k in range(n - 1, -1, -1):
+        inp, z, r, p = saved[k]
+        side_in, c, _ = spec.sides[k]
+        dz = pool_backward(r, p, dp, c) * _dact(z, spec.acts[k],
+                                                spec.slopes[k])
+        dconv.append((_conv_true_wgrad(inp, dz, spec.filts[k]),
+                      dz.sum(dim=(0, 2, 3)).reshape(-1, 1)))
+        if k:
+            dp = _conv_true_dgrad(dz, ws[k], spec.filts[k], spec.maps[k - 1],
+                                  side_in)
+    dconv.reverse()
+    grads = [g for pair in dconv + dpre for g in pair]
+    grads += [dwh, dbh, dwo, dbo]
+    if spec.learn_centers:
+        grads.append(dcenters)
+    return cost, minf, grads
+
+
+@torch.no_grad()
+def deep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
+    """The plain PyTorch twin of the CUDA deep kernel (and of the JAX
+    package's ``_kernel_deep``). ``x_steps`` (nb, C0*B, HW) f32
+    channel-major rows, ``y_steps`` (nb, B) int32, ``bits`` from
+    epoch_noise_bits. Returns (kparams, kmoms, cost_minf (nb, 2)) as new
+    tensors."""
+    ub, fb, pb, db = bits
+    nb, dev = x_steps.shape[0], x_steps.device
+    lr = torch.tensor(lr, dtype=torch.float32, device=dev)
+    params = [t.clone() for t in kparams]
+    moms = [t.clone() for t in kmoms]
+    gh, gw = smoothing_factors(spec, dev)
+    centers = frozen_centers(spec, dev)
+    kinds = deep_reg_kinds(spec)
+    cm = torch.empty((nb, 2), dtype=torch.float32, device=dev)
+    for s in range(nb):
+        cost, minf, grads = deep_step_reference(
+            spec, x_steps[s], y_steps[s], ub[s, 0], fb[s], pb[s], db[s],
+            params, centers, gh, gw)
+        cm[s, 0], cm[s, 1] = cost, minf
+        apply_updates(kinds, params, moms, grads, lr)
+    return params, moms, cm
+
+
+# --------------------------------------------------------------- the kernel
+
+def launch_deep(name, kparams, kmoms, x_steps, y_steps, bits, lr, spec):
+    """Check the inputs and run one epoch of csrc/megastep_deep.cu on the
+    current stream; returns (kparams, kmoms, cost_minf) as new tensors."""
+    from . import _build
+
+    check_epoch_inputs(name, kparams, kmoms, x_steps, y_steps, bits, spec,
+                       deep_kernel_shapes(spec))
+    dev = x_steps.device
+    params = [t.clone() for t in kparams]   # updated in place by the kernel
+    moms = [t.clone() for t in kmoms]
+    cm = torch.empty((x_steps.shape[0], 2), dtype=torch.float32, device=dev)
+    gh, gw = smoothing_factors(spec, dev)
+    _build.deep_launch(spec, x_steps, y_steps, bits, gh, gw,
+                       frozen_centers(spec, dev), params, moms, cm, float(lr))
+    return params, moms, cm
+
+
+def deep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
+    """Train one epoch; same contract as deep_epoch_reference.
+
+    A CPU ``x_steps`` runs the plain twin. A CUDA ``x_steps`` launches the
+    hand-written CUDA kernel (one C call per epoch) and counts the launch
+    in ``deep_epoch.launches``; any other device raises."""
+    if x_steps.device.type == "cpu":
+        return deep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits,
+                                    lr, spec)
+    if x_steps.device.type != "cuda":
+        raise ValueError(f"deep_epoch: no kernel for {x_steps.device}")
+    out = launch_deep("deep_epoch", kparams, kmoms, x_steps, y_steps, bits,
+                      lr, spec)
+    deep_epoch.launches += 1
+    return out
+
+
+deep_epoch.launches = 0

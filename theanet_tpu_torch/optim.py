@@ -8,8 +8,10 @@ Theano applies its update dict from OLD values, so the parameter step uses
 the previous accumulator and the first step moves only the accumulator.
 Max-norm per ndim with the reference's 1e-7 guards; layers whose reg is None
 or whose rate is 0 are frozen; the weight cost charges every trainable
-tensor, biases included. Momentum is not checkpointed (resume restarts it
-at zero), as in the reference.
+tensor, biases included. Frozen extras after a layer's trainable tensors
+(a CenteredOut head's constant centers) are neither charged nor updated.
+Momentum is not checkpointed (resume restarts it at zero), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ def weight_cost(layers, params):
     for lyr, lp in zip(layers, params):
         if lyr.reg is None or not lp:
             continue
+        lp = lp[:len(lyr.params_init)]
         l1, l2 = lyr.reg["L1"], lyr.reg["L2"]
         if l1:
             cost = cost + l1 * sum(torch.sum(torch.abs(p)) for p in lp)
@@ -69,16 +72,17 @@ def apply_updates(layers, params, moms, grads, lr):
             continue
         m, rate, maxnorm = (lyr.reg["momentum"], lyr.reg["rate"],
                             lyr.reg["maxnorm"])
+        n_train = len(lyr.params_init)
         ps, as_ = [], []
-        for p, a, g in zip(lp, lm, lg):
+        for p, a, g in zip(lp[:n_train], lm, lg):
             a_new = m * a + (1.0 - m) * g
             p_new = p - rate * lr * a  # OLD accumulator: see module docstring
             if maxnorm:
                 p_new = _maxnorm_project(p_new, maxnorm)
             ps.append(p_new)
             as_.append(a_new)
-        new_params.append(ps)
-        new_moms.append(as_)
+        new_params.append(ps + list(lp[n_train:]))
+        new_moms.append(as_ + list(lm[n_train:]))
     return new_params, new_moms
 
 

@@ -4,7 +4,8 @@
   * args: dataset module name, a .prms config or a .pkl checkpoint to
     resume, optional trailing '1' to tee the log to <head>_<SEED>.txt;
   * prints the banner, layer/param/weight info, then the epoch table
-    ``Epoch Cost Tr_Error Tr_P(MLE) Te_Error Te_P(MLE)``;
+    ``Epoch Cost Tr_Error Tr_P(MLE) Te_Error Te_P(MLE)`` (BitErr in place
+    of P(MLE) for a LOGIT CenteredOut head);
   * rotating-window eval every EPOCHS_TO_TEST epochs; the checkpoint
     <head>_<SEED>_<testerr>.pkl replaces the previous one;
   * NaN-cost abort with a weight dump, the high-cost weight dump, and the
@@ -127,7 +128,9 @@ def _run(argv, dataset_name, layers, tr_prms, allwts, out_file_head, log):
     trainer = Trainer(net, training_x, data.training_y, testing_x,
                       data.testing_y, device=device)
     batch_sz, n_epochs = tr_prms["BATCH_SZ"], tr_prms["NUM_EPOCHS"]
-    aux_err_name = "P(MLE)"
+    # a LOGIT head's second statistic is its true-class bit error
+    aux_err_name = ("BitErr" if getattr(net.head, "kind", None) == "LOGIT"
+                    else "P(MLE)")
     test_indices = get_test_indices(te_corpus_sz, batch_sz,
                                     tr_prms["TEST_SAMP_SZ"])
     trin_indices = get_test_indices(tr_corpus_sz, batch_sz,

@@ -6,15 +6,16 @@ Batches are the reference's fixed sequential batches.
 
 Two training paths:
 
-  * fused (``MEGAFUSED``, default ``"auto"``): when the net matches the
-    flagship pattern (``ops.megastep.fused_plan``), an epoch is ONE call of
-    ``megastep_epoch`` (the CUDA kernel on a card, its plain twin on the
-    CPU). Training state stays in the kernel layout between epochs and is
-    synced to the framework layout on eval, checkpoint and ``sync_net``.
-    ``MEGAFUSED=True`` raises with the decline reason when the net cannot
-    fuse; ``False`` never fuses.
+  * fused (``MEGAFUSED``, default ``"auto"``): when the net matches a fused
+    family (``ops.megastep.fused_plan``: the 2-conv flagship, the flat MLP
+    or the deep family), an epoch is ONE call of the plan's epoch function
+    (its CUDA kernel on a card, its plain twin on the CPU), with the noise
+    words drawn for the plan's spec. Training state stays in the kernel
+    layout between epochs and is synced to the framework layout on eval,
+    checkpoint and ``sync_net``. ``MEGAFUSED=True`` raises with the decline
+    reason when the net cannot fuse; ``False`` never fuses.
   * per-layer: autograd ``NeuralNet.train_step`` per batch, for nets the
-    matcher declines (identity augmentation only: active per-layer
+    matchers decline (identity augmentation only: active per-layer
     augmentation is not ported yet, see layers/input.py).
 
 Evaluation always runs the per-layer forward in eval mode.
@@ -60,11 +61,13 @@ class Trainer:
         self.batch_sz = bsz = net.batch_sz
         self.n_train_batches = nb = train_x.shape[0] // bsz
         self.n_test_batches = test_x.shape[0] // bsz
-        n_out = net.head.n_out
+        # a CenteredOut head's width is its feature count; labels index
+        # its classes
+        n_cls = getattr(net.head, "n_classes", net.head.n_out)
         for name, y in (("train", train_y), ("test", test_y)):
             y = np.asarray(y)
-            if y.size and (y.min() < 0 or y.max() >= n_out):
-                raise ValueError(f"{name} labels must lie in [0, {n_out})")
+            if y.size and (y.min() < 0 or y.max() >= n_cls):
+                raise ValueError(f"{name} labels must lie in [0, {n_cls})")
 
         dev = self.device
         self.d_train_x = torch.as_tensor(np.asarray(train_x, np.float32),
@@ -127,11 +130,14 @@ class Trainer:
             [tree[i] for i in self._mega_plan.layer_idx], self._mega_spec)
 
     def _from_kernel(self, kt, template):
+        """Kernel-layout state -> the framework lists of ``template``; a
+        layer's tensors outside the state (frozen CenteredOut centers) stay
+        as they are."""
         out = [list(lp) for lp in template]
         for i, lw in zip(self._mega_plan.layer_idx,
                          self._mega_plan.framework_layout(kt,
                                                           self._mega_spec)):
-            out[i] = lw
+            out[i] = list(lw) + out[i][len(lw):]
         return out
 
     def _mega_sync_frame(self):
@@ -168,7 +174,11 @@ class Trainer:
         gen = step_generator(self.net.tr_prms["SEED"], step, self.device)
         self.params, self.moms, cost, feats, _ = self.net.train_step(
             self.params, self.moms, x, y, lr=lr, generator=gen)
-        true_f = feats[torch.arange(bsz, device=self.device), y.long()]
+        # y clamped to the feature width, as the JAX fused heads do
+        # (megastep.py:1618-1624): a CenteredOut head may have more classes
+        # than features
+        yc = torch.clamp(y.long(), max=feats.shape[1] - 1)
+        true_f = feats[torch.arange(bsz, device=self.device), yc]
         return cost, true_f.min()
 
     # -- public API --------------------------------------------------------
