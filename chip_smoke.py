@@ -42,7 +42,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      JAX package's CPU run of the same configuration
      (jax_cpu_reference.sh);
   9. time one epoch of each new kernel and of its twin at full width, and
-     print each kernel's device time by stage (torch.profiler).
+     print each kernel's device time by stage (torch.profiler);
+ 10. the elastic resample kernel (csrc/elastic_resample.cu) vs its plain
+     version on the same warp and flip words: mnist_cnn's batch (nearest,
+     invert, pflip .03), a 3-channel bilinear batch and a 48x48 one; its
+     time per launch beside the plain version's and F.grid_sample's;
+ 11. the FUSED_TAIL kernels (csrc/fused_mlp.cu) vs their plain versions:
+     forward and backward at mnist_cnn's tail, slopes .01, 0 and 1, pdrop
+     .5 in train and eval mode, and the 10000-row eval window; their times
+     per launch;
+ 12. the per-layer path: ``train.main`` on synth_hard with mnist_cnn.prms
+     plus FUSED_TAIL and the ElasticLayer's 'method': 'pallas' (2 epochs,
+     SEED pinned, then a 1-epoch resume); the counters must show one
+     elastic, one tail-forward and one tail-backward launch per training
+     step, one tail forward per eval window and no fused epoch; the final
+     test error is held to the JAX package's CPU run of the same .prms;
+     then one per-layer epoch timed with FUSED_TAIL and 'pallas', and with
+     neither.
 
 The last three lines are the kernels JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The script imports nothing of
@@ -96,7 +112,7 @@ FREE_TOTAL_RTOL = 5e-3
 # different random bits give mid-curve and fails a net that did not learn.
 MAIN_SEED = 9876
 MAIN_TEST_ERR_MAX = 40.0
-ALL_PHASES = tuple(range(1, 10))
+ALL_PHASES = tuple(range(1, 13))
 
 
 def banner(n, title):
@@ -390,25 +406,13 @@ def phase5(torch, data, dev, card):
     kp, km, x, y, bits = epoch_inputs(torch, megastep, spec, data, dev)
     n_img = x.shape[0] * spec.batch
 
-    def timed(fn, reps):
-        fn()   # warm-up
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     saved = megastep.megastep_epoch.launches
-    ms_k1 = timed(lambda: megastep.megastep_epoch(kp, km, x, y, bits, 0.1,
-                                                  spec), 3)
-    ms_t = timed(lambda: megastep.megastep_epoch_reference(
+    ms_k1 = timed(torch, lambda: megastep.megastep_epoch(
+        kp, km, x, y, bits, 0.1, spec), 3)
+    ms_t = timed(torch, lambda: megastep.megastep_epoch_reference(
         kp, km, x, y, bits, 0.1, spec), 1)
-    ms_k2 = timed(lambda: megastep.megastep_epoch(kp, km, x, y, bits, 0.1,
-                                                  spec), 3)
+    ms_k2 = timed(torch, lambda: megastep.megastep_epoch(
+        kp, km, x, y, bits, 0.1, spec), 3)
     megastep.megastep_epoch.launches = saved  # timing launches do not count
     ms_k = min(ms_k1, ms_k2)
     print(f"one mnist_cnn epoch ({x.shape[0]} steps x {spec.batch}) on {card}:"
@@ -724,7 +728,11 @@ def counted_run(train, argv):
     from theanet_tpu_torch.ops import megastep_deep as deep
     from theanet_tpu_torch.ops import megastep_mlp as mlp
 
-    fns = (megastep.megastep_epoch, deep.deep_epoch, mlp.mlp_epoch)
+    from theanet_tpu_torch.ops import elastic_resample, fused_mlp
+
+    fns = (megastep.megastep_epoch, deep.deep_epoch, mlp.mlp_epoch,
+           elastic_resample.elastic_resample, fused_mlp.tail_forward,
+           fused_mlp.tail_backward)
     for fn in fns:
         fn.launches = 0
     out = run_cli(train, argv)
@@ -740,7 +748,8 @@ def cli_run(train, name, family, launches, seed=None, epochs=None):
     with open(name + ".prms", "w") as f:
         f.write(config_text(name, seed, epochs))
     out, counts = counted_run(train, ["train", cfg["data"], name + ".prms"])
-    want = {"megastep_epoch": 0, "deep_epoch": 0, "mlp_epoch": 0}
+    want = {"megastep_epoch": 0, "deep_epoch": 0, "mlp_epoch": 0,
+            "elastic_resample": 0, "tail_forward": 0, "tail_backward": 0}
     want[family] = epochs
     assert counts == want, (name, seed, counts)
     launches[family] += epochs
@@ -867,15 +876,24 @@ def step_flops(spec):
     return flops + 10 * sum(r * c for r, c in shapes)
 
 
-def epoch_bound(spec, inputs, outputs, n_steps):
-    """(ms, what bounds it): the least time the card could take for an
-    epoch, the larger of its bytes (each input read once, each output
-    written once) at the HBM rate and its operations at the f32 rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs)
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = n_steps * step_flops(spec) / H100_F32_FLOPS
+def bound(n_bytes, flops):
+    """(ms, what bounds it): the least time the card could take for work
+    that moves ``n_bytes`` (each input read once, each output written once)
+    and does ``flops``, the larger of the bytes at the HBM rate and the
+    operations at the f32 rate."""
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def epoch_bound(spec, inputs, outputs, n_steps):
+    """The bound of an epoch of a fused kernel."""
+    return bound(nbytes(*inputs, *outputs), n_steps * step_flops(spec))
 
 
 def time_config(torch, name, dev, card):
@@ -908,10 +926,11 @@ def time_config(torch, name, dev, card):
     return ms_k, ms_t, bound
 
 
-def profile_epoch(torch, run, n_steps):
-    """Print the device time of each stage kernel over one epoch
-    (torch.profiler), per step, and the device's idle share: 1 - busy time
-    over the epoch's wall time, launches from the host included."""
+def profile_epoch(torch, run, n_steps, what="one epoch", top=None):
+    """Print the device time of each stage kernel over one epoch (or what
+    ``run`` does: ``n_steps`` steps or calls) by torch.profiler, per step,
+    and the device's idle share: 1 - busy time over the wall time,
+    launches from the host included; ``top`` limits the kernels listed."""
     from torch.profiler import ProfilerActivity, profile
 
     run()   # warm-up
@@ -930,14 +949,16 @@ def profile_epoch(torch, run, n_steps):
         if t is None:
             t = e.self_cuda_time_total
         m = re.search(r"k_\w+(<[^>]*>)?", e.key)
-        name = m.group(0) if m else e.key[:24]
+        name = m.group(0) if m else re.sub(
+            r"^void |at::native::|\(anonymous namespace\)::", "", e.key)[:48]
         total, count = stages.get(name, (0.0, 0))
         stages[name] = (total + t, count + e.count)
     busy = sum(t for t, _ in stages.values())
-    print(f"    torch.profiler, one epoch: wall {wall_us / 1e3:.2f} ms, stage "
+    print(f"    torch.profiler, {what}: wall {wall_us / 1e3:.2f} ms, device "
           f"kernels busy {busy / 1e3:.2f} ms, idle share "
           f"{100 * (1 - busy / wall_us):.1f}%", flush=True)
-    for name, (t, count) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
+    ranked = sorted(stages.items(), key=lambda kv: -kv[1][0])
+    for name, (t, count) in ranked[:top]:
         print(f"    {name:24s} {t / n_steps:8.2f} us/step "
               f"{count / n_steps:5.1f} launches/step "
               f"{100 * t / busy:5.1f}% of busy", flush=True)
@@ -946,6 +967,294 @@ def profile_epoch(torch, run, n_steps):
 def phase9(torch, dev, card):
     return {"deep_epoch": time_config(torch, "galaxy_rbf", dev, card),
             "mlp_epoch": time_config(torch, "flat_mlp", dev, card)}
+
+
+# ----------------------------------------------------------- phases 10-12
+
+# The per-layer slice: params/mnist_cnn.prms with FUSED_TAIL and the
+# ElasticLayer's 'method': 'pallas', SEED pinned to MAIN_SEED, trained for
+# SLICE_EPOCHS and then resumed for one more. The JAX package's CPU run of
+# the same .prms for SLICE_EPOCHS + 1 epochs (jax_cpu_reference.sh, which
+# writes it with slice_text): the cost on each test row and the final test
+# error, in percent. The port draws its own noise (a torch.Generator, not
+# JAX's keys), so the final test error is held to within SLICE_ERR_MARGIN.
+SLICE_EPOCHS = 2
+SLICE_JAX = dict(costs=(1280.17, 965.40, 832.94), test_err=23.95)
+SLICE_ERR_MARGIN = 3.0
+# phase 10: nearest copies a pixel and must agree exactly; a bilinear tap
+# sum rounds each operation in the plain version's order, expected 0 too
+ELASTIC_BILINEAR_ATOL = 1e-6
+# phase 11: each output of the tail sums over up to 720 terms in the
+# kernel's fixed order, the plain version's in cuBLAS's
+TAIL_ATOL = 1e-5
+
+
+def slice_text(epochs, seed=MAIN_SEED, fused_tail=True, method="pallas"):
+    """params/mnist_cnn.prms with NUM_EPOCHS, SEED, FUSED_TAIL and the
+    ElasticLayer's method set."""
+    with open(os.path.join(REPO, "params", "mnist_cnn.prms")) as f:
+        text = f.read()
+    inv, n_ep = "'invert_image': True,", "'NUM_EPOCHS':          101,"
+    assert inv in text and n_ep in text
+    text = text.replace(inv, f"{inv} 'method': {method!r},")
+    return text.replace(n_ep, f"'NUM_EPOCHS':          {epochs}, "
+                        f"'SEED': {seed}, 'FUSED_TAIL': {fused_tail},")
+
+
+ELASTIC_CASES = {
+    # name: (batch, channels, side, config beyond img_sz)
+    "mnist_cnn 20x1x28x28 nearest": (20, 1, 28, dict(
+        translation=2, zoom=1.1, magnitude=60, sigma=15, pflip=0.03,
+        angle=5, nearest=True, invert_image=True)),
+    "20x3x32x32 bilinear": (20, 3, 32, dict(
+        translation=2, zoom=1.1, magnitude=8, sigma=3, pflip=0.03, angle=5,
+        invert_image=True)),
+    "4x2x48x48 bilinear (hw > 1600)": (4, 2, 48, dict(
+        translation=3, zoom=1.2, magnitude=20, sigma=4, pflip=0.1,
+        angle=10)),
+}
+
+
+def elastic_inputs(torch, case, dev, seed):
+    """(x, ty, tx, words, cfg) of an ELASTIC_CASES entry: synth_hard images
+    for one channel, uniform noise otherwise; the warp and the flip words
+    drawn as the ElasticLayer draws them."""
+    from theanet_tpu_torch.ops import elastic as el
+
+    b, c, side, kw = ELASTIC_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if c == 1 and side == 28:
+        from theanet_tpu_torch.data import synth_hard
+        x = torch.as_tensor(synth_hard.training_x[:b], device=dev).reshape(
+            b, 1, 28, 28)
+    else:
+        x = torch.rand((b, c, side, side), generator=gen, device=dev)
+    cfg = el.ElasticConfig(img_sz=side, **kw)
+    ty, tx = el.clip_warp(el.sample_warp(gen, cfg, side, side, dev), side,
+                          side)
+    words = el.draw_flip_words(gen, x.shape, dev)
+    return x.contiguous(), ty.contiguous(), tx.contiguous(), words, cfg
+
+
+def phase10(torch, dev, card):
+    import torch.nn.functional as F
+    from theanet_tpu_torch.ops.elastic_resample import (
+        elastic_resample, elastic_resample_reference)
+
+    worst = 0.0
+    saved = elastic_resample.launches
+    for k, case in enumerate(ELASTIC_CASES):
+        case_worst = 0.0
+        for seed in range(3):
+            x, ty, tx, words, cfg = elastic_inputs(torch, case, dev,
+                                                   10 * k + seed)
+            kw = dict(nearest=cfg.nearest, pflip=cfg.pflip,
+                      invert=cfg.invert_image)
+            got = elastic_resample(x, ty, tx, words, **kw)
+            ref = elastic_resample_reference(x, ty, tx, words, **kw)
+            torch.cuda.synchronize()
+            err = max_abs(got, ref)
+            moved = max_abs(got, 1.0 - x if cfg.invert_image else x)
+            assert bool(torch.isfinite(got).all()) and moved > 0, case
+            assert err <= (0.0 if cfg.nearest else ELASTIC_BILINEAR_ATOL), \
+                (case, seed, err)
+            case_worst = max(case_worst, err)
+        worst = max(worst, case_worst)
+        print(f"  {case}: kernel vs plain, 3 warps, max|d| {case_worst:.3e}",
+              flush=True)
+    # times at mnist_cnn's batch
+    x, ty, tx, words, cfg = elastic_inputs(torch, next(iter(ELASTIC_CASES)),
+                                           dev, 0)
+    kw = dict(nearest=True, pflip=cfg.pflip, invert=True)
+    b, c, h, w = x.shape
+    grid = torch.stack([tx / (w - 1) * 2 - 1, ty / (h - 1) * 2 - 1], dim=-1)
+    grid = grid.expand(b, h, w, 2).contiguous()
+    ms = timed(torch, lambda: elastic_resample(x, ty, tx, words, **kw), 2000)
+    plain = timed(torch, lambda: elastic_resample_reference(
+        x, ty, tx, words, **kw), 500)
+    lib = timed(torch, lambda: F.grid_sample(
+        x, grid, mode="nearest", align_corners=True), 2000)
+    ms2 = timed(torch, lambda: elastic_resample(x, ty, tx, words, **kw), 2000)
+    profile_epoch(torch, lambda: [elastic_resample(x, ty, tx, words, **kw)
+                                  for _ in range(200)], 200,
+                  "200 kernel calls")
+    elastic_resample.launches = saved   # comparison launches do not count
+    # per element: the invert and the flip (nearest copies)
+    bnd = bound(nbytes(x, ty, tx, words, x), 2 * x.numel())
+    print(f"  mnist_cnn batch on {card}: kernel {ms * 1e3:.2f} / "
+          f"{ms2 * 1e3:.2f} us per launch, plain {plain * 1e3:.2f} us, "
+          f"F.grid_sample (nearest, align_corners; yardstick only) "
+          f"{lib * 1e3:.2f} us; bound {bnd[0] * 1e3:.4f} us ({bnd[1]})",
+          flush=True)
+    return worst, (min(ms, ms2), plain, bnd), lib
+
+
+TAIL_SHAPE = (20, 720, 500, 10)   # mnist_cnn: x (B, K), W1 (K, NH), W2 (NH, O)
+
+
+def tail_inputs(torch, dev, rows=None):
+    """mnist_cnn's tail weights (its SEED-1 init), a (rows, 720) batch of
+    rectified features, and g = dL/dlogp of the NLL of random labels."""
+    from theanet_tpu_torch.model import params_from_allwts
+
+    net, _ = load_flagship(torch)
+    (w1, b1), (w2, b2) = params_from_allwts(net.allwts0[5:7], dev)
+    B, K, NH, O = TAIL_SHAPE
+    B = rows or B
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.clamp(torch.randn((B, K), generator=gen, device=dev), min=0.0)
+    y = torch.randint(0, O, (B,), generator=gen, device=dev)
+    g = torch.zeros((B, O), device=dev)
+    g[torch.arange(B, device=dev), y] = -1.0 / B
+    words = torch.randint(-2**31, 2**31, (B, NH), dtype=torch.int32,
+                          generator=gen, device=dev)
+    return x, w1, b1, w2, b2, words, g
+
+
+def phase11(torch, dev, card):
+    from theanet_tpu_torch.ops import fused_mlp as fm
+
+    saved = (fm.tail_forward.launches, fm.tail_backward.launches)
+    worst_f = worst_b = 0.0
+    cases = [(slope, train, None) for slope in (0.01, 0.0, 1.0)
+             for train in (True, False)] + [(0.01, False, 10000)]
+    for slope, train, rows in cases:
+        x, w1, b1, w2, b2, words, g = tail_inputs(torch, dev, rows)
+        spec = fm.FusedTailSpec(slope=slope, pdrop=0.5, train=train)
+        got = fm.tail_forward(x, w1, b1, w2, b2, words, spec)
+        ref = fm.tail_forward_reference(x, w1, b1, w2, b2, words, spec)
+        logp, h, mask = ref
+        gb = fm.tail_backward(x, w1, w2, h, mask, logp, g, spec)
+        rb = fm.tail_backward_reference(x, w1, w2, h, mask, logp, g, spec)
+        torch.cuda.synchronize()
+        d_f = max(max_abs(a, b) for a, b in zip(got, ref))
+        d_b = max(max_abs(a, b) for a, b in zip(gb, rb))
+        assert all(bool(torch.isfinite(t).all()) for t in got + gb)
+        assert d_f <= TAIL_ATOL and d_b <= TAIL_ATOL, (slope, train, d_f, d_b)
+        kept = float(got[2].mean())
+        print(f"  slope {slope}, pdrop .5, {'train' if train else 'eval'}, "
+              f"{x.shape[0]} rows: max|d| forward {d_f:.3e} (logp, h, mask; "
+              f"kept {kept:.3f}), backward {d_b:.3e} (dx, dW1, db1, dW2, db2)",
+              flush=True)
+        worst_f, worst_b = max(worst_f, d_f), max(worst_b, d_b)
+    x, w1, b1, w2, b2, words, g = tail_inputs(torch, dev)
+    spec = fm.FusedTailSpec(slope=0.01, pdrop=0.5, train=True)
+    logp, h, mask = fm.tail_forward_reference(x, w1, b1, w2, b2, words, spec)
+    B, K, NH, O = TAIL_SHAPE
+    fwd = (lambda: fm.tail_forward(x, w1, b1, w2, b2, words, spec),
+           lambda: fm.tail_forward_reference(x, w1, b1, w2, b2, words, spec))
+    bwd = (lambda: fm.tail_backward(x, w1, w2, h, mask, logp, g, spec),
+           lambda: fm.tail_backward_reference(x, w1, w2, h, mask, logp, g,
+                                              spec))
+    out = {}
+    for name, (kern, plain) in (("forward", fwd), ("backward", bwd)):
+        k1 = timed(torch, kern, 1000)
+        p = timed(torch, plain, 500)
+        k2 = timed(torch, kern, 1000)
+        out[name] = (min(k1, k2), p)
+        print(f"  tail {name} at {TAIL_SHAPE[:2]} x {TAIL_SHAPE[2:]} on "
+              f"{card}: kernel {k1 * 1e3:.2f} / {k2 * 1e3:.2f} us per launch, "
+              f"plain {p * 1e3:.2f} us", flush=True)
+    profile_epoch(torch, lambda: [(fwd[0](), bwd[0]()) for _ in range(200)],
+                  200, "200 forward + backward kernel calls")
+    fm.tail_forward.launches, fm.tail_backward.launches = saved
+    f_bound = bound(nbytes(x, w1, b1, w2, b2, words, logp, h, mask),
+                    2 * B * K * NH + 2 * B * NH * O)
+    b_bound = bound(nbytes(x, w1, w2, h, mask, logp, g, x, w1, b1, w2, b2),
+                    2 * (2 * B * K * NH + 2 * B * NH * O))
+    print(f"  bounds: forward {f_bound[0] * 1e3:.4f} us ({f_bound[1]}), "
+          f"backward {b_bound[0] * 1e3:.4f} us ({b_bound[1]})", flush=True)
+    return ((worst_f, (*out["forward"], f_bound)),
+            (worst_b, (*out["backward"], b_bound)))
+
+
+def slice_trainer(torch, fused_tail, method):
+    """A Trainer of the slice (per-layer: MEGAFUSED off) on synth_hard."""
+    import ast
+
+    from theanet_tpu_torch.data import synth_hard
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.trainer import Trainer
+
+    prms = ast.literal_eval(slice_text(1, fused_tail=fused_tail,
+                                       method=method))
+    layers = [[n, dict(a)] for n, a in prms["layers"]]
+    layers[0][1]["img_sz"] = 28
+    tr = dict(prms["training_params"], MEGAFUSED=False)
+    net = NeuralNet(layers, tr)
+    assert net.fused_tail == fused_tail
+    return Trainer(net, synth_hard.training_x, synth_hard.training_y,
+                   synth_hard.testing_x, synth_hard.testing_y)
+
+
+def phase12(torch, card):
+    from theanet_tpu_torch import train
+    from theanet_tpu_torch.prms import load_params
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with open("mnist_cnn.prms", "w") as f:
+                f.write(slice_text(SLICE_EPOCHS))
+            fresh, c1 = counted_run(train, ["train", "synth_hard",
+                                            "mnist_cnn.prms"])
+            pkls = [p for p in os.listdir(".") if p.endswith(".pkl")]
+            assert len(pkls) == 1, pkls
+            layers, tr, allwts = load_params(pkls[0])
+            assert tr["CUR_EPOCH"] == SLICE_EPOCHS, tr["CUR_EPOCH"]
+            tr["NUM_EPOCHS"] = 1
+            with open("resume.pkl", "wb") as f:
+                pickle.dump({"layers": layers, "training_params": tr,
+                             "allwts": allwts}, f, -1)
+            resumed, c2 = counted_run(train, ["train", "synth_hard",
+                                              "resume.pkl"])
+        finally:
+            os.chdir(cwd)
+    steps = 12000 // 20
+    for out, counts, epochs in ((fresh, c1, SLICE_EPOCHS), (resumed, c2, 1)):
+        assert "Device : cuda" in out
+        assert "Epoch   Cost  Tr_Error Tr_P(MLE)    Te_Error Te_P(MLE)" in out
+        # an eval window is one forward of the whole window: 2 per test
+        # row (test and train windows) and 2 for the final full-set row
+        n_eval = 2 * epochs + 2
+        want = {"megastep_epoch": 0, "deep_epoch": 0, "mlp_epoch": 0,
+                "elastic_resample": epochs * steps,
+                "tail_forward": epochs * steps + n_eval,
+                "tail_backward": epochs * steps}
+        assert counts == want, (counts, want)
+    rows = epoch_rows(fresh)[:-1] + epoch_rows(resumed)
+    assert [r[0] for r in rows] == [0, 1, 2, 3], rows
+    assert all(math.isfinite(r[1]) for r in rows), rows
+    final = rows[-1][2]
+    print(f"  per-layer slice, SEED {MAIN_SEED}: test-row costs "
+          f"{[r[1] for r in rows[:-1]]} (JAX CPU {list(SLICE_JAX['costs'])}); "
+          f"final test error {final:.2f}% (JAX CPU {SLICE_JAX['test_err']:.2f}%"
+          f", bound +-{SLICE_ERR_MARGIN})", flush=True)
+    assert abs(final - SLICE_JAX["test_err"]) <= SLICE_ERR_MARGIN, final
+    launches = {k: c1[k] + c2[k] for k in
+                ("elastic_resample", "tail_forward", "tail_backward")}
+    print(f"kernel launches in the main path: {launches}", flush=True)
+
+    from theanet_tpu_torch.ops import elastic_resample, fused_mlp
+
+    saved = (elastic_resample.elastic_resample.launches,
+             fused_mlp.tail_forward.launches, fused_mlp.tail_backward.launches)
+    for fused_tail, method in ((True, "pallas"), (False, "auto"), (True,
+                                                                   "pallas")):
+        tr = slice_trainer(torch, fused_tail, method)
+        ms = timed(torch, tr.run_epoch, 1)
+        print(f"  one per-layer mnist_cnn epoch ({tr.n_train_batches} steps x "
+              f"20) on {card}, FUSED_TAIL {fused_tail}, method {method!r}: "
+              f"{ms:.1f} ms", flush=True)
+    # the last trainer is the slice's (FUSED_TAIL and 'pallas')
+    profile_epoch(torch, lambda: [tr._train_batch(i, i, 0.1)
+                                  for i in range(50)], 50,
+                  "50 per-layer steps", top=12)
+    (elastic_resample.elastic_resample.launches,
+     fused_mlp.tail_forward.launches,
+     fused_mlp.tail_backward.launches) = saved
+    return launches
 
 
 def main(argv=None):
@@ -1023,6 +1332,17 @@ def main(argv=None):
     if 9 in phases:
         banner(9, "epoch time of the deep and flat-MLP kernels vs twins")
         new_timing = phase9(torch, dev, card)
+    if 10 in phases:
+        banner(10, "elastic resample kernel vs plain version")
+        el_err, el_timing, el_lib = phase10(torch, dev, card)
+    if 11 in phases:
+        banner(11, "FUSED_TAIL forward and backward kernels vs plain "
+               "versions")
+        tail_fwd, tail_bwd = phase11(torch, dev, card)
+    if 12 in phases:
+        banner(12, "per-layer path: train.main on synth_hard with "
+               "FUSED_TAIL and 'method': 'pallas' (+ resume); epoch times")
+        slice_launches = phase12(torch, card)
     if phases != set(ALL_PHASES):
         print("chip_smoke: a subset of phases ran; no result", flush=True)
         return 3
@@ -1044,6 +1364,18 @@ def main(argv=None):
               "theanet_tpu/ops/megastep_mlp.py:167",
               new_launches["mlp_epoch"], mlp_err, new_timing["mlp_epoch"]),
     ]
+    kernels += [
+        entry("elastic_resample", "theanet_tpu_torch/csrc/elastic_resample.cu",
+              "theanet_tpu/ops/elastic_pallas.py:34",
+              slice_launches["elastic_resample"], el_err, el_timing),
+        entry("fused_tail_forward", "theanet_tpu_torch/csrc/fused_mlp.cu",
+              "theanet_tpu/ops/fused_mlp.py:39",
+              slice_launches["tail_forward"], *tail_fwd),
+        entry("fused_tail_backward", "theanet_tpu_torch/csrc/fused_mlp.cu",
+              "theanet_tpu/ops/fused_mlp.py:77",
+              slice_launches["tail_backward"], *tail_bwd),
+    ]
+    kernels[3]["library_ms"] = el_lib
     kernels[0]["epoch_step_locked_max_abs_err"] = epoch_err
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))

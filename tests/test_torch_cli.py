@@ -190,3 +190,51 @@ def test_cli_logit_head_reports_bit_error(tiny_rgb, capsys):
     _, _, allwts = load_params(_pkls()[0])
     assert len(allwts[-1]) == 3
     assert set(np.unique(allwts[-1][2])) <= {0.0, 1.0}
+
+
+SLICE_PRMS = PRMS.replace("'invert_image': True}",
+                          "'invert_image': True, 'method': 'pallas'}").replace(
+    "'SEED': 17}", "'SEED': 17, 'FUSED_TAIL': True}")
+
+
+def test_cli_fused_tail_slice_trains_per_layer_and_resumes(tiny_data, capsys):
+    """The per-layer slice: an active ElasticLayer with 'method': 'pallas'
+    and FUSED_TAIL. No fused family takes it, the decline reason is
+    printed, every epoch trains per layer (the kernels' plain versions on
+    the CPU: no launch is counted), the checkpoint resumes and the JAX
+    package predicts the same from it."""
+    from theanet_tpu_torch.ops import elastic_resample, fused_mlp
+
+    with open("slice.prms", "w") as f:
+        f.write(SLICE_PRMS)
+    counts = (elastic_resample.elastic_resample.launches,
+              fused_mlp.tail_forward.launches,
+              fused_mlp.tail_backward.launches)
+    trainer = train.main(["train", "torch_cli_tiny", "slice.prms"])
+    assert trainer._mega is None and trainer.net.fused_tail
+    cap = capsys.readouterr()
+    assert megastep.FUSED_TAIL_REASON in cap.err
+    rows = [l for l in cap.out.splitlines() if l[:3].strip().isdigit()]
+    assert [int(r.split()[0]) for r in rows] == [0, 1, 2]
+    assert all(np.isfinite(float(r.split()[1])) for r in rows)
+    assert len(_pkls()) == 1
+    assert counts == (elastic_resample.elastic_resample.launches,
+                      fused_mlp.tail_forward.launches,
+                      fused_mlp.tail_backward.launches)
+
+    layers, tr, allwts = jax_load_params(_pkls()[0])
+    assert tr["FUSED_TAIL"] and layers[0][1]["method"] == "pallas"
+    jnet = JaxNet(layers, tr, allwts)
+    assert jnet.fused_tail
+    x = tiny_data.testing_x.reshape(-1, 1, IMG, IMG)
+    jp, _ = jnet.init_params()
+    j_feat, j_pred = jnet.predict(jp, jnp.asarray(x))
+    t_feat, t_pred = trainer.predict(x)
+    np.testing.assert_array_equal(t_pred, np.asarray(j_pred))
+    np.testing.assert_allclose(t_feat, np.asarray(j_feat), atol=1e-5)
+
+    resumed = train.main(["train", "torch_cli_tiny", _pkls()[0]])
+    rows = [l for l in capsys.readouterr().out.splitlines()
+            if l[:3].strip().isdigit()]
+    assert [int(r.split()[0]) for r in rows] == [2, 3, 4]
+    assert resumed.net.get_epoch() == 4

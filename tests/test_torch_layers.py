@@ -111,12 +111,24 @@ def test_eval_forward_matches_jax():
 
 
 def test_active_augmentation_does_not_train_per_layer():
+    """An active ElasticLayer once raised on the per-layer path; now it
+    trains there, drawing its warp from the step's generator: the same
+    generator seed gives the same step, another seed another warp."""
     first = ("ElasticLayer", {"img_sz": IMG, "translation": 1})
     net = TorchNet(_layers(first), _tr())
     p, m = net.init_params("cpu")
     xs, ys = _data(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net.train_step(p, m, torch.tensor(xs[0]), torch.tensor(ys[0]), lr=0.1)
+
+    def step(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return net.train_step(p, m, torch.tensor(xs[0]), torch.tensor(ys[0]),
+                              lr=0.1, generator=gen)
+
+    a, b, c = step(1), step(1), step(2)
+    assert np.isfinite(float(a[2]))
+    assert float(a[2]) == float(b[2])
+    assert float(a[2]) != float(c[2])
+    assert any(not torch.equal(u, v) for u, v in zip(a[1][1], c[1][1]))
 
 
 def test_conv_is_true_convolution():
@@ -196,8 +208,12 @@ def test_color_layer_eval_is_identity_and_trains_only_fused():
     t_err, t_p = tnet.eval_step(tp, x, torch.tensor(ys[0]))
     j_err, j_p = jnet.eval_step(jp, jnp.asarray(xs[0]), jnp.asarray(ys[0]))
     assert abs(float(t_p) - float(j_p)) < 1e-6
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnet.train_step(tp, tm, x, torch.tensor(ys[0]), lr=0.1)
+    # an active ColorLayer now trains per layer too, from the step's
+    # generator (tests/test_torch_elastic.py holds its transform to JAX's)
+    gen = torch.Generator().manual_seed(3)
+    cost = tnet.train_step(tp, tm, x, torch.tensor(ys[0]), lr=0.1,
+                           generator=gen)[2]
+    assert np.isfinite(float(cost))
     # an identity ColorLayer (balance = gamma = 1) trains per layer
     ident = ("ColorLayer", {"img_sz": IMG, "num_maps": 1})
     tnet, jnet = TorchNet(_layers(ident), _tr()), JaxNet(_layers(ident), _tr())

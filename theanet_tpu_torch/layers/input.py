@@ -2,18 +2,24 @@
 ``theanet_tpu/layers/input.py``; reference theanet/layer/inlayers.py and
 color.py).
 
-Active train-mode augmentation (an elastic warp, a color jitter) runs only
-inside the fused epoch kernels (ops/megastep.py, ops/megastep_deep.py). A
-per-layer training call with an active config raises instead of silently
-skipping it; the per-layer port is queued in ROADMAP.md."""
+In train mode an active layer draws its randomness from the step's
+``torch.Generator`` (the fused epochs draw theirs as injected words
+instead): the ElasticLayer its warp and flip words (``ops.elastic``), the
+ColorLayer three (B, maps) uniforms (``draw_color``), each split from the
+arithmetic that uses it so a test can feed the JAX package's draws."""
 
 from __future__ import annotations
 
+import math
+
+import torch
+
 from ..inits import consume_stream_seed
-from ..ops.elastic import ElasticConfig
+from ..ops.elastic import ElasticConfig, elastic_augment
 from .base import Layer
 
-__all__ = ["InputLayer", "ElasticLayer", "ColorLayer"]
+__all__ = ["InputLayer", "ElasticLayer", "ColorLayer", "draw_color",
+           "color_jitter"]
 
 
 class InputLayer(Layer):
@@ -79,14 +85,30 @@ class ElasticLayer(Layer):
         )
 
     def apply(self, wts, x, *, train, generator=None):
-        if train and not self.cfg.is_identity:
-            raise NotImplementedError(
-                "per-layer train-mode elastic augmentation is not ported "
-                "yet (ROADMAP.md queue 1, 'per-layer augmentation': "
-                "ops/elastic.py sample_warp/resample/pixel_flip); nets with "
-                "an active ElasticLayer train through the fused epoch "
-                "(MEGAFUSED)")
-        return 1.0 - x if self.cfg.invert_image else x
+        out = elastic_augment(x, self.cfg, train=train, method=self.method,
+                              generator=generator)
+        return out.to(x.dtype)
+
+
+def draw_color(generator, batch, maps, device):
+    """The ColorLayer's draws: (3, batch, maps) uniforms in [-1, 1), for
+    the white balance, the gamma and the inverse gamma, in that order."""
+    return 2.0 * torch.rand((3, batch, maps), generator=generator,
+                            device=device) - 1.0
+
+
+def color_jitter(x, u, balance, gamma, maxval):
+    """The ColorLayer's train transform (input.py:145-163) from its draws
+    ``u`` (3, B, maps): each factor is exp(ln a * u) per sample and
+    channel."""
+    def pos_rand(k, a):
+        return torch.exp(math.log(a) * u[k])[:, :, None, None].to(x.dtype)
+
+    out = x / maxval
+    out = torch.clamp(out * pos_rand(0, balance), 0.0, 1.0)
+    out = out ** pos_rand(1, gamma)
+    out = 1.0 - (1.0 - out) ** pos_rand(2, gamma)
+    return out * maxval
 
 
 class ColorLayer(Layer):
@@ -116,10 +138,7 @@ class ColorLayer(Layer):
             "Maxval:{}".format(num_maps, img_sz, balance, gamma, maxval))
 
     def apply(self, wts, x, *, train, generator=None):
-        if train and not self.identity:
-            raise NotImplementedError(
-                "per-layer train-mode color jitter is not ported yet "
-                "(ROADMAP.md queue 1, 'per-layer augmentation'); nets with "
-                "an active ColorLayer train through the fused epoch "
-                "(MEGAFUSED)")
-        return x
+        if self.identity or not train:
+            return x
+        u = draw_color(generator, x.shape[0], self.num_maps, x.device)
+        return color_jitter(x, u, self.balance, self.gamma, self.maxval)

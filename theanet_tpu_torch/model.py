@@ -104,12 +104,36 @@ class NeuralNet:
         self.head = head
         if "CUR_EPOCH" not in training_params:
             training_params["CUR_EPOCH"] = 0
-        for key in ("COMPUTE_DTYPE", "REMAT", "FUSED_TAIL"):
+        for key in ("COMPUTE_DTYPE", "REMAT"):
             if training_params.get(key):
                 raise NotImplementedError(
                     f"training_params {key} is not ported yet (ROADMAP.md "
                     "queue 1)")
+        self.fused_tail, self._fused_slope = False, 0.0
+        if training_params.get("FUSED_TAIL"):
+            self._gate_fused_tail()
         self.allwts0 = [lyr.get_wts() for lyr in self.net_layers]
+
+    def _gate_fused_tail(self):
+        """FUSED_TAIL (model.py:173-197): the last HiddenLayer and the
+        Softmax head run as one ``ops.fused_mlp`` function when the hidden
+        activation is in the leaky-relu family (relu -> slope 0, linear ->
+        1, reluNN -> NN/100); silently off when the pattern differs. The
+        port computes in f32 only and raises on REMAT, the gate's other
+        two conditions."""
+        hid = self.net_layers[-2] if len(self.net_layers) >= 2 else None
+        if not (type(hid) is HiddenLayer and type(self.head) is SoftmaxLayer):
+            return
+        a = hid.actvn
+        if a == "relu":
+            slope = 0.0
+        elif a == "linear":
+            slope = 1.0
+        elif a.startswith("relu") and a[4:].isdigit():
+            slope = int(a[4:]) / 100.0
+        else:
+            return
+        self.fused_tail, self._fused_slope = True, slope
 
     def _append_layer(self, i, wts):
         """The builder ladder of theanet_tpu/model.py:216-286, for the
@@ -166,10 +190,36 @@ class NeuralNet:
 
     # -- compute --------------------------------------------------------------
 
+    def _fused_tail_head(self, params, out, train, generator):
+        """The dense tail (last hidden + Softmax head) as one
+        ``fused_hidden_softmax`` call (model.py:301-323); returns the
+        SoftmaxLayer's head-state dict. In train mode with dropout the
+        (B, n_hid) dropout words are drawn from ``generator`` here."""
+        from .ops.fused_mlp import FusedTailSpec, fused_hidden_softmax
+
+        hid = self.net_layers[-2]
+        (w1, b1), (w2, b2) = params[-2], params[-1]
+        spec = FusedTailSpec(slope=self._fused_slope,
+                             pdrop=float(hid.pdrop), train=train)
+        x2 = out.reshape(out.shape[0], -1)
+        words = None
+        if train and spec.pdrop:
+            words = torch.randint(-2**31, 2**31, (x2.shape[0], hid.n_out),
+                                  dtype=torch.int32, generator=generator,
+                                  device=x2.device)
+        logprob = fused_hidden_softmax(x2, w1, b1, w2, b2, words, spec)
+        probs = torch.exp(logprob)
+        return {"output": probs, "probs": probs, "logprob": logprob,
+                "features": logprob, "y_preds": torch.argmax(logprob, dim=1)}
+
     def forward(self, params, x, *, train, generator=None):
-        """Run the stack; returns the head-state dict."""
+        """Run the stack; returns the head-state dict. Layers draw from
+        ``generator`` in layer order (model.py:325-349)."""
         out = x
+        n_body = len(self.net_layers) - (2 if self.fused_tail else 0)
         for i, lyr in enumerate(self.net_layers):
+            if i == n_body:
+                return self._fused_tail_head(params, out, train, generator)
             if lyr is self.head:
                 return lyr.apply_head(params[i], out, train=train,
                                       generator=generator)
@@ -214,7 +264,12 @@ class NeuralNet:
     @torch.no_grad()
     def predict(self, params, x, *, get_output_of_layers=()):
         """(features, y_preds, *layer outputs) on raw inputs (reference
-        get_data_test_model, neuralnet.py:282-296)."""
+        get_data_test_model, neuralnet.py:282-296). Without layer outputs it
+        runs the eval forward, FUSED_TAIL included, as eval_step does
+        (model.py:385-395)."""
+        if not get_output_of_layers:
+            hs = self.forward(params, x, train=False)
+            return hs["features"], hs["y_preds"]
         outs, out, hs = [], x, None
         for i, lyr in enumerate(self.net_layers):
             if lyr is self.head:

@@ -1,7 +1,7 @@
 """Build and bind the hand-written CUDA kernels.
 
-Each library of ``LIBRARIES`` (one ``csrc/*.cu`` source, which includes
-``csrc/stages.cuh``) is compiled at first use with
+Each library of ``LIBRARIES`` (one ``csrc/*.cu`` source; the fused-epoch
+ones include ``csrc/stages.cuh``) is compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
@@ -28,11 +28,14 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "megastep_launch", "deep_launch"]
+__all__ = ["build", "megastep_launch", "deep_launch",
+           "elastic_resample_launch", "fused_mlp_forward_launch",
+           "fused_mlp_backward_launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-LIBRARIES = ("megastep", "megastep_deep")     # csrc/<name>.cu each
+# csrc/<name>.cu each
+LIBRARIES = ("megastep", "megastep_deep", "elastic_resample", "fused_mlp")
 HEADERS = ("stages.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -99,7 +102,27 @@ def build(verbose=False):
     return _libs
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry points of the per-layer kernels: argument types, in order
+ENTRY_POINTS = {
+    "elastic_resample": {
+        "elastic_resample": [_P] * 5 + [_I] * 5 + [_F, _I, _P]},
+    "fused_mlp": {
+        "fused_mlp_forward": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
+        "fused_mlp_backward": [_P] * 14 + [_I] * 4 + [_F] * 2 + [_I] * 2
+                              + [_P]},
+}
+
+
 def _bind(name, lib):
+    if name in ENTRY_POINTS:
+        for fn, argtypes in ENTRY_POINTS[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        err = getattr(lib, name + "_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        return lib
     ip, fp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
     prefix = "megastep" if name == "megastep" else "deep"
     ws = getattr(lib, prefix + "_workspace_floats")
@@ -223,3 +246,44 @@ def deep_launch(spec, x, y, bits, gh, gw, centers, params, moms, cm, lr):
     _run("deep", build()["megastep_deep"], ispec, fspec,
          [x, y, *bits, gh, gw, centers, *params, *moms, cm], x.shape[0], lr,
          x.device)
+
+
+def _call(lib_name, fn, *args):
+    """Call a per-layer kernel's C entry point with ``args`` (tensors pass
+    their data pointer, None a null pointer), then its device and the
+    current stream; raise on a nonzero return."""
+    lib = build()[lib_name]
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = getattr(lib, fn)(*conv, dev.index or 0,
+                          torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("%s CUDA kernel failed: %s" % (
+            fn, getattr(lib, lib_name + "_error_string")(rc).decode()))
+
+
+def elastic_resample_launch(x, ty, tx, words, out, nearest, pflip, invert):
+    """One launch of csrc/elastic_resample.cu: ``out`` (x's shape) from x
+    (B, C, H, W) at the warp (ty, tx); ``words`` None for no flip. The
+    caller has checked devices, dtypes, shapes and contiguity."""
+    b, c, h, w = x.shape
+    _call("elastic_resample", "elastic_resample", x, ty, tx, words, out,
+          b * c, h, w, int(nearest), int(invert), pflip)
+
+
+def fused_mlp_forward_launch(x, w1, b1, w2, b2, words, logp, h, mask, slope,
+                             pdrop, keep, drop):
+    """The tail forward of csrc/fused_mlp.cu (2 launches); ``drop`` is 0
+    (none), 1 (train mask from ``words``) or 2 (eval scale ``keep``)."""
+    _call("fused_mlp", "fused_mlp_forward", x, w1, b1, w2, b2, words, logp,
+          h, mask, x.shape[0], x.shape[1], w1.shape[1], w2.shape[1], slope,
+          pdrop, keep, drop)
+
+
+def fused_mlp_backward_launch(x, w1, w2, h, mask, logp, g, dx, dw1, db1, dw2,
+                              db2, dz2, dz1, slope, keep, drop):
+    """The tail backward of csrc/fused_mlp.cu (4 launches); dz2 and dz1
+    are scratch."""
+    _call("fused_mlp", "fused_mlp_backward", x, w1, w2, h, mask, logp, g, dx,
+          dw1, db1, dw2, db2, dz2, dz1, x.shape[0], x.shape[1], w1.shape[1],
+          w2.shape[1], slope, keep, drop)

@@ -185,6 +185,8 @@ def spec_from_net(net):
 
     L = net.net_layers
     kinds = (InputLayer, ElasticLayer)
+    if net.fused_tail:
+        return None
     if not (len(L) == 7 and type(L[0]) in kinds
             and type(L[1]) is ConvLayer and type(L[2]) is PoolLayer
             and type(L[3]) is ConvLayer and type(L[4]) is PoolLayer
@@ -224,11 +226,17 @@ class FusedPlan(NamedTuple):
     framework_layout: object
 
 
+# megastep.py:622-624: no fused family takes a FUSED_TAIL net
+FUSED_TAIL_REASON = ("FUSED_TAIL is set (the XLA-fused tail variant keeps "
+                     "the scanned path)")
+
+
 def fused_plan(net):
     """FusedPlan of the first family that matches ``net``, in the JAX
     package's order (megastep.py:569-600): the 2-conv flagship, then the
     bare flat MLP, then the deep family (any other conv depth, flat nets the
-    MLP declines, CenteredOut heads, Color prefixes); else None."""
+    MLP declines, CenteredOut heads, Color prefixes); else None. A
+    FUSED_TAIL net matches none (megastep.py:340-342)."""
     from . import megastep_deep as deep
     from . import megastep_mlp as mlp
 
@@ -400,17 +408,20 @@ def smoothing_factors(spec, device):
 
 
 def _smooth(gh, n, gw):
-    """The separable Gaussian smoothing G_h @ n @ G_w^T, each sum taken
-    k = 0, 1, ... with one f32 multiply and one f32 add a term: the order
-    of the CUDA kernels' k_warp (csrc/stages.cuh). A library product may
-    sum in another order, and the warp's last bits decide which resampled
-    pixels, and so which pool windows, tie exactly."""
+    """The separable Gaussian smoothing G_h @ n @ G_w^T of n (..., H, W),
+    each sum taken k = 0, 1, ... with one f32 multiply and one f32 add a
+    term: the order of the CUDA kernels' k_warp (csrc/stages.cuh). A
+    library product may sum in another order, and the warp's last bits
+    decide which resampled pixels, and so which pool windows, tie exactly.
+    Every product is formed by one multiply, then the sums run in order."""
+    p = gh[:, :, None] * n[..., None, :, :]        # [i, k, j] = gh[i,k] n[k,j]
     t = torch.zeros_like(n)
-    for k in range(n.shape[0]):
-        t = t + gh[:, k:k + 1] * n[k:k + 1, :]
+    for k in range(n.shape[-2]):
+        t = t + p[..., k, :]
+    q = t[..., :, None, :] * gw                    # [i, j, k] = t[i,k] gw[j,k]
     s = torch.zeros_like(n)
-    for k in range(n.shape[0]):
-        s = s + t[:, k:k + 1] * gw[None, :, k]
+    for k in range(n.shape[-1]):
+        s = s + q[..., k]
     return s
 
 

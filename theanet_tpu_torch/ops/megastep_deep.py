@@ -152,7 +152,11 @@ def _match(net):
                           DropOutLayer, ElasticLayer, HiddenLayer,
                           InputLayer, PoolLayer, SoftmaxLayer)
 
+    from .megastep import FUSED_TAIL_REASON
+
     L = net.net_layers
+    if net.fused_tail:
+        return None, FUSED_TAIL_REASON
     reason = _head_reason(L[-1])
     if reason:
         return None, reason

@@ -67,6 +67,8 @@ def mlp_spec_from_net(net):
     from ..layers import ElasticLayer, HiddenLayer, InputLayer, SoftmaxLayer
 
     L = net.net_layers
+    if net.fused_tail:
+        return None
     if not (len(L) == 3 and type(L[0]) in (InputLayer, ElasticLayer)
             and type(L[1]) is HiddenLayer and type(L[2]) is SoftmaxLayer):
         return None

@@ -15,14 +15,21 @@ Two training paths:
     checkpoint and ``sync_net``. ``MEGAFUSED=True`` raises with the decline
     reason when the net cannot fuse; ``False`` never fuses.
   * per-layer: autograd ``NeuralNet.train_step`` per batch, for nets the
-    matchers decline (identity augmentation only: active per-layer
-    augmentation is not ported yet, see layers/input.py).
+    matchers decline (with ``MEGAFUSED='auto'`` the Trainer names the
+    reason on stderr). Each step draws from its own generator
+    (``step_generator``), with one host sync per epoch. A ``FUSED_TAIL``
+    net always trains here: its ElasticLayer runs ``ops.elastic`` (the
+    ``elastic_resample`` kernel with ``'method': 'pallas'``) and its dense
+    tail ``ops.fused_mlp``.
 
-Evaluation always runs the per-layer forward in eval mode.
+Evaluation always runs the per-layer forward in eval mode. On a card the
+Trainer turns TF32 off for cuDNN convolutions and matmuls, so training
+runs in f32 like the JAX package and the CPU.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import numpy as np
@@ -45,7 +52,12 @@ def get_test_indices(tot_samps, batch_sz, bth_samps):
 
 
 def step_generator(seed, step, device):
-    """The torch.Generator of one per-layer training step (dropout)."""
+    """The torch.Generator of one per-layer training step, seeded by (SEED,
+    step). The forward draws from it in layer order: an active ColorLayer's
+    (3, B, maps) uniforms; an active ElasticLayer's 7 affine uniforms, its
+    (2, H, W) normals (when it has an elastic field) and its (B, C, H, W)
+    flip words (when pflip); each dropout's mask, where a FUSED_TAIL tail
+    draws (B, n_hid) words."""
     state = np.random.SeedSequence([int(seed), 1 << 30, int(step)])
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state.generate_state(1, np.uint64)[0]))
@@ -70,6 +82,10 @@ class Trainer:
                 raise ValueError(f"{name} labels must lie in [0, {n_cls})")
 
         dev = self.device
+        # PyTorch runs cuDNN convolutions in TF32 by default; the reference
+        # and the CPU compute in f32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
         self.d_train_x = torch.as_tensor(np.asarray(train_x, np.float32),
                                          device=dev)
         self.d_train_y = torch.as_tensor(np.asarray(train_y, np.int32),
@@ -110,6 +126,8 @@ class Trainer:
                 raise ValueError("MEGAFUSED=True, but this configuration "
                                  "cannot use the fused epoch kernel: "
                                  + reason)
+            print("theanet_tpu_torch: MEGAFUSED=auto — training on the "
+                  "per-layer path: " + reason, file=sys.stderr)
             return
         spec = plan.spec
         self._mega, self._mega_plan, self._mega_spec = megastep, plan, spec
