@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
 
-  1. the card: name and power limit, TF32 off, build the CUDA kernels from
-     theanet_tpu_torch/csrc/megastep.cu and megastep_deep.cu (one nvcc
-     each, run together) and print the build time;
+  1. the card: name and power limit, TF32 off, build every CUDA library of
+     theanet_tpu_torch/csrc (one nvcc per source, run together) and print
+     the build time;
   2. one training step at full mnist_cnn shapes with its augmentation
      config, nearest and bilinear: kernel vs the plain PyTorch twin
      (cost, minf, all 8 params and 8 momenta after the step); then the
@@ -58,7 +58,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      step, one tail forward per eval window and no fused epoch; the final
      test error is held to the JAX package's CPU run of the same .prms;
      then one per-layer epoch timed with FUSED_TAIL and 'pallas', and with
-     neither.
+     neither;
+ 13. the 3x3 conv kernel (csrc/conv3x3.cu: forward, dx, dw) vs its plain
+     version in f32 and bf16 at bench.py's wide conv2, the shapes of
+     tests/test_conv_pallas.py and one ragged shape; the backward twice,
+     bit-equal; times at the wide shape beside cuDNN's;
+ 14. bench.py's wide model (56x56, conv 64 -> conv 128, hidden 2048,
+     softmax 1000, batch 256, bf16, its data) through NeuralNet and
+     Trainer with THEANET_PALLAS_CONV=1 and MEGAFUSED 'auto': the Trainer
+     must name the head's shared memory as its decline; the initial eval
+     NLL is held to the JAX package's CPU forward; 2 epochs of 80 steps and
+     the second again from snapshot_state, one conv forward and backward
+     launch per step and one forward per eval batch, the replay bit-equal;
+     5 steps step-locked against the plain conv (cost and conv2's new
+     momentum); epoch times with the kernel and with cuDNN.
 
 The last three lines are the kernels JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The script imports nothing of
@@ -112,7 +125,7 @@ FREE_TOTAL_RTOL = 5e-3
 # different random bits give mid-curve and fails a net that did not learn.
 MAIN_SEED = 9876
 MAIN_TEST_ERR_MAX = 40.0
-ALL_PHASES = tuple(range(1, 13))
+ALL_PHASES = tuple(range(1, 15))
 
 
 def banner(n, title):
@@ -466,9 +479,10 @@ GALAXY_SWEEP_JAX = {1357: (603.71, 140.27), 11: (604.71, 118.34),
 SWEEP_COST_RTOL = 0.10
 SEED_COST_RTOL = 0.35
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W): HBM
-# bytes/s and f32 operations/s outside the tensor cores
+# bytes/s, f32 operations/s outside the tensor cores and dense bf16 on them
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12
 
 
 def config_text(name, seed=None, epochs=None):
@@ -876,12 +890,13 @@ def step_flops(spec):
     return flops + 10 * sum(r * c for r, c in shapes)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, rate=H100_F32_FLOPS):
     """(ms, what bounds it): the least time the card could take for work
     that moves ``n_bytes`` (each input read once, each output written once)
     and does ``flops``, the larger of the bytes at the HBM rate and the
-    operations at the f32 rate."""
-    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    operations at ``rate`` (the f32 rate outside the tensor cores unless
+    given)."""
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1257,6 +1272,344 @@ def phase12(torch, card):
     return launches
 
 
+# ----------------------------------------------------------- phases 13-14
+
+# phase 13: the conv kernel (csrc/conv3x3.cu) against its plain version,
+# (B, C, H, M): bench.py's wide conv2, the shapes of
+# tests/test_conv_pallas.py and one that fills no tile evenly (72 maps,
+# 11x11 outputs, depth 9 x 24 = 216)
+CONV_WIDE = (256, 64, 27, 128)
+CONV_CASES = [CONV_WIDE, (4, 16, 9, 8), (2, 32, 12, 16), (8, 8, 27, 8),
+              (6, 16, 9, 8), (4, 16, 11, 8), (3, 24, 13, 72)]
+# The inputs are at a trained net's scales (activations in [0, 1), weights
+# of std 0.5 / sqrt(9 C), dz at a mean loss's 1 / sqrt(B O O)), so z and dw
+# are O(1) and dx about 1e-2. Each of z, dx and dw is held to its own
+# bound, CONV_REL times its largest |plain value|. f32: the kernel and the
+# plain version sum the same products in other orders (5.8e-7 relative
+# measured on z at the wide shape on an H100). bf16: both round one f32
+# sum to bf16, so they differ by at most one ulp where the two sums
+# straddle a rounding boundary, and bf16 keeps 8 significant bits.
+CONV_REL = {"float32": 2.0 ** -18, "bfloat16": 2.0 ** -7}
+
+
+def conv_inputs(torch, shape, dtype, dev, seed=0):
+    B, C, H, M = shape
+    O = H - 2
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((B, C, H, H), generator=gen, device=dev)
+    w = torch.randn((M, C, 3, 3), generator=gen, device=dev) * (
+        0.5 / math.sqrt(9 * C))
+    dz = torch.randn((B, M, O, O), generator=gen, device=dev) / math.sqrt(
+        B * O * O)
+    return x.to(dtype), w.to(dtype), dz.to(dtype)
+
+
+def conv_bounds(shape, dtype):
+    """(forward, backward) bounds of the conv at ``shape``: 2 B M C 9 O^2
+    operations forward and twice that backward, at the dtype's peak; each
+    input read once and each output written once."""
+    B, C, H, M = shape
+    O = H - 2
+    size = 2 if dtype == "bfloat16" else 4
+    rate = H100_BF16_FLOPS if dtype == "bfloat16" else H100_F32_FLOPS
+    fl = 2 * B * M * C * 9 * O * O
+    x, w, z = B * C * H * H * size, M * C * 9 * size, B * M * O * O * size
+    return (bound(x + w + z, fl, rate), bound(x + w + z + x + w, 2 * fl,
+                                              rate))
+
+
+def phase13(torch, dev, card):
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    import torch.nn.functional as F
+    from theanet_tpu_torch.ops import conv3x3 as cv
+
+    saved = (cv.conv3x3_forward.launches, cv.conv3x3_backward.launches)
+    worst = {"forward": 0.0, "backward": 0.0}
+    for shape in CONV_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x, w, dz = conv_inputs(torch, shape, dtype, dev)
+            got = cv.conv3x3_forward(x, w)
+            ref = cv.conv3x3_forward_reference(x, w)
+            gdx, gdw = cv.conv3x3_backward(x, w, dz)
+            rdx, rdw = cv.conv3x3_backward_reference(x, w, dz)
+            torch.cuda.synchronize()
+            assert got.dtype == gdx.dtype == gdw.dtype == dtype
+            assert all(bool(torch.isfinite(t).all()) for t in (got, gdx,
+                                                               gdw))
+            # two runs of the backward agree to the bit (no atomics)
+            again = cv.conv3x3_backward(x, w, dz)
+            assert torch.equal(again[1], gdw) and torch.equal(again[0], gdx)
+            d, line = {}, []
+            for what, g, r in (("z", got, ref), ("dx", gdx, rdx),
+                               ("dw", gdw, rdw)):
+                d[what] = max_abs(g.float(), r.float())
+                lim = CONV_REL[name] * float(r.float().abs().max())
+                line.append(f"{what} {d[what]:.3e} (bound {lim:.3e})")
+                assert d[what] <= lim, (shape, name, what, d[what], lim)
+            print(f"  {shape} {name}: max|d| " + ", ".join(line)
+                  + "; backward bit-equal over two runs", flush=True)
+            worst["forward"] = max(worst["forward"], d["z"])
+            worst["backward"] = max(worst["backward"], d["dx"], d["dw"])
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        x, w, dz = conv_inputs(torch, CONV_WIDE, dtype, dev)
+        fwd = (lambda: cv.conv3x3_forward(x, w),
+               lambda: cv.conv3x3_forward_reference(x, w),
+               lambda: F.conv2d(x, w))
+        bwd = (lambda: cv.conv3x3_backward(x, w, dz),
+               lambda: cv.conv3x3_backward_reference(x, w, dz),
+               lambda: (conv2d_input(x.shape, w, dz),
+                        conv2d_weight(x, w.shape, dz)))
+        f_bound, b_bound = conv_bounds(CONV_WIDE, name)
+        for what, (kern, plain, lib), bnd in (("forward", fwd, f_bound),
+                                              ("backward", bwd, b_bound)):
+            k1 = timed(torch, kern, 10)
+            p = timed(torch, plain, 5)
+            lb = timed(torch, lib, 10)
+            k2 = timed(torch, kern, 10)
+            times[(what, name)] = (min(k1, k2), p, bnd, lb)
+            print(f"  conv3x3 {what} at {CONV_WIDE} {name} on {card}: kernel"
+                  f" {k1:.3f} / {k2:.3f} ms, plain {p:.3f} ms, cuDNN "
+                  f"(yardstick only) {lb:.3f} ms; bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]})", flush=True)
+        if dtype == torch.bfloat16:
+            profile_epoch(torch, lambda: [(fwd[0](), bwd[0]())
+                                          for _ in range(5)], 5,
+                          "5 forward + backward kernel calls, bf16")
+    cv.conv3x3_forward.launches, cv.conv3x3_backward.launches = saved
+    return worst, times
+
+
+# phase 14: bench.py's wide model (wide_model_row) through NeuralNet and
+# Trainer at its full widths, batch and data: per layer (the fused families
+# decline it by name), bf16, conv2 on the conv3x3 kernel.
+WIDE_B, WIDE_IMG, WIDE_STEPS = 256, 56, 80
+# The JAX package's eval-mode mean NLL of the first WIDE_B images at the
+# initial weights, one forward on the CPU with THEANET_PALLAS_CONV=1
+# (jax_cpu_reference.sh), held to these relative bounds
+WIDE_NLL_JAX = {"bfloat16": 6.948939800262451, "float32": 6.948746204376221}
+# (3.2e-6 and 6.9e-8 measured on an H100); a uniform output's NLL,
+# ln 1000, is 6e-3 below
+WIDE_NLL_RTOL = {"bfloat16": 1e-4, "float32": 1e-6}
+# steps of the kernel's trajectory each retaken with the plain conv from the
+# same state and generator. The costs agree within WIDE_LOCK_COST (7e-6
+# measured on an H100: a rounding straddle in bf16 z moves an activation by
+# an ulp). A step moves the weights by the OLD momentum, so this step's
+# conv2 gradient shows in the new momentum m a + (1 - m) g: it agrees
+# within one bf16 ulp of (1 - m) max|g| (dw is rounded to bf16 once).
+WIDE_LOCK_STEPS = 5
+WIDE_LOCK_COST = 2e-5
+
+
+def wide_spec(dtype="bfloat16", img=WIDE_IMG, batch=WIDE_B, maps=(64, 128),
+              n_hid=2048, n_out=1000, pdrop=0.5):
+    """(layers, training_params) of bench.py's wide_model_row; the keywords
+    give the tests narrower copies, and ``dtype`` None leaves COMPUTE_DTYPE
+    unset."""
+    layers = [
+        ["InputLayer", {"img_sz": img}],
+        ["ConvLayer", {"num_maps": maps[0], "filter_sz": 3, "stride": 1,
+                       "actvn": "relu10"}],
+        ["PoolLayer", {"pool_sz": 2}],
+        ["ConvLayer", {"num_maps": maps[1], "filter_sz": 3, "stride": 1,
+                       "actvn": "relu05"}],
+        ["PoolLayer", {"pool_sz": 2}],
+        ["HiddenLayer", {"n_out": n_hid, "pdrop": pdrop}],
+        ["SoftmaxLayer", {"n_out": n_out}],
+    ]
+    tr = {"SEED": 7, "BATCH_SZ": batch, "NUM_EPOCHS": 1,
+          "EPOCHS_TO_TEST": 1, "TEST_SAMP_SZ": batch,
+          "INIT_LEARNING_RATE": 0.05, "EPOCHS_TO_HALF_RATE": 2}
+    if dtype:
+        tr["COMPUTE_DTYPE"] = dtype
+    return layers, tr
+
+
+def wide_data(n_batches=WIDE_STEPS):
+    """bench.py's data: uniform images and labels in [0, 1000) from
+    RandomState(0); its test set is the first batch."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    n = n_batches * WIDE_B
+    x = rng.rand(n, 1, WIDE_IMG, WIDE_IMG).astype(np.float32)
+    y = rng.randint(0, 1000, n).astype(np.int32)
+    return x, y
+
+
+def wide_eval_nll(torch, net, params, x, y):
+    """Eval-mode mean NLL of the head on a batch (dropout scaled)."""
+    with torch.no_grad():
+        hs = net.forward(params, x, train=False)
+        return float(net.head.cost(hs, y))
+
+
+@contextlib.contextmanager
+def plain_conv():
+    """Route ops.conv3x3's autograd function to the plain versions (on the
+    card too) inside the block."""
+    from theanet_tpu_torch.ops import conv3x3 as cv
+
+    saved = cv.conv3x3_forward, cv.conv3x3_backward
+    cv.conv3x3_forward = cv.conv3x3_forward_reference
+    cv.conv3x3_backward = cv.conv3x3_backward_reference
+    try:
+        yield
+    finally:
+        cv.conv3x3_forward, cv.conv3x3_backward = saved
+
+
+def phase14(torch, card, n_steps=WIDE_STEPS):
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.ops import conv3x3 as cv
+    from theanet_tpu_torch.trainer import Trainer, step_generator
+
+    os.environ["THEANET_PALLAS_CONV"] = "1"
+    x, y = wide_data(n_steps)
+    layers, tr = wide_spec()
+    net = NeuralNet(layers, tr)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        trainer = Trainer(net, x, y, x[:WIDE_B], y[:WIDE_B])
+    print("  " + err.getvalue().strip(), flush=True)
+    assert "per-layer path: the head kernel's shared memory" in \
+        err.getvalue(), err.getvalue()
+    assert trainer._mega is None
+    dev = trainer.device
+    tx, ty = trainer.d_test_x, trainer.d_test_y
+
+    # the initial eval NLL against the JAX package's CPU forward
+    nll = {"bfloat16": wide_eval_nll(torch, net, trainer.params, tx, ty)}
+    f32_net = NeuralNet(*wide_spec("float32"))
+    nll["float32"] = wide_eval_nll(torch, f32_net,
+                                   f32_net.init_params(dev)[0], tx, ty)
+    for name, v in nll.items():
+        ref = WIDE_NLL_JAX[name]
+        print(f"  initial eval NLL of the first {WIDE_B} images, {name}: "
+              f"{v:.6f} (JAX CPU {ref:.6f}, relative |d| "
+              f"{abs(v - ref) / ref:.2e}, bound {WIDE_NLL_RTOL[name]})",
+              flush=True)
+        assert abs(v - ref) <= WIDE_NLL_RTOL[name] * abs(ref), (name, v)
+
+    # the main path: 2 epochs, an eval after each, then the second epoch
+    # again from a snapshot; the counts start at 0 here
+    cv.conv3x3_forward.launches = cv.conv3x3_backward.launches = 0
+    totals, evals = [], []
+    t0 = time.time()
+    for epoch in range(2):
+        if epoch == 1:
+            snap = trainer.snapshot_state()
+        total, costs, _ = trainer.run_epoch()
+        totals.append(costs)
+        net.inc_epoch_set_rate()
+        evals.append(trainer.evaluate_full("test"))
+    trainer.restore_state(snap)
+    _, replay, _ = trainer.run_epoch()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"conv3x3_forward": cv.conv3x3_forward.launches,
+                "conv3x3_backward": cv.conv3x3_backward.launches}
+    print(f"  wide model, {n_steps} steps x {WIDE_B} an epoch, bf16, per "
+          f"layer: epoch costs {[float(c.sum()) for c in totals]}, first and "
+          f"last step {float(totals[0][0]):.4f} {float(totals[1][-1]):.4f}; "
+          f"test rows (err %, p(true) %) {evals}; replay of epoch 1 from "
+          f"the snapshot {float(replay.sum()):.4f}, max|d| step cost "
+          f"{float(abs(replay - totals[1]).max()):.3e} [{wall:.1f} s]",
+          flush=True)
+    print(f"  kernel launches in the main path: {launches} (3 epochs of "
+          f"{n_steps} steps, 2 eval batches)", flush=True)
+    assert launches == {"conv3x3_forward": 3 * n_steps + 2,
+                        "conv3x3_backward": 3 * n_steps}, launches
+    for c in totals + [replay]:
+        assert all(math.isfinite(float(v)) for v in c)
+    assert totals[1].sum() < totals[0].sum(), "the cost did not fall"
+    assert (replay == totals[1]).all(), "the replay is not bit-equal"
+
+    # step-locked: each step of the kernel's trajectory retaken with the
+    # plain conv from the same state and generator
+    p, m = trainer.params, trainer.moms
+    lr = net.get_rate()
+    mom = net.net_layers[3].reg["momentum"]
+    worst_c = worst_m = 0.0
+    for s in range(WIDE_LOCK_STEPS):
+        ib = s % n_steps
+        xs = trainer.d_train_x[ib * WIDE_B:(ib + 1) * WIDE_B]
+        ys = trainer.d_train_y[ib * WIDE_B:(ib + 1) * WIDE_B]
+        got = net.train_step(p, m, xs, ys, lr=lr,
+                             generator=step_generator(7, s, dev))
+        with plain_conv():
+            ref = net.train_step(p, m, xs, ys, lr=lr,
+                                 generator=step_generator(7, s, dev))
+        d_c = abs(float(got[2]) - float(ref[2]))
+        d_m = max_abs(got[1][3][0], ref[1][3][0])
+        step_part = float((ref[1][3][0] - mom * m[3][0]).abs().max())
+        lim = 2.0 ** -7 * step_part
+        print(f"    step {s}: cost kernel {float(got[2]):.6f} plain "
+              f"{float(ref[2]):.6f} (|d| {d_c:.2e}); conv2 momentum max|d| "
+              f"{d_m:.3e}, bound {lim:.3e} ((1 - m) max|g| {step_part:.3e})",
+              flush=True)
+        assert d_c <= WIDE_LOCK_COST and d_m <= lim, (s, d_c, d_m, lim)
+        assert step_part > 0
+        worst_c, worst_m = max(worst_c, d_c), max(worst_m, d_m)
+        p, m = got[0], got[1]
+
+    # epoch times: the kernel and cuDNN (the switch off), in turns
+    ms = {}
+    for on in ("1", "0", "0", "1"):
+        os.environ["THEANET_PALLAS_CONV"] = on
+        ms.setdefault(on, []).append(timed(torch, trainer.run_epoch, 1))
+    os.environ["THEANET_PALLAS_CONV"] = "0"
+    profile_epoch(torch, lambda: [trainer._train_batch(i, i, lr)
+                                  for i in range(10)], 10,
+                  "10 per-layer wide steps, cuDNN conv2", top=4)
+    os.environ["THEANET_PALLAS_CONV"] = "1"
+    torch.cuda.reset_peak_memory_stats()
+    profile_epoch(torch, lambda: [trainer._train_batch(i, i, lr)
+                                  for i in range(10)], 10,
+                  "10 per-layer wide steps, conv3x3 kernel", top=12)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  one wide epoch ({n_steps} steps x {WIDE_B}, bf16) on {card}: "
+          f"conv3x3 kernel {ms['1']} ms, cuDNN (switch off) {ms['0']} ms; "
+          f"peak memory of a step {peak:.2f} GiB", flush=True)
+    cv.conv3x3_forward.launches = launches["conv3x3_forward"]
+    cv.conv3x3_backward.launches = launches["conv3x3_backward"]
+    bf16_fuses(torch)
+    return launches, ms, (worst_c, worst_m)
+
+
+def bf16_fuses(torch):
+    """A bf16 mnist_cnn still fuses (bf16 is no disqualifier, as in the
+    JAX package), and the flagship kernel computes it in f32: one epoch
+    through the Trainer gives the f32 net's costs to the bit."""
+    from theanet_tpu_torch.data import synth_hard
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.prms import fixdim, load_params
+    from theanet_tpu_torch.trainer import Trainer
+
+    saved = megastep.megastep_epoch.launches
+    costs = {}
+    for cd in ("float32", "bfloat16"):
+        layers, tr, _ = load_params(os.path.join(REPO, "params",
+                                                 "mnist_cnn.prms"))
+        layers[0][1]["img_sz"] = 28
+        tr.update(SEED=MAIN_SEED, COMPUTE_DTYPE=cd)
+        trainer = Trainer(NeuralNet(layers, tr),
+                          fixdim(synth_hard.training_x), synth_hard.training_y,
+                          fixdim(synth_hard.testing_x), synth_hard.testing_y)
+        assert trainer._mega_plan.epoch_fn is megastep.megastep_epoch
+        costs[cd] = trainer.run_epoch()[1]
+    megastep.megastep_epoch.launches = saved
+    same = bool((costs["float32"] == costs["bfloat16"]).all())
+    print(f"  mnist_cnn with COMPUTE_DTYPE bfloat16 fuses (flagship kernel):"
+          f" epoch cost {float(costs['bfloat16'].sum()):.4f}, the float32 "
+          f"net's {float(costs['float32'].sum()):.4f}, every step equal: "
+          f"{same}", flush=True)
+    assert same
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)))
@@ -1343,6 +1696,14 @@ def main(argv=None):
         banner(12, "per-layer path: train.main on synth_hard with "
                "FUSED_TAIL and 'method': 'pallas' (+ resume); epoch times")
         slice_launches = phase12(torch, card)
+    if 13 in phases:
+        banner(13, "3x3 conv kernel (forward, dx, dw) vs plain version, "
+               "f32 and bf16")
+        conv_err, conv_times = phase13(torch, dev, card)
+    if 14 in phases:
+        banner(14, "bench.py's wide model: NeuralNet + Trainer per layer, "
+               "bf16, conv2 on the conv3x3 kernel; epoch times")
+        wide_launches, _, _ = phase14(torch, card)
     if phases != set(ALL_PHASES):
         print("chip_smoke: a subset of phases ran; no result", flush=True)
         return 3
@@ -1375,6 +1736,15 @@ def main(argv=None):
               "theanet_tpu/ops/fused_mlp.py:77",
               slice_launches["tail_backward"], *tail_bwd),
     ]
+    for name, what in (("conv3x3_forward", "forward"),
+                       ("conv3x3_backward", "backward")):
+        ms, plain_ms, bnd, lib_ms = conv_times[(what, "bfloat16")]
+        kernels.append(entry(
+            name, "theanet_tpu_torch/csrc/conv3x3.cu",
+            "theanet_tpu/ops/conv_pallas.py:" + ("68" if what == "forward"
+                                                else "87"),
+            wide_launches[name], conv_err[what], (ms, plain_ms, bnd)))
+        kernels[-1]["library_ms"] = lib_ms
     kernels[3]["library_ms"] = el_lib
     kernels[0]["epoch_step_locked_max_abs_err"] = epoch_err
     kind = torch.cuda.get_device_name(0)

@@ -5,8 +5,12 @@
 # writes (SEED pinned, flat_mlp cut to 2 epochs), then galaxy_rbf for 3
 # epochs at each SEED of chip_smoke.GALAXY_SWEEP, then the per-layer slice
 # (mnist_cnn with FUSED_TAIL and 'method': 'pallas', chip_smoke.slice_text)
-# for SLICE_EPOCHS + 1 epochs. Prints each run's epoch table;
-# chip_smoke.CONFIGS, GALAXY_SWEEP_JAX and SLICE_JAX hold the numbers.
+# for SLICE_EPOCHS + 1 epochs; last, the eval-mode mean NLL of bench.py's
+# wide model (chip_smoke.wide_spec, wide_data) on its first batch at the
+# initial weights, bf16 and f32, conv2 through the Pallas conv
+# (THEANET_PALLAS_CONV=1). Prints each run's epoch table and the two NLLs;
+# chip_smoke.CONFIGS, GALAXY_SWEEP_JAX, SLICE_JAX and WIDE_NLL_JAX hold the
+# numbers.
 #
 #   sh jax_cpu_reference.sh [output directory, default jax_cpu_reference]
 set -e
@@ -38,3 +42,15 @@ for s in $seeds; do
 done
 run synth_hard mnist_cnn_slice \
   "slice_text(chip_smoke.SLICE_EPOCHS + 1)"
+echo "== wide model: initial eval NLL of the first batch (WIDE_NLL_JAX)"
+PYTHONPATH="$repo" JAX_PLATFORMS=cpu THEANET_PALLAS_CONV=1 python -c "
+import jax, jax.numpy as jnp, chip_smoke as cs
+from theanet_tpu.model import NeuralNet
+x, y = cs.wide_data()
+for dt in ('bfloat16', 'float32'):
+    net = NeuralNet(*cs.wide_spec(dt))
+    params, _ = net.init_params()
+    hs = net.forward(params, jnp.asarray(x[:cs.WIDE_B]),
+                     key=jax.random.PRNGKey(0), train=False)
+    print(dt, float(net.head.cost(hs, jnp.asarray(y[:cs.WIDE_B]))))
+"

@@ -167,8 +167,14 @@ def test_fused_tail_gate_matches_jax(case):
 
 
 def test_fused_tail_keeps_raising_on_compute_dtype():
+    """bf16 is ported: FUSED_TAIL turns itself off under it, as in the JAX
+    package (model.py:182-184); a compute dtype the port does not take
+    still raises."""
+    prms = _tr(FUSED_TAIL=True, COMPUTE_DTYPE="bfloat16")
+    assert not TorchNet(_spec(), dict(prms)).fused_tail
+    assert not JaxNet(_spec(), dict(prms)).fused_tail
     with pytest.raises(NotImplementedError, match="COMPUTE_DTYPE"):
-        TorchNet(_spec(), _tr(FUSED_TAIL=True, COMPUTE_DTYPE="bfloat16"))
+        TorchNet(_spec(), _tr(FUSED_TAIL=True, COMPUTE_DTYPE="float16"))
 
 
 def _data(n, img=12, nc=4, seed=0):

@@ -15,8 +15,13 @@ __all__ = ["activation_by_name", "ACTIVATIONS"]
 
 
 def _leaky_relu(slope: float):
+    # The JAX package's python-float slope takes x's dtype (weak typing), so
+    # under bf16 it multiplies by the slope rounded to bf16: do the same.
+    slopes = {torch.bfloat16: float(torch.tensor(slope).to(torch.bfloat16))}
+
     def fn(x):
-        return torch.clamp(x, min=0.0) + torch.clamp(x, max=0.0) * slope
+        return (torch.clamp(x, min=0.0)
+                + torch.clamp(x, max=0.0) * slopes.get(x.dtype, slope))
 
     fn.__name__ = f"relu{int(round(slope * 100)):02d}"
     return fn

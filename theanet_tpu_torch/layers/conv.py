@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -13,6 +14,18 @@ from ..inits import init_wb
 from .base import Layer
 
 __all__ = ["ConvLayer", "PoolLayer", "maxpool"]
+
+
+def _use_conv3x3(x, w, mode, stride):
+    """Route an eligible conv to ``ops.conv3x3`` (csrc/conv3x3.cu on a
+    card) when THEANET_PALLAS_CONV=1: the switch and the predicate of
+    theanet_tpu/layers/conv.py:23-38, so one environment picks the same
+    path in both packages. Opt-in: off, the conv is ``F.conv2d``."""
+    if os.environ.get("THEANET_PALLAS_CONV") != "1":
+        return False
+    from ..ops.conv3x3 import eligible
+
+    return eligible(x.shape, w.shape, mode, stride)
 
 
 class ConvLayer(Layer):
@@ -67,14 +80,22 @@ class ConvLayer(Layer):
 
     def apply(self, wts, x, *, train, generator=None):
         w, b = wts
+        w = torch.flip(w, (2, 3))
         f = self.filter_sz
+        act = activation_by_name(self.actvn)
+        if _use_conv3x3(x, w, self.mode, self.stride):
+            from ..ops.conv3x3 import conv3x3_valid
+
+            # bias and activation in f32, then back to the compute dtype
+            # (theanet_tpu/layers/conv.py:113-119)
+            out = conv3x3_valid(x, w).to(torch.float32)
+            return act(out + b[None, :, None, None]).to(x.dtype)
         pad = 0 if self.mode == "valid" else f - 1
-        out = F.conv2d(x, torch.flip(w, (2, 3)), stride=self.stride,
-                       padding=pad)
+        out = F.conv2d(x, w, stride=self.stride, padding=pad)
         if self.mode == "same":
             s = (f - 1) // 2
             out = out[:, :, s:self.in_sz + s, s:self.in_sz + s]
-        return activation_by_name(self.actvn)(out + b[None, :, None, None])
+        return act(out + b[None, :, None, None])
 
 
 def pool_windows(x, p, ignore_border):

@@ -18,9 +18,11 @@ __all__ = ["HiddenLayer", "DropOutLayer", "drop_output"]
 
 
 def drop_output(output, pdrop, generator):
-    """Bernoulli(1-p) mask multiply (reference dropout.py:9-13)."""
+    """Bernoulli(1-p) mask multiply (reference dropout.py:9-13). The
+    uniforms are f32 whatever the compute dtype, so a step keeps the same
+    units in f32 and in bf16."""
     u = torch.rand(output.shape, generator=generator, device=output.device,
-                   dtype=output.dtype)
+                   dtype=torch.float32)
     return output * (u >= pdrop).to(output.dtype)
 
 

@@ -65,7 +65,7 @@ class SoftmaxLayer(HiddenLayer, OutputMixin):
             "Rate:{rate}".format(self.n_in, self.n_out, loss, **self.reg))
 
     def apply_head(self, wts, x, *, train, generator=None):
-        z = self.linear(wts, x)
+        z = self.linear(wts, x).to(torch.float32)  # head math stays f32
         probs = torch.softmax(z, dim=-1)
         logprob = torch.log_softmax(z, dim=-1)
         return {
@@ -132,9 +132,11 @@ class CenteredOutLayer(HiddenLayer, OutputMixin):
             np.asarray(self.centers_init)]
 
     def apply_head(self, wts, x, *, train, generator=None):
-        feats = HiddenLayer.apply(self, wts[:2], x, train=train)
-        centers = (wts[2] if self.learn_centers else torch.as_tensor(
-            self.centers_init, device=feats.device))
+        feats = HiddenLayer.apply(self, wts[:2], x, train=train).to(
+            torch.float32)  # head math stays f32
+        centers = (wts[2].to(torch.float32) if self.learn_centers
+                   else torch.as_tensor(self.centers_init,
+                                        device=feats.device))
         c = centers[None, :, :]       # (1, nC, nF)
         v = feats[:, None, :]         # (B, 1, nF)
         hs = {"output": feats, "features": feats}

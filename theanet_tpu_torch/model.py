@@ -71,6 +71,7 @@ def params_from_allwts(allwts, device):
 
 
 _INPUT_TYPES = (InputLayer, ElasticLayer, ColorLayer)
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DENSE_TYPES = (HiddenLayer, SoftmaxLayer)
 
 
@@ -104,13 +105,21 @@ class NeuralNet:
         self.head = head
         if "CUR_EPOCH" not in training_params:
             training_params["CUR_EPOCH"] = 0
-        for key in ("COMPUTE_DTYPE", "REMAT"):
-            if training_params.get(key):
-                raise NotImplementedError(
-                    f"training_params {key} is not ported yet (ROADMAP.md "
-                    "queue 1)")
+        if training_params.get("REMAT"):
+            raise NotImplementedError(
+                "training_params REMAT is not ported yet (ROADMAP.md queue 1)")
+        # COMPUTE_DTYPE (model.py:162-167): 'bfloat16' runs the network body
+        # in bf16 with f32 masters, momenta, updates and head math
+        cd = training_params.get("COMPUTE_DTYPE")
+        if cd and cd not in _COMPUTE_DTYPES:
+            raise NotImplementedError(
+                f"COMPUTE_DTYPE {cd!r}: the port takes "
+                f"{sorted(_COMPUTE_DTYPES)}")
+        self.compute_dtype = _COMPUTE_DTYPES[cd] if cd else None
         self.fused_tail, self._fused_slope = False, 0.0
-        if training_params.get("FUSED_TAIL"):
+        # the tail runs only in f32 (model.py:182-184)
+        if (training_params.get("FUSED_TAIL")
+                and self.compute_dtype in (None, torch.float32)):
             self._gate_fused_tail()
         self.allwts0 = [lyr.get_wts() for lyr in self.net_layers]
 
@@ -118,9 +127,9 @@ class NeuralNet:
         """FUSED_TAIL (model.py:173-197): the last HiddenLayer and the
         Softmax head run as one ``ops.fused_mlp`` function when the hidden
         activation is in the leaky-relu family (relu -> slope 0, linear ->
-        1, reluNN -> NN/100); silently off when the pattern differs. The
-        port computes in f32 only and raises on REMAT, the gate's other
-        two conditions."""
+        1, reluNN -> NN/100); silently off when the pattern differs or the
+        compute dtype is not f32. The port raises on REMAT, the gate's other
+        condition."""
         hid = self.net_layers[-2] if len(self.net_layers) >= 2 else None
         if not (type(hid) is HiddenLayer and type(self.head) is SoftmaxLayer):
             return
@@ -190,6 +199,14 @@ class NeuralNet:
 
     # -- compute --------------------------------------------------------------
 
+    def _cast_compute(self, params, x):
+        """Params and inputs in the compute dtype (model.py:290-299), for
+        forward and predict alike, so both run the same network body."""
+        if self.compute_dtype is None:
+            return params, x
+        cd = self.compute_dtype
+        return [[p.to(cd) for p in lp] for lp in params], x.to(cd)
+
     def _fused_tail_head(self, params, out, train, generator):
         """The dense tail (last hidden + Softmax head) as one
         ``fused_hidden_softmax`` call (model.py:301-323); returns the
@@ -215,7 +232,7 @@ class NeuralNet:
     def forward(self, params, x, *, train, generator=None):
         """Run the stack; returns the head-state dict. Layers draw from
         ``generator`` in layer order (model.py:325-349)."""
-        out = x
+        params, out = self._cast_compute(params, x)
         n_body = len(self.net_layers) - (2 if self.fused_tail else 0)
         for i, lyr in enumerate(self.net_layers):
             if i == n_body:
@@ -270,7 +287,8 @@ class NeuralNet:
         if not get_output_of_layers:
             hs = self.forward(params, x, train=False)
             return hs["features"], hs["y_preds"]
-        outs, out, hs = [], x, None
+        params, out = self._cast_compute(params, x)
+        outs, hs = [], None
         for i, lyr in enumerate(self.net_layers):
             if lyr is self.head:
                 hs = lyr.apply_head(params[i], out, train=False)

@@ -30,12 +30,14 @@ import torch
 
 __all__ = ["build", "megastep_launch", "deep_launch",
            "elastic_resample_launch", "fused_mlp_forward_launch",
-           "fused_mlp_backward_launch"]
+           "fused_mlp_backward_launch", "conv3x3_forward_launch",
+           "conv3x3_backward_launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 # csrc/<name>.cu each
-LIBRARIES = ("megastep", "megastep_deep", "elastic_resample", "fused_mlp")
+LIBRARIES = ("megastep", "megastep_deep", "elastic_resample", "fused_mlp",
+             "conv3x3")
 HEADERS = ("stages.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -111,6 +113,9 @@ ENTRY_POINTS = {
         "fused_mlp_forward": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
         "fused_mlp_backward": [_P] * 14 + [_I] * 4 + [_F] * 2 + [_I] * 2
                               + [_P]},
+    "conv3x3": {
+        "conv3x3_forward": [_P] * 3 + [_I] * 6 + [_P],
+        "conv3x3_backward": [_P] * 6 + [_I] * 7 + [_P]},
 }
 
 
@@ -287,3 +292,24 @@ def fused_mlp_backward_launch(x, w1, w2, h, mask, logp, g, dx, dw1, db1, dw2,
     _call("fused_mlp", "fused_mlp_backward", x, w1, w2, h, mask, logp, g, dx,
           dw1, db1, dw2, db2, dz2, dz1, x.shape[0], x.shape[1], w1.shape[1],
           w2.shape[1], slope, keep, drop)
+
+
+def _conv3x3_dims(x, w):
+    b, c, h, _ = x.shape
+    return b, c, h, w.shape[0]
+
+
+def conv3x3_forward_launch(x, w, out):
+    """The forward of csrc/conv3x3.cu (1 launch) on the current stream, in
+    x's dtype: ``out`` (B, M, H-2, H-2)."""
+    _call("conv3x3", "conv3x3_forward", x, w, out, *_conv3x3_dims(x, w),
+          int(x.dtype == torch.bfloat16))
+
+
+def conv3x3_backward_launch(x, w, dz, dx, dw, part):
+    """The backward of csrc/conv3x3.cu (3 launches) on the current stream,
+    in x's dtype: ``dx`` and ``dw`` from ``dz``; ``part`` is its f32
+    scratch of one (M, 9C) slab per batch slice."""
+    _call("conv3x3", "conv3x3_backward", x, w, dz, dx, dw, part,
+          *_conv3x3_dims(x, w), part.shape[0],
+          int(x.dtype == torch.bfloat16))

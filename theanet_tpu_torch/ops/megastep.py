@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from ..layers.conv import pool_backward, pool_windows
 
 __all__ = ["LayerReg", "MegaSpec", "act_of", "spec_from_net",
+           "warp_smem_ok", "flagship_head_smem", "launch_limit_reason",
            "fused_decline_reason", "fused_plan", "FusedPlan",
            "MEGA_LAYER_IDX", "kernel_shapes", "kernel_layout",
            "framework_layout", "db_lanes", "fb_lanes", "epoch_noise_bits",
@@ -136,6 +137,44 @@ def warp_active(spec):
                 or spec.zoom != 1)
 
 
+# ------------------------------------------------------------ launch limits
+# Each fused kernel refuses at launch a spec whose stage does not fit a
+# block's shared memory. The matchers decline such a spec with these twins
+# of the C checks, so a net takes the same route on the CPU and on a card.
+
+SMEM_DEFAULT = 48 * 1024      # a block's shared memory without opting in
+SMEM_OPT_IN = 227 * 1024      # the most a block can opt in to (sm_90)
+
+
+def warp_smem_ok(hw):
+    """csrc/stages.cuh:158-164 (``warp_smem_ok``, called at megastep.cu:432
+    and megastep_deep.cu:605): k_warp keeps 4 floats a pixel in dynamic
+    shared memory, opting in above 48 KB up to 227 KB."""
+    return 4 * 4 * hw <= SMEM_OPT_IN
+
+
+def flagship_head_smem(spec):
+    """csrc/megastep.cu:433: k_head's shared memory, (2 B NC + B) floats."""
+    return 4 * (2 * spec.batch * spec.n_out + spec.batch)
+
+
+def launch_limit_reason(spec, head_bytes, head_src):
+    """Why a fused kernel would refuse ``spec`` at launch (None when it
+    takes it): a warp field (active warp) that ``warp_smem_ok`` refuses,
+    or ``head_bytes`` of head shared memory (``head_src`` names the C
+    formula) above the 48 KB the head kernel runs with."""
+    if warp_active(spec) and not warp_smem_ok(spec.hw):
+        return (f"the warp field's shared memory: a {spec.img}x{spec.img} "
+                f"image needs {16 * spec.hw:,} bytes, above the "
+                f"{SMEM_OPT_IN:,} a block can hold (csrc/stages.cuh "
+                "warp_smem_ok)")
+    if head_bytes > SMEM_DEFAULT:
+        return (f"the head kernel's shared memory: BATCH_SZ {spec.batch} x "
+                f"{spec.n_out} outputs needs {head_bytes:,} bytes, above the "
+                f"{SMEM_DEFAULT:,} the fused head runs with ({head_src})")
+    return None
+
+
 # ----------------------------------------------------------------- matcher
 
 _SMOOTH_ACTS = ("tanh", "scaled_tanh", "sigmoid", "softplus")
@@ -178,8 +217,9 @@ def reg_of(lyr):
 
 
 def spec_from_net(net):
-    """A MegaSpec when ``net`` matches the flagship pattern, else None (the
-    deep family, whose grammar holds this one, names the reason)."""
+    """A MegaSpec when ``net`` matches the flagship pattern and the kernel
+    takes it at launch, else None (the deep family, whose grammar holds
+    this one and whose limits are no looser, names the reason)."""
     from ..layers import (ConvLayer, ElasticLayer, HiddenLayer, InputLayer,
                           PoolLayer, SoftmaxLayer)
 
@@ -213,7 +253,10 @@ def spec_from_net(net):
         reg1=reg_of(c1), reg2=reg_of(c2), reg_h=reg_of(hid),
         reg_o=reg_of(head), in_ch=in_ch,
     )
-    return spec if spec.p2 >= 1 else None
+    if spec.p2 < 1 or launch_limit_reason(spec, flagship_head_smem(spec),
+                                          "csrc/megastep.cu"):
+        return None
+    return spec
 
 
 class FusedPlan(NamedTuple):

@@ -24,7 +24,9 @@ Softmax(nll) pattern stays with the flagship family when its matcher takes
 it, and the bare flat Input/Elastic -> Hidden -> Softmax(nll) pattern with
 the flat-MLP family (``fused_plan`` tries flagship, MLP, deep). The TPU's
 VMEM gate and grouped lane-slot layout have no counterpart: the card holds
-every shipped net whole.
+every shipped net whole. What the kernel cannot launch (a head or warp
+stage beyond a block's shared memory) is declined by name
+(``megastep.launch_limit_reason``).
 
 Kernel-layout state, per conv level the weights (M, F*F*Cin) indexed
 (u*F+v)*Cin + c and the bias column (M, 1); per dense layer the weights
@@ -41,12 +43,14 @@ import torch
 from .megastep import (LayerReg, _act, _conv_true, _conv_true_dgrad,
                        _conv_true_wgrad, _dact, _pool, _u01, act_of, aug_of,
                        apply_updates, augment, centered_nll,
-                       check_epoch_inputs, reg_of, smoothing_factors,
-                       softmax_nll, spec_from_net, weight_cost)
+                       check_epoch_inputs, launch_limit_reason, reg_of,
+                       smoothing_factors, softmax_nll, spec_from_net,
+                       weight_cost)
 from ..layers.conv import pool_backward
 
 __all__ = ["DeepSpec", "deep_spec_from_net", "deep_decline_reason",
            "deep_layer_idx", "deep_kernel_shapes", "deep_reg_kinds",
+           "deep_head_smem", "deep_launch_reason",
            "kernel_layout_deep", "framework_layout_deep",
            "deep_epoch_reference", "deep_epoch"]
 
@@ -254,12 +258,28 @@ def _match(net):
         **head_cfg, **color)
     if any(c <= 0 or po <= 0 for _, c, po in spec.sides):
         return None, "the image is too small for the conv/pool levels"
-    return spec, None
+    return spec, deep_launch_reason(spec)
+
+
+def deep_head_smem(spec):
+    """csrc/megastep_deep.cu:466-469 (``head_smem``): the head stage's
+    shared memory, (2 B NO + B NC + NC + 4 B) floats, NO the head's width
+    and NC its classes."""
+    return 4 * (2 * spec.batch * spec.n_out + spec.batch * spec.n_classes
+                + spec.n_classes + 4 * spec.batch)
+
+
+def deep_launch_reason(spec):
+    """Why the deep kernel would refuse ``spec`` at launch, else None."""
+    return launch_limit_reason(spec, deep_head_smem(spec),
+                               "csrc/megastep_deep.cu head_smem")
 
 
 def deep_spec_from_net(net):
-    """A DeepSpec when ``net`` is in the port's deep grammar, else None."""
-    return _match(net)[0]
+    """A DeepSpec when ``net`` is in the port's deep grammar and the kernel
+    takes it at launch, else None."""
+    spec, reason = _match(net)
+    return None if reason else spec
 
 
 def deep_decline_reason(net):

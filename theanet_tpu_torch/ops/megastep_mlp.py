@@ -20,7 +20,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 from .megastep import LayerReg, act_of, aug_of, reg_of
-from .megastep_deep import DeepSpec, deep_epoch_reference, launch_deep
+from .megastep_deep import (DeepSpec, deep_epoch_reference,
+                            deep_launch_reason, launch_deep)
 
 __all__ = ["MlpSpec", "mlp_spec_from_net", "MLP_LAYER_IDX", "as_deep",
            "mlp_kernel_shapes", "kernel_layout_mlp", "framework_layout_mlp",
@@ -63,7 +64,8 @@ class MlpSpec(NamedTuple):
 def mlp_spec_from_net(net):
     """An MlpSpec when ``net`` is Input/Elastic -> Hidden -> Softmax(nll)
     with a fusable hidden activation and no frozen layer, else None
-    (megastep_mlp.py:98-154, without the VMEM budget)."""
+    (megastep_mlp.py:98-154; the deep kernel's launch limits in place of
+    the VMEM budget)."""
     from ..layers import ElasticLayer, HiddenLayer, InputLayer, SoftmaxLayer
 
     L = net.net_layers
@@ -78,11 +80,14 @@ def mlp_spec_from_net(net):
         return None
     if any(not lyr.reg["rate"] for lyr in (hid, head)):
         return None
-    return MlpSpec(batch=net.batch_sz, img=L[0].out_sz, n_hid=hid.n_out,
+    spec = MlpSpec(batch=net.batch_sz, img=L[0].out_sz, n_hid=hid.n_out,
                    n_out=head.n_out, slope_h=act_h[1], act_h=act_h[0],
                    pdrop=float(hid.pdrop), **aug_of(L[0]),
                    reg_h=reg_of(hid), reg_o=reg_of(head),
                    in_ch=L[0].num_maps)
+    # the deep kernel runs it: its launch limits (the deep matcher, which
+    # then sees the same net, names the reason)
+    return None if deep_launch_reason(as_deep(spec)) else spec
 
 
 def as_deep(spec):
