@@ -71,7 +71,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the second again from snapshot_state, one conv forward and backward
      launch per step and one forward per eval batch, the replay bit-equal;
      5 steps step-locked against the plain conv (cost and conv2's new
-     momentum); epoch times with the kernel and with cuDNN.
+     momentum); epoch times with the kernel and with cuDNN;
+ 15. the data-parallel step's kernels (csrc/megastep.cu and
+     csrc/megastep_deep.cu: ``*_grad_step`` and ``*_update``) vs their
+     plain versions at full width: mnist_cnn at 20 and 10 samples a rank,
+     galaxy_rbf and flat_mlp (a zero-level deep spec) at 10; their times a
+     call; then one step-locked epoch of mnist_cnn and galaxy_rbf through
+     the world-1 DP step (NCCL, this process), the epoch kernel and the
+     twin, and two emulated ranks against the epoch kernel;
+ 16. the data-parallel main path, ``Trainer(mesh=make_mesh())``: mnist_cnn
+     at world 1 on NCCL, then mnist_cnn, galaxy_rbf and flat_mlp at world 2
+     on gloo (two processes sharing the card, started by
+     ``parallel.launch``), 2 epochs each, against the single-device fused
+     Trainer's costs; one gradient and one update launch a step a rank, the
+     ranks' parameters bit-identical, rank 0 alone checkpointing; epoch
+     times and the device's idle share.
 
 The last three lines are the kernels JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The script imports nothing of
@@ -125,7 +139,7 @@ FREE_TOTAL_RTOL = 5e-3
 # different random bits give mid-curve and fails a net that did not learn.
 MAIN_SEED = 9876
 MAIN_TEST_ERR_MAX = 40.0
-ALL_PHASES = tuple(range(1, 15))
+ALL_PHASES = tuple(range(1, 17))
 
 
 def banner(n, title):
@@ -746,7 +760,7 @@ def counted_run(train, argv):
 
     fns = (megastep.megastep_epoch, deep.deep_epoch, mlp.mlp_epoch,
            elastic_resample.elastic_resample, fused_mlp.tail_forward,
-           fused_mlp.tail_backward)
+           fused_mlp.tail_backward) + dp_wrappers()
     for fn in fns:
         fn.launches = 0
     out = run_cli(train, argv)
@@ -763,7 +777,8 @@ def cli_run(train, name, family, launches, seed=None, epochs=None):
         f.write(config_text(name, seed, epochs))
     out, counts = counted_run(train, ["train", cfg["data"], name + ".prms"])
     want = {"megastep_epoch": 0, "deep_epoch": 0, "mlp_epoch": 0,
-            "elastic_resample": 0, "tail_forward": 0, "tail_backward": 0}
+            "elastic_resample": 0, "tail_forward": 0, "tail_backward": 0,
+            **{fn.__name__: 0 for fn in dp_wrappers()}}
     want[family] = epochs
     assert counts == want, (name, seed, counts)
     launches[family] += epochs
@@ -1236,7 +1251,8 @@ def phase12(torch, card):
         want = {"megastep_epoch": 0, "deep_epoch": 0, "mlp_epoch": 0,
                 "elastic_resample": epochs * steps,
                 "tail_forward": epochs * steps + n_eval,
-                "tail_backward": epochs * steps}
+                "tail_backward": epochs * steps,
+                **{fn.__name__: 0 for fn in dp_wrappers()}}
         assert counts == want, (counts, want)
     rows = epoch_rows(fresh)[:-1] + epoch_rows(resumed)
     assert [r[0] for r in rows] == [0, 1, 2, 3], rows
@@ -1610,6 +1626,487 @@ def bf16_fuses(torch):
     assert same
 
 
+# ----------------------------------------------------------- phases 15-16
+
+# The data-parallel path (ops/megastep_dp.py): per step, each rank's
+# gradient kernel on its shard, one all_reduce, the update kernel. Phase 15
+# holds the two kernels to their plain versions at full width, (config,
+# batch per rank), flat_mlp as the zero-level deep spec a mesh gives it.
+DP_CASES = (("mnist_cnn", 20), ("mnist_cnn", 10), ("galaxy_rbf", 10),
+            ("flat_mlp", 10))
+# kernel vs plain version, one step: each gradient within DP_REL of its
+# tensor's largest value, cost and minf within DP_REL of max(1, |value|)
+# (both sum each output in one order; the dense products' f32 sums differ
+# by a few ulps)
+DP_REL = 1e-5
+# phase 16: each run against the single-device fused Trainer at its SEED
+# and words, 2 epochs, BATCH_SZ 20 (10 a rank at world 2). World 1 sums the
+# same gradients in the same order: its step costs are held to
+# DP_COST_RTOL (the JAX package's DP gate; measured 0). At world 2 the
+# batch sums split in two, and SGD carries the last-ulp difference until
+# the trajectory leaves that gate (measured on an H100: first at step 228
+# of mnist_cnn's first epoch and step 27 of galaxy_rbf's, where pool ties
+# amplify it): the two ranks are held instead to each other
+# and to the in-process emulation of the two ranks, both to the bit, and
+# the emulation to the epoch kernel step-locked (phase 15); the
+# free-running costs are printed beside the single device's, and each
+# epoch's total is held to DP_FREE_TOTAL_RTOL of it (measured up to 1.24%,
+# galaxy_rbf's second epoch: a noise stream alone moves one SEED's costs
+# by up to 25%, PERF.md).
+DP_EPOCHS = 2
+DP_COST_RTOL = 1e-4
+DP_FREE_TOTAL_RTOL = 0.05
+
+
+def dp_wrappers():
+    """The data-parallel path's four counted kernel wrappers."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_deep as deep
+
+    return (megastep.megastep_grad_step, deep.deep_grad_step,
+            megastep.megastep_update, deep.deep_update)
+
+
+def dp_config(name):
+    """(layers, training params, dataset module) of a config as its CLI run
+    builds it: mnist_cnn.prms with SEED MAIN_SEED, the others as CONFIGS
+    pins them, NUM_EPOCHS DP_EPOCHS; the input layer sized to the data."""
+    import ast
+    import importlib
+
+    from theanet_tpu_torch.prms import fixdim, load_params
+
+    if name == "mnist_cnn":
+        layers, tr, _ = load_params(os.path.join(REPO, "params",
+                                                 "mnist_cnn.prms"))
+        tr.update(SEED=MAIN_SEED, NUM_EPOCHS=DP_EPOCHS)
+        data_name = "synth_hard"
+    else:
+        prms = ast.literal_eval(config_text(name, epochs=DP_EPOCHS))
+        layers = [[n, dict(a)] for n, a in prms["layers"]]
+        tr = prms["training_params"]
+        data_name = CONFIGS[name]["data"]
+    data = importlib.import_module("theanet_tpu_torch.data." + data_name)
+    shape = fixdim(data.training_x[:1]).shape
+    layers[0][1]["img_sz"] = shape[3]
+    if "num_maps" not in layers[0][1] and shape[1] != 1:
+        layers[0][1]["num_maps"] = shape[1]
+    return layers, tr, data
+
+
+def dp_arrays(data):
+    """A dataset's four arrays as the Trainer takes them."""
+    from theanet_tpu_torch.prms import fixdim
+
+    return (fixdim(data.training_x), data.training_y,
+            fixdim(data.testing_x), data.testing_y)
+
+
+def dp_setup(torch, name, dev):
+    """(net, global spec, initial state, natural x, y on the card) of a
+    config matched as under a mesh (fused_plan(for_mesh=True))."""
+    import numpy as np
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.ops import megastep
+
+    layers, tr, data = dp_config(name)
+    net = NeuralNet(layers, tr)
+    plan = megastep.fused_plan(net, for_mesh=True)
+    assert plan is not None, megastep.fused_decline_reason(net)
+    tx, ty, _, _ = dp_arrays(data)
+    x = torch.as_tensor(tx, device=dev)
+    y = torch.as_tensor(np.asarray(ty, np.int32), device=dev)
+    return net, plan, initial_state(plan, net, dev), x, y
+
+
+def dp_step_inputs(torch, spec, n, x, y, dev):
+    """Rank 0's step-0 inputs on an n-rank mesh; the noise epoch is the
+    first whose warp has no near-rounding pixel (as phase 2)."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_dp as dp
+
+    for epoch in range(50):
+        bits = megastep.epoch_noise_bits(7, epoch, spec, 1, dev)
+        if not spec.nearest or near_rounding_pixels(
+                torch, megastep, spec, bits, 0) == 0:
+            break
+    xs, ys = dp.dp_shard_data(spec, n, 0, x[:spec.batch], y[:spec.batch])
+    ub, fb, pb, db = dp.dp_shard_words(spec, n, 0, bits)
+    return xs[0], ys[0], (ub[0, 0], fb[0], pb[0], db[0])
+
+
+def grad_step_flops(spec):
+    """step_flops less the update's 10 operations a state element."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_deep as deep
+
+    shapes = (megastep.kernel_shapes(spec)
+              if isinstance(spec, megastep.MegaSpec)
+              else deep.deep_kernel_shapes(spec))
+    return step_flops(spec) - 10 * sum(r * c for r, c in shapes)
+
+
+def phase15_case(torch, name, b_loc, dev, card):
+    """One gradient step and one update of a DP_CASES entry, kernel vs plain
+    version, and their times. Returns {kernel: (largest absolute |d|, (ms,
+    plain ms, bound))}."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_dp as dp
+
+    net, plan, kp, x, y = dp_setup(torch, name, dev)
+    spec = plan.spec
+    n = spec.batch // b_loc
+    loc = dp.local_spec(spec, b_loc)
+    xs, ys, words = dp_step_inputs(torch, spec, n, x, y, dev)
+    shapes = [tuple(t.shape) for t in kp]
+    ng = sum(t.numel() for t in kp)
+    out = [(torch.empty(ng, device=dev), torch.empty(2, device=dev))
+           for _ in range(2)]
+    consts = dp.constants(loc, dev)
+    dp.grad_step(loc, consts, xs, ys, words, kp, *out[0])
+    dp.grad_step_reference(loc, consts, xs, ys, words, kp, *out[1])
+    torch.cuda.synchronize()
+    (g, cm), (g0, cm0) = out
+    errs = [max_abs(a, b) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(megastep.split_grads(g, shapes),
+                            megastep.split_grads(g0, shapes))]
+    cm_err = max(abs(float(a) - float(b)) / max(1.0, abs(float(b)))
+                 for a, b in zip(cm, cm0))
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    # the update from random momenta with the plain gradients
+    gen = torch.Generator(device=dev).manual_seed(11)
+    km = [0.01 * torch.randn(t.shape, generator=gen, device=dev) for t in kp]
+    st = [([t.clone() for t in kp], [t.clone() for t in km])
+          for _ in range(2)]
+    dp.update(loc, *st[0], g0, 0.1)
+    dp.update_reference(loc, *st[1], g0, 0.1)
+    torch.cuda.synchronize()
+    d_upd = max(max_abs(a, b) for a, b in zip(st[0][0] + st[0][1],
+                                              st[1][0] + st[1][1]))
+    moved = max(max_abs(a, b) for a, b in zip(st[0][0], kp))
+    print(f"  {name} ({type(spec).__name__}, b_loc {b_loc}): gradient step "
+          f"cost {float(cm[0]):.6f} (plain {float(cm0[0]):.6f}); largest "
+          f"|d| / largest value: cost/minf {cm_err:.2e}, gradients "
+          f"{max(errs):.2e} ({len(errs)} tensors); update max|d| "
+          f"{d_upd:.2e} (params moved {moved:.2e})", flush=True)
+    assert cm_err <= DP_REL and max(errs) <= DP_REL, (cm_err, errs)
+    assert moved > 0 and d_upd <= STEP_ATOL, (moved, d_upd)
+
+    grad_fn, upd_fn = dp.family(loc).grad_step, dp.family(loc).update
+    saved = [fn.launches for fn in dp_wrappers()]
+    p, m = st[0]
+    ms_g = timed(torch, lambda: dp.grad_step(loc, consts, xs, ys, words, kp,
+                                             g, cm), 100)
+    ms_gp = timed(torch, lambda: dp.grad_step_reference(
+        loc, consts, xs, ys, words, kp, g0, cm0), 5)
+    ms_u = timed(torch, lambda: dp.update(loc, p, m, g0, 0.0), 100)
+    ms_up = timed(torch, lambda: dp.update_reference(loc, p, m, g0, 0.0), 5)
+    for fn, k in zip(dp_wrappers(), saved):   # timing launches do not count
+        fn.launches = k
+    b_grad = bound(nbytes(xs, ys, *words, *kp, g, cm), grad_step_flops(loc))
+    b_upd = bound(nbytes(*kp, *km, g0, *kp, *km),
+                  10 * sum(r * c for r, c in shapes))
+    print(f"    on {card}: gradient step {ms_g:.4f} ms a call (plain "
+          f"{ms_gp:.3f}; bound {b_grad[0]:.5f} ms, {b_grad[1]}), update "
+          f"{ms_u:.4f} ms (plain {ms_up:.3f}; bound {b_upd[0]:.5f} ms, "
+          f"{b_upd[1]})", flush=True)
+    d_grad = max(max_abs(g, g0), max_abs(cm, cm0))
+    return {grad_fn.__name__: (d_grad, (ms_g, ms_gp, b_grad)),
+            upd_fn.__name__: (d_upd, (ms_u, ms_up, b_upd))}
+
+
+def dp_locked_epoch(torch, name, mesh, dev):
+    """One epoch of a config step-locked three ways from the data-parallel
+    path's state: the world-1 DP step (grad_step, all_reduce over
+    ``mesh``, update), the epoch kernel, the twin; and two emulated ranks
+    (each shard's gradient kernel, their mean, the update) against the
+    epoch kernel. Then the whole epoch free-running, DP against the epoch
+    kernel. Returns the largest |d| of each comparison."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_dp as dp
+
+    net, plan, kp, x, y = dp_setup(torch, name, dev)
+    spec = plan.spec
+    kernel, twin = ((megastep.megastep_epoch,
+                     megastep.megastep_epoch_reference)
+                    if isinstance(spec, megastep.MegaSpec)
+                    else family_fns(plan))
+    xs, ys = dp.dp_shard_data(spec, 1, 0, x, y)
+    nb = xs.shape[0]
+    bits = megastep.epoch_noise_bits(3, 0, spec, nb, dev)
+    epoch1 = dp.make_dp_epoch_fn(spec, 1, mesh)
+    loc2 = dp.local_spec(spec, spec.batch // 2)
+    shards = [dp.dp_shard_data(spec, 2, r, x, y) for r in range(2)]
+    words2 = [dp.dp_shard_words(spec, 2, r, bits) for r in range(2)]
+    ng = sum(t.numel() for t in kp)
+    consts2 = dp.constants(loc2, dev)
+    g2 = [torch.empty(ng, device=dev) for _ in range(2)]
+    cm2 = torch.empty((2, 2), device=dev)
+    p, m = kp, [torch.zeros_like(t) for t in kp]
+    d_kernel = d_twin = d_twin_flip = d_ranks = 0.0
+    t0 = time.time()
+    for s in range(nb):
+        sl = slice(s, s + 1)
+        b_s = tuple(b[sl] for b in bits)
+        got = epoch1(p, m, xs[sl], ys[sl], b_s, 0.1)
+        ker = kernel(p, m, xs[sl], ys[sl], b_s, 0.1, spec)
+        ref = twin(p, m, xs[sl], ys[sl], b_s, 0.1, spec)
+        p2, m2 = [t.clone() for t in p], [t.clone() for t in m]
+        for r in range(2):
+            ub, fb, pb, db = words2[r]
+            dp.grad_step(loc2, consts2, shards[r][0][s], shards[r][1][s],
+                         (ub[s, 0], fb[s], pb[s], db[s]), p, g2[r], cm2[r])
+        dp.update(loc2, p2, m2, (g2[0] + g2[1]) / 2, 0.1)
+        d_kernel = max(d_kernel, max(max_abs(a, b) for a, b in zip(
+            got[0] + got[1] + [got[2]], ker[0] + ker[1] + [ker[2]])))
+        d = max(max_abs(a, b) for a, b in zip(got[0] + got[1] + [got[2]],
+                                              ref[0] + ref[1] + [ref[2]]))
+        if spec.nearest and near_rounding_pixels(torch, megastep, spec, b_s,
+                                                 0):
+            d_twin_flip = max(d_twin_flip, d)
+        else:
+            d_twin = max(d_twin, d)
+            d_ranks = max(d_ranks, max(max_abs(a, b) for a, b in zip(
+                p2 + m2, ker[0] + ker[1])))
+        p, m = got[0], got[1]
+    epoch_dp = dp.make_dp_epoch_fn(spec, nb, mesh)
+    free_dp = epoch_dp(kp, [torch.zeros_like(t) for t in kp], xs, ys, bits,
+                       0.1)
+    free_k = kernel(kp, [torch.zeros_like(t) for t in kp], xs, ys, bits,
+                    0.1, spec)
+    d_free = max(max_abs(a, b) for a, b in zip(
+        free_dp[0] + free_dp[1] + [free_dp[2]],
+        free_k[0] + free_k[1] + [free_k[2]]))
+    print(f"  {name}, {nb} steps step-locked: max|d| DP world 1 vs epoch "
+          f"kernel {d_kernel:.3e}, vs twin {d_twin:.3e} ({d_twin_flip:.3e} "
+          f"on steps with a near-rounding pixel); 2 emulated ranks vs epoch "
+          f"kernel {d_ranks:.3e}; free-running epoch, DP vs epoch kernel "
+          f"{d_free:.3e} [{time.time() - t0:.1f} s]", flush=True)
+    assert d_twin <= STEP_ATOL and d_twin_flip <= FLIP_ATOL, (d_twin,
+                                                              d_twin_flip)
+    assert d_ranks <= STEP_ATOL, d_ranks
+    return d_kernel, d_twin, d_ranks, d_free
+
+
+def phase15(torch, dev, card, mesh):
+    """Returns ({kernel: (largest |d|, times)} at the world-2 runs' shapes,
+    mnist_cnn's and galaxy_rbf's at 10 a rank, and the step-locked
+    epochs' differences)."""
+    kernels = {}
+    for name, b_loc in DP_CASES:
+        out = phase15_case(torch, name, b_loc, dev, card)
+        if b_loc == 10 and name != "flat_mlp":
+            kernels.update(out)
+    locked = {name: dp_locked_epoch(torch, name, mesh, dev)
+              for name in ("mnist_cnn", "galaxy_rbf")}
+    return kernels, locked
+
+
+def single_device_run(torch, name, epochs=DP_EPOCHS):
+    """The single-device fused Trainer of a config: (costs per epoch, ms per
+    epoch by CUDA events)."""
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.trainer import Trainer
+
+    layers, tr, data = dp_config(name)
+    net = NeuralNet(layers, tr)
+    trainer = Trainer(net, *dp_arrays(data))
+    costs, ms = [], []
+    for _ in range(epochs):
+        ms.append(timed_once(torch, lambda: costs.append(
+            trainer.run_epoch()[1])))
+        net.inc_epoch_set_rate()
+    return costs, ms
+
+
+def timed_once(torch, fn):
+    """ms of one call by CUDA events (no warm-up: a training epoch moves
+    the state)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def cost_gap(costs, ref):
+    """(largest relative step-cost difference, first (epoch, step) beyond
+    DP_COST_RTOL or None)."""
+    import numpy as np
+
+    worst, first = 0.0, None
+    for e, (c, r) in enumerate(zip(costs, ref)):
+        rel = np.abs(np.asarray(c) - r) / np.maximum(np.abs(r), 1e-12)
+        worst = max(worst, float(rel.max()))
+        over = np.nonzero(rel > DP_COST_RTOL)[0]
+        if first is None and over.size:
+            first = (e, int(over[0]))
+    return worst, first
+
+
+def emulated_ranks(torch, name, n, dev):
+    """The n-rank data-parallel run of a config in this one process: each
+    step every rank's gradient kernel on its shard, the sum over ranks
+    divided by n (what all_reduce and div_ compute: for two ranks one
+    commutative f32 add), the update kernel; cost summed over ranks / n and
+    minf their min, at the Trainer's noise words and learning rates.
+    Returns (step costs per epoch, final owned-layer weights as numpy)."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_dp as dp
+
+    net, plan, kp, x, y = dp_setup(torch, name, dev)
+    spec = plan.spec
+    loc = dp.local_spec(spec, spec.batch // n)
+    shards = [dp.dp_shard_data(spec, n, r, x, y) for r in range(n)]
+    nb = shards[0][0].shape[0]
+    p, m = [t.clone() for t in kp], [torch.zeros_like(t) for t in kp]
+    ng = sum(t.numel() for t in kp)
+    g = [torch.empty(ng, device=dev) for _ in range(n)]
+    cmr = torch.empty((n, 2), device=dev)
+    consts = dp.constants(loc, dev)
+    costs = []
+    for _ in range(DP_EPOCHS):
+        bits = megastep.epoch_noise_bits(net.tr_prms["SEED"], net.get_epoch(),
+                                         spec, nb, dev)
+        words = [dp.dp_shard_words(spec, n, r, bits) for r in range(n)]
+        lr = net.get_rate()
+        cost = torch.empty(nb, device=dev)
+        for s in range(nb):
+            for r in range(n):
+                ub, fb, pb, db = words[r]
+                dp.grad_step(loc, consts, shards[r][0][s], shards[r][1][s],
+                             (ub[s, 0], fb[s], pb[s], db[s]), p, g[r],
+                             cmr[r])
+            tot = g[0].clone()
+            for r in range(1, n):
+                tot += g[r]
+            dp.update(loc, p, m, tot.div_(n), lr)
+            c = cmr[0, 0].clone()
+            for r in range(1, n):
+                c += cmr[r, 0]
+            cost[s] = c / n
+        costs.append(cost.cpu().numpy())
+        net.inc_epoch_set_rate()
+    return costs, [[w.cpu().numpy() for w in lw]
+                   for lw in plan.framework_layout(p, spec)], plan.layer_idx
+
+
+def phase16(torch, card, mesh):
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.parallel import launch
+    from theanet_tpu_torch.parallel.launch import train_ranks
+    from theanet_tpu_torch.trainer import Trainer
+
+    launches = {fn.__name__: 0 for fn in dp_wrappers()}
+    report = {}
+    # world 1, NCCL, this process
+    ref_costs, ref_ms = single_device_run(torch, "mnist_cnn")
+    layers, tr, data = dp_config("mnist_cnn")
+    net = NeuralNet(layers, tr)
+    trainer = Trainer(net, *dp_arrays(data), mesh=mesh)
+    nb = trainer.n_train_batches
+    for fn in dp_wrappers():
+        fn.launches = 0
+    costs, ms = [], []
+    for _ in range(DP_EPOCHS):
+        ms.append(timed_once(torch, lambda: costs.append(
+            trainer.run_epoch()[1])))
+        net.inc_epoch_set_rate()
+    counts = {fn.__name__: fn.launches for fn in dp_wrappers()}
+    gap, first = cost_gap(costs, ref_costs)
+    print(f"  mnist_cnn, world 1 (NCCL), {DP_EPOCHS} epochs of {nb} steps: "
+          f"epoch ms {[round(t, 3) for t in ms]} (single-device epoch "
+          f"kernel {[round(t, 3) for t in ref_ms]}); step costs vs single "
+          f"device: largest relative |d| {gap:.3e}; launches {counts}",
+          flush=True)
+    assert first is None, first
+    assert counts == {"megastep_grad_step": DP_EPOCHS * nb,
+                      "megastep_update": DP_EPOCHS * nb, "deep_grad_step": 0,
+                      "deep_update": 0}, counts
+    for k, v in counts.items():
+        launches[k] += v
+    profile_epoch(torch, trainer.run_epoch, nb,
+                  "one mnist_cnn DP epoch at world 1", top=8)
+    report["mnist_cnn world 1"] = (ms, ref_ms)
+
+    # world 2, gloo: two processes share the card
+    names = ("mnist_cnn", "galaxy_rbf", "flat_mlp")
+    with tempfile.TemporaryDirectory() as tmp:
+        job = []
+        for name in names:
+            layers, tr, data = dp_config(name)
+            job.append(dict(name=name, layers=layers, training_params=tr,
+                            data=dp_arrays(data), epochs=DP_EPOCHS,
+                            profile=True))
+        job_file = os.path.join(tmp, "job.pkl")
+        with open(job_file, "wb") as f:
+            pickle.dump(job, f)
+        t0 = time.time()
+        launch(train_ranks, 2, "gloo", os.path.join(tmp, "rendezvous"),
+               job_file, tmp, timeout=900)
+        print(f"  world 2 (gloo, 2 processes on the card): "
+              f"{time.time() - t0:.1f} s for the three runs", flush=True)
+        ranks = {}
+        for name in names:
+            ranks[name] = []
+            for r in range(2):
+                with open(os.path.join(tmp, f"{name}_rank{r}.pkl"),
+                          "rb") as f:
+                    ranks[name].append(pickle.load(f))
+    for name in names:
+        ref_costs, ref_ms = single_device_run(torch, name)
+        emu_costs, emu_params, idx = emulated_ranks(torch, name, 2,
+                                                    mesh.device)
+        for fn, k in zip(dp_wrappers(), [launches[fn.__name__]
+                                          for fn in dp_wrappers()]):
+            fn.launches = k   # the emulation's launches do not count
+        r0, r1 = ranks[name]
+        nb = len(ref_costs[0])
+        family = "megastep" if name == "mnist_cnn" else "deep"
+        want = {fn.__name__: 0 for fn in dp_wrappers()}
+        want[family + "_grad_step"] = want[family + "_update"] = (
+            DP_EPOCHS * nb)
+        same = all((a == b).all() for la, lb in zip(r0["params"],
+                                                   r1["params"])
+                   for a, b in zip(la, lb))
+        as_emulated = (all((a == b).all() for a, b in zip(r0["costs"],
+                                                          emu_costs))
+                       and all((a == b).all() for i, lb in zip(idx,
+                                                               emu_params)
+                               for a, b in zip(r0["params"][i], lb)))
+        gap, first = cost_gap(r0["costs"], ref_costs)
+        print(f"  {name}, world 2, {DP_EPOCHS} epochs of {nb} steps (10 a "
+              f"rank): epoch ms rank 0 {[round(t, 3) for t in r0['ms']]}, "
+              f"rank 1 {[round(t, 3) for t in r1['ms']]} (single-device "
+              f"epoch kernel {[round(t, 3) for t in ref_ms]}); device idle "
+              f"share rank 0 {100 * r0['idle_share']:.1f}%, rank 1 "
+              f"{100 * r1['idle_share']:.1f}%; step costs vs single device: "
+              f"largest relative |d| {gap:.3e}, first beyond "
+              f"{DP_COST_RTOL:g} at (epoch, step) {first}; epoch totals "
+              f"{[round(float(c.sum()), 4) for c in r0['costs']]} (single "
+              f"device {[round(float(c.sum()), 4) for c in ref_costs]}); "
+              f"ranks' params bit-identical: {same}; costs and params "
+              f"bit-equal to the in-process emulation of the two ranks: "
+              f"{as_emulated}; launches rank 0 {r0['launches']}, rank 1 "
+              f"{r1['launches']}", flush=True)
+        assert same and as_emulated
+        assert r0["launches"] == want and r1["launches"] == want, (
+            r0["launches"], r1["launches"], want)
+        assert [r["wrote_checkpoint"] for r in (r0, r1)] == [True, False]
+        for c, ref in zip(r0["costs"], ref_costs):
+            assert abs(float(c.sum()) - float(ref.sum())) <= (
+                DP_FREE_TOTAL_RTOL * abs(float(ref.sum()))), (c.sum(),
+                                                             ref.sum())
+        for k in want:
+            launches[k] += r0["launches"][k] + r1["launches"][k]
+        report[name + " world 2"] = (r0["ms"], ref_ms)
+    print(f"kernel launches in the main path: {launches}", flush=True)
+    return launches, report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)))
@@ -1704,6 +2201,25 @@ def main(argv=None):
         banner(14, "bench.py's wide model: NeuralNet + Trainer per layer, "
                "bf16, conv2 on the conv3x3 kernel; epoch times")
         wide_launches, _, _ = phase14(torch, card)
+    if phases & {15, 16}:
+        import torch.distributed as dist
+        from theanet_tpu_torch.parallel import make_mesh
+
+        rdzv = tempfile.mkdtemp()
+        dist.init_process_group("nccl", init_method=f"file://{rdzv}/rdzv",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            if 15 in phases:
+                banner(15, "data-parallel gradient and update kernels vs "
+                       "plain versions; step-locked epochs three ways")
+                dp_kernels, _ = phase15(torch, dev, card, mesh)
+            if 16 in phases:
+                banner(16, "data-parallel main path: Trainer(mesh) at world "
+                       "1 (NCCL) and world 2 (gloo, two processes)")
+                dp_launches, _ = phase16(torch, card, mesh)
+        finally:
+            dist.destroy_process_group()
     if phases != set(ALL_PHASES):
         print("chip_smoke: a subset of phases ran; no result", flush=True)
         return 3
@@ -1746,6 +2262,14 @@ def main(argv=None):
             wide_launches[name], conv_err[what], (ms, plain_ms, bnd)))
         kernels[-1]["library_ms"] = lib_ms
     kernels[3]["library_ms"] = el_lib
+    for name, source, line in (
+            ("megastep_grad_step", "megastep.cu", "megastep_dp.py:168"),
+            ("deep_grad_step", "megastep_deep.cu", "megastep_dp.py:168"),
+            ("megastep_update", "megastep.cu", "megastep_dp.py:387"),
+            ("deep_update", "megastep_deep.cu", "megastep_dp.py:387")):
+        kernels.append(entry(name, "theanet_tpu_torch/csrc/" + source,
+                             "theanet_tpu/ops/" + line, dp_launches[name],
+                             *dp_kernels[name]))
     kernels[0]["epoch_step_locked_max_abs_err"] = epoch_err
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 // Whole-epoch fused training of the 2-conv flagship net, for Hopper (sm_90a).
 //
 // Replaces theanet_tpu/ops/megastep.py::_kernel (the Pallas epoch kernel,
-// built by make_epoch_fn / build_epoch_fn). Its plain PyTorch twin, which
+// built by make_epoch_fn / build_epoch_fn) and, at the flagship,
+// theanet_tpu/ops/megastep_dp.py::_kernel_grad. Its plain PyTorch twin, which
 // is the specification this file is held to, is
 // theanet_tpu_torch/ops/megastep.py::megastep_epoch_reference.
 //
@@ -34,6 +35,14 @@
 // one block. Nothing is computed by a library kernel. Fewer stages
 // (persistent kernels, CUDA graphs, wgmma) are later work; PERF.md has the
 // measured times.
+//
+// Data-parallel training (the port of theanet_tpu/ops/megastep_dp.py's
+// _kernel_grad at the flagship) splits a step in two entries that run the
+// epoch's own helpers: megastep_grad_step runs grad_stages (k_warp through
+// the last k_conv_wgrad) at the per-rank batch into a caller-owned flat
+// gradient buffer, and megastep_update runs update_stages (k_update and the
+// max-norm kernels) on that buffer after the caller's all-reduce. The epoch
+// loop calls the same two helpers, so the two paths cannot drift apart.
 
 #include "stages.cuh"
 
@@ -369,11 +378,183 @@ Workspace carve(const Dims& d, float* base) {
   return w;
 }
 
+// Element counts of the 8 state tensors, in layout order; the flat
+// gradient buffer holds them back to back.
+void state_sizes(const Dims& d, int sizes[8]) {
+  const int s[8] = {d.M1 * d.F1 * d.F1 * d.C0, d.M1,
+                    d.M2 * d.F2 * d.F2 * d.M1, d.M2,
+                    d.NF * d.NH, d.NH, d.NH * d.NC, d.NC};
+  for (int k = 0; k < 8; ++k) sizes[k] = s[k];
+}
+
+// One step's slice of the data and noise words.
+struct StepIn {
+  const float* x;
+  const int *y, *ub, *fb, *pb, *db;
+};
+
+// What every step of a call shares: the shapes, the warp and augmentation
+// settings, the workspace, the parameters and the weight-cost table.
+struct StepCtx {
+  Dims d;
+  Workspace w;
+  WarpParams wp;
+  int warp, nearest, invert;
+  float pflip;
+  size_t warp_smem, head_smem;
+  const float *gh, *gw;
+  float* prm[8];
+  WcostTable t8;
+  bool any_wcost;
+};
+
+// 0, or -1 / -2 when the warp or head stage needs more shared memory than
+// a block can have (megastep_error_string).
+int step_setup(const int* is, const float* fs, float* ws, const float* gh,
+               const float* gw, void* const* prm, StepCtx* c) {
+  c->d = make_dims(is, fs);
+  const Dims& d = c->d;
+  c->w = carve(d, ws);
+  c->gh = gh;
+  c->gw = gw;
+  WarpParams& wp = c->wp;
+  wp.trans = is[I_TRANS]; wp.mag = is[I_MAG]; wp.zoom = is[I_ZOOM];
+  wp.angle = is[I_ANGLE];
+  wp.translation = fs[F_TRANS]; wp.logzoom = fs[F_LOGZOOM];
+  wp.magnitude = fs[F_MAG]; wp.angle_rad = fs[F_ANGLE];
+  wp.clip_hi = fs[F_CLIPHI];
+  c->warp = wp.trans || wp.mag || wp.zoom || wp.angle;
+  c->nearest = is[I_NEAREST];
+  c->invert = is[I_INVERT];
+  c->pflip = is[I_PFLIP] ? fs[F_PFLIP] : 0.0f;
+  c->warp_smem = 4 * sizeof(float) * (size_t)d.HW;
+  if (c->warp && !warp_smem_ok(c->warp_smem)) return -1;
+  c->head_smem = sizeof(float) * (size_t)(2 * d.B * d.NC + d.B);
+  if (c->head_smem > 48 * 1024) return -2;
+  int sizes[8];
+  state_sizes(d, sizes);
+  const float* reg = fs + F_REG0;  // conv1, conv2, hidden, out
+  c->t8.count = 8;
+  c->any_wcost = false;
+  for (int k = 0; k < 8; ++k) {
+    const float* r = reg + (k / 2) * N_REG;
+    c->prm[k] = (float*)prm[k];
+    c->t8.p[k] = c->prm[k];
+    c->t8.n[k] = sizes[k];
+    c->t8.L1[k] = r[R_L1];
+    c->t8.L2[k] = r[R_L2];
+    c->any_wcost = c->any_wcost || r[R_L1] != 0.0f || r[R_L2] != 0.0f;
+  }
+  return 0;
+}
+
+// One step's augmentation, forward and hand-derived backward at the
+// parameters of ``c``: (cost, minf) to cm[0:2] and the data gradients
+// (no L1/L2 term, no update) to the flat buffer ``grads`` (state_sizes).
+// The epoch entry and the data-parallel step entry both run it.
+int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
+                float* grads, float* cm) {
+  const Dims& d = c.d;
+  const Workspace& w = c.w;
+  float* const* prm = c.prm;
+  int sizes[8];
+  state_sizes(d, sizes);
+  float* grad[8];
+  for (int k = 0; k < 8; ++k) { grad[k] = grads; grads += sizes[k]; }
+  const int T = 256;
+  if (c.warp) {
+    k_warp<<<1, 256, c.warp_smem, s>>>(d.H, c.wp, in.ub, in.fb, c.gh, c.gw,
+                                        w.tyx);
+    LAUNCHED();
+  }
+  k_augment<<<blocks((long long)d.C0 * d.B * d.HW, T), T, 0, s>>>(
+      d, c.warp, c.nearest, c.invert, c.pflip, in.x, w.tyx, in.pb, w.a);
+  LAUNCHED();
+  k_conv1_pool<<<blocks((long long)d.B * d.M1 * d.P1 * d.P1, T), T, 0, s>>>(
+      d, w.a, prm[0], prm[1], w.z1, w.p1);
+  LAUNCHED();
+  k_conv2_pool<<<blocks((long long)d.B * d.M2 * d.P2 * d.P2, T), T, 0, s>>>(
+      d, w.p1, prm[2], prm[3], w.z2, w.f);
+  LAUNCHED();
+  CHECK((gemm<false, false>(s, d.B, d.NH, d.NF, w.f, d.NF, prm[4], d.NH,
+                            prm[5], w.z3)));
+  if (c.any_wcost) CHECK(wcost(s, c.t8, w.wpart, w.wcost));
+  k_head<<<1, 1024, c.head_smem, s>>>(d, w.z3, prm[6], prm[7], in.db, in.y,
+                                       c.any_wcost ? w.wcost : nullptr, w.h3d,
+                                       w.dz3, grad[6], grad[7], grad[5], cm);
+  LAUNCHED();
+  // dwh = f^T dz3 ; df = dz3 wh^T
+  CHECK((gemm<true, false>(s, d.NF, d.NH, d.B, w.f, d.NF, w.dz3, d.NH,
+                           nullptr, grad[4])));
+  CHECK((gemm<false, true>(s, d.B, d.NF, d.NH, w.dz3, d.NH, prm[4], d.NH,
+                           nullptr, w.df)));
+  k_pool2_bwd<<<blocks((long long)d.B * d.M2 * d.c2 * d.c2, T), T, 0, s>>>(
+      d, w.z2, w.f, w.df, w.dz2);
+  LAUNCHED();
+  k_conv_wgrad<<<dim3(d.M2, d.F2 * d.F2 * d.M1 + 1), T, 0, s>>>(
+      d.B, d.M2, d.M1, d.F2, d.c2, d.e2, w.dz2, w.p1, d.M1 * d.P1 * d.P1,
+      d.P1 * d.P1, d.P1, grad[2], grad[3]);
+  LAUNCHED();
+  k_conv2_dgrad_pool1_bwd<<<blocks((long long)d.B * d.M1 * d.P1 * d.P1, T),
+                            T, 0, s>>>(d, prm[2], w.dz2, w.z1, w.p1, w.dz1);
+  LAUNCHED();
+  k_conv_wgrad<<<dim3(d.M1, d.F1 * d.F1 * d.C0 + 1), T, 0, s>>>(
+      d.B, d.M1, d.C0, d.F1, d.c1, d.e1, w.dz1, w.a, d.HW, d.B * d.HW, d.H,
+      grad[0], grad[1]);
+  LAUNCHED();
+  return 0;
+}
+
+// L1/L2 gradient, old-accumulator momentum step and max-norm of the 8 state
+// tensors from the flat gradient buffer ``grads``, in place. The epoch
+// entry and the data-parallel update entry both run it.
+int update_stages(const int* is, const float* fs, float* const* prm,
+                  float* const* mom, const float* grads, float lr,
+                  cudaStream_t s) {
+  const Dims d = make_dims(is, fs);
+  int sizes[8];
+  state_sizes(d, sizes);
+  const float* reg = fs + F_REG0;  // conv1, conv2, hidden, out
+  UpdateTable ut;
+  ut.count = 8;
+  ut.off[0] = 0;
+  for (int k = 0; k < 8; ++k) {
+    const float* r = reg + (k / 2) * N_REG;
+    ut.p[k] = prm[k];
+    ut.a[k] = mom[k];
+    ut.g[k] = grads + ut.off[k];
+    ut.off[k + 1] = ut.off[k] + sizes[k];
+    ut.L1[k] = r[R_L1];
+    ut.L2x2[k] = r[R_L2X2];
+    ut.mom[k] = r[R_MOM];
+    ut.omm[k] = r[R_OMM];
+    ut.rate[k] = r[R_RATE];
+    ut.clip[k] = (k % 2 == 1) ? r[R_MAXNORM] : 0.0f;  // biases clip
+  }
+  const int T = 256;
+  k_update<<<blocks(ut.off[8], T), T, 0, s>>>(ut, lr);
+  LAUNCHED();
+  for (int k = 0; k < 8; k += 2) {   // weight max-norm (biases clipped)
+    float mn = reg[(k / 2) * N_REG + R_MAXNORM];
+    if (mn == 0.0f || reg[(k / 2) * N_REG + R_RATE] == 0.0f) continue;
+    if (k < 4) {
+      int rows = k == 0 ? d.M1 : d.M2;
+      k_maxnorm_rows<<<rows, T, 0, s>>>(prm[k], sizes[k] / rows, mn);
+    } else {
+      int cols = k == 4 ? d.NH : d.NC;
+      k_maxnorm_cols<<<blocks(cols, T), T, 0, s>>>(prm[k], sizes[k] / cols,
+                                                   cols, mn);
+    }
+    LAUNCHED();
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the wrapper must allocate for one epoch call.
+// Floats of scratch the wrapper must allocate for one epoch or step call.
 long long megastep_workspace_floats(const int* ispec, const float* fspec) {
   return carve(make_dims(ispec, fspec), nullptr).total;
 }
@@ -392,137 +573,59 @@ int megastep_epoch(const int* is, const float* fs, void* const* ptrs,
                    void* stream_) {
   CHECK(cudaSetDevice(device));
   cudaStream_t s = (cudaStream_t)stream_;
-  const Dims d = make_dims(is, fs);
-  const Workspace w = carve(d, ws);
-  const float* x = (const float*)ptrs[P_X];
-  const int* y = (const int*)ptrs[P_Y];
-  const int* ub = (const int*)ptrs[P_UB];
-  const int* fb = (const int*)ptrs[P_FB];
-  const int* pb = (const int*)ptrs[P_PB];
-  const int* db = (const int*)ptrs[P_DB];
-  const float* gh = (const float*)ptrs[P_GH];
-  const float* gw = (const float*)ptrs[P_GW];
-  float* prm[8];
+  StepCtx c;
+  int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
+                      (const float*)ptrs[P_GW], ptrs + P_PARAMS, &c);
+  if (rc != 0) return rc;
+  const Dims& d = c.d;
   float* mom[8];
-  for (int k = 0; k < 8; ++k) {
-    prm[k] = (float*)ptrs[P_PARAMS + k];
-    mom[k] = (float*)ptrs[P_MOMS + k];
-  }
+  for (int k = 0; k < 8; ++k) mom[k] = (float*)ptrs[P_MOMS + k];
   float* cm = (float*)ptrs[P_CM];
-
-  const int sizes[8] = {d.M1 * d.F1 * d.F1 * d.C0, d.M1,
-                        d.M2 * d.F2 * d.F2 * d.M1, d.M2,
-                        d.NF * d.NH, d.NH, d.NH * d.NC, d.NC};
-  float* grad[8];
-  {
-    float* g = w.grads;
-    for (int k = 0; k < 8; ++k) { grad[k] = g; g += sizes[k]; }
-  }
-
-  WarpParams wp;
-  wp.trans = is[I_TRANS]; wp.mag = is[I_MAG]; wp.zoom = is[I_ZOOM];
-  wp.angle = is[I_ANGLE];
-  wp.translation = fs[F_TRANS]; wp.logzoom = fs[F_LOGZOOM];
-  wp.magnitude = fs[F_MAG]; wp.angle_rad = fs[F_ANGLE];
-  wp.clip_hi = fs[F_CLIPHI];
-  const int warp = wp.trans || wp.mag || wp.zoom || wp.angle;
-  const float pflip = is[I_PFLIP] ? fs[F_PFLIP] : 0.0f;
-
-  const size_t warp_smem = 4 * sizeof(float) * (size_t)d.HW;
-  if (warp && !warp_smem_ok(warp_smem)) return -1;
-  const size_t head_smem = sizeof(float) * (size_t)(2 * d.B * d.NC + d.B);
-  if (head_smem > 48 * 1024) return -2;
-
-  const float* reg = fs + F_REG0;  // conv1, conv2, hidden, out
-  WcostTable t8;
-  UpdateTable ut;
-  t8.count = ut.count = 8;
-  bool any_wcost = false;
-  ut.off[0] = 0;
-  for (int k = 0; k < 8; ++k) {
-    const float* r = reg + (k / 2) * N_REG;
-    t8.p[k] = prm[k];
-    t8.n[k] = sizes[k];
-    t8.L1[k] = r[R_L1];
-    t8.L2[k] = r[R_L2];
-    any_wcost = any_wcost || r[R_L1] != 0.0f || r[R_L2] != 0.0f;
-    ut.p[k] = prm[k];
-    ut.a[k] = mom[k];
-    ut.g[k] = grad[k];
-    ut.off[k + 1] = ut.off[k] + sizes[k];
-    ut.L1[k] = r[R_L1];
-    ut.L2x2[k] = r[R_L2X2];
-    ut.mom[k] = r[R_MOM];
-    ut.omm[k] = r[R_OMM];
-    ut.rate[k] = r[R_RATE];
-    ut.clip[k] = (k % 2 == 1) ? r[R_MAXNORM] : 0.0f;  // biases clip
-  }
-
-  const int T = 256;
   for (int st = 0; st < n_steps; ++st) {
-    const float* xs = x + (size_t)st * d.C0 * d.B * d.HW;
-    const int* ys = y + (size_t)st * d.B;
-    const int* pbs = pb + (size_t)st * d.C0 * d.B * d.HW;
-    const int* dbs = db + (size_t)st * d.B * d.NH;
-    if (warp) {
-      k_warp<<<1, 256, warp_smem, s>>>(d.H, wp, ub + (size_t)st * 8,
-                                        fb + (size_t)st * 4 * d.HW, gh, gw,
-                                        w.tyx);
-      LAUNCHED();
-    }
-    k_augment<<<blocks((long long)d.C0 * d.B * d.HW, T), T, 0, s>>>(
-        d, warp, is[I_NEAREST], is[I_INVERT], pflip, xs, w.tyx, pbs, w.a);
-    LAUNCHED();
-    k_conv1_pool<<<blocks((long long)d.B * d.M1 * d.P1 * d.P1, T), T, 0, s>>>(
-        d, w.a, prm[0], prm[1], w.z1, w.p1);
-    LAUNCHED();
-    k_conv2_pool<<<blocks((long long)d.B * d.M2 * d.P2 * d.P2, T), T, 0, s>>>(
-        d, w.p1, prm[2], prm[3], w.z2, w.f);
-    LAUNCHED();
-    CHECK((gemm<false, false>(s, d.B, d.NH, d.NF, w.f, d.NF, prm[4], d.NH,
-                              prm[5], w.z3)));
-    if (any_wcost) CHECK(wcost(s, t8, w.wpart, w.wcost));
-    k_head<<<1, 1024, head_smem, s>>>(d, w.z3, prm[6], prm[7], dbs, ys,
-                                       any_wcost ? w.wcost : nullptr, w.h3d,
-                                       w.dz3, grad[6], grad[7], grad[5],
-                                       cm + 2 * (size_t)st);
-    LAUNCHED();
-    // dwh = f^T dz3 ; df = dz3 wh^T
-    CHECK((gemm<true, false>(s, d.NF, d.NH, d.B, w.f, d.NF, w.dz3, d.NH,
-                             nullptr, grad[4])));
-    CHECK((gemm<false, true>(s, d.B, d.NF, d.NH, w.dz3, d.NH, prm[4], d.NH,
-                             nullptr, w.df)));
-    k_pool2_bwd<<<blocks((long long)d.B * d.M2 * d.c2 * d.c2, T), T, 0, s>>>(
-        d, w.z2, w.f, w.df, w.dz2);
-    LAUNCHED();
-    k_conv_wgrad<<<dim3(d.M2, d.F2 * d.F2 * d.M1 + 1), T, 0, s>>>(
-        d.B, d.M2, d.M1, d.F2, d.c2, d.e2, w.dz2, w.p1, d.M1 * d.P1 * d.P1,
-        d.P1 * d.P1, d.P1, grad[2], grad[3]);
-    LAUNCHED();
-    k_conv2_dgrad_pool1_bwd<<<blocks((long long)d.B * d.M1 * d.P1 * d.P1, T),
-                              T, 0, s>>>(d, prm[2], w.dz2, w.z1, w.p1, w.dz1);
-    LAUNCHED();
-    k_conv_wgrad<<<dim3(d.M1, d.F1 * d.F1 * d.C0 + 1), T, 0, s>>>(
-        d.B, d.M1, d.C0, d.F1, d.c1, d.e1, w.dz1, w.a, d.HW, d.B * d.HW, d.H,
-        grad[0], grad[1]);
-    LAUNCHED();
-    k_update<<<blocks(ut.off[8], T), T, 0, s>>>(ut, lr);
-    LAUNCHED();
-    for (int k = 0; k < 8; k += 2) {   // weight max-norm (biases clipped)
-      float mn = reg[(k / 2) * N_REG + R_MAXNORM];
-      if (mn == 0.0f || reg[(k / 2) * N_REG + R_RATE] == 0.0f) continue;
-      if (k < 4) {
-        int rows = k == 0 ? d.M1 : d.M2;
-        k_maxnorm_rows<<<rows, T, 0, s>>>(prm[k], sizes[k] / rows, mn);
-      } else {
-        int cols = k == 4 ? d.NH : d.NC;
-        k_maxnorm_cols<<<blocks(cols, T), T, 0, s>>>(prm[k], sizes[k] / cols,
-                                                     cols, mn);
-      }
-      LAUNCHED();
-    }
+    StepIn in;
+    in.x = (const float*)ptrs[P_X] + (size_t)st * d.C0 * d.B * d.HW;
+    in.y = (const int*)ptrs[P_Y] + (size_t)st * d.B;
+    in.ub = (const int*)ptrs[P_UB] + (size_t)st * 8;
+    in.fb = (const int*)ptrs[P_FB] + (size_t)st * 4 * d.HW;
+    in.pb = (const int*)ptrs[P_PB] + (size_t)st * d.C0 * d.B * d.HW;
+    in.db = (const int*)ptrs[P_DB] + (size_t)st * d.B * d.NH;
+    rc = grad_stages(c, s, in, c.w.grads, cm + 2 * (size_t)st);
+    if (rc != 0) return rc;
+    rc = update_stages(is, fs, c.prm, mom, c.w.grads, lr, s);
+    if (rc != 0) return rc;
   }
   return 0;
+}
+
+// One data-parallel step's gradient (the port of megastep_dp.py's
+// _kernel_grad at the flagship): grad_stages on one step's inputs, pointer
+// table x, y, ub, fb, pb, db, gh, gw, the 8 parameters, the flat gradient
+// buffer and cost_minf (2,). Parameters are read only.
+int megastep_grad_step(const int* is, const float* fs, void* const* ptrs,
+                       float* ws, int device, void* stream_) {
+  CHECK(cudaSetDevice(device));
+  StepCtx c;
+  int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
+                      (const float*)ptrs[P_GW], ptrs + P_PARAMS, &c);
+  if (rc != 0) return rc;
+  StepIn in;
+  in.x = (const float*)ptrs[P_X];
+  in.y = (const int*)ptrs[P_Y];
+  in.ub = (const int*)ptrs[P_UB];
+  in.fb = (const int*)ptrs[P_FB];
+  in.pb = (const int*)ptrs[P_PB];
+  in.db = (const int*)ptrs[P_DB];
+  return grad_stages(c, (cudaStream_t)stream_, in,
+                     (float*)ptrs[P_PARAMS + 8], (float*)ptrs[P_PARAMS + 9]);
+}
+
+// The update after the gradient all-reduce: update_stages with pointer table
+// the 8 parameters, the 8 momenta and the flat gradient buffer.
+int megastep_update(const int* is, const float* fs, void* const* ptrs,
+                    float lr, int device, void* stream_) {
+  CHECK(cudaSetDevice(device));
+  return update_stages(is, fs, (float* const*)ptrs, (float* const*)ptrs + 8,
+                       (const float*)ptrs[16], lr, (cudaStream_t)stream_);
 }
 
 }  // extern "C"

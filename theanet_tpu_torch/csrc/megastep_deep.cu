@@ -2,7 +2,8 @@
 // for Hopper (sm_90a).
 //
 // Replaces theanet_tpu/ops/megastep_deep.py::_kernel_deep (body
-// _deep_fwd_bwd) and, at a zero-level table, megastep_mlp.py::_kernel_mlp.
+// _deep_fwd_bwd), at a zero-level table megastep_mlp.py::_kernel_mlp, and,
+// at the deep family, megastep_dp.py::_kernel_grad.
 // Its plain PyTorch twin, the specification this file is held to, is
 // theanet_tpu_torch/ops/megastep_deep.py::deep_epoch_reference.
 //
@@ -41,6 +42,13 @@
 // separately rounded multiplies and adds, as in the twin: which pool
 // windows tie exactly depends on that order. Nothing is computed by a
 // library kernel.
+//
+// Data-parallel training splits a step in two entries that run the epoch's
+// own helpers: deep_grad_step runs grad_stages (k_warp through the last
+// conv weight gradient) at the per-rank batch into a caller-owned flat
+// gradient buffer, and deep_update runs update_stages (k_update and the
+// max-norm kernels) on it after the caller's all-reduce. The epoch loop
+// calls the same two helpers, so the two paths cannot drift apart.
 
 #include "stages.cuh"
 
@@ -511,12 +519,251 @@ Workspace carve(const Net& n, float* base) {
   return w;
 }
 
+// One step's slice of the data and noise words.
+struct StepIn {
+  const float* x;
+  const int *y, *ub, *fb, *pb, *db;
+};
+
+// What every step of a call shares: the parsed net, the workspace, the
+// augmentation and head settings, the parameters and the weight-cost table.
+struct StepCtx {
+  Net n;
+  Workspace w;
+  WarpParams wp;
+  AugParams ag;
+  HeadArgs ha;
+  size_t warp_smem, hsm;
+  const float *gh, *gw, *cen;
+  float* prm[MAX_TENSORS];
+  WcostTable wt;
+  bool any_wcost;
+  int th, dboff;
+};
+
+// 0, or a negative code (deep_error_string). ``centers`` are the frozen
+// CenteredOut centers (unused otherwise); learned ones are the last state
+// tensor of ``prm``.
+int step_setup(const int* is, const float* fs, float* ws, const float* gh,
+               const float* gw, const float* centers, void* const* prm,
+               StepCtx* c) {
+  int rc = parse(is, fs, &c->n);
+  if (rc != 0) return rc;
+  const Net& n = c->n;
+  c->w = carve(n, ws);
+  c->gh = gh;
+  c->gw = gw;
+  c->wt.count = n.nstate;
+  c->any_wcost = false;
+  for (int t = 0; t < n.nstate; ++t) {
+    const float* r = n.reg + t * N_REG;
+    c->prm[t] = (float*)prm[t];
+    c->wt.p[t] = c->prm[t];
+    c->wt.n[t] = n.ten[t * N_ITEN + T_SIZE];
+    c->wt.L1[t] = r[R_L1];
+    c->wt.L2[t] = r[R_L2];
+    c->any_wcost = c->any_wcost || r[R_L1] != 0.0f || r[R_L2] != 0.0f;
+  }
+  // the head's tensors follow the convs' and the pre-hiddens'
+  c->th = 2 * n.nlev + 2 * n.npre;   // wh; then bh, wo, bo(, cen)
+  c->cen = n.learnc ? c->prm[c->th + 4] : centers;
+  WarpParams& wp = c->wp;
+  wp.trans = is[I_TRANS]; wp.mag = is[I_MAG]; wp.zoom = is[I_ZOOM];
+  wp.angle = is[I_ANGLE];
+  wp.translation = fs[F_TRANS]; wp.logzoom = fs[F_LOGZOOM];
+  wp.magnitude = fs[F_MAG]; wp.angle_rad = fs[F_ANGLE];
+  wp.clip_hi = fs[F_CLIPHI];
+  AugParams& ag = c->ag;
+  ag.warp = wp.trans || wp.mag || wp.zoom || wp.angle;
+  ag.nearest = is[I_NEAREST]; ag.invert = is[I_INVERT];
+  ag.color = is[I_COLOR]; ag.pflip = fs[F_PFLIP]; ag.maxval = fs[F_MAXVAL];
+  ag.inv_maxval = fs[F_INVMAX];
+  ag.logbal = fs[F_LOGBAL]; ag.loggam = fs[F_LOGGAM];
+  c->warp_smem = 4 * sizeof(float) * (size_t)n.HW;
+  if (ag.warp && !warp_smem_ok(c->warp_smem)) return -1;
+  c->hsm = head_smem(n);
+  if (c->hsm > 48 * 1024) return -2;
+  c->ha.B = n.B; c->ha.NO = n.NO; c->ha.NC = n.NC; c->ha.kind = n.head;
+  c->ha.junk = n.junk;
+  c->dboff = n.dbl - n.NH;   // the final hidden's dropout lanes
+  return 0;
+}
+
+// One step's augmentation, forward and hand-derived backward at the
+// parameters of ``c``: (cost, minf) to cm[0:2] and the data gradients (no
+// L1/L2 term, no update) of every state tensor to the flat buffer
+// ``grads``, back to back in layout order. The epoch entry and the
+// data-parallel step entry both run it.
+int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
+                float* grads, float* cm) {
+  const Net& n = c.n;
+  const Workspace& w = c.w;
+  float* const* prm = c.prm;
+  const int th = c.th, dboff = c.dboff;
+  float* grad[MAX_TENSORS];
+  for (int t = 0; t < n.nstate; ++t) {
+    grad[t] = grads;
+    grads += n.ten[t * N_ITEN + T_SIZE];
+  }
+  const int T = 256, B = n.B, HW = n.HW;
+  const bool need_df = n.nlev > 0 || n.npre > 0;
+  if (c.ag.warp) {
+    k_warp<<<1, 256, c.warp_smem, s>>>(n.H, c.wp, in.ub, in.fb, c.gh, c.gw,
+                                        w.tyx);
+    LAUNCHED();
+  }
+  k_augment<<<blocks((long long)B * n.C0 * HW, T), T, 0, s>>>(
+      B, n.C0, n.H, c.ag, in.x, w.tyx, in.fb, in.pb, w.a);
+  LAUNCHED();
+  // forward: conv levels (input (B, Cin, S, S) at strides sb, sc)
+  const float* inp = w.a;
+  int sb = n.C0 * HW, sc = HW;
+  for (int k = 0; k < n.nlev; ++k) {
+    const Level& L = n.lv[k];
+    k_conv_pool<<<blocks((long long)B * L.m * L.p * L.p, T), T, 0, s>>>(
+        B, L, inp, sb, sc, prm[2 * k], prm[2 * k + 1], w.z[k], w.p[k]);
+    LAUNCHED();
+    inp = w.p[k];
+    sb = L.m * L.p * L.p;
+    sc = L.p * L.p;
+  }
+  // dense tail: f is the flatten, then each pre-hidden's dropped output
+  const float* f = inp;
+  int fw = n.NF, off = 0;
+  for (int j = 0; j < n.npre; ++j) {
+    const Pre& P = n.pre[j];
+    const int t = 2 * n.nlev + 2 * j;
+    CHECK((gemm<false, false>(s, B, P.w, fw, f, fw, prm[t], P.w,
+                              prm[t + 1], w.pz[j])));
+    k_act_drop<<<blocks((long long)B * P.w, T), T, 0, s>>>(
+        B, P.w, P.act, P.slope, P.pdrop, in.db, n.dbl, off, w.pz[j],
+        w.phd[j]);
+    LAUNCHED();
+    f = w.phd[j];
+    fw = P.w;
+    off += P.w;
+  }
+  CHECK((gemm<false, false>(s, B, n.NH, fw, f, fw, prm[th], n.NH,
+                            prm[th + 1], w.z3)));
+  k_act_drop<<<blocks((long long)B * n.NH, T), T, 0, s>>>(
+      B, n.NH, n.acth, n.slopeh, n.pdrop, in.db, n.dbl, dboff, w.z3, w.h3d);
+  LAUNCHED();
+  CHECK((gemm<false, false>(s, B, n.NO, n.NH, w.h3d, n.NH, prm[th + 2],
+                            n.NO, prm[th + 3], w.z4)));
+  if (c.any_wcost) CHECK(wcost(s, c.wt, w.wpart, w.wcost));
+  k_head<<<1, 1024, c.hsm, s>>>(c.ha, w.z4, c.cen, in.y,
+                                c.any_wcost ? w.wcost : nullptr, w.dz4,
+                                grad[th + 3],
+                                n.learnc ? grad[th + 4] : nullptr, cm);
+  LAUNCHED();
+  // dwo = h3d^T dz4; dz3 = (dz4 wo^T) * mask * act'(z3), dbh
+  CHECK((gemm<true, false>(s, n.NH, n.NO, B, w.h3d, n.NH, w.dz4, n.NO,
+                           nullptr, grad[th + 2])));
+  CHECK((gemm<false, true>(s, B, n.NH, n.NO, w.dz4, n.NO, prm[th + 2],
+                           n.NO, nullptr, w.dh3)));
+  k_dense_bwd<<<blocks(n.NH, T), T, 0, s>>>(
+      B, n.NH, n.acth, n.slopeh, n.pdrop, in.db, n.dbl, dboff, w.z3, w.dh3,
+      w.dz3, grad[th + 1]);
+  LAUNCHED();
+  // backward through the dense tail: dwh = f^T dz3; df = dz3 wh^T lands
+  // in the gradient buffer of f (the last pre-hidden's output or the
+  // last level's pooled output)
+  CHECK((gemm<true, false>(s, fw, n.NH, B, f, fw, w.dz3, n.NH, nullptr,
+                           grad[th])));
+  if (need_df) {
+    float* dst = n.npre ? w.pdh[n.npre - 1] : w.dp[n.nlev - 1];
+    CHECK((gemm<false, true>(s, B, fw, n.NH, w.dz3, n.NH, prm[th], n.NH,
+                             nullptr, dst)));
+  }
+  for (int j = n.npre - 1; j >= 0; --j) {
+    const Pre& P = n.pre[j];
+    const int t = 2 * n.nlev + 2 * j;
+    off -= P.w;
+    const float* fin = j ? w.phd[j - 1] : (n.nlev ? w.p[n.nlev - 1] : w.a);
+    const int inw = j ? n.pre[j - 1].w : n.NF;
+    k_dense_bwd<<<blocks(P.w, T), T, 0, s>>>(
+        B, P.w, P.act, P.slope, P.pdrop, in.db, n.dbl, off, w.pz[j],
+        w.pdh[j], w.pdz[j], grad[t + 1]);
+    LAUNCHED();
+    CHECK((gemm<true, false>(s, inw, P.w, B, fin, inw, w.pdz[j], P.w,
+                             nullptr, grad[t])));
+    if (j || n.nlev) {
+      float* dst = j ? w.pdh[j - 1] : w.dp[n.nlev - 1];
+      CHECK((gemm<false, true>(s, B, inw, P.w, w.pdz[j], P.w, prm[t], P.w,
+                               nullptr, dst)));
+    }
+  }
+  // backward through the conv levels
+  for (int k = n.nlev - 1; k >= 0; --k) {
+    const Level& L = n.lv[k];
+    k_pool_bwd<<<blocks((long long)B * L.m * L.c * L.c, T), T, 0, s>>>(
+        B, L, w.z[k], w.p[k], w.dp[k], w.dz[k]);
+    LAUNCHED();
+    const float* lin = k ? w.p[k - 1] : w.a;
+    const int lsb = k ? L.cin * L.s * L.s : n.C0 * HW;
+    k_conv_wgrad<<<dim3(L.m, L.f * L.f * L.cin + 1), T, 0, s>>>(
+        B, L.m, L.cin, L.f, L.c, L.e, w.dz[k], lin, lsb, L.s * L.s, L.s,
+        grad[2 * k], grad[2 * k + 1]);
+    LAUNCHED();
+    if (k) {
+      k_conv_dgrad<<<blocks((long long)B * L.cin * L.s * L.s, T), T, 0, s>>>(
+          B, L, prm[2 * k], w.dz[k], w.dp[k - 1]);
+      LAUNCHED();
+    }
+  }
+  return 0;
+}
+
+// L1/L2 gradient, old-accumulator momentum step and max-norm of every
+// state tensor from the flat gradient buffer ``grads``, in place. The
+// epoch entry and the data-parallel update entry both run it.
+int update_stages(const Net& n, float* const* prm, float* const* mom,
+                  const float* grads, float lr, cudaStream_t s) {
+  const int NS = n.nstate;
+  UpdateTable ut;
+  ut.count = NS;
+  ut.off[0] = 0;
+  for (int t = 0; t < NS; ++t) {
+    const int* ti = n.ten + t * N_ITEN;
+    const float* r = n.reg + t * N_REG;
+    ut.p[t] = prm[t];
+    ut.a[t] = mom[t];
+    ut.g[t] = grads + ut.off[t];
+    ut.off[t + 1] = ut.off[t] + ti[T_SIZE];
+    ut.L1[t] = r[R_L1];
+    ut.L2x2[t] = r[R_L2X2];
+    ut.mom[t] = r[R_MOM];
+    ut.omm[t] = r[R_OMM];
+    ut.rate[t] = r[R_RATE];
+    ut.clip[t] = ti[T_KIND] == KIND_BIAS ? r[R_MAXNORM] : 0.0f;
+  }
+  const int T = 256;
+  k_update<<<blocks(ut.off[NS], T), T, 0, s>>>(ut, lr);
+  LAUNCHED();
+  for (int t = 0; t < NS; ++t) {   // weight max-norm (biases clipped)
+    const int* ti = n.ten + t * N_ITEN;
+    const float* r = n.reg + t * N_REG;
+    if (r[R_MAXNORM] == 0.0f || r[R_RATE] == 0.0f) continue;
+    if (ti[T_KIND] == KIND_ROWS) {
+      k_maxnorm_rows<<<ti[T_ROWS], T, 0, s>>>(prm[t], ti[T_COLS],
+                                              r[R_MAXNORM]);
+    } else if (ti[T_KIND] == KIND_COLS) {
+      k_maxnorm_cols<<<blocks(ti[T_COLS], T), T, 0, s>>>(
+          prm[t], ti[T_ROWS], ti[T_COLS], r[R_MAXNORM]);
+    } else {
+      continue;
+    }
+    LAUNCHED();
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the wrapper must allocate for one epoch call (-1 when
-// the tables are out of range).
+// Floats of scratch the wrapper must allocate for one epoch or step call
+// (-1 when the tables are out of range).
 long long deep_workspace_floats(const int* is, const float* fs) {
   Net n;
   if (parse(is, fs, &n) != 0) return -1;
@@ -536,212 +783,71 @@ const char* deep_error_string(int code) {
 // first CUDA error (the launch that failed never ran).
 int deep_epoch(const int* is, const float* fs, void* const* ptrs,
                int n_steps, float lr, float* ws, int device, void* stream_) {
+  CHECK(cudaSetDevice(device));
+  cudaStream_t s = (cudaStream_t)stream_;
+  StepCtx c;
+  int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
+                      (const float*)ptrs[P_GW],
+                      (const float*)ptrs[P_CENTERS], ptrs + P_STATE, &c);
+  if (rc != 0) return rc;
+  const Net& n = c.n;
+  const int NS = n.nstate, B = n.B, HW = n.HW;
+  float* mom[MAX_TENSORS];
+  for (int t = 0; t < NS; ++t) mom[t] = (float*)ptrs[P_STATE + NS + t];
+  float* cm = (float*)ptrs[P_STATE + 2 * NS];
+  for (int st = 0; st < n_steps; ++st) {
+    StepIn in;
+    in.x = (const float*)ptrs[P_X] + (size_t)st * n.C0 * B * HW;
+    in.y = (const int*)ptrs[P_Y] + (size_t)st * B;
+    in.ub = (const int*)ptrs[P_UB] + (size_t)st * 8;
+    in.fb = (const int*)ptrs[P_FB] + (size_t)st * n.fbl * HW;
+    in.pb = (const int*)ptrs[P_PB] + (size_t)st * n.C0 * B * HW;
+    in.db = (const int*)ptrs[P_DB] + (size_t)st * B * n.dbl;
+    rc = grad_stages(c, s, in, c.w.grads, cm + 2 * (size_t)st);
+    if (rc != 0) return rc;
+    rc = update_stages(n, c.prm, mom, c.w.grads, lr, s);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// One data-parallel step's gradient (the port of megastep_dp.py's
+// _kernel_grad at the deep family): grad_stages on one step's inputs,
+// pointer table x, y, ub, fb, pb, db, gh, gw, centers, the n_state
+// parameters, the flat gradient buffer and cost_minf (2,). Parameters are
+// read only.
+int deep_grad_step(const int* is, const float* fs, void* const* ptrs,
+                   float* ws, int device, void* stream_) {
+  CHECK(cudaSetDevice(device));
+  StepCtx c;
+  int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
+                      (const float*)ptrs[P_GW],
+                      (const float*)ptrs[P_CENTERS], ptrs + P_STATE, &c);
+  if (rc != 0) return rc;
+  const int NS = c.n.nstate;
+  StepIn in;
+  in.x = (const float*)ptrs[P_X];
+  in.y = (const int*)ptrs[P_Y];
+  in.ub = (const int*)ptrs[P_UB];
+  in.fb = (const int*)ptrs[P_FB];
+  in.pb = (const int*)ptrs[P_PB];
+  in.db = (const int*)ptrs[P_DB];
+  return grad_stages(c, (cudaStream_t)stream_, in,
+                     (float*)ptrs[P_STATE + NS],
+                     (float*)ptrs[P_STATE + NS + 1]);
+}
+
+// The update after the gradient all-reduce: update_stages with pointer table
+// the n_state parameters, the n_state momenta and the flat gradient buffer.
+int deep_update(const int* is, const float* fs, void* const* ptrs, float lr,
+                int device, void* stream_) {
   Net n;
   int rc = parse(is, fs, &n);
   if (rc != 0) return rc;
   CHECK(cudaSetDevice(device));
-  cudaStream_t s = (cudaStream_t)stream_;
-  const Workspace w = carve(n, ws);
-  const float* x = (const float*)ptrs[P_X];
-  const int* y = (const int*)ptrs[P_Y];
-  const int* ub = (const int*)ptrs[P_UB];
-  const int* fb = (const int*)ptrs[P_FB];
-  const int* pb = (const int*)ptrs[P_PB];
-  const int* db = (const int*)ptrs[P_DB];
-  const float* gh = (const float*)ptrs[P_GH];
-  const float* gw = (const float*)ptrs[P_GW];
   const int NS = n.nstate;
-  float* prm[MAX_TENSORS];
-  float* mom[MAX_TENSORS];
-  float* grad[MAX_TENSORS];
-  float* cm = (float*)ptrs[P_STATE + 2 * NS];
-
-  WcostTable wt;
-  UpdateTable ut;
-  wt.count = ut.count = NS;
-  ut.off[0] = 0;
-  bool any_wcost = false;
-  float* g = w.grads;
-  for (int t = 0; t < NS; ++t) {
-    const int* ti = n.ten + t * N_ITEN;
-    const float* r = n.reg + t * N_REG;
-    prm[t] = (float*)ptrs[P_STATE + t];
-    mom[t] = (float*)ptrs[P_STATE + NS + t];
-    grad[t] = g;
-    g += ti[T_SIZE];
-    wt.p[t] = prm[t];
-    wt.n[t] = ti[T_SIZE];
-    wt.L1[t] = r[R_L1];
-    wt.L2[t] = r[R_L2];
-    any_wcost = any_wcost || r[R_L1] != 0.0f || r[R_L2] != 0.0f;
-    ut.p[t] = prm[t];
-    ut.a[t] = mom[t];
-    ut.g[t] = grad[t];
-    ut.off[t + 1] = ut.off[t] + ti[T_SIZE];
-    ut.L1[t] = r[R_L1];
-    ut.L2x2[t] = r[R_L2X2];
-    ut.mom[t] = r[R_MOM];
-    ut.omm[t] = r[R_OMM];
-    ut.rate[t] = r[R_RATE];
-    ut.clip[t] = ti[T_KIND] == KIND_BIAS ? r[R_MAXNORM] : 0.0f;
-  }
-  // the head's tensors follow the convs' and the pre-hiddens'
-  const int th = 2 * n.nlev + 2 * n.npre;   // wh; then bh, wo, bo(, cen)
-  const float* cen = n.learnc ? prm[th + 4] : (const float*)ptrs[P_CENTERS];
-
-  WarpParams wp;
-  wp.trans = is[I_TRANS]; wp.mag = is[I_MAG]; wp.zoom = is[I_ZOOM];
-  wp.angle = is[I_ANGLE];
-  wp.translation = fs[F_TRANS]; wp.logzoom = fs[F_LOGZOOM];
-  wp.magnitude = fs[F_MAG]; wp.angle_rad = fs[F_ANGLE];
-  wp.clip_hi = fs[F_CLIPHI];
-  AugParams ag;
-  ag.warp = wp.trans || wp.mag || wp.zoom || wp.angle;
-  ag.nearest = is[I_NEAREST]; ag.invert = is[I_INVERT];
-  ag.color = is[I_COLOR]; ag.pflip = fs[F_PFLIP]; ag.maxval = fs[F_MAXVAL];
-  ag.inv_maxval = fs[F_INVMAX];
-  ag.logbal = fs[F_LOGBAL]; ag.loggam = fs[F_LOGGAM];
-  const size_t warp_smem = 4 * sizeof(float) * (size_t)n.HW;
-  if (ag.warp && !warp_smem_ok(warp_smem)) return -1;
-  const size_t hsm = head_smem(n);
-  if (hsm > 48 * 1024) return -2;
-  HeadArgs ha;
-  ha.B = n.B; ha.NO = n.NO; ha.NC = n.NC; ha.kind = n.head;
-  ha.junk = n.junk;
-  const int dboff = n.dbl - n.NH;   // the final hidden's dropout lanes
-
-  const int T = 256, B = n.B, HW = n.HW;
-  const bool need_df = n.nlev > 0 || n.npre > 0;
-  for (int st = 0; st < n_steps; ++st) {
-    const float* xs = x + (size_t)st * n.C0 * B * HW;
-    const int* ys = y + (size_t)st * B;
-    const int* fbs = fb + (size_t)st * n.fbl * HW;
-    const int* pbs = pb + (size_t)st * n.C0 * B * HW;
-    const int* dbs = db + (size_t)st * B * n.dbl;
-    if (ag.warp) {
-      k_warp<<<1, 256, warp_smem, s>>>(n.H, wp, ub + (size_t)st * 8, fbs, gh,
-                                        gw, w.tyx);
-      LAUNCHED();
-    }
-    k_augment<<<blocks((long long)B * n.C0 * HW, T), T, 0, s>>>(
-        B, n.C0, n.H, ag, xs, w.tyx, fbs, pbs, w.a);
-    LAUNCHED();
-    // forward: conv levels (input (B, Cin, S, S) at strides sb, sc)
-    const float* in = w.a;
-    int sb = n.C0 * HW, sc = HW;
-    for (int k = 0; k < n.nlev; ++k) {
-      const Level& L = n.lv[k];
-      k_conv_pool<<<blocks((long long)B * L.m * L.p * L.p, T), T, 0, s>>>(
-          B, L, in, sb, sc, prm[2 * k], prm[2 * k + 1], w.z[k], w.p[k]);
-      LAUNCHED();
-      in = w.p[k];
-      sb = L.m * L.p * L.p;
-      sc = L.p * L.p;
-    }
-    // dense tail: f is the flatten, then each pre-hidden's dropped output
-    const float* f = in;
-    int fw = n.NF, off = 0;
-    for (int j = 0; j < n.npre; ++j) {
-      const Pre& P = n.pre[j];
-      const int t = 2 * n.nlev + 2 * j;
-      CHECK((gemm<false, false>(s, B, P.w, fw, f, fw, prm[t], P.w,
-                                prm[t + 1], w.pz[j])));
-      k_act_drop<<<blocks((long long)B * P.w, T), T, 0, s>>>(
-          B, P.w, P.act, P.slope, P.pdrop, dbs, n.dbl, off, w.pz[j],
-          w.phd[j]);
-      LAUNCHED();
-      f = w.phd[j];
-      fw = P.w;
-      off += P.w;
-    }
-    CHECK((gemm<false, false>(s, B, n.NH, fw, f, fw, prm[th], n.NH,
-                              prm[th + 1], w.z3)));
-    k_act_drop<<<blocks((long long)B * n.NH, T), T, 0, s>>>(
-        B, n.NH, n.acth, n.slopeh, n.pdrop, dbs, n.dbl, dboff, w.z3, w.h3d);
-    LAUNCHED();
-    CHECK((gemm<false, false>(s, B, n.NO, n.NH, w.h3d, n.NH, prm[th + 2],
-                              n.NO, prm[th + 3], w.z4)));
-    if (any_wcost) CHECK(wcost(s, wt, w.wpart, w.wcost));
-    k_head<<<1, 1024, hsm, s>>>(ha, w.z4, cen, ys,
-                                any_wcost ? w.wcost : nullptr, w.dz4,
-                                grad[th + 3],
-                                n.learnc ? grad[th + 4] : nullptr,
-                                cm + 2 * (size_t)st);
-    LAUNCHED();
-    // dwo = h3d^T dz4; dz3 = (dz4 wo^T) * mask * act'(z3), dbh
-    CHECK((gemm<true, false>(s, n.NH, n.NO, B, w.h3d, n.NH, w.dz4, n.NO,
-                             nullptr, grad[th + 2])));
-    CHECK((gemm<false, true>(s, B, n.NH, n.NO, w.dz4, n.NO, prm[th + 2],
-                             n.NO, nullptr, w.dh3)));
-    k_dense_bwd<<<blocks(n.NH, T), T, 0, s>>>(
-        B, n.NH, n.acth, n.slopeh, n.pdrop, dbs, n.dbl, dboff, w.z3, w.dh3,
-        w.dz3, grad[th + 1]);
-    LAUNCHED();
-    // backward through the dense tail: dwh = f^T dz3; df = dz3 wh^T lands
-    // in the gradient buffer of f (the last pre-hidden's output or the
-    // last level's pooled output)
-    CHECK((gemm<true, false>(s, fw, n.NH, B, f, fw, w.dz3, n.NH, nullptr,
-                             grad[th])));
-    if (need_df) {
-      float* dst = n.npre ? w.pdh[n.npre - 1] : w.dp[n.nlev - 1];
-      CHECK((gemm<false, true>(s, B, fw, n.NH, w.dz3, n.NH, prm[th], n.NH,
-                               nullptr, dst)));
-    }
-    for (int j = n.npre - 1; j >= 0; --j) {
-      const Pre& P = n.pre[j];
-      const int t = 2 * n.nlev + 2 * j;
-      off -= P.w;
-      const float* fin = j ? w.phd[j - 1] : (n.nlev ? w.p[n.nlev - 1] : w.a);
-      const int inw = j ? n.pre[j - 1].w : n.NF;
-      k_dense_bwd<<<blocks(P.w, T), T, 0, s>>>(
-          B, P.w, P.act, P.slope, P.pdrop, dbs, n.dbl, off, w.pz[j],
-          w.pdh[j], w.pdz[j], grad[t + 1]);
-      LAUNCHED();
-      CHECK((gemm<true, false>(s, inw, P.w, B, fin, inw, w.pdz[j], P.w,
-                               nullptr, grad[t])));
-      if (j || n.nlev) {
-        float* dst = j ? w.pdh[j - 1] : w.dp[n.nlev - 1];
-        CHECK((gemm<false, true>(s, B, inw, P.w, w.pdz[j], P.w, prm[t], P.w,
-                                 nullptr, dst)));
-      }
-    }
-    // backward through the conv levels
-    for (int k = n.nlev - 1; k >= 0; --k) {
-      const Level& L = n.lv[k];
-      k_pool_bwd<<<blocks((long long)B * L.m * L.c * L.c, T), T, 0, s>>>(
-          B, L, w.z[k], w.p[k], w.dp[k], w.dz[k]);
-      LAUNCHED();
-      const float* lin = k ? w.p[k - 1] : w.a;
-      const int lsb = k ? L.cin * L.s * L.s : n.C0 * HW;
-      k_conv_wgrad<<<dim3(L.m, L.f * L.f * L.cin + 1), T, 0, s>>>(
-          B, L.m, L.cin, L.f, L.c, L.e, w.dz[k], lin, lsb, L.s * L.s, L.s,
-          grad[2 * k], grad[2 * k + 1]);
-      LAUNCHED();
-      if (k) {
-        k_conv_dgrad<<<blocks((long long)B * L.cin * L.s * L.s, T), T, 0, s>>>(
-            B, L, prm[2 * k], w.dz[k], w.dp[k - 1]);
-        LAUNCHED();
-      }
-    }
-    k_update<<<blocks(ut.off[NS], T), T, 0, s>>>(ut, lr);
-    LAUNCHED();
-    for (int t = 0; t < NS; ++t) {   // weight max-norm (biases clipped)
-      const int* ti = n.ten + t * N_ITEN;
-      const float* r = n.reg + t * N_REG;
-      if (r[R_MAXNORM] == 0.0f || r[R_RATE] == 0.0f) continue;
-      if (ti[T_KIND] == KIND_ROWS) {
-        k_maxnorm_rows<<<ti[T_ROWS], T, 0, s>>>(prm[t], ti[T_COLS],
-                                                r[R_MAXNORM]);
-      } else if (ti[T_KIND] == KIND_COLS) {
-        k_maxnorm_cols<<<blocks(ti[T_COLS], T), T, 0, s>>>(
-            prm[t], ti[T_ROWS], ti[T_COLS], r[R_MAXNORM]);
-      } else {
-        continue;
-      }
-      LAUNCHED();
-    }
-  }
-  return 0;
+  return update_stages(n, (float* const*)ptrs, (float* const*)ptrs + NS,
+                       (const float*)ptrs[2 * NS], lr, (cudaStream_t)stream_);
 }
 
 }  // extern "C"

@@ -29,6 +29,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "megastep_launch", "deep_launch",
+           "megastep_grad_launch", "deep_grad_launch",
+           "megastep_update_launch", "deep_update_launch",
            "elastic_resample_launch", "fused_mlp_forward_launch",
            "fused_mlp_backward_launch", "conv3x3_forward_launch",
            "conv3x3_backward_launch"]
@@ -141,6 +143,15 @@ def _bind(name, lib):
                       ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_void_p]
     epoch.restype = ctypes.c_int
+    # the data-parallel step's two entries (one step, no n_steps)
+    grad = getattr(lib, prefix + "_grad_step")
+    grad.argtypes = [ip, fp, ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    grad.restype = ctypes.c_int
+    update = getattr(lib, prefix + "_update")
+    update.argtypes = [ip, fp, ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    update.restype = ctypes.c_int
     return lib
 
 
@@ -215,21 +226,34 @@ def _deep_arrays(spec):
     return _arrays(ints, floats)
 
 
-def _run(prefix, lib, ispec, fspec, tensors, n_steps, lr, dev):
+def _workspace(prefix, lib, ispec, fspec, dev):
     n_ws = getattr(lib, prefix + "_workspace_floats")(ispec, fspec)
     if n_ws < 0:
         raise ValueError(f"{prefix} CUDA kernel: the spec's tables are out "
                          "of the kernel's range")
-    ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * len(tensors))(
+    return torch.empty(n_ws, dtype=torch.float32, device=dev)
+
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * len(tensors))(
         *[0 if t is None else t.data_ptr() for t in tensors])
+
+
+def _entry(prefix, lib, entry, *args, dev):
+    """Call ``<prefix>_<entry>`` with ``args``, then the device and the
+    current stream; raise on a nonzero return."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(lib, prefix + "_epoch")(ispec, fspec, ptrs, n_steps, lr,
-                                         ws.data_ptr(), dev.index or 0,
-                                         stream)
+    rc = getattr(lib, f"{prefix}_{entry}")(*args, dev.index or 0, stream)
     if rc != 0:
         raise RuntimeError("%s CUDA kernel failed: %s" % (
-            prefix, getattr(lib, prefix + "_error_string")(rc).decode()))
+            f"{prefix}_{entry}",
+            getattr(lib, prefix + "_error_string")(rc).decode()))
+
+
+def _run(prefix, lib, ispec, fspec, tensors, n_steps, lr, dev):
+    ws = _workspace(prefix, lib, ispec, fspec, dev)
+    _entry(prefix, lib, "epoch", ispec, fspec, _ptrs(tensors), n_steps, lr,
+           ws.data_ptr(), dev=dev)
 
 
 def megastep_launch(spec, x, y, bits, gh, gw, params, moms, cm, lr):
@@ -251,6 +275,46 @@ def deep_launch(spec, x, y, bits, gh, gw, centers, params, moms, cm, lr):
     _run("deep", build()["megastep_deep"], ispec, fspec,
          [x, y, *bits, gh, gw, centers, *params, *moms, cm], x.shape[0], lr,
          x.device)
+
+
+def megastep_grad_launch(spec, x, y, words, gh, gw, params, grads, cm):
+    """One data-parallel step's gradient by the flagship CUDA library
+    (``megastep_grad_step``) on the current stream: ``grads`` (the flat
+    buffer of the 8 state tensors) and ``cm`` (2,) are written, ``params``
+    read. The caller has checked devices, dtypes, shapes and contiguity."""
+    ispec, fspec = _spec_arrays(spec)
+    lib = build()["megastep"]
+    ws = _workspace("megastep", lib, ispec, fspec, x.device)
+    _entry("megastep", lib, "grad_step", ispec, fspec,
+           _ptrs([x, y, *words, gh, gw, *params, grads, cm]), ws.data_ptr(),
+           dev=x.device)
+
+
+def megastep_update_launch(spec, params, moms, grads, lr):
+    """The flagship update after the gradient all-reduce
+    (``megastep_update``): ``params`` and ``moms`` in place from the flat
+    ``grads``."""
+    ispec, fspec = _spec_arrays(spec)
+    _entry("megastep", build()["megastep"], "update", ispec, fspec,
+           _ptrs([*params, *moms, grads]), lr, dev=grads.device)
+
+
+def deep_grad_launch(spec, x, y, words, gh, gw, centers, params, grads, cm):
+    """As megastep_grad_launch for a DeepSpec (``deep_grad_step``);
+    ``centers`` are the frozen CenteredOut centers or None."""
+    ispec, fspec = _deep_arrays(spec)
+    lib = build()["megastep_deep"]
+    ws = _workspace("deep", lib, ispec, fspec, x.device)
+    _entry("deep", lib, "grad_step", ispec, fspec,
+           _ptrs([x, y, *words, gh, gw, centers, *params, grads, cm]),
+           ws.data_ptr(), dev=x.device)
+
+
+def deep_update_launch(spec, params, moms, grads, lr):
+    """As megastep_update_launch for a DeepSpec (``deep_update``)."""
+    ispec, fspec = _deep_arrays(spec)
+    _entry("deep", build()["megastep_deep"], "update", ispec, fspec,
+           _ptrs([*params, *moms, grads]), lr, dev=grads.device)
 
 
 def _call(lib_name, fn, *args):

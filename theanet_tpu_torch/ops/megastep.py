@@ -51,7 +51,10 @@ __all__ = ["LayerReg", "MegaSpec", "act_of", "spec_from_net",
            "MEGA_LAYER_IDX", "kernel_shapes", "kernel_layout",
            "framework_layout", "db_lanes", "fb_lanes", "epoch_noise_bits",
            "color_rows", "softmax_nll", "centered_nll",
-           "megastep_epoch_reference", "megastep_epoch"]
+           "megastep_epoch_reference", "megastep_epoch",
+           "step_constants", "megastep_grad_step_reference",
+           "megastep_grad_step",
+           "megastep_update_reference", "megastep_update"]
 
 # indices of the four parameterized layers in the flagship pattern
 MEGA_LAYER_IDX = (1, 3, 5, 6)
@@ -274,12 +277,14 @@ FUSED_TAIL_REASON = ("FUSED_TAIL is set (the XLA-fused tail variant keeps "
                      "the scanned path)")
 
 
-def fused_plan(net):
+def fused_plan(net, for_mesh=False):
     """FusedPlan of the first family that matches ``net``, in the JAX
     package's order (megastep.py:569-600): the 2-conv flagship, then the
     bare flat MLP, then the deep family (any other conv depth, flat nets the
     MLP declines, CenteredOut heads, Color prefixes); else None. A
-    FUSED_TAIL net matches none (megastep.py:340-342)."""
+    FUSED_TAIL net matches none (megastep.py:340-342). With ``for_mesh``
+    the flat-MLP family is skipped: it has no data-parallel kernel, and the
+    deep family takes flat nets as zero-level specs."""
     from . import megastep_deep as deep
     from . import megastep_mlp as mlp
 
@@ -287,7 +292,7 @@ def fused_plan(net):
     if spec is not None:
         return FusedPlan(spec, MEGA_LAYER_IDX, megastep_epoch, kernel_layout,
                          framework_layout)
-    mspec = mlp.mlp_spec_from_net(net)
+    mspec = None if for_mesh else mlp.mlp_spec_from_net(net)
     if mspec is not None:
         return FusedPlan(mspec, mlp.MLP_LAYER_IDX, mlp.mlp_epoch,
                          mlp.kernel_layout_mlp, mlp.framework_layout_mlp)
@@ -816,12 +821,47 @@ def check_epoch_inputs(name, kparams, kmoms, x_steps, y_steps, bits, spec,
             (bits[1], (nb, fb_lanes(spec), HW), torch.int32),
             (bits[2], (nb, C0 * B, HW), torch.int32),
             (bits[3], (nb, B, db_lanes(spec)), torch.int32)]
-    want += [(t, s, torch.float32) for t, s in zip(kparams, shapes)]
-    want += [(t, s, torch.float32) for t, s in zip(kmoms, shapes)]
     if len(kparams) != len(shapes) or len(kmoms) != len(shapes):
         raise ValueError(f"{name} takes {len(shapes)} params and "
                          f"{len(shapes)} moms")
-    dev = x_steps.device
+    want += [(t, s, torch.float32) for t, s in zip(kparams, shapes)]
+    want += [(t, s, torch.float32) for t, s in zip(kmoms, shapes)]
+    check_tensors(name, want)
+
+
+def check_step_inputs(name, x, y, words, params, grads, cm, spec, shapes):
+    """As check_epoch_inputs for one data-parallel step: ``x`` (C0*B, HW),
+    ``y`` (B,), one step's words, the state, the flat gradient buffer and
+    the (2,) cost_minf output."""
+    B, HW, C0 = spec.batch, spec.hw, spec.in_ch
+    if len(params) != len(shapes):
+        raise ValueError(f"{name} takes {len(shapes)} params")
+    want = [(x, (C0 * B, HW), torch.float32), (y, (B,), torch.int32),
+            (words[0], (8,), torch.int32),
+            (words[1], (fb_lanes(spec), HW), torch.int32),
+            (words[2], (C0 * B, HW), torch.int32),
+            (words[3], (B, db_lanes(spec)), torch.int32),
+            (grads, (sum(r * c for r, c in shapes),), torch.float32),
+            (cm, (2,), torch.float32)]
+    want += [(t, s, torch.float32) for t, s in zip(params, shapes)]
+    check_tensors(name, want)
+
+
+def check_update_inputs(name, params, moms, grads, shapes):
+    """As check_epoch_inputs for the update after the all-reduce."""
+    if len(params) != len(shapes) or len(moms) != len(shapes):
+        raise ValueError(f"{name} takes {len(shapes)} params and "
+                         f"{len(shapes)} moms")
+    want = [(grads, (sum(r * c for r, c in shapes),), torch.float32)]
+    want += [(t, s, torch.float32) for t in (params, moms)
+             for t, s in zip(t, shapes)]
+    check_tensors(name, want)
+
+
+def check_tensors(name, want):
+    """Raise unless each (tensor, shape, dtype) of ``want`` matches and all
+    lie contiguous on the first one's device."""
+    dev = want[0][0].device
     for t, shape, dtype in want:
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
             raise ValueError(f"{name}: got {tuple(t.shape)} "
@@ -861,3 +901,93 @@ def megastep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
 
 
 megastep_epoch.launches = 0
+
+
+# ------------------------------------------------- the data-parallel step
+
+def split_grads(grads, shapes):
+    """Views of the flat gradient buffer, one per state tensor of
+    ``shapes``, in layout order."""
+    out, o = [], 0
+    for r, c in shapes:
+        out.append(grads[o:o + r * c].view(r, c))
+        o += r * c
+    return out
+
+
+def step_constants(spec, device):
+    """The constant tensors a flagship step reads on ``device``: the warp's
+    smoothing factors (gh, gw). Made once per epoch, not per step: each is
+    a host-to-device copy."""
+    return smoothing_factors(spec, device)
+
+
+@torch.no_grad()
+def megastep_grad_step_reference(spec, consts, x, y, words, params, grads,
+                                 cm):
+    """The plain PyTorch version of one data-parallel step's gradient at the
+    flagship (the JAX package's ``_kernel_grad`` through ``_conv_fwd_bwd``):
+    step_reference at ``spec`` (the per-rank batch) on ``x`` (C0*B, HW) and
+    ``y`` (B,) with one step's words (ub (8,), fb, pb, db) and
+    step_constants ``consts``, writing the data gradients of the 8 state
+    tensors back to back into ``grads`` and (cost, minf) into ``cm`` (2,).
+    Parameters are read only."""
+    gh, gw = consts
+    cost, minf, g = step_reference(spec, x, y, *words, params, gh, gw)
+    grads.copy_(torch.cat([t.reshape(-1) for t in g]))
+    cm[0], cm[1] = cost, minf
+
+
+def megastep_grad_step(spec, consts, x, y, words, params, grads, cm):
+    """One step's gradient; same contract as megastep_grad_step_reference.
+
+    CPU tensors run the plain version. CUDA tensors launch
+    ``megastep_grad_step`` of csrc/megastep.cu (one C call: the epoch
+    kernel's stages up to the last weight gradient) and count the launch
+    in ``megastep_grad_step.launches``; any other device raises."""
+    if x.device.type == "cpu":
+        return megastep_grad_step_reference(spec, consts, x, y, words, params,
+                                            grads, cm)
+    if x.device.type != "cuda":
+        raise ValueError(f"megastep_grad_step: no kernel for {x.device}")
+    check_step_inputs("megastep_grad_step", x, y, words, params, grads, cm,
+                      spec, kernel_shapes(spec))
+    from . import _build
+
+    _build.megastep_grad_launch(spec, x, y, words, *consts, params, grads,
+                                cm)
+    megastep_grad_step.launches += 1
+
+
+megastep_grad_step.launches = 0
+
+
+@torch.no_grad()
+def megastep_update_reference(spec, params, moms, grads, lr):
+    """The plain update after the gradient all-reduce: apply_updates of the
+    flat ``grads`` to ``params`` and ``moms``, in place, at the f32 ``lr``
+    the epoch twin uses."""
+    apply_updates(reg_kinds(spec), params, moms,
+                  split_grads(grads, kernel_shapes(spec)),
+                  torch.tensor(lr, dtype=torch.float32, device=grads.device))
+
+
+def megastep_update(spec, params, moms, grads, lr):
+    """The update after the all-reduce; same contract as
+    megastep_update_reference. CPU tensors run the plain version; CUDA
+    tensors launch ``megastep_update`` of csrc/megastep.cu (k_update and
+    the max-norm kernels of the epoch) and count it in
+    ``megastep_update.launches``; any other device raises."""
+    if grads.device.type == "cpu":
+        return megastep_update_reference(spec, params, moms, grads, lr)
+    if grads.device.type != "cuda":
+        raise ValueError(f"megastep_update: no kernel for {grads.device}")
+    check_update_inputs("megastep_update", params, moms, grads,
+                        kernel_shapes(spec))
+    from . import _build
+
+    _build.megastep_update_launch(spec, params, moms, grads, float(lr))
+    megastep_update.launches += 1
+
+
+megastep_update.launches = 0

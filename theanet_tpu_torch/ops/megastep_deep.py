@@ -43,16 +43,20 @@ import torch
 from .megastep import (LayerReg, _act, _conv_true, _conv_true_dgrad,
                        _conv_true_wgrad, _dact, _pool, _u01, act_of, aug_of,
                        apply_updates, augment, centered_nll,
-                       check_epoch_inputs, launch_limit_reason, reg_of,
+                       check_epoch_inputs, check_step_inputs,
+                       check_update_inputs, launch_limit_reason, reg_of,
                        smoothing_factors, softmax_nll, spec_from_net,
-                       weight_cost)
+                       split_grads, weight_cost)
 from ..layers.conv import pool_backward
 
 __all__ = ["DeepSpec", "deep_spec_from_net", "deep_decline_reason",
            "deep_layer_idx", "deep_kernel_shapes", "deep_reg_kinds",
            "deep_head_smem", "deep_launch_reason",
            "kernel_layout_deep", "framework_layout_deep",
-           "deep_epoch_reference", "deep_epoch"]
+           "deep_epoch_reference", "deep_epoch",
+           "deep_step_constants", "deep_grad_step_reference",
+           "deep_grad_step",
+           "deep_update_reference", "deep_update"]
 
 HEADS = ("softmax", "logit", "rbf")
 
@@ -529,3 +533,79 @@ def deep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
 
 
 deep_epoch.launches = 0
+
+
+# ------------------------------------------------- the data-parallel step
+
+def deep_step_constants(spec, device):
+    """The constant tensors a deep step reads on ``device``: the warp's
+    smoothing factors and the frozen CenteredOut centers (None when the
+    head has none); made once per epoch, as megastep.step_constants."""
+    return (*smoothing_factors(spec, device), frozen_centers(spec, device))
+
+
+@torch.no_grad()
+def deep_grad_step_reference(spec, consts, x, y, words, params, grads, cm):
+    """The plain PyTorch version of one data-parallel step's gradient in the
+    deep family (the JAX package's ``_kernel_grad`` through
+    ``_deep_fwd_bwd``): deep_step_reference at ``spec`` (the per-rank
+    batch) with deep_step_constants ``consts``, writing the data gradients
+    of every state tensor back to back into ``grads`` and (cost, minf) into
+    ``cm`` (2,); as megastep.megastep_grad_step_reference."""
+    gh, gw, centers = consts
+    cost, minf, g = deep_step_reference(spec, x, y, *words, params, centers,
+                                        gh, gw)
+    grads.copy_(torch.cat([t.reshape(-1) for t in g]))
+    cm[0], cm[1] = cost, minf
+
+
+def deep_grad_step(spec, consts, x, y, words, params, grads, cm):
+    """One step's gradient; same contract as deep_grad_step_reference.
+
+    CPU tensors run the plain version. CUDA tensors launch
+    ``deep_grad_step`` of csrc/megastep_deep.cu (one C call: the epoch
+    kernel's stages up to the last weight gradient) and count the launch
+    in ``deep_grad_step.launches``; any other device raises."""
+    if x.device.type == "cpu":
+        return deep_grad_step_reference(spec, consts, x, y, words, params,
+                                        grads, cm)
+    if x.device.type != "cuda":
+        raise ValueError(f"deep_grad_step: no kernel for {x.device}")
+    check_step_inputs("deep_grad_step", x, y, words, params, grads, cm, spec,
+                      deep_kernel_shapes(spec))
+    from . import _build
+
+    _build.deep_grad_launch(spec, x, y, words, *consts, params, grads, cm)
+    deep_grad_step.launches += 1
+
+
+deep_grad_step.launches = 0
+
+
+@torch.no_grad()
+def deep_update_reference(spec, params, moms, grads, lr):
+    """The plain update after the gradient all-reduce, in place (as
+    megastep.megastep_update_reference)."""
+    apply_updates(deep_reg_kinds(spec), params, moms,
+                  split_grads(grads, deep_kernel_shapes(spec)),
+                  torch.tensor(lr, dtype=torch.float32, device=grads.device))
+
+
+def deep_update(spec, params, moms, grads, lr):
+    """The update after the all-reduce; same contract as
+    deep_update_reference. CPU tensors run the plain version; CUDA tensors
+    launch ``deep_update`` of csrc/megastep_deep.cu and count it in
+    ``deep_update.launches``; any other device raises."""
+    if grads.device.type == "cpu":
+        return deep_update_reference(spec, params, moms, grads, lr)
+    if grads.device.type != "cuda":
+        raise ValueError(f"deep_update: no kernel for {grads.device}")
+    check_update_inputs("deep_update", params, moms, grads,
+                        deep_kernel_shapes(spec))
+    from . import _build
+
+    _build.deep_update_launch(spec, params, moms, grads, float(lr))
+    deep_update.launches += 1
+
+
+deep_update.launches = 0

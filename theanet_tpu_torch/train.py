@@ -31,7 +31,7 @@ import torch
 from .data import load_dataset
 from .device import default_device
 from .model import NeuralNet, get_layers_info, get_training_params_info
-from .prms import fixdim, load_params, save_checkpoint
+from .prms import fixdim, load_params
 from .trainer import Trainer, get_test_indices
 
 
@@ -148,7 +148,7 @@ def _run(argv, dataset_name, layers, tr_prms, allwts, out_file_head, log):
         if saved_file_name:
             os.remove(saved_file_name)
         saved_file_name = pickle_file_name.format(test_err)
-        save_checkpoint(saved_file_name, trainer.checkpoint_dict())
+        trainer.save_checkpoint(saved_file_name)
 
     np.set_printoptions(precision=2)
     print("Training ...")

@@ -22,6 +22,16 @@ Two training paths:
     ``elastic_resample`` kernel with ``'method': 'pallas'``) and its dense
     tail ``ops.fused_mlp``.
 
+Under a data-parallel ``mesh`` (``parallel.make_mesh``; one process per
+rank) every rank trains the fused family's step on its shard of each batch
+and the ranks average gradients once a step (``ops/megastep_dp.py``); the
+flat-MLP family is skipped (flat nets take the deep family's zero-level
+kernel) and FUSED_TAIL is turned off, as in the JAX package. The port has no
+per-layer data-parallel path yet: a mesh net that the fused path declines
+raises with the reason. Every rank holds the whole replicated state, so
+evaluation and ``sync_net`` read it locally; only rank 0 writes a
+checkpoint (``save_checkpoint``).
+
 Evaluation always runs the per-layer forward in eval mode. On a card the
 Trainer turns TF32 off for cuDNN convolutions and matmuls, so training
 runs in f32 like the JAX package and the CPU.
@@ -29,6 +39,7 @@ runs in f32 like the JAX package and the CPU.
 
 from __future__ import annotations
 
+import functools
 import sys
 from typing import Optional
 
@@ -37,6 +48,7 @@ import torch
 
 from .device import default_device
 from .model import NeuralNet
+from .prms import save_checkpoint
 
 __all__ = ["Trainer", "get_test_indices", "step_generator"]
 
@@ -66,10 +78,15 @@ def step_generator(seed, step, device):
 
 class Trainer:
     def __init__(self, net: NeuralNet, train_x, train_y, test_x, test_y,
-                 device=None):
+                 device=None, mesh=None):
+        """``mesh``: a data-parallel ``parallel.Mesh``, whose device then
+        holds this rank's tensors; else ``device`` (default
+        ``THEANET_TORCH_DEVICE``)."""
         self.net = net
-        self.device = default_device() if device is None else torch.device(
-            device)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else default_device() if device is None
+                       else torch.device(device))
         self.batch_sz = bsz = net.batch_sz
         self.n_train_batches = nb = train_x.shape[0] // bsz
         self.n_test_batches = test_x.shape[0] // bsz
@@ -104,7 +121,13 @@ class Trainer:
         if not (mode is True or mode is False or mode == "auto"):
             raise ValueError("MEGAFUSED must be True, False, or 'auto' "
                              f"(got {mode!r})")
+        if mesh is not None:
+            self._check_mesh(mesh, nb, train_x.shape[0])
         if mode is False:
+            if mesh is not None:
+                raise NotImplementedError(
+                    "MEGAFUSED=False under a mesh: the port has no "
+                    "per-layer data-parallel path yet (ROADMAP.md)")
             return
         from .ops import megastep
 
@@ -114,32 +137,84 @@ class Trainer:
         elif train_x.shape[2] != train_x.shape[3]:
             reason = "non-square input images"
         else:
-            plan = megastep.fused_plan(net)
+            plan = megastep.fused_plan(net, for_mesh=mesh is not None)
             if plan is None:
                 reason = megastep.fused_decline_reason(net)
             elif train_x.shape[1] != plan.spec.in_ch:
                 plan, reason = None, (
                     f"training data has {train_x.shape[1]} channels but the "
                     f"net expects {plan.spec.in_ch}")
+        if plan is not None and mesh is not None:
+            plan, reason = self._dp_gate(plan, mesh, mode)
         if plan is None:
             if mode is True:
                 raise ValueError("MEGAFUSED=True, but this configuration "
                                  "cannot use the fused epoch kernel: "
                                  + reason)
+            if mesh is not None:
+                raise NotImplementedError(
+                    "the fused data-parallel path declines this net ("
+                    + reason + "), and the port has no per-layer "
+                    "data-parallel path yet (ROADMAP.md)")
             print("theanet_tpu_torch: MEGAFUSED=auto — training on the "
                   "per-layer path: " + reason, file=sys.stderr)
             return
+        from .ops import megastep_dp
+
         spec = plan.spec
         self._mega, self._mega_plan, self._mega_spec = megastep, plan, spec
-        C0, hw = spec.in_ch, spec.hw
-        # channel-major step rows (c*B + b, HW), arranged once (a view for
-        # one-channel data)
-        self._mega_x = (self.d_train_x[:nb * bsz]
-                        .reshape(nb, bsz, C0, hw).transpose(1, 2)
-                        .reshape(nb, C0 * bsz, hw).contiguous())
-        self._mega_y = self.d_train_y[:nb * bsz].reshape(nb, bsz).contiguous()
+        # channel-major step rows (c*B + b, HW) of this rank's samples of
+        # every step (all of them without a mesh), arranged once
+        n, rank = (1, 0) if mesh is None else (mesh.n_data, mesh.rank)
+        self._mega_x, self._mega_y = megastep_dp.dp_shard_data(
+            spec, n, rank, self.d_train_x, self.d_train_y)
+        # (kparams, kmoms, x, y, bits, lr) -> (kparams, kmoms, cost_minf)
+        self._mega_epoch = (
+            functools.partial(plan.epoch_fn, spec=spec) if mesh is None
+            else megastep_dp.make_dp_epoch_fn(spec, nb, mesh))
         self._kp = self._km = None
         self._state_src = "frame"   # which layout holds the truth
+
+    # -- data-parallel mesh ------------------------------------------------
+
+    def _check_mesh(self, mesh, nb, n_train):
+        """The JAX Trainer's mesh checks (trainer.py:78-123): FUSED_TAIL off,
+        the batch divides across the data ranks, at least one batch."""
+        if self.net.fused_tail:
+            # the tail kernel is a single-device autograd function; the
+            # fused data-parallel path trains the same network
+            self.net.fused_tail = False
+            print("theanet_tpu_torch: FUSED_TAIL is single-chip only; "
+                  "disabled under the device mesh (the fused data-parallel "
+                  "path runs the same network).", file=sys.stderr)
+        n_data = mesh.shape["data"]
+        if self.batch_sz % n_data:
+            raise ValueError(
+                f"BATCH_SZ={self.batch_sz} does not divide across the mesh "
+                f"'data' axis ({n_data} devices); choose a batch size that "
+                "is a multiple of the data-parallel degree.")
+        if nb < 1:
+            raise ValueError(f"training set ({n_train} samples) is smaller "
+                             f"than one batch (BATCH_SZ={self.batch_sz})")
+
+    def _dp_gate(self, plan, mesh, mode):
+        """(plan, None) when the fused data-parallel path takes ``plan`` on
+        ``mesh``, else (None, reason): the family's data-parallel gate
+        (megastep_dp.dp_decline_reason) and, under MEGAFUSED='auto', the
+        JAX package's ceiling of 32 samples a rank (trainer.py:328-336)."""
+        from .ops import megastep_dp
+
+        n_data, bsz = mesh.shape["data"], self.batch_sz
+        why = megastep_dp.dp_decline_reason(plan.spec, n_data)
+        if why:
+            return None, (f"the per-rank batch shard (BATCH_SZ {bsz} over "
+                          f"{n_data} data ranks) fails the fused "
+                          f"data-parallel gate: {why}")
+        if mode == "auto" and bsz // n_data > 32:
+            return None, (f"per-device shard {bsz // n_data} > 32, the JAX "
+                          "package's ceiling for its fused data-parallel "
+                          "path (MEGAFUSED=True forces fusion)")
+        return plan, None
 
     # -- fused-path state ------------------------------------------------
 
@@ -175,11 +250,13 @@ class Trainer:
             self._kp = self._to_kernel(self.params)
             self._km = self._to_kernel(self.moms)
         spec = self._mega_spec
+        # under a mesh every rank draws the global epoch's words and its
+        # epoch function takes its share
         bits = self._mega.epoch_noise_bits(
             self.net.tr_prms["SEED"], self.net.get_epoch(), spec,
             self.n_train_batches, self.device)
-        self._kp, self._km, cm = self._mega_plan.epoch_fn(
-            self._kp, self._km, self._mega_x, self._mega_y, bits, lr, spec)
+        self._kp, self._km, cm = self._mega_epoch(
+            self._kp, self._km, self._mega_x, self._mega_y, bits, lr)
         self._state_src = "mega"
         return cm
 
@@ -273,6 +350,15 @@ class Trainer:
     def checkpoint_dict(self):
         self.sync_net()
         return self.net.get_init_params()
+
+    def save_checkpoint(self, path):
+        """Pickle checkpoint_dict() to ``path``. Under a mesh every rank
+        holds the same state and only rank 0 writes. Returns whether this
+        process wrote."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return False
+        save_checkpoint(path, self.checkpoint_dict())
+        return True
 
     def sync_net(self):
         """Write the current device params back into the net's layers, so
