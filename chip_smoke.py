@@ -85,7 +85,31 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      ``parallel.launch``), 2 epochs each, against the single-device fused
      Trainer's costs; one gradient and one update launch a step a rank, the
      ranks' parameters bit-identical, rank 0 alone checkpointing; epoch
-     times and the device's idle share.
+     times and the device's idle share (THEANET_DP_RING=0: the per-step
+     path);
+ 17. the ring's exchange kernel (csrc/ring.cuh) vs exchange_reference over
+     n buffers of this process, at mnist_cnn's and galaxy_rbf's state:
+     gather at 2 ranks, reduce-scatter at 2 (THEANET_RING_RS=1), 3 and 4,
+     both slot parities, bit for bit; its time a call beside the plain
+     version's and dist.all_reduce's (world 1, NCCL); the ring epoch
+     entries (megastep_ring_epoch at mnist_cnn in both modes,
+     deep_ring_epoch at galaxy_rbf) at 2 ranks in this process, one thread
+     and stream a rank, one step a call, step-locked against
+     ring_epoch_reference's plain version; then mnist_cnn at BATCH_SZ 600
+     and 1024, whose heads need more than 48 KB of shared memory: it fuses,
+     and the flagship kernel follows its twin step-locked;
+ 18. the ring main path, ``Trainer(mesh=make_mesh())`` under
+     THEANET_DP_RING: at world 1 in this process (NCCL) mnist_cnn and
+     galaxy_rbf take the ring under 'auto' and equal the single-device
+     epoch kernel to the bit; at world 2 (gloo, two processes on the card
+     mapping each other's buffers through CUDA IPC) mnist_cnn, galaxy_rbf
+     and flat_mlp in gather mode and mnist_cnn in reduce-scatter mode, and
+     at world 4 mnist_cnn at 5 a rank (reduce-scatter), each rank
+     bit-equal to the others and to ring_epoch_reference's emulation on
+     the card, epoch totals within 5% of the single device's; one ring
+     epoch launch an epoch a rank and the exchange kernels its C loop
+     counts (2 a step in gather mode, 4 in reduce-scatter); epoch times
+     and idle share per rank.
 
 The last three lines are the kernels JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The script imports nothing of
@@ -139,7 +163,7 @@ FREE_TOTAL_RTOL = 5e-3
 # different random bits give mid-curve and fails a net that did not learn.
 MAIN_SEED = 9876
 MAIN_TEST_ERR_MAX = 40.0
-ALL_PHASES = tuple(range(1, 17))
+ALL_PHASES = tuple(range(1, 19))
 
 
 def banner(n, title):
@@ -960,7 +984,8 @@ def profile_epoch(torch, run, n_steps, what="one epoch", top=None):
     """Print the device time of each stage kernel over one epoch (or what
     ``run`` does: ``n_steps`` steps or calls) by torch.profiler, per step,
     and the device's idle share: 1 - busy time over the wall time,
-    launches from the host included; ``top`` limits the kernels listed."""
+    launches from the host included; ``top`` limits the kernels listed.
+    Returns the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     run()   # warm-up
@@ -992,6 +1017,7 @@ def profile_epoch(torch, run, n_steps, what="one epoch", top=None):
         print(f"    {name:24s} {t / n_steps:8.2f} us/step "
               f"{count / n_steps:5.1f} launches/step "
               f"{100 * t / busy:5.1f}% of busy", flush=True)
+    return 1 - busy / wall_us
 
 
 def phase9(torch, dev, card):
@@ -1659,12 +1685,22 @@ DP_FREE_TOTAL_RTOL = 0.05
 
 
 def dp_wrappers():
-    """The data-parallel path's four counted kernel wrappers."""
+    """The per-step data-parallel path's four counted kernel wrappers."""
     from theanet_tpu_torch.ops import megastep
     from theanet_tpu_torch.ops import megastep_deep as deep
 
     return (megastep.megastep_grad_step, deep.deep_grad_step,
             megastep.megastep_update, deep.deep_update)
+
+
+def ring_wrappers():
+    """The whole-epoch ring's counted wrappers: its two epoch entries and
+    the exchange (every exchange kernel that an epoch entry's C loop or
+    ring_exchange launched)."""
+    from theanet_tpu_torch.ops import megastep_ring as ring
+
+    return (ring.megastep_ring_epoch, ring.deep_ring_epoch,
+            ring.ring_exchange)
 
 
 def dp_config(name):
@@ -2002,11 +2038,16 @@ def phase16(torch, card, mesh):
 
     launches = {fn.__name__: 0 for fn in dp_wrappers()}
     report = {}
-    # world 1, NCCL, this process
+    # world 1, NCCL, this process; THEANET_DP_RING=0 keeps the per-step
+    # path (phase 18 drives the ring)
     ref_costs, ref_ms = single_device_run(torch, "mnist_cnn")
     layers, tr, data = dp_config("mnist_cnn")
     net = NeuralNet(layers, tr)
-    trainer = Trainer(net, *dp_arrays(data), mesh=mesh)
+    os.environ["THEANET_DP_RING"] = "0"
+    try:
+        trainer = Trainer(net, *dp_arrays(data), mesh=mesh)
+    finally:
+        os.environ["THEANET_DP_RING"] = "auto"
     nb = trainer.n_train_batches
     for fn in dp_wrappers():
         fn.launches = 0
@@ -2028,9 +2069,9 @@ def phase16(torch, card, mesh):
                       "deep_update": 0}, counts
     for k, v in counts.items():
         launches[k] += v
-    profile_epoch(torch, trainer.run_epoch, nb,
-                  "one mnist_cnn DP epoch at world 1", top=8)
-    report["mnist_cnn world 1"] = (ms, ref_ms)
+    idle = profile_epoch(torch, trainer.run_epoch, nb,
+                         "one mnist_cnn DP epoch at world 1", top=8)
+    report["mnist_cnn world 1"] = (ms, ref_ms, idle)
 
     # world 2, gloo: two processes share the card
     names = ("mnist_cnn", "galaxy_rbf", "flat_mlp")
@@ -2040,7 +2081,7 @@ def phase16(torch, card, mesh):
             layers, tr, data = dp_config(name)
             job.append(dict(name=name, layers=layers, training_params=tr,
                             data=dp_arrays(data), epochs=DP_EPOCHS,
-                            profile=True))
+                            profile=True, dp_ring="0"))
         job_file = os.path.join(tmp, "job.pkl")
         with open(job_file, "wb") as f:
             pickle.dump(job, f)
@@ -2066,7 +2107,7 @@ def phase16(torch, card, mesh):
         r0, r1 = ranks[name]
         nb = len(ref_costs[0])
         family = "megastep" if name == "mnist_cnn" else "deep"
-        want = {fn.__name__: 0 for fn in dp_wrappers()}
+        want = {fn.__name__: 0 for fn in dp_wrappers() + ring_wrappers()}
         want[family + "_grad_step"] = want[family + "_update"] = (
             DP_EPOCHS * nb)
         same = all((a == b).all() for la, lb in zip(r0["params"],
@@ -2100,11 +2141,513 @@ def phase16(torch, card, mesh):
             assert abs(float(c.sum()) - float(ref.sum())) <= (
                 DP_FREE_TOTAL_RTOL * abs(float(ref.sum()))), (c.sum(),
                                                              ref.sum())
-        for k in want:
+        for k in launches:
             launches[k] += r0["launches"][k] + r1["launches"][k]
         report[name + " world 2"] = (r0["ms"], ref_ms)
     print(f"kernel launches in the main path: {launches}", flush=True)
     return launches, report
+
+# ---------------------------------------------------------- phases 17-18
+# The whole-epoch ring (ops/megastep_ring.py; megastep_ring_epoch,
+# deep_ring_epoch and the exchange of csrc/ring.cuh). Phase 17 holds the
+# exchange kernel to exchange_reference over n buffers of this process in
+# each mode: (mode, ranks, THEANET_RING_RS). Both add in one order and
+# multiply once, so they agree to the bit.
+RING_CASES = (("gather", 2, "0"), ("reduce-scatter", 2, "1"),
+              ("reduce-scatter", 3, "auto"), ("reduce-scatter", 4, "auto"))
+# the ring epoch entries at 2 ranks in this process against the plain
+# version, step-locked: (config, THEANET_RING_RS), RING_LOCKED_STEPS steps
+RING_LOCKED = (("mnist_cnn", "0"), ("mnist_cnn", "1"), ("galaxy_rbf", "0"))
+RING_LOCKED_STEPS = 4
+# the flagship heads above the old 48 KB of shared memory (50,400 and
+# 86,016 bytes), each against its twin step-locked, RING_HEAD_STEPS steps
+RING_HEADS = (600, 1024)
+RING_HEAD_STEPS = 3
+# phase 18's real ranks on the one card (gloo; the ring maps the ranks'
+# buffers through CUDA IPC): (run name, config, THEANET_RING_RS)
+RING_WORLD2 = (("mnist_cnn", "mnist_cnn", "auto"),
+               ("galaxy_rbf", "galaxy_rbf", "auto"),
+               ("flat_mlp", "flat_mlp", "auto"),
+               ("mnist_cnn-rs", "mnist_cnn", "1"))
+RING_WORLD4 = (("mnist_cnn-4", "mnist_cnn", "auto"),)
+RING_WORLD4_EPOCHS = 1
+# exchange kernels a step (csrc/ring.cuh ring_phase): publish + gather, or
+# publish + reduce-scatter + publish + all-gather
+RING_EXCHANGES = {False: 2, True: 4}
+
+
+def ring_lib(spec):
+    from theanet_tpu_torch.ops import megastep
+
+    return "megastep" if isinstance(spec, megastep.MegaSpec) else \
+        "megastep_deep"
+
+
+def rs_of(n, rs_env):
+    """use_rs(n) under THEANET_RING_RS=rs_env."""
+    from theanet_tpu_torch.ops import megastep_ring as ring
+
+    os.environ["THEANET_RING_RS"] = rs_env
+    try:
+        return ring.use_rs(n)
+    finally:
+        os.environ["THEANET_RING_RS"] = "auto"
+
+
+class LocalRing:
+    """n ranks' exchange buffers, IPC events and shared host counters in
+    this one process: the ring tables of the in-process emulations
+    (``tables(step0)``, rank by rank). ``close`` destroys the events."""
+
+    def __init__(self, torch, lib, n, ng, rs, chunks, dev):
+        import ctypes
+
+        from theanet_tpu_torch.ops import _build
+        from theanet_tpu_torch.ops import megastep_ring as ring
+
+        self.lib, self.n, self.rs, self.chunks, self.dev = (lib, n, rs,
+                                                            chunks, dev)
+        self.bufs = [torch.zeros(_build.ring_buffer_bytes(lib, ng) // 4,
+                                 device=dev) for _ in range(n)]
+        self.events = [_build.ring_events_alloc(lib, dev)[0]
+                       for _ in range(n)]
+        self.host = ctypes.create_string_buffer(128 * ring.MAX_RANKS)
+        self.host_ptr = ctypes.addressof(self.host)
+
+    def tables(self, step0):
+        from theanet_tpu_torch.ops import megastep_ring as ring
+
+        return [ring.ring_table(self.n, r, self.rs, step0,
+                                [b.data_ptr() for b in self.bufs],
+                                self.chunks, wait_s=10.0, events=self.events,
+                                host=self.host_ptr) for r in range(self.n)]
+
+    def close(self):
+        from theanet_tpu_torch.ops import _build
+
+        for ev in self.events:
+            _build.ring_events_free(self.lib, ev, self.dev)
+
+
+def exchange_case(torch, name, n, rs_env, dev):
+    """The exchange kernel against exchange_reference at a config's state
+    (two steps, both slot parities): every rank's reduced gradient and
+    (cost, minf), bit for bit. Returns (largest |d|, the LocalRing, its
+    tables, the chunks, the mode, the gradient count, the last step's
+    gradients and stats, for timing; the caller closes the LocalRing)."""
+    from theanet_tpu_torch.ops import megastep_dp as dp
+    from theanet_tpu_torch.ops import megastep_ring as ring
+
+    _, plan, _, _, _ = dp_setup(torch, name, dev)
+    spec = plan.spec
+    shapes = dp.family(spec).shapes(spec)
+    ng = sum(r * c for r, c in shapes)
+    rs = rs_of(n, rs_env)
+    chunks = (ring.flat_chunks(shapes, ring.owner_groups(shapes, n)) if rs
+              else None)
+    local = LocalRing(torch, ring_lib(spec), n, ng, rs, chunks, dev)
+    bufs, tables = local.bufs, local.tables(0)
+    gen = torch.Generator(device=dev).manual_seed(17 + n)
+    worst = 0.0
+    for step in (5, 6):
+        gs, cms = [], []
+        for r in range(n):
+            scale = torch.exp2(torch.randint(-12, 6, (ng,), generator=gen,
+                                             device=dev).float())
+            gs.append(torch.randn(ng, generator=gen, device=dev) * scale)
+            cms.append(torch.rand(2, generator=gen, device=dev) * 3)
+            st, slot = ring.buffer_views(bufs[r], ng, step)
+            st.copy_(cms[r])
+            slot.copy_(gs[r])
+        outs = [torch.full((ng,), float("nan"), device=dev) for _ in range(n)]
+        cmo = [torch.full((2,), float("nan"), device=dev) for _ in range(n)]
+        for phase in (1, 2, 3):
+            for r in range(n):
+                ring.ring_exchange(local.lib, tables[r], ng, step, phase,
+                                   outs[r], cmo[r])
+        torch.cuda.synchronize()
+        ref, rcm = ring.exchange_reference(gs, cms, rs, chunks)
+        for r in range(n):
+            worst = max(worst, max_abs(outs[r], ref), max_abs(cmo[r], rcm))
+            assert torch.equal(outs[r], ref) and torch.equal(cmo[r], rcm), (
+                name, n, rs, r, max_abs(outs[r], ref))
+    return worst, (local, tables, chunks, rs, ng, gs, cms)
+
+
+def phase17_heads(torch, dev, data_mod):
+    """mnist_cnn at BATCH_SZ 600 and 1024 fuses (the head kernel opts in
+    above 48 KB) and the flagship kernel follows its twin step-locked.
+    Returns the largest |d| on steps without a near-rounding pixel."""
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.prms import load_params
+
+    worst = 0.0
+    saved = megastep.megastep_epoch.launches
+    for batch in RING_HEADS:
+        layers, tr, _ = load_params(os.path.join(REPO, "params",
+                                                 "mnist_cnn.prms"))
+        layers[0][1]["img_sz"] = 28
+        tr.update(SEED=1, BATCH_SZ=batch, MEGAFUSED=True)
+        net = NeuralNet(layers, tr)
+        plan = megastep.fused_plan(net)
+        assert plan is not None and plan.epoch_fn is megastep.megastep_epoch
+        spec = plan.spec
+        head = megastep.flagship_head_smem(spec)
+        assert head > 48 * 1024, head
+        nb = RING_HEAD_STEPS
+        x = torch.as_tensor(data_mod.training_x[:nb * batch],
+                            device=dev).reshape(nb, batch, spec.hw)
+        y = torch.as_tensor(data_mod.training_y[:nb * batch],
+                            device=dev).reshape(nb, batch)
+        kp = initial_state(plan, net, dev)
+        km = [torch.zeros_like(t) for t in kp]
+        bits = megastep.epoch_noise_bits(3, 0, spec, nb, dev)
+        clean, flip, n_near, (p1, _) = step_locked(torch, megastep, spec, kp,
+                                                   km, x, y, bits)
+        moved = max(max_abs(a, b) for a, b in zip(p1, kp))
+        print(f"  mnist_cnn at BATCH_SZ {batch} (head {head:,} bytes of "
+              f"shared memory): fuses; {nb} steps step-locked, kernel vs "
+              f"twin max|d| {clean:.3e} ({n_near} steps with a near-rounding "
+              f"pixel: {flip:.3e}); params moved {moved:.3e}", flush=True)
+        assert moved > 0 and clean <= STEP_ATOL and flip <= FLIP_ATOL, (
+            clean, flip)
+        worst = max(worst, clean)
+    megastep.megastep_epoch.launches = saved
+    return worst
+
+
+def ring_locked(torch, name, rs_env, dev):
+    """The ring epoch entry of a config (megastep_ring_epoch or
+    deep_ring_epoch) at 2 ranks in this process, one thread and one stream
+    a rank over a LocalRing, one step a call, against
+    ring_epoch_reference's plain version (plain gradient step, plain
+    exchange, plain update) from the same state, RING_LOCKED_STEPS steps;
+    each step starts from the kernel's state. The two ranks must agree to
+    the bit. Returns the largest |d| of the state, costs and minf on steps
+    without a near-rounding pixel (held to STEP_ATOL) and on steps with
+    one (FLIP_ATOL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_dp as dp
+    from theanet_tpu_torch.ops import megastep_ring as ring
+
+    n, nb = 2, RING_LOCKED_STEPS
+    _, plan, kp, x, y = dp_setup(torch, name, dev)
+    spec = plan.spec
+    loc = dp.local_spec(spec, spec.batch // n)
+    shapes = dp.family(loc).shapes(loc)
+    ng = sum(r * c for r, c in shapes)
+    rs = rs_of(n, rs_env)
+    chunks = (ring.flat_chunks(shapes, ring.owner_groups(shapes, n)) if rs
+              else None)
+    kernel = (ring.megastep_ring_epoch if isinstance(spec, megastep.MegaSpec)
+              else ring.deep_ring_epoch)
+    shards = [dp.dp_shard_data(spec, n, r, x, y) for r in range(n)]
+    bits = megastep.epoch_noise_bits(3, 0, spec, shards[0][0].shape[0], dev)
+    words = [dp.dp_shard_words(spec, n, r, bits) for r in range(n)]
+    local = LocalRing(torch, ring_lib(spec), n, ng, rs, chunks, dev)
+    streams = [torch.cuda.Stream(dev) for _ in range(n)]
+    p, m = kp, [torch.zeros_like(t) for t in kp]
+    worst = worst_flip = 0.0
+
+    def rank_step(r, s, table):
+        with torch.cuda.stream(streams[r]):
+            out = kernel(p, m, shards[r][0][s:s + 1], shards[r][1][s:s + 1],
+                         tuple(w[s:s + 1] for w in words[r]), 0.1, loc,
+                         table)
+        streams[r].synchronize()
+        return out
+
+    try:
+        with ThreadPoolExecutor(n) as pool:
+            for s in range(nb):
+                tables = local.tables(s)
+                torch.cuda.synchronize()
+                got = list(pool.map(rank_step, range(n), [s] * n, tables))
+                b_s = tuple(b[s:s + 1] for b in bits)
+                ref = ring.ring_epoch_reference(
+                    spec, n, [(xs[s:s + 1], ys[s:s + 1]) for xs, ys in shards],
+                    p, m, b_s, 0.1, rs)
+                a, b = got[0][0] + got[0][1] + [got[0][2]], got[1][0] + \
+                    got[1][1] + [got[1][2]]
+                assert all(torch.equal(u, v) for u, v in zip(a, b)), (name, s)
+                d = max(max_abs(u, v) for u, v in zip(
+                    a, ref[0] + ref[1] + [ref[2]]))
+                if spec.nearest and near_rounding_pixels(torch, megastep,
+                                                         spec, b_s, 0):
+                    worst_flip = max(worst_flip, d)
+                else:
+                    worst = max(worst, d)
+                p, m = got[0][0], got[0][1]
+    finally:
+        local.close()
+    moved = max(max_abs(u, v) for u, v in zip(p, kp))
+    print(f"  {name}, {kernel.__name__} at 2 ranks in this process "
+          f"({'reduce-scatter' if rs else 'gather'}), {nb} steps step-locked "
+          f"against ring_epoch_reference's plain version: ranks bit-equal; "
+          f"max|d| {worst:.3e} (steps with a near-rounding pixel: "
+          f"{worst_flip:.3e}); params moved {moved:.3e}", flush=True)
+    assert moved > 0 and worst <= STEP_ATOL and worst_flip <= FLIP_ATOL, (
+        worst, worst_flip)
+    return worst
+
+
+def phase17(torch, dev, card):
+    """Returns (largest |d| of the exchange, (ms, plain ms, bound, library
+    ms) of one gather exchange at mnist_cnn's state, 2 ranks, the largest
+    |d| of the heads, {ring epoch entry: largest |d| against the plain
+    version})."""
+    import torch.distributed as dist
+    from theanet_tpu_torch.data import synth_hard
+    from theanet_tpu_torch.ops import megastep_ring as ring
+
+    saved = [fn.launches for fn in ring_wrappers()]
+    worst, timing = 0.0, None
+    for name in ("mnist_cnn", "galaxy_rbf"):
+        for mode, n, rs_env in RING_CASES:
+            d, kit = exchange_case(torch, name, n, rs_env, dev)
+            print(f"  {name}, {mode} at {n} ranks (THEANET_RING_RS="
+                  f"{rs_env}): exchange kernel vs exchange_reference, 2 "
+                  f"steps, every rank: max|d| {d:.3e} ({kit[4]:,} "
+                  f"gradient floats" + (f", {len(kit[2])} chunks"
+                                        if kit[2] else "") + ")", flush=True)
+            worst = max(worst, d)
+            if name == "mnist_cnn" and mode == "gather":
+                timing = kit
+            else:
+                kit[0].close()
+    local, tables, chunks, rs, ng, gs, cms = timing
+    out = torch.empty(ng, device=dev)
+    cm = torch.empty(2, device=dev)
+    ms = timed(torch, lambda: ring.ring_exchange(local.lib, tables[0], ng, 6,
+                                                 3, out, cm), 200)
+    ms_plain = timed(torch, lambda: ring.exchange_reference(gs, cms, rs,
+                                                            chunks), 50)
+    flat = gs[0].clone()
+    ms_lib = timed(torch, lambda: dist.all_reduce(flat), 200)
+    local.close()
+    bnd = bound(nbytes(*gs, out) + 4 * 2 * 3, 2 * ng)
+    print(f"    on {card}: one gather exchange (2 ranks, mnist_cnn's "
+          f"{ng:,} floats) {1e3 * ms:.2f} us a call (plain "
+          f"{1e3 * ms_plain:.2f} us; bound {1e3 * bnd[0]:.3f} us, {bnd[1]}); "
+          f"dist.all_reduce of the same buffer at world 1 on NCCL "
+          f"{1e3 * ms_lib:.2f} us", flush=True)
+    locked = {}
+    for name, rs_env in RING_LOCKED:
+        d = ring_locked(torch, name, rs_env, dev)
+        entry = ("megastep_ring_epoch" if name == "mnist_cnn"
+                 else "deep_ring_epoch")
+        locked[entry] = max(locked.get(entry, 0.0), d)
+    for fn, k in zip(ring_wrappers(), saved):   # the checks do not count
+        fn.launches = k
+    d_heads = phase17_heads(torch, dev, synth_hard)
+    return worst, (ms, ms_plain, bnd, ms_lib), d_heads, locked
+
+
+def ring_emulation(torch, name, n, rs, epochs):
+    """The n-rank ring run of a config in this one process,
+    ring_epoch_reference on the card with the kernels' own gradient and
+    update stages (plain=False): what the real ranks must equal to the
+    bit. Returns (step costs per epoch, owned-layer weights, layer
+    indices)."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_dp as dp
+    from theanet_tpu_torch.ops import megastep_ring as ring
+
+    dev = torch.device("cuda")
+    net, plan, kp, x, y = dp_setup(torch, name, dev)
+    spec = plan.spec
+    shards = [dp.dp_shard_data(spec, n, r, x, y) for r in range(n)]
+    nb = shards[0][0].shape[0]
+    p, m = kp, [torch.zeros_like(t) for t in kp]
+    saved = [fn.launches for fn in dp_wrappers()]
+    costs = []
+    for _ in range(epochs):
+        bits = megastep.epoch_noise_bits(net.tr_prms["SEED"], net.get_epoch(),
+                                         spec, nb, dev)
+        p, m, cm = ring.ring_epoch_reference(spec, n, shards, p, m, bits,
+                                             net.get_rate(), rs, plain=False)
+        costs.append(cm[:, 0].cpu().numpy())
+        net.inc_epoch_set_rate()
+    for fn, k in zip(dp_wrappers(), saved):   # the emulation's launches
+        fn.launches = k
+    return costs, [[w.cpu().numpy() for w in lw]
+                   for lw in plan.framework_layout(p, spec)], plan.layer_idx
+
+
+def ring_world1(torch, name, mesh, card):
+    """A config at world 1 in this process: the mesh Trainer must take the
+    ring under 'auto' and equal the single-device epoch kernel's Trainer to
+    the bit over DP_EPOCHS epochs. Returns (ring ms per epoch, single ms
+    per epoch, idle share of a ring epoch, largest |d|, plain ms of one
+    emulated epoch at n = 1, bound)."""
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_dp as dp
+    from theanet_tpu_torch.ops import megastep_ring as ring
+    from theanet_tpu_torch.trainer import Trainer
+
+    out = {}
+    for kind in ("single", "ring"):
+        layers, tr, data = dp_config(name)
+        net = NeuralNet(layers, tr)
+        trainer = Trainer(net, *dp_arrays(data),
+                          mesh=mesh if kind == "ring" else None)
+        if kind == "ring":
+            assert getattr(trainer._mega_epoch, "ring", False)
+        costs, ms = [], []
+        for _ in range(DP_EPOCHS):
+            ms.append(timed_once(torch, lambda: costs.append(
+                trainer.run_epoch()[1])))
+            net.inc_epoch_set_rate()
+        out[kind] = (costs, ms, trainer, net)
+    (c1, ms1, t1, _), (c2, ms2, t2, net) = out["single"], out["ring"]
+    d = max(max(float(abs(a - b).max()) for a, b in zip(c1, c2)),
+            max(max_abs(a, b) for a, b in zip(t1._kp + t1._km,
+                                              t2._kp + t2._km)))
+    nb = t2.n_train_batches
+    saved = [fn.launches for fn in ring_wrappers()]
+    idle = profile_epoch(torch, t2.run_epoch, nb,
+                         f"one {name} ring epoch at world 1", top=6)
+    spec = t2._mega_spec
+    bits = megastep.epoch_noise_bits(net.tr_prms["SEED"], 0, spec, nb,
+                                     mesh.device)
+    shards = [(t2._mega_x, t2._mega_y)]
+    kp, km = t2._kp, t2._km
+    saved_dp = [fn.launches for fn in dp_wrappers()]
+    ms_plain = timed_once(torch, lambda: ring.ring_epoch_reference(
+        spec, 1, shards, kp, km, bits, 0.1, False))
+    for fn, k in zip(dp_wrappers() + ring_wrappers(), saved_dp + saved):
+        fn.launches = k   # the profile and plain epochs do not count
+    bnd = epoch_bound(spec, [t2._mega_x, t2._mega_y, *bits, *kp, *km],
+                      [*kp, *km, torch.empty((nb, 2))], nb)
+    t1.close()
+    t2.close()
+    print(f"  {name}, world 1 (this process, THEANET_DP_RING=auto: the "
+          f"ring), {DP_EPOCHS} epochs of {nb} steps on {card}: ring epoch "
+          f"ms {[round(t, 3) for t in ms2]} (single-device epoch kernel "
+          f"{[round(t, 3) for t in ms1]}); costs and state vs the epoch "
+          f"kernel max|d| {d:.3e}; idle share {100 * idle:.1f}%; plain "
+          f"emulated epoch {ms_plain:.1f} ms", flush=True)
+    assert d == 0.0, d
+    return ms2, ms1, idle, d, ms_plain, bnd
+
+
+def ring_ranks(torch, n, runs, epochs, tmp):
+    """Start n ranks on the card (gloo; the ring maps their buffers through
+    CUDA IPC), each training ``runs`` (name, config, THEANET_RING_RS) for
+    ``epochs`` epochs with THEANET_DP_RING=1.
+    Returns {name: [rank outputs]} and the wall seconds."""
+    from theanet_tpu_torch.parallel import launch
+    from theanet_tpu_torch.parallel.launch import train_ranks
+
+    job = []
+    for name, cfg, rs_env in runs:
+        layers, tr, data = dp_config(cfg)
+        job.append(dict(name=name, layers=layers, training_params=tr,
+                        data=dp_arrays(data), epochs=epochs, profile=True,
+                        dp_ring="1", ring_rs=rs_env))
+    job_file = os.path.join(tmp, f"job{n}.pkl")
+    with open(job_file, "wb") as f:
+        pickle.dump(job, f)
+    t0 = time.time()
+    launch(train_ranks, n, "gloo", os.path.join(tmp, f"rendezvous{n}"),
+           job_file, tmp, timeout=900)
+    wall = time.time() - t0
+    out = {}
+    for name, _, _ in runs:
+        out[name] = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"{name}_rank{r}.pkl"), "rb") as f:
+                out[name].append(pickle.load(f))
+    return out, wall
+
+
+def check_ring_run(torch, name, cfg, rs_env, n, ranks, epochs, cache):
+    """The real ranks of one run against each other, the emulation (to the
+    bit) and the single device (epoch totals within DP_FREE_TOTAL_RTOL);
+    prints ms an epoch and the idle share per rank. ``cache`` keeps the
+    emulations and single-device runs for the runs that share them.
+    Returns (largest |d| against the emulation, launches summed over the
+    ranks)."""
+    rs = rs_of(n, rs_env)
+    key = (cfg, n, rs, epochs)
+    if key not in cache:
+        cache[key] = ring_emulation(torch, cfg, n, rs, epochs)
+    if (cfg, epochs) not in cache:
+        cache[cfg, epochs] = single_device_run(torch, cfg, epochs)
+    emu_costs, emu_params, idx = cache[key]
+    ref_costs, _ = cache[cfg, epochs]
+    nb = len(ref_costs[0])
+    entry = "megastep_ring_epoch" if cfg == "mnist_cnn" else "deep_ring_epoch"
+    want = {fn.__name__: 0 for fn in dp_wrappers() + ring_wrappers()}
+    want[entry] = epochs
+    want["ring_exchange"] = epochs * nb * RING_EXCHANGES[rs]
+    d = 0.0
+    for out in ranks:
+        assert out["ring"], name
+        d = max(d, max(float(abs(a - b).max())
+                       for a, b in zip(out["costs"], emu_costs)))
+        d = max(d, max(float(abs(a - b).max())
+                       for i, lb in zip(idx, emu_params)
+                       for a, b in zip(out["params"][i], lb)))
+        assert out["launches"] == want, (out["launches"], want)
+    same = all((a == b).all() for o in ranks[1:]
+               for la, lb in zip(ranks[0]["params"], o["params"])
+               for a, b in zip(la, lb))
+    totals = [round(float(c.sum()), 4) for c in ranks[0]["costs"]]
+    ref_tot = [round(float(c.sum()), 4) for c in ref_costs]
+    print(f"  {name}, world {n} ({'reduce-scatter' if rs else 'gather'}, "
+          f"{epochs} epoch(s) of {nb} steps, {20 // n} a rank): epoch ms "
+          + "; ".join(f"rank {r} {[round(t, 3) for t in o['ms']]}, idle "
+                      f"{100 * o['idle_share']:.1f}%"
+                      for r, o in enumerate(ranks))
+          + f"; ranks' params bit-identical: {same}; costs and params vs "
+          f"the emulation max|d| {d:.3e}; epoch totals {totals} (single "
+          f"device {ref_tot}); launches a rank {ranks[0]['launches']}",
+          flush=True)
+    assert same and d == 0.0, (same, d)
+    assert [o["wrote_checkpoint"] for o in ranks] == [True] + [False] * (
+        n - 1)
+    for c, r in zip(ranks[0]["costs"], ref_costs):
+        assert abs(float(c.sum()) - float(r.sum())) <= (
+            DP_FREE_TOTAL_RTOL * abs(float(r.sum()))), (c.sum(), r.sum())
+    return d, {k: sum(o["launches"][k] for o in ranks)
+               for k in (fn.__name__ for fn in ring_wrappers())}
+
+
+def phase18(torch, card, mesh):
+    """The ring main path. Returns (launches of the ring wrappers in it,
+    {name: world-1 results}, the largest |d| of the real ranks against
+    their emulations)."""
+    for fn in ring_wrappers():
+        fn.launches = 0
+    world1 = {name: ring_world1(torch, name, mesh, card)
+              for name in ("mnist_cnn", "galaxy_rbf")}
+    launches = {fn.__name__: fn.launches for fn in ring_wrappers()}
+    assert launches == {"megastep_ring_epoch": DP_EPOCHS,
+                        "deep_ring_epoch": DP_EPOCHS,
+                        "ring_exchange": 0}, launches
+    d_ranks, cache = 0.0, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, runs, epochs in ((2, RING_WORLD2, DP_EPOCHS),
+                                (4, RING_WORLD4, RING_WORLD4_EPOCHS)):
+            ranks, wall = ring_ranks(torch, n, runs, epochs, tmp)
+            print(f"  world {n} (gloo, {n} processes on the card, the ring "
+                  f"over CUDA IPC): {wall:.1f} s for {len(runs)} run(s)",
+                  flush=True)
+            for name, cfg, rs_env in runs:
+                d, counts = check_ring_run(torch, name, cfg, rs_env, n,
+                                           ranks[name], epochs, cache)
+                d_ranks = max(d_ranks, d)
+                for k, v in counts.items():
+                    launches[k] += v
+    print(f"kernel launches in the ring main path: {launches}", flush=True)
+    assert all(v > 0 for v in launches.values()), launches
+    return launches, world1, d_ranks
+
 
 
 def main(argv=None):
@@ -2201,7 +2744,8 @@ def main(argv=None):
         banner(14, "bench.py's wide model: NeuralNet + Trainer per layer, "
                "bf16, conv2 on the conv3x3 kernel; epoch times")
         wide_launches, _, _ = phase14(torch, card)
-    if phases & {15, 16}:
+    dp_report = {}
+    if phases & {15, 16, 17, 18}:
         import torch.distributed as dist
         from theanet_tpu_torch.parallel import make_mesh
 
@@ -2217,7 +2761,29 @@ def main(argv=None):
             if 16 in phases:
                 banner(16, "data-parallel main path: Trainer(mesh) at world "
                        "1 (NCCL) and world 2 (gloo, two processes)")
-                dp_launches, _ = phase16(torch, card, mesh)
+                dp_launches, dp_report = phase16(torch, card, mesh)
+            if 17 in phases:
+                banner(17, "the ring's exchange kernel vs its plain version "
+                       "in every mode; the flagship head above 48 KB")
+                ring_err, ring_times, _, ring_locked_err = phase17(
+                    torch, dev, card)
+            if 18 in phases:
+                banner(18, "the ring main path: Trainer(mesh) at world 1 "
+                       "(this process), world 2 and world 4 (processes "
+                       "sharing the card through CUDA IPC)")
+                ring_launches, world1, d_ranks = phase18(torch, card, mesh)
+                for name, (ms, _, idle, _, _, _) in world1.items():
+                    if name == "mnist_cnn":
+                        print(f"  mnist_cnn at world 1: ring {min(ms):.3f} ms "
+                              f"an epoch, idle {100 * idle:.1f}%; phase 5's "
+                              f"epoch kernel "
+                              + (f"{timing[0]:.3f} ms" if timing else
+                                 "not run")
+                              + "; phase 16's per-step path "
+                              + ("{:.3f} ms, idle {:.1f}%".format(
+                                  min(dp_report["mnist_cnn world 1"][0]),
+                                  100 * dp_report["mnist_cnn world 1"][2])
+                                 if dp_report else "not run"), flush=True)
         finally:
             dist.destroy_process_group()
     if phases != set(ALL_PHASES):
@@ -2270,6 +2836,19 @@ def main(argv=None):
         kernels.append(entry(name, "theanet_tpu_torch/csrc/" + source,
                              "theanet_tpu/ops/" + line, dp_launches[name],
                              *dp_kernels[name]))
+    kernels.append(entry("ring_exchange", "theanet_tpu_torch/csrc/ring.cuh",
+                         "theanet_tpu/ops/megastep_ring.py:180",
+                         ring_launches["ring_exchange"], ring_err,
+                         ring_times[:3]))
+    kernels[-1]["library_ms"] = ring_times[3]
+    for name, cfg, source in (
+            ("megastep_ring_epoch", "mnist_cnn", "megastep.cu"),
+            ("deep_ring_epoch", "galaxy_rbf", "megastep_deep.cu")):
+        ms, _, _, _, ms_plain, bnd = world1[cfg]
+        kernels.append(entry(name, "theanet_tpu_torch/csrc/" + source,
+                             "theanet_tpu/ops/megastep_ring.py:180",
+                             ring_launches[name], ring_locked_err[name],
+                             (min(ms), ms_plain, bnd)))
     kernels[0]["epoch_step_locked_max_abs_err"] = epoch_err
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))

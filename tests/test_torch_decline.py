@@ -47,17 +47,17 @@ def test_jax_declines_the_wide_model_too():
     assert jmega.fused_plan(net) is None
 
 
-@pytest.mark.parametrize("n_out,fuses", [(306, True), (307, False)])
+@pytest.mark.parametrize("n_out,fuses", [(1452, True), (1453, False)])
 def test_flagship_head_limit_is_the_kernels(n_out, fuses):
-    """csrc/megastep.cu takes a head of (2 B NC + B) floats up to 48 KB:
-    at batch 20, 306 classes and not 307 (the deep family's head is larger,
-    so it declines too)."""
+    """csrc/megastep.cu takes a head of (2 B NC + B) floats up to the 227 KB
+    a block can opt in to: at batch 20, 1452 classes and not 1453 (the deep
+    family's head is larger, so it declines too)."""
     net = TorchNet(*chip_smoke.wide_spec(None, img=12, batch=20, maps=(2, 3),
                                          n_hid=8, n_out=n_out))
     spec = megastep.spec_from_net(net)
     assert (spec is not None) == fuses
     if fuses:
-        assert megastep.flagship_head_smem(spec) <= 48 * 1024
+        assert megastep.flagship_head_smem(spec) <= megastep.SMEM_OPT_IN
         assert megastep.fused_plan(net).epoch_fn is megastep.megastep_epoch
     else:
         assert megastep.fused_plan(net) is None
@@ -65,10 +65,11 @@ def test_flagship_head_limit_is_the_kernels(n_out, fuses):
             net)
 
 
-@pytest.mark.parametrize("n_out,fuses", [(16, True), (512, False)])
+@pytest.mark.parametrize("n_out,fuses", [(951, True), (952, False)])
 def test_flat_head_limit_is_the_deep_kernels(n_out, fuses):
     """The flat-MLP family runs the deep kernel, whose head holds (2 B NO +
-    B NC + NC + 4 B) floats: both matchers decline past 48 KB."""
+    B NC + NC + 4 B) floats: both matchers decline past the 227 KB a block
+    can opt in to (at batch 20, 951 outputs and not 952)."""
     layers = [["InputLayer", {"img_sz": 6}],
               ["HiddenLayer", {"n_out": 8}],
               ["SoftmaxLayer", {"n_out": n_out}]]
@@ -77,7 +78,7 @@ def test_flat_head_limit_is_the_deep_kernels(n_out, fuses):
         batch=20, img=6, n_hid=8, n_out=n_out, slope_h=0.01, pdrop=0.0,
         translation=0, zoom=1, magnitude=0, sigma=1, pflip=0.0, angle=0,
         invert=False, nearest=False, reg_h=None, reg_o=None))
-    assert (deep.deep_head_smem(dspec) <= 48 * 1024) == fuses
+    assert (deep.deep_head_smem(dspec) <= megastep.SMEM_OPT_IN) == fuses
     plan = megastep.fused_plan(net)
     assert (plan is not None) == fuses
     if fuses:
@@ -179,3 +180,87 @@ def test_the_wide_slice_text_is_bench_py_s_model():
     x, y = chip_smoke.wide_data(4)
     assert x.shape == (4 * 256, 1, 56, 56) and x.dtype == np.float32
     assert y.min() >= 0 and y.max() < 1000
+
+
+@pytest.mark.parametrize("batch", [586, 600, 1024, 2767])
+def test_mnist_cnn_fuses_past_the_old_head_limit(batch):
+    """With the head kernels opting in to 227 KB of shared memory,
+    mnist_cnn's head (84 B bytes at 10 classes) fuses up to BATCH_SZ 2767,
+    where it declined from 586 at 48 KB; 2768 still declines."""
+    layers, tr = shipped_layers("mnist_cnn")
+    for b, fuses in ((batch, True), (2768, False)):
+        tr["BATCH_SZ"] = b
+        plan = megastep.fused_plan(TorchNet([[n, dict(a)] for n, a in layers],
+                                            dict(tr)))
+        assert (plan is not None) == fuses, b
+        if fuses:
+            assert plan.epoch_fn is megastep.megastep_epoch
+            assert megastep.flagship_head_smem(plan.spec) > 48 * 1024
+
+
+def test_batch_600_fuses_and_follows_jax_tiled_kernel():
+    """A flagship net at BATCH_SZ 600 with 10 classes (a 50,400-byte head,
+    above the old 48 KB) fuses under MEGAFUSED=True in the port, untiled
+    (its plain version on the CPU), where the JAX package tiles it (20
+    tiles of 30, gradients summed over the tiles, one update a batch). Fed
+    JAX's own words, the port's step costs follow JAX's tiled kernel
+    (interpret mode) within rtol 1e-4 and its state within atol 1e-4: the
+    two sum the batch in another order (tiles against one pass)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from theanet_tpu_torch.trainer import Trainer
+
+    B, nb = 600, 3
+    layers = [["ElasticLayer", {"img_sz": 12, "translation": 1, "zoom": 1.05,
+                                "magnitude": 5, "sigma": 3, "pflip": 0.01,
+                                "angle": 2, "nearest": True}],
+              ["ConvLayer", {"num_maps": 2, "filter_sz": 3, "stride": 1,
+                             "actvn": "relu05", "reg": {"L2": 1e-3}}],
+              ["PoolLayer", {"pool_sz": 2}],
+              ["ConvLayer", {"num_maps": 3, "filter_sz": 3, "stride": 1,
+                             "actvn": "relu10"}],
+              ["PoolLayer", {"pool_sz": 2}],
+              ["HiddenLayer", {"n_out": 16, "pdrop": 0.5,
+                               "reg": {"maxnorm": 0.9}}],
+              ["SoftmaxLayer", {"n_out": 10}]]
+    tr = {"SEED": 5, "BATCH_SZ": B, "NUM_EPOCHS": 1, "EPOCHS_TO_TEST": 1,
+          "TEST_SAMP_SZ": B, "INIT_LEARNING_RATE": 0.1,
+          "EPOCHS_TO_HALF_RATE": 1, "MEGAFUSED": True}
+    rng = np.random.RandomState(8)
+    x = rng.rand(nb * B, 1, 12, 12).astype(np.float32)
+    y = rng.randint(0, 10, nb * B).astype(np.int32)
+    tnet = TorchNet([[n, dict(a)] for n, a in layers], dict(tr))
+    trainer = Trainer(tnet, x, y, x[:B], y[:B], device="cpu")
+    ts = trainer._mega_spec
+    assert trainer._mega_plan.epoch_fn is megastep.megastep_epoch
+    assert ts.batch == B and megastep.flagship_head_smem(ts) == 50400
+    js = jmega.spec_from_net(JaxNet([[n, dict(a)] for n, a in layers],
+                                    dict(tr)))
+    assert (js.batch, js.n_tiles, js.loss_div) == (30, 20, B)
+
+    aw = [[np.asarray(w, np.float32) for w in tnet.allwts0[i]]
+          for i in trainer._mega_plan.layer_idx]
+    words = jmega.epoch_noise_bits(jax.random.PRNGKey(3), js, nb)
+    ub, fb, pb, db = (np.asarray(w).view(np.int32) for w in words)
+    bits = (torch.tensor(ub), torch.tensor(fb),
+            torch.tensor(pb).reshape(nb, B, ts.hw),
+            torch.tensor(db).reshape(nb, B, -1))
+    fn = jmega.make_epoch_fn(js, nb, interpret=True)
+    jp = [jnp.asarray(t) for t in jmega.params_to_kernel(aw, js)]
+    jp, jm_, jcm = fn(jp, [jnp.zeros_like(t) for t in jp], jnp.asarray(x),
+                      jnp.asarray(y[:, None]), words, 0.1)
+    tp = megastep.kernel_layout([[torch.tensor(w) for w in lw] for lw in aw],
+                                ts)
+    xs = torch.tensor(x).reshape(nb, B, ts.hw)
+    tp, tm_, tcm = megastep.megastep_epoch(
+        tp, [torch.zeros_like(t) for t in tp], xs,
+        torch.tensor(y).reshape(nb, B), bits, 0.1, ts)
+    np.testing.assert_allclose(tcm[:, 0].numpy(), np.asarray(jcm)[:, 0],
+                               rtol=1e-4)
+    np.testing.assert_allclose(tcm[:, 1].numpy(), np.asarray(jcm)[:, 1],
+                               atol=1e-4)
+    for a, b in zip(jp + jm_, tp + tm_):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-4)

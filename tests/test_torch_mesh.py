@@ -130,16 +130,22 @@ def test_dp_gate_names_its_reason():
     assert "no data-parallel kernel" in megastep_dp.dp_decline_reason(mlp, 1)
 
 
-def test_auto_keeps_jax_ceiling_of_32_a_rank():
-    """MEGAFUSED='auto' declines a per-rank shard above 32 (JAX
-    trainer.py:328-336); MEGAFUSED=True fuses it."""
+def test_auto_fuses_past_32_a_rank(world_of_one):
+    """MEGAFUSED='auto' fuses a per-rank shard above 32: the JAX Trainer's
+    ceiling (trainer.py:328-336) picks between its fused and scanned GSPMD
+    data-parallel paths, and the port has only the fused one. 64 a rank
+    takes the fused data-parallel path and equals the single-device epoch
+    to the bit."""
     x, y = data(128)
-    with pytest.raises(NotImplementedError, match="shard 64 > 32"):
-        Trainer(NeuralNet(layers(), prms(64)), x, y, x, y,
-                mesh=fake_mesh(1))
-    tr = Trainer(NeuralNet(layers(), prms(64, MEGAFUSED=True)), x, y, x, y,
-                 mesh=fake_mesh(1))
-    assert tr._mega_epoch.local_spec.batch == 64
+    one = Trainer(NeuralNet(layers(), prms(64)), x, y, x, y, device="cpu")
+    dp = Trainer(NeuralNet(layers(), prms(64)), x, y, x, y,
+                 mesh=make_mesh())
+    assert dp._mega_epoch.local_spec.batch == 64
+    c1, c2 = one.run_epoch()[1:], dp.run_epoch()[1:]
+    for a, b in zip(c1, c2):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(one._kp + one._km, dp._kp + dp._km):
+        assert torch.equal(a, b)
 
 
 def test_fused_tail_turned_off_under_a_mesh(capsys):

@@ -43,8 +43,17 @@
 // gradient buffer, and megastep_update runs update_stages (k_update and the
 // max-norm kernels) on that buffer after the caller's all-reduce. The epoch
 // loop calls the same two helpers, so the two paths cannot drift apart.
+//
+// The whole-epoch data-parallel entry (the port of
+// theanet_tpu/ops/megastep_ring.py::_kernel_ring at the flagship),
+// megastep_ring_epoch, is the same epoch loop with one more stage a step:
+// grad_stages writes the rank's gradient into its slot of a peer-mapped
+// exchange buffer, the exchange of csrc/ring.cuh reduces the ranks' slots,
+// and update_stages applies the reduced gradient. One C call an epoch a
+// rank; at one rank it is megastep_epoch.
 
 #include "stages.cuh"
+#include "ring.cuh"
 
 namespace {
 
@@ -430,7 +439,7 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
   c->warp_smem = 4 * sizeof(float) * (size_t)d.HW;
   if (c->warp && !warp_smem_ok(c->warp_smem)) return -1;
   c->head_smem = sizeof(float) * (size_t)(2 * d.B * d.NC + d.B);
-  if (c->head_smem > 48 * 1024) return -2;
+  if (!smem_opt_in(k_head, c->head_smem)) return -2;
   int sizes[8];
   state_sizes(d, sizes);
   const float* reg = fs + F_REG0;  // conv1, conv2, hidden, out
@@ -550,6 +559,51 @@ int update_stages(const int* is, const float* fs, float* const* prm,
   return 0;
 }
 
+// The epoch loop of megastep_epoch (``R`` null) and megastep_ring_epoch:
+// grad_stages, at a data-parallel rank the ring exchange (into the
+// workspace's gradient buffer and cost_minf), then update_stages, a step.
+int epoch_loop(const int* is, const float* fs, void* const* ptrs,
+               int n_steps, float lr, float* ws, Ring* R, int device,
+               cudaStream_t s) {
+  CHECK(cudaSetDevice(device));
+  StepCtx c;
+  int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
+                      (const float*)ptrs[P_GW], ptrs + P_PARAMS, &c);
+  if (rc != 0) return rc;
+  const Dims& d = c.d;
+  float* mom[8];
+  for (int k = 0; k < 8; ++k) mom[k] = (float*)ptrs[P_MOMS + k];
+  float* cm = (float*)ptrs[P_CM];
+  int sizes[8];
+  state_sizes(d, sizes);
+  long long ng = 0;
+  for (int k = 0; k < 8; ++k) ng += sizes[k];
+  const bool ring = R && R->n > 1;
+  for (int st = 0; st < n_steps; ++st) {
+    StepIn in;
+    in.x = (const float*)ptrs[P_X] + (size_t)st * d.C0 * d.B * d.HW;
+    in.y = (const int*)ptrs[P_Y] + (size_t)st * d.B;
+    in.ub = (const int*)ptrs[P_UB] + (size_t)st * 8;
+    in.fb = (const int*)ptrs[P_FB] + (size_t)st * 4 * d.HW;
+    in.pb = (const int*)ptrs[P_PB] + (size_t)st * d.C0 * d.B * d.HW;
+    in.db = (const int*)ptrs[P_DB] + (size_t)st * d.B * d.NH;
+    const unsigned long long step = ring ? R->step0 + st + 1 : 0;
+    float* g = ring ? ring_slot(R->own, (int)(step & 1), ng) : c.w.grads;
+    float* cms = ring ? ring_stats(R->own, (int)(step & 1))
+                      : cm + 2 * (size_t)st;
+    rc = grad_stages(c, s, in, g, cms);
+    if (rc != 0) return rc;
+    if (ring) {
+      rc = ring_exchange_step(*R, ng, step, c.w.grads, cm + 2 * (size_t)st,
+                              s);
+      if (rc != 0) return rc;
+    }
+    rc = update_stages(is, fs, c.prm, mom, c.w.grads, lr, s);
+    if (rc != 0) return rc;
+  }
+  return ring ? ring_finish(*R, s) : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -560,41 +614,40 @@ long long megastep_workspace_floats(const int* ispec, const float* fspec) {
 }
 
 const char* megastep_error_string(int code) {
+  if (const char* r = ring_error_string(code)) return r;
   if (code == -1) return "warp field needs more shared memory than a block has";
   if (code == -2) return "batch x classes too large for the head kernel's shared memory";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// One epoch: n_steps steps on ``stream`` of ``device``; parameters and momentum in the
-// pointer table are updated in place, cost_minf (n_steps, 2) is written.
-// Returns 0, or the first CUDA error (the launch that failed never ran).
+// One epoch: n_steps steps on ``stream`` of ``device``; parameters and
+// momentum in the pointer table are updated in place, cost_minf (n_steps, 2)
+// is written. Returns 0, or the first CUDA error (the launch that failed
+// never ran).
 int megastep_epoch(const int* is, const float* fs, void* const* ptrs,
                    int n_steps, float lr, float* ws, int device,
                    void* stream_) {
-  CHECK(cudaSetDevice(device));
-  cudaStream_t s = (cudaStream_t)stream_;
-  StepCtx c;
-  int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
-                      (const float*)ptrs[P_GW], ptrs + P_PARAMS, &c);
+  return epoch_loop(is, fs, ptrs, n_steps, lr, ws, nullptr, device,
+                    (cudaStream_t)stream_);
+}
+
+// One data-parallel rank's epoch (the port of megastep_ring.py's
+// _kernel_ring at the flagship): megastep_epoch's pointer table on the
+// rank's shard of the data and words, and the ring table of
+// ops/megastep_ring.py (csrc/ring.cuh Ring); ``launched`` receives the
+// number of exchange kernels launched. Returns 0, a ring error (RING_ERR_*,
+// after the epoch) or the first CUDA error.
+int megastep_ring_epoch(const int* is, const float* fs, void* const* ptrs,
+                        int n_steps, float lr, float* ws,
+                        const long long* ring, long long* launched, int device,
+                        void* stream_) {
+  Ring R;
+  int rc = ring_parse(ring, &R);
   if (rc != 0) return rc;
-  const Dims& d = c.d;
-  float* mom[8];
-  for (int k = 0; k < 8; ++k) mom[k] = (float*)ptrs[P_MOMS + k];
-  float* cm = (float*)ptrs[P_CM];
-  for (int st = 0; st < n_steps; ++st) {
-    StepIn in;
-    in.x = (const float*)ptrs[P_X] + (size_t)st * d.C0 * d.B * d.HW;
-    in.y = (const int*)ptrs[P_Y] + (size_t)st * d.B;
-    in.ub = (const int*)ptrs[P_UB] + (size_t)st * 8;
-    in.fb = (const int*)ptrs[P_FB] + (size_t)st * 4 * d.HW;
-    in.pb = (const int*)ptrs[P_PB] + (size_t)st * d.C0 * d.B * d.HW;
-    in.db = (const int*)ptrs[P_DB] + (size_t)st * d.B * d.NH;
-    rc = grad_stages(c, s, in, c.w.grads, cm + 2 * (size_t)st);
-    if (rc != 0) return rc;
-    rc = update_stages(is, fs, c.prm, mom, c.w.grads, lr, s);
-    if (rc != 0) return rc;
-  }
-  return 0;
+  rc = epoch_loop(is, fs, ptrs, n_steps, lr, ws, &R, device,
+                  (cudaStream_t)stream_);
+  *launched = R.launched;
+  return rc;
 }
 
 // One data-parallel step's gradient (the port of megastep_dp.py's

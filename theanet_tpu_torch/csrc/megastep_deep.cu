@@ -49,8 +49,15 @@
 // gradient buffer, and deep_update runs update_stages (k_update and the
 // max-norm kernels) on it after the caller's all-reduce. The epoch loop
 // calls the same two helpers, so the two paths cannot drift apart.
+//
+// deep_ring_epoch, the whole-epoch data-parallel entry (the port of
+// theanet_tpu/ops/megastep_ring.py::_kernel_ring at the deep family, flat
+// nets at zero levels), is the epoch loop with the exchange of
+// csrc/ring.cuh between grad_stages and update_stages: one C call an epoch
+// a rank; learned RBF centers are one more tensor of the exchanged set.
 
 #include "stages.cuh"
+#include "ring.cuh"
 
 namespace {
 
@@ -582,7 +589,7 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
   c->warp_smem = 4 * sizeof(float) * (size_t)n.HW;
   if (ag.warp && !warp_smem_ok(c->warp_smem)) return -1;
   c->hsm = head_smem(n);
-  if (c->hsm > 48 * 1024) return -2;
+  if (!smem_opt_in(k_head, c->hsm)) return -2;
   c->ha.B = n.B; c->ha.NO = n.NO; c->ha.NC = n.NC; c->ha.kind = n.head;
   c->ha.junk = n.junk;
   c->dboff = n.dbl - n.NH;   // the final hidden's dropout lanes
@@ -758,6 +765,51 @@ int update_stages(const Net& n, float* const* prm, float* const* mom,
   return 0;
 }
 
+// The epoch loop of deep_epoch (``R`` null) and deep_ring_epoch:
+// grad_stages, at a data-parallel rank the ring exchange (into the
+// workspace's gradient buffer and cost_minf), then update_stages, a step.
+int epoch_loop(const int* is, const float* fs, void* const* ptrs,
+               int n_steps, float lr, float* ws, Ring* R, int device,
+               cudaStream_t s) {
+  CHECK(cudaSetDevice(device));
+  StepCtx c;
+  int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
+                      (const float*)ptrs[P_GW],
+                      (const float*)ptrs[P_CENTERS], ptrs + P_STATE, &c);
+  if (rc != 0) return rc;
+  const Net& n = c.n;
+  const int NS = n.nstate, B = n.B, HW = n.HW;
+  float* mom[MAX_TENSORS];
+  for (int t = 0; t < NS; ++t) mom[t] = (float*)ptrs[P_STATE + NS + t];
+  float* cm = (float*)ptrs[P_STATE + 2 * NS];
+  long long ng = 0;
+  for (int t = 0; t < NS; ++t) ng += n.ten[t * N_ITEN + T_SIZE];
+  const bool ring = R && R->n > 1;
+  for (int st = 0; st < n_steps; ++st) {
+    StepIn in;
+    in.x = (const float*)ptrs[P_X] + (size_t)st * n.C0 * B * HW;
+    in.y = (const int*)ptrs[P_Y] + (size_t)st * B;
+    in.ub = (const int*)ptrs[P_UB] + (size_t)st * 8;
+    in.fb = (const int*)ptrs[P_FB] + (size_t)st * n.fbl * HW;
+    in.pb = (const int*)ptrs[P_PB] + (size_t)st * n.C0 * B * HW;
+    in.db = (const int*)ptrs[P_DB] + (size_t)st * B * n.dbl;
+    const unsigned long long step = ring ? R->step0 + st + 1 : 0;
+    float* g = ring ? ring_slot(R->own, (int)(step & 1), ng) : c.w.grads;
+    float* cms = ring ? ring_stats(R->own, (int)(step & 1))
+                      : cm + 2 * (size_t)st;
+    rc = grad_stages(c, s, in, g, cms);
+    if (rc != 0) return rc;
+    if (ring) {
+      rc = ring_exchange_step(*R, ng, step, c.w.grads, cm + 2 * (size_t)st,
+                              s);
+      if (rc != 0) return rc;
+    }
+    rc = update_stages(n, c.prm, mom, c.w.grads, lr, s);
+    if (rc != 0) return rc;
+  }
+  return ring ? ring_finish(*R, s) : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -771,6 +823,7 @@ long long deep_workspace_floats(const int* is, const float* fs) {
 }
 
 const char* deep_error_string(int code) {
+  if (const char* r = ring_error_string(code)) return r;
   if (code == -1) return "warp field needs more shared memory than a block has";
   if (code == -2) return "the head's batch x widths exceed the head kernel's shared memory";
   if (code == -3) return "more conv levels, hidden layers or state tensors than the kernel's tables hold";
@@ -783,32 +836,25 @@ const char* deep_error_string(int code) {
 // first CUDA error (the launch that failed never ran).
 int deep_epoch(const int* is, const float* fs, void* const* ptrs,
                int n_steps, float lr, float* ws, int device, void* stream_) {
-  CHECK(cudaSetDevice(device));
-  cudaStream_t s = (cudaStream_t)stream_;
-  StepCtx c;
-  int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
-                      (const float*)ptrs[P_GW],
-                      (const float*)ptrs[P_CENTERS], ptrs + P_STATE, &c);
+  return epoch_loop(is, fs, ptrs, n_steps, lr, ws, nullptr, device,
+                    (cudaStream_t)stream_);
+}
+
+// One data-parallel rank's epoch (the port of megastep_ring.py's
+// _kernel_ring at the deep family): deep_epoch's pointer table on the
+// rank's shard of the data and words, and the ring table of
+// ops/megastep_ring.py (csrc/ring.cuh Ring); ``launched`` as in
+// megastep_ring_epoch.
+int deep_ring_epoch(const int* is, const float* fs, void* const* ptrs,
+                    int n_steps, float lr, float* ws, const long long* ring,
+                    long long* launched, int device, void* stream_) {
+  Ring R;
+  int rc = ring_parse(ring, &R);
   if (rc != 0) return rc;
-  const Net& n = c.n;
-  const int NS = n.nstate, B = n.B, HW = n.HW;
-  float* mom[MAX_TENSORS];
-  for (int t = 0; t < NS; ++t) mom[t] = (float*)ptrs[P_STATE + NS + t];
-  float* cm = (float*)ptrs[P_STATE + 2 * NS];
-  for (int st = 0; st < n_steps; ++st) {
-    StepIn in;
-    in.x = (const float*)ptrs[P_X] + (size_t)st * n.C0 * B * HW;
-    in.y = (const int*)ptrs[P_Y] + (size_t)st * B;
-    in.ub = (const int*)ptrs[P_UB] + (size_t)st * 8;
-    in.fb = (const int*)ptrs[P_FB] + (size_t)st * n.fbl * HW;
-    in.pb = (const int*)ptrs[P_PB] + (size_t)st * n.C0 * B * HW;
-    in.db = (const int*)ptrs[P_DB] + (size_t)st * B * n.dbl;
-    rc = grad_stages(c, s, in, c.w.grads, cm + 2 * (size_t)st);
-    if (rc != 0) return rc;
-    rc = update_stages(n, c.prm, mom, c.w.grads, lr, s);
-    if (rc != 0) return rc;
-  }
-  return 0;
+  rc = epoch_loop(is, fs, ptrs, n_steps, lr, ws, &R, device,
+                  (cudaStream_t)stream_);
+  *launched = R.launched;
+  return rc;
 }
 
 // One data-parallel step's gradient (the port of megastep_dp.py's

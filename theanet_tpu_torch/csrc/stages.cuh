@@ -153,15 +153,20 @@ __global__ void k_warp(int H, WarpParams w, const int* __restrict__ ub,
   }
 }
 
-// Dynamic shared memory of k_warp, raising the block's limit above 48 KB
-// where the image needs it; false when no block can hold it.
-inline bool warp_smem_ok(size_t bytes) {
+// ``bytes`` of dynamic shared memory for ``kernel``, raising the block's
+// limit above the 48 KB default where needed (up to the 227 KB a block can
+// opt in to on sm_90); false when no block can hold it.
+template <typename Kernel>
+inline bool smem_opt_in(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return true;
   if (bytes > 227 * 1024) return false;
-  return cudaFuncSetAttribute(k_warp,
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes) == cudaSuccess;
 }
+
+// Dynamic shared memory of k_warp, opting in where the image needs it.
+inline bool warp_smem_ok(size_t bytes) { return smem_opt_in(k_warp, bytes); }
 
 // C[M,N] = A(M,K) @ B(K,N) (+ bias[N]); A(m,k) = TA ? A[k*lda+m] : A[m*lda+k],
 // B(k,n) = TB ? B[n*ldb+k] : B[k*ldb+n]. 16x16 shared-memory tiles, loads

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels.
 
 Each library of ``LIBRARIES`` (one ``csrc/*.cu`` source; the fused-epoch
-ones include ``csrc/stages.cuh``) is compiled at first use with
+ones include ``csrc/stages.cuh`` and ``csrc/ring.cuh``) is compiled at first
+use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
@@ -29,6 +30,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "megastep_launch", "deep_launch",
+           "megastep_ring_launch", "deep_ring_launch", "ring_alloc",
+           "ring_open", "ring_close", "ring_free", "ring_events_alloc",
+           "ring_events_open", "ring_events_free", "ring_exchange_launch",
            "megastep_grad_launch", "deep_grad_launch",
            "megastep_update_launch", "deep_update_launch",
            "elastic_resample_launch", "fused_mlp_forward_launch",
@@ -40,7 +44,7 @@ CSRC = _PKG / "csrc"
 # csrc/<name>.cu each
 LIBRARIES = ("megastep", "megastep_deep", "elastic_resample", "fused_mlp",
              "conv3x3")
-HEADERS = ("stages.cuh",)
+HEADERS = ("stages.cuh", "ring.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -152,6 +156,33 @@ def _bind(name, lib):
     update.argtypes = [ip, fp, ctypes.POINTER(ctypes.c_void_p),
                        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     update.restype = ctypes.c_int
+    # the whole-epoch data-parallel entry and the exchange of csrc/ring.cuh
+    ring = getattr(lib, prefix + "_ring_epoch")
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    ring.argtypes = epoch.argtypes[:6] + [ll, ll] + epoch.argtypes[6:]
+    ring.restype = ctypes.c_int
+    for fn, argtypes in (
+            ("ring_alloc", [ctypes.c_longlong, ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p]),
+            ("ring_open", [ctypes.c_char_p, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_void_p)]),
+            ("ring_close", [ctypes.c_void_p, ctypes.c_int]),
+            ("ring_free", [ctypes.c_void_p, ctypes.c_int]),
+            ("ring_events_alloc", [ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_void_p),
+                                   ctypes.c_char_p]),
+            ("ring_events_open", [ctypes.c_char_p, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_void_p)]),
+            ("ring_events_free", [ctypes.POINTER(ctypes.c_void_p),
+                                  ctypes.c_int]),
+            ("ring_exchange", [ll, ctypes.c_longlong,
+                               ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_void_p, ll,
+                               ctypes.c_int, ctypes.c_void_p])):
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.ring_buffer_bytes.argtypes = [ctypes.c_longlong]
+    lib.ring_buffer_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -250,10 +281,20 @@ def _entry(prefix, lib, entry, *args, dev):
             getattr(lib, prefix + "_error_string")(rc).decode()))
 
 
-def _run(prefix, lib, ispec, fspec, tensors, n_steps, lr, dev):
+def _run(prefix, lib, ispec, fspec, tensors, n_steps, lr, dev, ring=None):
+    """An epoch entry: ``<prefix>_epoch``, or with a ring table
+    ``<prefix>_ring_epoch``, which returns the number of exchange kernels
+    it launched."""
     ws = _workspace(prefix, lib, ispec, fspec, dev)
-    _entry(prefix, lib, "epoch", ispec, fspec, _ptrs(tensors), n_steps, lr,
-           ws.data_ptr(), dev=dev)
+    if ring is None:
+        _entry(prefix, lib, "epoch", ispec, fspec, _ptrs(tensors), n_steps,
+               lr, ws.data_ptr(), dev=dev)
+        return 0
+    launched = ctypes.c_longlong(0)
+    _entry(prefix, lib, "ring_epoch", ispec, fspec, _ptrs(tensors),
+           n_steps, lr, ws.data_ptr(), ring, ctypes.byref(launched),
+           dev=dev)
+    return launched.value
 
 
 def megastep_launch(spec, x, y, bits, gh, gw, params, moms, cm, lr):
@@ -275,6 +316,118 @@ def deep_launch(spec, x, y, bits, gh, gw, centers, params, moms, cm, lr):
     _run("deep", build()["megastep_deep"], ispec, fspec,
          [x, y, *bits, gh, gw, centers, *params, *moms, cm], x.shape[0], lr,
          x.device)
+
+
+def megastep_ring_launch(spec, x, y, bits, gh, gw, params, moms, cm, lr,
+                         ring):
+    """One data-parallel rank's epoch by the flagship library
+    (``megastep_ring_epoch``): as megastep_launch on the rank's shard, with
+    ``ring`` the ring table (ops/megastep_ring.py ring_table). Returns the
+    number of exchange kernels launched."""
+    ispec, fspec = _spec_arrays(spec)
+    return _run("megastep", build()["megastep"], ispec, fspec,
+         [x, y, *bits, gh, gw, *params, *moms, cm], x.shape[0], lr,
+         x.device, ring)
+
+
+def deep_ring_launch(spec, x, y, bits, gh, gw, centers, params, moms, cm, lr,
+                     ring):
+    """As megastep_ring_launch for a DeepSpec (``deep_ring_epoch``)."""
+    ispec, fspec = _deep_arrays(spec)
+    return _run("deep", build()["megastep_deep"], ispec, fspec,
+         [x, y, *bits, gh, gw, centers, *params, *moms, cm], x.shape[0], lr,
+         x.device, ring)
+
+
+# The exchange buffers of csrc/ring.cuh. ``lib_name`` is the family's
+# library (each holds the exchange); pointers are Python ints.
+_PREFIX = {"megastep": "megastep", "megastep_deep": "deep"}
+
+
+def _ring_check(lib_name, rc, what):
+    if rc != 0:
+        lib = build()[lib_name]
+        raise RuntimeError("%s failed: %s" % (
+            what, getattr(lib, _PREFIX[lib_name] + "_error_string")(
+                rc).decode()))
+
+
+def ring_alloc(lib_name, n_grads, dev):
+    """Allocate (cudaMalloc) and zero this rank's exchange buffer for
+    ``n_grads`` gradient floats on ``dev``: (pointer, 64-byte IPC
+    handle)."""
+    lib = build()[lib_name]
+    ptr, handle = ctypes.c_void_p(), ctypes.create_string_buffer(64)
+    _ring_check(lib_name, lib.ring_alloc(lib.ring_buffer_bytes(n_grads),
+                                         dev.index or 0, ctypes.byref(ptr),
+                                         handle), "ring_alloc")
+    return ptr.value, handle.raw
+
+
+def ring_open(lib_name, handle, dev):
+    """Map another rank's exchange buffer from its IPC handle: its
+    pointer in this process."""
+    ptr = ctypes.c_void_p()
+    _ring_check(lib_name, build()[lib_name].ring_open(
+        handle, dev.index or 0, ctypes.byref(ptr)),
+        "ring_open (cudaIpcOpenMemHandle)")
+    return ptr.value
+
+
+def ring_close(lib_name, ptr, dev):
+    """Unmap a buffer that ring_open mapped."""
+    _ring_check(lib_name, build()[lib_name].ring_close(ptr, dev.index or 0),
+                "ring_close")
+
+
+def ring_free(lib_name, ptr, dev):
+    """Free this rank's buffer (after every other rank unmapped it)."""
+    _ring_check(lib_name, build()[lib_name].ring_free(ptr, dev.index or 0),
+                "ring_free")
+
+
+def ring_events_alloc(lib_name, dev):
+    """This rank's 4 interprocess events (the ring's waits): (their
+    pointers, their IPC handles, 4 x 64 bytes)."""
+    ev, handles = (ctypes.c_void_p * 4)(), ctypes.create_string_buffer(256)
+    _ring_check(lib_name, build()[lib_name].ring_events_alloc(
+        dev.index or 0, ev, handles), "ring_events_alloc")
+    return list(ev), handles.raw
+
+
+def ring_events_open(lib_name, handles, dev):
+    """Another rank's 4 events from their IPC handles: their pointers."""
+    ev = (ctypes.c_void_p * 4)()
+    _ring_check(lib_name, build()[lib_name].ring_events_open(
+        handles, dev.index or 0, ev), "ring_events_open "
+        "(cudaIpcOpenEventHandle)")
+    return list(ev)
+
+
+def ring_events_free(lib_name, ev, dev):
+    """Destroy 4 events that ring_events_alloc or ring_events_open made."""
+    _ring_check(lib_name, build()[lib_name].ring_events_free(
+        (ctypes.c_void_p * 4)(*ev), dev.index or 0), "ring_events_free")
+
+
+def ring_buffer_bytes(lib_name, n_grads):
+    """Bytes of one rank's exchange buffer (csrc/ring.cuh)."""
+    return build()[lib_name].ring_buffer_bytes(n_grads)
+
+
+def ring_exchange_launch(lib_name, ring, n_grads, step, phase, out, cm):
+    """One phase (1-3) of one step's exchange outside an epoch
+    (``ring_exchange``) on the current stream: phase 3 writes the reduced
+    gradient to ``out`` and (cost, minf) to ``cm``. Returns the number of
+    exchange kernels launched."""
+    dev = out.device
+    launched = ctypes.c_longlong(0)
+    rc = build()[lib_name].ring_exchange(
+        ring, n_grads, step, phase, out.data_ptr(), cm.data_ptr(),
+        ctypes.byref(launched), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _ring_check(lib_name, rc, "ring_exchange")
+    return launched.value
 
 
 def megastep_grad_launch(spec, x, y, words, gh, gw, params, grads, cm):

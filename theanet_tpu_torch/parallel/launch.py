@@ -74,19 +74,22 @@ def train_ranks(rank, n, job_file, out_dir):
     """The launch target of a data-parallel training run: for each config of
     the pickled job (``name``, ``layers``, ``training_params``, ``data`` the
     four arrays training_x, training_y, testing_x, testing_y, ``epochs``,
-    optional ``profile``), build the net and
+    optional ``profile``, ``dp_ring`` and ``ring_rs``: the THEANET_DP_RING
+    and THEANET_RING_RS of the run, default 'auto'), build the net and
     ``Trainer(..., mesh=make_mesh(n))``, train ``epochs`` epochs and pickle
     to ``out_dir/<name>_rank<rank>.pkl``: the per-epoch costs and minf, each
     epoch's ms (CUDA events on a card, the host clock on the CPU), the
-    gradient and update kernels' launches, the final state in framework
-    layout, the test evaluation and whether ``save_checkpoint`` wrote
-    ``out_dir/<name>.pkl``. With ``profile`` one more epoch runs under
-    torch.profiler for the device's idle share."""
+    launches of the data-parallel kernels (the per-step path's gradient and
+    update, the ring epochs and their exchanges), whether the ring ran, the
+    final state in framework layout, the test evaluation and whether
+    ``save_checkpoint`` wrote ``out_dir/<name>.pkl``. With ``profile`` one
+    more epoch runs under torch.profiler for the device's idle share. The
+    Trainer is closed (the ring's buffers freed) before the next config."""
     import numpy as np
     import torch
 
     from ..model import NeuralNet
-    from ..ops import megastep, megastep_deep
+    from ..ops import megastep, megastep_deep, megastep_ring
     from ..prms import fixdim
     from ..trainer import Trainer
     from .mesh import make_mesh
@@ -94,8 +97,13 @@ def train_ranks(rank, n, job_file, out_dir):
     with open(job_file, "rb") as f:
         job = pickle.load(f)
     counters = (megastep.megastep_grad_step, megastep.megastep_update,
-                megastep_deep.deep_grad_step, megastep_deep.deep_update)
+                megastep_deep.deep_grad_step, megastep_deep.deep_update,
+                megastep_ring.megastep_ring_epoch,
+                megastep_ring.deep_ring_epoch, megastep_ring.ring_exchange)
     for cfg in job:
+        # the job, not the launching process's environment, sets the path
+        os.environ["THEANET_DP_RING"] = cfg.get("dp_ring", "auto")
+        os.environ["THEANET_RING_RS"] = cfg.get("ring_rs", "auto")
         tx, ty, vx, vy = cfg["data"]
         tx, vx = fixdim(tx), fixdim(vx)
         layers = [[name, dict(a)] for name, a in cfg["layers"]]
@@ -105,7 +113,8 @@ def train_ranks(rank, n, job_file, out_dir):
         net = NeuralNet(layers, dict(cfg["training_params"]))
         trainer = Trainer(net, tx, ty, vx, vy, mesh=make_mesh(n))
         cuda = trainer.device.type == "cuda"
-        out = {"costs": [], "minf": [], "ms": []}
+        out = {"costs": [], "minf": [], "ms": [],
+               "ring": bool(getattr(trainer._mega_epoch, "ring", False))}
         for fn in counters:
             fn.launches = 0
         for _ in range(cfg["epochs"]):
@@ -134,6 +143,7 @@ def train_ranks(rank, n, job_file, out_dir):
             os.path.join(out_dir, cfg["name"] + ".pkl"))
         if cfg.get("profile") and cuda:
             out["idle_share"] = _idle_share(trainer)
+        trainer.close()
         with open(os.path.join(out_dir, f"{cfg['name']}_rank{rank}.pkl"),
                   "wb") as f:
             pickle.dump(out, f)

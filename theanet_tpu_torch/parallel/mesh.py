@@ -16,6 +16,7 @@ raises, naming ROADMAP.md.
 
 from __future__ import annotations
 
+import socket
 from typing import NamedTuple
 
 import torch
@@ -29,11 +30,13 @@ __all__ = ["Mesh", "make_mesh"]
 class Mesh(NamedTuple):
     """A data-parallel mesh: ``shape`` as the JAX package's
     (``{"data": n, "model": 1}``), the process group, this process's rank in
-    it and the device its tensors live on."""
+    it, the device its tensors live on and every rank's host name, in rank
+    order (empty when not known)."""
     shape: dict
     group: object
     rank: int
     device: torch.device
+    hosts: tuple = ()
 
     @property
     def n_data(self):
@@ -45,7 +48,10 @@ def make_mesh(n_data=None, n_model=1, group=None):
     default group when None). ``n_data`` defaults to the group's size and
     must equal it; fails fast with a named error when the group cannot fill
     the mesh (as ``theanet_tpu/parallel/mesh.py:47-53``). The device is
-    ``THEANET_TORCH_DEVICE``'s type; on CUDA, card ``rank % device_count``."""
+    ``THEANET_TORCH_DEVICE``'s type; on CUDA, card ``rank % device_count``,
+    which becomes the current card. The ranks' host names are gathered once
+    (``dist.all_gather_object``), so that the ring can tell a mesh on one
+    host from one across hosts."""
     if n_model != 1:
         if n_model < 1:
             raise ValueError(f"mesh axes must be positive, got model="
@@ -80,5 +86,8 @@ def make_mesh(n_data=None, n_model=1, group=None):
                 f"{n_cards}: NCCL refuses two ranks on one card (gloo can "
                 "share one)")
         dev = torch.device("cuda", dist.get_rank(group) % n_cards)
+        torch.cuda.set_device(dev)   # where NCCL's object gather lands
+    hosts = [None] * world
+    dist.all_gather_object(hosts, socket.gethostname(), group=group)
     return Mesh({"data": n_data, "model": 1}, group, dist.get_rank(group),
-                dev)
+                dev, tuple(hosts))

@@ -24,13 +24,19 @@ Two training paths:
 
 Under a data-parallel ``mesh`` (``parallel.make_mesh``; one process per
 rank) every rank trains the fused family's step on its shard of each batch
-and the ranks average gradients once a step (``ops/megastep_dp.py``); the
-flat-MLP family is skipped (flat nets take the deep family's zero-level
-kernel) and FUSED_TAIL is turned off, as in the JAX package. The port has no
-per-layer data-parallel path yet: a mesh net that the fused path declines
-raises with the reason. Every rank holds the whole replicated state, so
-evaluation and ``sync_net`` read it locally; only rank 0 writes a
-checkpoint (``save_checkpoint``).
+and the ranks average gradients once a step; the flat-MLP family is skipped
+(flat nets take the deep family's zero-level kernel) and FUSED_TAIL is
+turned off, as in the JAX package. ``THEANET_DP_RING`` picks the path, as in
+the JAX Trainer: under 'auto' (the default) the whole-epoch ring
+(``ops/megastep_ring.py``: one C call an epoch a rank, the exchange inside
+it) wherever ``ring_decline_reason`` passes, else the per-step path
+(``ops/megastep_dp.py``: a gradient launch, an ``all_reduce`` and an update
+launch a step), naming the reason on stderr; '1' the ring or an error; '0'
+the per-step path. The port has no per-layer data-parallel path yet: a mesh
+net that the fused path declines raises with the reason. Every rank holds
+the whole replicated state, so evaluation and ``sync_net`` read it locally;
+only rank 0 writes a checkpoint (``save_checkpoint``); ``close`` frees the
+ring's exchange buffers (every rank calls it).
 
 Evaluation always runs the per-layer forward in eval mode. On a card the
 Trainer turns TF32 off for cuDNN convolutions and matmuls, so training
@@ -145,7 +151,7 @@ class Trainer:
                     f"training data has {train_x.shape[1]} channels but the "
                     f"net expects {plan.spec.in_ch}")
         if plan is not None and mesh is not None:
-            plan, reason = self._dp_gate(plan, mesh, mode)
+            plan, reason = self._dp_gate(plan, mesh)
         if plan is None:
             if mode is True:
                 raise ValueError("MEGAFUSED=True, but this configuration "
@@ -159,7 +165,7 @@ class Trainer:
             print("theanet_tpu_torch: MEGAFUSED=auto — training on the "
                   "per-layer path: " + reason, file=sys.stderr)
             return
-        from .ops import megastep_dp
+        from .ops import megastep_dp, megastep_ring
 
         spec = plan.spec
         self._mega, self._mega_plan, self._mega_spec = megastep, plan, spec
@@ -169,9 +175,13 @@ class Trainer:
         self._mega_x, self._mega_y = megastep_dp.dp_shard_data(
             spec, n, rank, self.d_train_x, self.d_train_y)
         # (kparams, kmoms, x, y, bits, lr) -> (kparams, kmoms, cost_minf)
-        self._mega_epoch = (
-            functools.partial(plan.epoch_fn, spec=spec) if mesh is None
-            else megastep_dp.make_dp_epoch_fn(spec, nb, mesh))
+        if mesh is None:
+            self._mega_epoch = functools.partial(plan.epoch_fn, spec=spec)
+        else:
+            maker = (megastep_ring.make_ring_epoch_fn
+                     if self._use_ring(spec, mesh)
+                     else megastep_dp.make_dp_epoch_fn)
+            self._mega_epoch = maker(spec, nb, mesh)
         self._kp = self._km = None
         self._state_src = "frame"   # which layout holds the truth
 
@@ -197,11 +207,15 @@ class Trainer:
             raise ValueError(f"training set ({n_train} samples) is smaller "
                              f"than one batch (BATCH_SZ={self.batch_sz})")
 
-    def _dp_gate(self, plan, mesh, mode):
+    def _dp_gate(self, plan, mesh):
         """(plan, None) when the fused data-parallel path takes ``plan`` on
         ``mesh``, else (None, reason): the family's data-parallel gate
-        (megastep_dp.dp_decline_reason) and, under MEGAFUSED='auto', the
-        JAX package's ceiling of 32 samples a rank (trainer.py:328-336)."""
+        (megastep_dp.dp_decline_reason), under any MEGAFUSED. The JAX
+        Trainer's 'auto' also declines shards above 32 samples a rank
+        (theanet_tpu/trainer.py:328-336): that is a measured TPU crossover
+        between its fused data-parallel path and its scanned GSPMD path.
+        The port has no second path to cross over to (no per-layer
+        data-parallel path), so it fuses every shard the gate takes."""
         from .ops import megastep_dp
 
         n_data, bsz = mesh.shape["data"], self.batch_sz
@@ -210,11 +224,29 @@ class Trainer:
             return None, (f"the per-rank batch shard (BATCH_SZ {bsz} over "
                           f"{n_data} data ranks) fails the fused "
                           f"data-parallel gate: {why}")
-        if mode == "auto" and bsz // n_data > 32:
-            return None, (f"per-device shard {bsz // n_data} > 32, the JAX "
-                          "package's ceiling for its fused data-parallel "
-                          "path (MEGAFUSED=True forces fusion)")
         return plan, None
+
+    def _use_ring(self, spec, mesh):
+        """Whether the whole-epoch ring trains ``spec`` on ``mesh``, from
+        THEANET_DP_RING (theanet_tpu/trainer.py:425-446) and
+        ring_decline_reason's static facts: 'auto' takes it where it
+        passes and otherwise names the reason on stderr; '1' raises with
+        the reason; '0' never takes it."""
+        from .ops import megastep_ring
+
+        mode = megastep_ring.ring_mode()
+        if mode == "0":
+            return False
+        why = megastep_ring.ring_decline_reason(spec, mesh.n_data, mesh,
+                                                mode)
+        if why is None:
+            return True
+        if mode == "1":
+            raise ValueError("THEANET_DP_RING=1, but the whole-epoch ring "
+                             "cannot train this net: " + why)
+        print("theanet_tpu_torch: THEANET_DP_RING=auto — training on the "
+              "per-step data-parallel path: " + why, file=sys.stderr)
+        return False
 
     # -- fused-path state ------------------------------------------------
 
@@ -359,6 +391,13 @@ class Trainer:
             return False
         save_checkpoint(path, self.checkpoint_dict())
         return True
+
+    def close(self):
+        """Free what the Trainer holds outside PyTorch: the ring's exchange
+        buffers under a mesh (a collective: every rank calls it)."""
+        close = getattr(getattr(self, "_mega_epoch", None), "close", None)
+        if close is not None:
+            close()
 
     def sync_net(self):
         """Write the current device params back into the net's layers, so
