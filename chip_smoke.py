@@ -110,6 +110,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      epoch launch an epoch a rank and the exchange kernels its C loop
      counts (2 a step in gather mode, 4 in reduce-scatter); epoch times
      and idle share per rank.
+ 19. the deep kernel's heads and aux stages (csrc/megastep_deep.cu) vs its
+     twin, step-locked from the initial weights and random momenta: synth_aux
+     at full width (B 20, 28x28, conv 4@3x3, SoftAux 10 classes, n_aux
+     (5, 9)) over its whole epoch, galaxy_rbf's shapes under a Hinge, an
+     ExpLoss, an nllsq, an nll90 and an AuxConcat -> Softmax tail, and a
+     flat Hinge net, 40 steps each; each state tensor within 1e-5 of the
+     larger of 1 and its largest value;
+ 20. the synth_aux main path: ``train.main`` on params/synth_aux.prms as
+     shipped (3 epochs, SEED 2718), fused (one deep kernel launch an epoch)
+     then a 1-epoch resume, and per layer (MEGAFUSED False, no kernel);
+     final test errors within 2 (fused) and 3 (per layer) points of the
+     JAX package's CPU run; one epoch of each timed by CUDA events beside
+     the twin's; a world-2 ring run (two processes on the card), ranks
+     bit-equal to each other and to the in-process emulation.
 
 The last three lines are the kernels JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The script imports nothing of
@@ -163,7 +177,7 @@ FREE_TOTAL_RTOL = 5e-3
 # different random bits give mid-curve and fails a net that did not learn.
 MAIN_SEED = 9876
 MAIN_TEST_ERR_MAX = 40.0
-ALL_PHASES = tuple(range(1, 19))
+ALL_PHASES = tuple(range(1, 21))
 
 
 def banner(n, title):
@@ -812,8 +826,9 @@ def cli_run(train, name, family, launches, seed=None, epochs=None):
     return rows
 
 
-def resume_one_epoch(train, name, launches):
-    """Resume the one kept checkpoint of ``name`` for one epoch."""
+def resume_one_epoch(train, name, launches, data=None):
+    """Resume the one kept checkpoint of ``name`` for one epoch (on its
+    CONFIGS dataset, or ``data``)."""
     from theanet_tpu_torch.prms import load_params
 
     pkls = [p for p in os.listdir(".")
@@ -828,7 +843,7 @@ def resume_one_epoch(train, name, launches):
         pickle.dump({"layers": layers, "training_params": tr,
                      "allwts": allwts}, f, -1)
     out, counts = counted_run(
-        train, ["train", CONFIGS[name]["data"], "resume.pkl"])
+        train, ["train", data or CONFIGS[name]["data"], "resume.pkl"])
     assert counts["deep_epoch"] == 1, counts
     launches["deep_epoch"] += 1
     resumed = epoch_rows(out)
@@ -921,12 +936,28 @@ def step_flops(spec):
         widths = ([spec.n_flat] + [ph[0] for ph in spec.pre_hidden]
                   + [spec.n_hid, spec.n_out])
         shapes = deep.deep_kernel_shapes(spec)
-    products = [(spec.batch * m * c * c * f * f * cin, k > 0)
+    B = spec.batch
+    products = [(B * m * c * c * f * f * cin, k > 0)
                 for k, (cin, m, f, c) in enumerate(levels)]
-    products += [(spec.batch * a * b, bool(levels) or k > 0)
-                 for k, (a, b) in enumerate(zip(widths, widths[1:]))]
+    extra = 0
+    if getattr(spec, "head", "") == "softaux":
+        # the scores f Wt; the encoder 2 -> nah -> nao and the cross
+        # weights nao -> classes, forward, weight and input gradients
+        nah, nao = spec.n_aux
+        products += [(B * spec.n_flat * spec.n_out, True),
+                     (B * 2 * nah, False), (B * nah * nao, True),
+                     (B * nao * spec.n_out, True)]
+    else:
+        if getattr(spec, "aux_concat", ()):
+            # the frozen encoder's forward; its output widens the tail's
+            # first product, whose input gradient reaches the flatten only
+            nah, nao = spec.aux_concat
+            extra += 2 * B * (2 * nah + nah * nao)
+            extra += 2 * B * nao * widths[1] * 2
+        products += [(B * a * b, bool(levels) or k > 0)
+                     for k, (a, b) in enumerate(zip(widths, widths[1:]))]
     flops = sum(2 * macs * (3 if dgrad else 2) for macs, dgrad in products)
-    return flops + 10 * sum(r * c for r, c in shapes)
+    return flops + extra + 10 * sum(r * c for r, c in shapes)
 
 
 def bound(n_bytes, flops, rate=H100_F32_FLOPS):
@@ -1712,11 +1743,13 @@ def dp_config(name):
 
     from theanet_tpu_torch.prms import fixdim, load_params
 
-    if name == "mnist_cnn":
+    if name in ("mnist_cnn", "synth_aux"):
         layers, tr, _ = load_params(os.path.join(REPO, "params",
-                                                 "mnist_cnn.prms"))
-        tr.update(SEED=MAIN_SEED, NUM_EPOCHS=DP_EPOCHS)
-        data_name = "synth_hard"
+                                                 name + ".prms"))
+        tr["NUM_EPOCHS"] = DP_EPOCHS
+        if name == "mnist_cnn":
+            tr["SEED"] = MAIN_SEED
+        data_name = "synth_hard" if name == "mnist_cnn" else "synth_aux"
     else:
         prms = ast.literal_eval(config_text(name, epochs=DP_EPOCHS))
         layers = [[n, dict(a)] for n, a in prms["layers"]]
@@ -1736,6 +1769,13 @@ def dp_arrays(data):
 
     return (fixdim(data.training_x), data.training_y,
             fixdim(data.testing_x), data.testing_y)
+
+
+def aux_arrays(data):
+    """A dataset's aux arrays as the Trainer's keywords ({} without)."""
+    if not hasattr(data, "training_aux"):
+        return {}
+    return dict(train_aux=data.training_aux, test_aux=data.testing_aux)
 
 
 def dp_setup(torch, name, dev):
@@ -1946,7 +1986,7 @@ def single_device_run(torch, name, epochs=DP_EPOCHS):
 
     layers, tr, data = dp_config(name)
     net = NeuralNet(layers, tr)
-    trainer = Trainer(net, *dp_arrays(data))
+    trainer = Trainer(net, *dp_arrays(data), **aux_arrays(data))
     costs, ms = [], []
     for _ in range(epochs):
         ms.append(timed_once(torch, lambda: costs.append(
@@ -2460,6 +2500,10 @@ def ring_emulation(torch, name, n, rs, epochs):
     net, plan, kp, x, y = dp_setup(torch, name, dev)
     spec = plan.spec
     shards = [dp.dp_shard_data(spec, n, r, x, y) for r in range(n)]
+    aux = aux_arrays(dp_config(name)[2]).get("train_aux")
+    aux_shards = None if aux is None else [
+        dp.dp_shard_aux(spec, n, r, torch.as_tensor(aux, device=dev))
+        for r in range(n)]
     nb = shards[0][0].shape[0]
     p, m = kp, [torch.zeros_like(t) for t in kp]
     saved = [fn.launches for fn in dp_wrappers()]
@@ -2468,7 +2512,8 @@ def ring_emulation(torch, name, n, rs, epochs):
         bits = megastep.epoch_noise_bits(net.tr_prms["SEED"], net.get_epoch(),
                                          spec, nb, dev)
         p, m, cm = ring.ring_epoch_reference(spec, n, shards, p, m, bits,
-                                             net.get_rate(), rs, plain=False)
+                                             net.get_rate(), rs, plain=False,
+                                             aux_shards=aux_shards)
         costs.append(cm[:, 0].cpu().numpy())
         net.inc_epoch_set_rate()
     for fn, k in zip(dp_wrappers(), saved):   # the emulation's launches
@@ -2547,8 +2592,10 @@ def ring_ranks(torch, n, runs, epochs, tmp):
     for name, cfg, rs_env in runs:
         layers, tr, data = dp_config(cfg)
         job.append(dict(name=name, layers=layers, training_params=tr,
-                        data=dp_arrays(data), epochs=epochs, profile=True,
-                        dp_ring="1", ring_rs=rs_env))
+                        data=dp_arrays(data) + tuple(
+                            aux_arrays(data).values()),
+                        epochs=epochs, profile=True, dp_ring="1",
+                        ring_rs=rs_env))
     job_file = os.path.join(tmp, f"job{n}.pkl")
     with open(job_file, "wb") as f:
         pickle.dump(job, f)
@@ -2648,6 +2695,245 @@ def phase18(torch, card, mesh):
     assert all(v > 0 for v in launches.values()), launches
     return launches, world1, d_ranks
 
+
+# ----------------------------------------------------------- phases 19-20
+
+# params/synth_aux.prms as shipped (SEED 2718, 3 epochs) on synth_aux: the
+# JAX package's CPU run (jax_cpu_reference.sh), its test-row costs and
+# final test error in percent. The port's final test error is held within
+# AUX_ERR_MARGIN points of it, fused and per layer.
+AUX_JAX = dict(costs=(208.04, 14.53, 3.94), test_err=0.00)
+AUX_ERR_MARGIN = {"fused": 2.0, "per-layer": 3.0}
+# phase 19's bound: |kernel - twin| of each state tensor after each step at
+# most AUX_REL times the larger of 1 and the tensor's largest magnitude
+AUX_REL = 1e-5
+# galaxy_rbf's shapes (3 x 28 x 28, Color + Elastic, conv 8 -> 16) under
+# each other head; the step-locked run covers AUX_LOCKED_STEPS steps
+AUX_LOCKED_STEPS = 40
+HEAD_TAILS = {
+    "hinge": [("HiddenLayer", {"n_out": 200, "pdrop": .5}),
+              ("HingeLayer", {"n_out": 10})],
+    "exploss": [("HiddenLayer", {"n_out": 200, "pdrop": .5}),
+                ("ExpLossLayer", {"n_out": 10})],
+    "nllsq": [("HiddenLayer", {"n_out": 200, "pdrop": .5}),
+              ("SoftmaxLayer", {"n_out": 10, "loss": "nllsq"})],
+    "nll90": [("HiddenLayer", {"n_out": 200, "pdrop": .5}),
+              ("SoftmaxLayer", {"n_out": 10, "loss": "nll90"})],
+    "auxconcat-softmax": [
+        ("AuxConcatLayer", {"n_aux": (5, 9), "aux_type": "LocationInfo"}),
+        ("HiddenLayer", {"n_out": 200, "pdrop": .5}),
+        ("DropOutLayer", {"pdrop": .25}),
+        ("SoftmaxLayer", {"n_out": 10})],
+}
+
+
+def aux_config():
+    """(layers, training params, data module) of params/synth_aux.prms as
+    train.py builds them."""
+    from theanet_tpu_torch.data import synth_aux
+    from theanet_tpu_torch.prms import load_params
+
+    layers, tr, _ = load_params(os.path.join(REPO, "params",
+                                             "synth_aux.prms"))
+    layers[0][1]["img_sz"] = synth_aux.training_x.shape[-1]
+    return layers, tr, synth_aux
+
+
+def aux_cases(torch, dev):
+    """Phase 19's nets: {name: (net, plan, x_steps, y_steps, aux_steps or
+    None)}: synth_aux at full width on its data, galaxy_rbf's shapes under
+    HEAD_TAILS on synth3 (the AuxConcat net with normal aux rows), and a
+    flat Hinge net on synth_hard."""
+    from theanet_tpu_torch.data import synth3, synth_hard
+
+    layers, tr, data = aux_config()
+    net, plan = build_net(layers, tr)
+    x, y = step_rows(torch, data, 1, net.batch_sz, dev)
+    aux = torch.as_tensor(data.training_aux[:x.shape[0] * net.batch_sz],
+                          device=dev).reshape(x.shape[0], net.batch_sz, 4)
+    cases = {"synth_aux": (net, plan, x, y, aux)}
+    from theanet_tpu_torch.prms import load_params
+
+    galaxy = load_params(os.path.join(REPO, "params", "galaxy_rbf.prms"))[0]
+    galaxy[0][1].update(img_sz=28, num_maps=3)
+    n = AUX_LOCKED_STEPS
+    for name, tail in HEAD_TAILS.items():
+        layers = galaxy[:6] + [[k, dict(a)] for k, a in tail]
+        net, plan = build_net(layers, {"SEED": 1357, "BATCH_SZ": 20})
+        x, y = step_rows(torch, synth3, 3, 20, dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        aux = (torch.randn((n, 20, 4), generator=gen, device=dev)
+               if plan.spec.has_aux else None)
+        cases[name] = (net, plan, x[:n], y[:n], aux)
+    net, plan = build_net(
+        [["ElasticLayer", dict(ELASTIC[1], img_sz=28)],
+         ["HiddenLayer", {"n_out": 500, "pdrop": .5}],
+         ["HingeLayer", {"n_out": 10}]], {"SEED": 2468, "BATCH_SZ": 20})
+    x, y = step_rows(torch, synth_hard, 1, 20, dev)
+    cases["flat-hinge"] = (net, plan, x[:n], y[:n], None)
+    return cases
+
+
+def aux_locked(torch, name, net, plan, x, y, aux, dev):
+    """The deep kernel against its twin, one step at a time from the
+    kernel's state (the first step from the initial weights and random
+    nonzero momenta): cost and minf within STEP_COST_ATOL, each state
+    tensor within AUX_REL. Returns the largest absolute |d| of the state
+    over all steps."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_deep as deep
+
+    assert plan.epoch_fn is deep.deep_epoch, name
+    spec = plan.spec
+    kp = initial_state(plan, net, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p = kp
+    m = [0.01 * torch.randn(t.shape, generator=gen, device=dev) for t in kp]
+    bits = megastep.epoch_noise_bits(3, 0, spec, x.shape[0], dev)
+    first = worst = worst_abs = 0.0
+    t0 = time.time()
+    for s in range(x.shape[0]):
+        sl = slice(s, s + 1)
+        b_s = tuple(b[sl] for b in bits)
+        a_s = None if aux is None else aux[sl]
+        got = deep.deep_epoch(p, m, x[sl], y[sl], b_s, 0.1, spec,
+                              aux_steps=a_s)
+        ref = deep.deep_epoch_reference(p, m, x[sl], y[sl], b_s, 0.1, spec,
+                                        aux_steps=a_s)
+        assert bool(torch.isfinite(got[2]).all()), (name, s, got[2])
+        d_cost = max_abs(got[2], ref[2])
+        assert d_cost <= STEP_COST_ATOL, (name, s, got[2], ref[2])
+        pairs = list(zip(got[0] + got[1], ref[0] + ref[1]))
+        d = max(max_abs(a, b) / max(1.0, float(b.abs().max()))
+                for a, b in pairs)
+        first = d if s == 0 else first
+        worst = max(worst, d)
+        worst_abs = max(worst_abs, max(max_abs(a, b) for a, b in pairs))
+        p, m = got[0], got[1]
+    moved = max(max_abs(a, b) for a, b in zip(p, kp))
+    print(f"  {name} (head {spec.head}, loss {spec.loss}, "
+          f"{spec.n_levels} conv levels, aux {spec.has_aux}, "
+          f"{len(kp)} state tensors): one step |d| state {first:.3e}; "
+          f"{x.shape[0]} steps step-locked |d| state {worst:.3e} (relative "
+          f"to max(1, largest value); absolute {worst_abs:.3e}); params "
+          f"moved {moved:.3e} [{time.time() - t0:.1f} s]", flush=True)
+    assert moved > 0
+    assert worst <= AUX_REL, (name, worst)
+    return worst_abs
+
+
+def phase19(torch, dev):
+    """The deep kernel's heads and aux stages against the twin. Returns the
+    largest absolute |d| of the state."""
+    from theanet_tpu_torch.ops import megastep_deep as deep
+
+    saved = deep.deep_epoch.launches
+    worst = max(aux_locked(torch, name, *case, dev)
+                for name, case in aux_cases(torch, dev).items())
+    deep.deep_epoch.launches = saved   # the checks do not count
+    return worst
+
+
+def aux_cli(train, name, text, want_deep):
+    """train.main on synth_aux with the .prms ``text`` under ``name``;
+    checks the launches (``want_deep`` deep_epoch launches, nothing else).
+    Returns the epoch rows."""
+    with open(name + ".prms", "w") as f:
+        f.write(text)
+    out, counts = counted_run(train, ["train", "synth_aux", name + ".prms"])
+    want = {k: 0 for k in counts}
+    want["deep_epoch"] = want_deep
+    assert counts == want, (name, counts)
+    assert "Device : cuda" in out
+    rows = epoch_rows(out)
+    assert all(math.isfinite(r[1]) for r in rows), rows
+    return rows
+
+
+def aux_epoch_times(torch, card):
+    """One synth_aux epoch by the fused Trainer (the kernel), by the
+    per-layer Trainer, and the twin's epoch on the card, by CUDA events;
+    the kernel epoch's bound. Returns (kernel ms, per-layer ms, twin ms,
+    bound)."""
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_deep as deep
+    from theanet_tpu_torch.trainer import Trainer
+
+    saved = deep.deep_epoch.launches
+    ms = {}
+    for mode in ("auto", False):
+        layers, tr, data = aux_config()
+        tr["MEGAFUSED"] = mode
+        trainer = Trainer(NeuralNet(layers, tr), *dp_arrays(data),
+                          **aux_arrays(data))
+        assert (trainer._mega is not None) == (mode == "auto")
+        trainer.run_epoch()   # warm-up
+        ms[mode] = [timed_once(torch, trainer.run_epoch) for _ in range(2)]
+        if mode == "auto":
+            fused = trainer
+    spec, nb = fused._mega_spec, fused.n_train_batches
+    kp, km = fused._kp, fused._km
+    x, y, aux = fused._mega_x, fused._mega_y, fused._mega_aux
+    bits = megastep.epoch_noise_bits(3, 0, spec, nb, x.device)
+    ms_twin = timed_once(torch, lambda: deep.deep_epoch_reference(
+        kp, km, x, y, bits, 0.1, spec, aux))
+    bnd = epoch_bound(spec, [x, y, aux, *bits, *kp, *km],
+                      [*kp, *km, torch.empty((nb, 2))], nb)
+    profile_epoch(torch, fused.run_epoch, nb, "one synth_aux epoch", top=8)
+    deep.deep_epoch.launches = saved   # timing launches do not count
+    print(f"  synth_aux, one epoch ({nb} steps x {spec.batch}) on {card}: "
+          f"fused kernel {ms['auto']} ms, per layer {ms[False]} ms, twin "
+          f"{ms_twin:.1f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return min(ms["auto"]), min(ms[False]), ms_twin, bnd
+
+
+def phase20(torch, card):
+    """The synth_aux main path: train.main fused (3 epochs, one kernel
+    launch an epoch, then a 1-epoch resume) and per layer; their test
+    errors against the JAX package's CPU run; epoch times; a world-2 ring
+    run. Returns ({kernel: launches in the main path}, epoch times)."""
+    from theanet_tpu_torch import train
+
+    with open(os.path.join(REPO, "params", "synth_aux.prms")) as f:
+        text = f.read()
+    epochs = aux_config()[1]["NUM_EPOCHS"]
+    launches = {"deep_epoch": 0}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            fused = aux_cli(train, "synth_aux", text, epochs)
+            launches["deep_epoch"] += epochs
+            resume_one_epoch(train, "synth_aux", launches, "synth_aux")
+            per_layer = aux_cli(
+                train, "synth_aux_per_layer",
+                text.replace("'SEED':", "'MEGAFUSED': False, 'SEED':"), 0)
+        finally:
+            os.chdir(cwd)
+    for kind, rows in (("fused", fused), ("per-layer", per_layer)):
+        costs, final = [r[1] for r in rows[:-1]], rows[-1][2]
+        print(f"  synth_aux {kind}, SEED 2718: test-row costs {costs} (JAX "
+              f"CPU {list(AUX_JAX['costs'])}); final test error "
+              f"{final:.2f}% (JAX CPU {AUX_JAX['test_err']:.2f}%)",
+              flush=True)
+        assert len(costs) == len(AUX_JAX["costs"]), rows
+        assert final <= AUX_JAX["test_err"] + AUX_ERR_MARGIN[kind], final
+    times = aux_epoch_times(torch, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in ring_wrappers():
+            fn.launches = 0
+        runs = (("synth_aux", "synth_aux", "auto"),)
+        ranks, wall = ring_ranks(torch, 2, runs, DP_EPOCHS, tmp)
+        print(f"  world 2 (gloo, 2 processes on the card, the ring over "
+              f"CUDA IPC): {wall:.1f} s", flush=True)
+        _, counts = check_ring_run(torch, "synth_aux", "synth_aux", "auto", 2,
+                                   ranks["synth_aux"], DP_EPOCHS, {})
+        launches.update(counts)
+    print(f"kernel launches in the synth_aux main path: {launches}",
+          flush=True)
+    assert launches["deep_epoch"] and launches["deep_ring_epoch"], launches
+    return launches, times
 
 
 def main(argv=None):
@@ -2786,6 +3072,15 @@ def main(argv=None):
                                  if dp_report else "not run"), flush=True)
         finally:
             dist.destroy_process_group()
+    if 19 in phases:
+        banner(19, "the deep kernel's heads and aux stages vs twin: "
+               "synth_aux, galaxy_rbf's shapes under Hinge, ExpLoss, nllsq, "
+               "nll90 and AuxConcat, a flat Hinge net")
+        aux_err = phase19(torch, dev)
+    if 20 in phases:
+        banner(20, "main path: train.main on synth_aux fused (+ resume) "
+               "and per layer; epoch times; a world-2 ring run")
+        aux_launches, aux_times = phase20(torch, card)
     if phases != set(ALL_PHASES):
         print("chip_smoke: a subset of phases ran; no result", flush=True)
         return 3
@@ -2849,6 +3144,11 @@ def main(argv=None):
                              "theanet_tpu/ops/megastep_ring.py:180",
                              ring_launches[name], ring_locked_err[name],
                              (min(ms), ms_plain, bnd)))
+    kernels.append(entry("deep_epoch_aux_heads",
+                         "theanet_tpu_torch/csrc/megastep_deep.cu",
+                         "theanet_tpu/ops/megastep_deep.py:1527",
+                         aux_launches["deep_epoch"], aux_err,
+                         (aux_times[0], aux_times[2], aux_times[3])))
     kernels[0]["epoch_step_locked_max_abs_err"] = epoch_err
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))

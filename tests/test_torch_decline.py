@@ -107,7 +107,8 @@ SHIPPED = {"mnist_cnn": ("synth_hard", "megastep_epoch"),
            "galaxy_rbf": ("synth3", "deep_epoch"),
            "logit_centered": ("synth", "deep_epoch"),
            "synth_quick": ("synth", "deep_epoch"),
-           "flat_mlp": ("synth_hard", "mlp_epoch")}
+           "flat_mlp": ("synth_hard", "mlp_epoch"),
+           "synth_aux": ("synth_aux", "deep_epoch")}
 
 
 def shipped_layers(name):
@@ -134,16 +135,15 @@ def test_shipped_prms_keep_their_family(name, dtype):
 
 
 def test_every_shipped_prms_is_covered():
-    """synth_aux's SoftAux head is not ported: the port refuses it when
-    the net is built, so no route is taken."""
+    """Every shipped .prms has its route in SHIPPED, the one the JAX
+    package takes (synth_aux's SoftAux head: the deep family)."""
     names = sorted(f[:-5] for f in os.listdir(os.path.join(REPO, "params"))
                    if f.endswith(".prms"))
-    assert sorted(list(SHIPPED) + ["synth_aux"]) == names
-    layers, tr, _ = load_params(os.path.join(REPO, "params",
-                                             "synth_aux.prms"))
-    layers[0][1]["img_sz"] = 28
-    with pytest.raises(NotImplementedError):
-        TorchNet(layers, tr)
+    assert sorted(SHIPPED) == names
+    layers, tr = shipped_layers("synth_aux")
+    jnet = JaxNet([[n, dict(a)] for n, a in layers], dict(tr))
+    assert type(jmega.fused_plan(jnet).spec).__name__ == "DeepSpec"
+    assert megastep.fused_plan(TorchNet(layers, tr)).spec.head == "softaux"
 
 
 def test_bf16_mnist_cnn_fuses_in_both_packages():

@@ -45,7 +45,8 @@ ELASTIC = {"translation": 2, "zoom": 1.1, "magnitude": 8, "sigma": 3,
            "pflip": 0.03, "angle": 5, "invert_image": True, "nearest": False}
 
 # the nets of the checks: the flagship pattern, a deep net with a Color
-# prefix and a learned-center RBF head, a flat net (zero conv levels)
+# prefix and a learned-center RBF head, a flat net (zero conv levels), a
+# SoftAux head that reads a (B, 2, 2) aux input
 NETS = {
     "flagship": (1, [
         ["ElasticLayer", dict(img_sz=12, **ELASTIC)],
@@ -73,6 +74,13 @@ NETS = {
         ["ElasticLayer", dict(img_sz=12, **dict(ELASTIC, nearest=True))],
         ["HiddenLayer", {"n_out": 24, "pdrop": 0.5, "reg": R1}],
         ["SoftmaxLayer", {"n_out": 10, "reg": R2}]]),
+    "softaux": (1, [
+        ["ElasticLayer", dict(img_sz=12, **ELASTIC)],
+        ["ConvLayer", {"num_maps": 4, "filter_sz": 3, "stride": 1,
+                       "actvn": "relu10", "reg": R1}],
+        ["PoolLayer", {"pool_sz": 2}],
+        ["SoftAuxLayer", {"n_out": 10, "n_aux": (5, 9),
+                          "aux_type": "LocationInfo", "reg": R2}]]),
 }
 
 
@@ -101,6 +109,36 @@ def _n_classes(ts):
 
 
 # ------------------------------------------------------------ arrangement
+
+@pytest.mark.parametrize("n_data", [2, 4])
+def test_aux_arrangement_is_jax_dp_epoch_arrange(n_data):
+    """Rank d's share of a SoftAux net's aux rows (dp_shard_aux) equals
+    block d of the aux rows of the JAX package's arrangement, to the bit;
+    the data's shares are dp_shard_data's as for any net."""
+    B, nb = 8, 3
+    _, _, js, ts, _ = _specs("softaux", B)
+    assert ts.has_aux and js.has_aux
+    rng = np.random.RandomState(4)
+    x = rng.rand(nb * B, 1, 12, 12).astype(np.float32)
+    y = rng.randint(0, 10, nb * B).astype(np.int32)
+    aux = rng.randn(nb * B, 2, 2).astype(np.float32)
+    out = jdp.dp_epoch_arrange(js, nb, n_data, jnp.asarray(x), jnp.asarray(y),
+                               jnp.asarray(aux), jax.random.PRNGKey(17), 3,
+                               False)
+    jx, jaux = np.asarray(out[0]), np.asarray(out[6])
+    b_loc = B // n_data
+    for d in range(n_data):
+        xs, _ = tdp.dp_shard_data(ts, n_data, d, torch.tensor(x),
+                                  torch.tensor(y))
+        np.testing.assert_array_equal(xs.numpy(),
+                                      jx[:, d * b_loc:(d + 1) * b_loc])
+        got = tdp.dp_shard_aux(ts, n_data, d, torch.tensor(aux))
+        assert tuple(got.shape) == (nb, b_loc, 4)
+        np.testing.assert_array_equal(got.numpy(),
+                                      jaux[:, d * b_loc:(d + 1) * b_loc])
+    assert tdp.dp_shard_aux(_specs("flagship", B)[3], n_data, 0,
+                            torch.tensor(aux)) is None
+
 
 @pytest.mark.parametrize("n_data", [2, 4])
 @pytest.mark.parametrize("name", ["flagship", "deep-color-rbf"])
@@ -146,7 +184,8 @@ def test_arrangement_is_jax_dp_epoch_arrange(name, n_data):
 
 @pytest.mark.parametrize("name,batch,n_data", [("flagship", 16, 2),
                                                ("deep-color-rbf", 8, 2),
-                                               ("flat", 8, 2)])
+                                               ("flat", 8, 2),
+                                               ("softaux", 8, 2)])
 def test_grad_step_matches_jax_step_kernel(name, batch, n_data):
     """One step's cost, minf and every gradient on a rank's shard: the
     port's plain gradient step against the JAX package's _kernel_grad in
@@ -164,6 +203,8 @@ def test_grad_step_matches_jax_step_kernel(name, batch, n_data):
               (b_loc, tm.db_lanes(tl))]
     words = [rng.randint(0, 2**32, s, dtype=np.uint64).astype(np.uint32)
              for s in shapes]
+    aux = (rng.randn(b_loc, 4).astype(np.float32)
+           if getattr(tl, "has_aux", False) else None)
     aw = [[np.asarray(w, np.float32) for w in tnet.allwts0[i]]
           for i in plan.layer_idx]
     tp = plan.kernel_layout([[torch.tensor(w) for w in lw] for lw in aw],
@@ -174,14 +215,16 @@ def test_grad_step_matches_jax_step_kernel(name, batch, n_data):
     jg, jcost, jminf = step(jnp.asarray(x[None]),
                             jnp.asarray(y[None, :, None]),
                             *(jnp.asarray(w[None]) for w in words),
-                            [jnp.asarray(t) for t in jkl])
+                            [jnp.asarray(t) for t in jkl],
+                            aux=None if aux is None else jnp.asarray(
+                                aux[None]))
     n_grads = sum(int(t.numel()) for t in tp)
     grads = torch.empty(n_grads)
     cm = torch.empty(2)
     tw = [torch.tensor(w.view(np.int32)) for w in words]
     tdp.grad_step(tl, tdp.constants(tl, "cpu"), torch.tensor(x),
                   torch.tensor(y), (tw[0][0], tw[1], tw[2], tw[3]), tp,
-                  grads, cm)
+                  grads, cm, None if aux is None else torch.tensor(aux))
     np.testing.assert_allclose(cm.numpy(), [float(jcost), float(jminf)],
                                rtol=0, atol=2e-5)
     assert len(jg) == len(tp)
@@ -197,20 +240,28 @@ N_STEPS, EPOCHS = 4, 2
 
 
 def _data(name, batch, seed=0):
+    """training_x, training_y, testing_x, testing_y, and for the SoftAux
+    net its (n, 2, 2) training_aux and testing_aux."""
     C0 = NETS[name][0]
     rng = np.random.RandomState(seed)
     n_cls = 5 if name == "deep-color-rbf" else 10
     n = N_STEPS * batch
-    return (rng.rand(n, C0, 12, 12).astype(np.float32),
+    data = (rng.rand(n, C0, 12, 12).astype(np.float32),
             rng.randint(0, n_cls, n).astype(np.int32),
             rng.rand(2 * batch, C0, 12, 12).astype(np.float32),
             rng.randint(0, n_cls, 2 * batch).astype(np.int32))
+    if name == "softaux":
+        data += (rng.randn(n, 2, 2).astype(np.float32),
+                 rng.randn(2 * batch, 2, 2).astype(np.float32))
+    return data
 
 
 def _single_device(name, batch):
-    tx, ty, vx, vy = _data(name, batch)
+    tx, ty, vx, vy, *aux = _data(name, batch)
     net = TorchNet(_layers(name), _tr(batch))
-    trainer = Trainer(net, tx, ty, vx, vy, device="cpu")
+    trainer = Trainer(net, tx, ty, vx, vy, device="cpu",
+                      train_aux=aux[0] if aux else None,
+                      test_aux=aux[1] if aux else None)
     costs, minf = [], []
     for _ in range(EPOCHS):
         _, c, m = trainer.run_epoch()
@@ -233,7 +284,7 @@ def test_two_gloo_ranks_follow_one_device(tmp_path, monkeypatch):
     from rank 0 only."""
     monkeypatch.setenv("THEANET_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    batch, names = 8, ("flagship", "deep-color-rbf", "flat")
+    batch, names = 8, ("flagship", "deep-color-rbf", "flat", "softaux")
     job = [dict(name=name, layers=_layers(name), training_params=_tr(batch),
                 data=_data(name, batch), epochs=EPOCHS) for name in names]
     job_file = str(tmp_path / "job.pkl")

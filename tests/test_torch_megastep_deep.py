@@ -77,6 +77,45 @@ CASES = {
         ["DropOutLayer", {"pdrop": 0.5}],
         ["HiddenLayer", {"n_out": 10, "pdrop": 0.5, "reg": R2}],
         ["SoftmaxLayer", {"n_out": 4, "reg": R1}]],
+    # synth_aux's pattern: a SoftAux head on the conv features
+    "softaux": [
+        ["ElasticLayer", dict(img_sz=12, **ELASTIC)],
+        _conv(3, 3), ["PoolLayer", {"pool_sz": 2}],
+        ["SoftAuxLayer", {"n_out": 4, "n_aux": (5, 9), "boost": 1.5,
+                          "aux_type": "LocationInfo", "reg": R1}]],
+    # AuxConcat -> pre-hidden with dropout (lanes from 1) -> hidden -> nll
+    "auxconcat-softmax": [
+        ["ElasticLayer", dict(img_sz=12, **ELASTIC)],
+        _conv(2, 3, "relu05"), ["PoolLayer", {"pool_sz": 2}],
+        ["AuxConcatLayer", {"n_aux": (4, 6), "aux_type": "LocationInfo",
+                            "boost": 2}],
+        ["HiddenLayer", {"n_out": 12, "pdrop": 0.5, "reg": R2}],
+        ["HiddenLayer", {"n_out": 10, "pdrop": 0.25, "reg": R1}],
+        ["SoftmaxLayer", {"n_out": 4, "reg": R1}]],
+    "hinge": [
+        ["ElasticLayer", dict(img_sz=12, **ELASTIC)],
+        _conv(2, 3), ["PoolLayer", {"pool_sz": 2}],
+        ["HiddenLayer", {"n_out": 16, "pdrop": 0.5, "reg": R2}],
+        ["HingeLayer", {"n_out": 4, "reg": R1}]],
+    "exploss": [
+        ["ElasticLayer", dict(img_sz=12, **ELASTIC)],
+        _conv(2, 3, "tanh"), ["PoolLayer", {"pool_sz": 2}],
+        ["HiddenLayer", {"n_out": 16, "pdrop": 0.5, "reg": R2}],
+        ["ExpLossLayer", {"n_out": 4, "reg": R1}]],
+    "nllsq": [
+        ["ElasticLayer", dict(img_sz=12, **ELASTIC)],
+        _conv(2, 3), ["PoolLayer", {"pool_sz": 2}],
+        ["HiddenLayer", {"n_out": 16, "pdrop": 0.5, "reg": R2}],
+        ["SoftmaxLayer", {"n_out": 4, "loss": "nllsq", "reg": R1}]],
+    "nll90": [
+        ["ElasticLayer", dict(img_sz=12, **ELASTIC)],
+        _conv(2, 3), ["PoolLayer", {"pool_sz": 2}],
+        ["HiddenLayer", {"n_out": 16, "pdrop": 0.5, "reg": R2}],
+        ["SoftmaxLayer", {"n_out": 4, "loss": "nll90", "reg": R1}]],
+    "flat-hinge": [
+        ["ElasticLayer", dict(img_sz=10, **dict(ELASTIC, nearest=True))],
+        ["HiddenLayer", {"n_out": 12, "pdrop": 0.5, "reg": R2}],
+        ["HingeLayer", {"n_out": 4, "reg": R1}]],
 }
 
 
@@ -90,6 +129,12 @@ def _assert_same_spec(js, ts):
     for f in td.DeepSpec._fields:
         a, b = getattr(js, f), getattr(ts, f)
         assert a == b or tuple(a) == tuple(b), (f, a, b)
+
+
+def _aux_rows(nb, seed):
+    """(nb, B, 4) aux rows (the (B, 2, 2) inputs flattened), two readings
+    that differ, so the convex mix's draw matters."""
+    return np.random.RandomState(seed).randn(nb, B, 4).astype(np.float32)
 
 
 def _bits(nb, ts, seed):
@@ -128,19 +173,23 @@ def test_deep_twin_matches_jax_kernel(case):
         nb, C0 * B, HW)
     ub, tb = _bits(nb, ts, 2)
 
+    aux = _aux_rows(nb, 6) if ts.has_aux else None
+
     fn = jd.make_deep_epoch_fn(js, nb, interpret=True)
     kp = [jnp.asarray(t) for t in jd.kernel_layout_deep(aw, js)]
     km = [jnp.zeros_like(t) for t in kp]
     kp, km, jcm = fn(kp, km, jnp.asarray(x.reshape(nb, B, C0 * HW)),
                      jnp.asarray(y[..., None]),
-                     tuple(jnp.asarray(b) for b in ub), 0.1)
+                     tuple(jnp.asarray(b) for b in ub), 0.1,
+                     aux_steps=None if aux is None else jnp.asarray(aux))
     tp = td.kernel_layout_deep([[torch.tensor(w) for w in lw] for lw in aw],
                                ts)
     assert [tuple(t.shape) for t in tp] == [tuple(s) for s in
                                             td.deep_kernel_shapes(ts)]
     tmo = [torch.zeros_like(t) for t in tp]
-    tp, tmo, tcm = td.deep_epoch(tp, tmo, torch.tensor(x_rows),
-                                 torch.tensor(y), tb, 0.1, ts)
+    tp, tmo, tcm = td.deep_epoch(
+        tp, tmo, torch.tensor(x_rows), torch.tensor(y), tb, 0.1, ts,
+        aux_steps=None if aux is None else torch.tensor(aux))
     np.testing.assert_allclose(tcm.numpy(), np.asarray(jcm), rtol=0,
                                atol=2e-5)
     assert len(tp) == len(kp)
@@ -269,33 +318,57 @@ def _with(net, at, layer, replace=False):
     (lambda: _base_net(mode="full"), "mode='full'"),
     (lambda: _base_net(stride=2), "stride=2"),
     (lambda: _with(_base_net(), 3, _Stand("MeanLayer")), "MeanLayer"),
-    (lambda: _with(_base_net(), 3, _Stand("AuxConcatLayer")),
-     "AuxConcatLayer"),
-    (lambda: _with(_base_net(), 4, _Stand("SoftAuxLayer", loss="nll"), True),
-     "SoftAuxLayer"),
-    (lambda: _with(_base_net(), 4, _Stand("HingeLayer", loss="nll"), True),
-     "HingeLayer"),
-    (lambda: _with(_base_net(), 4, _Stand("ExpLossLayer", loss="nll"), True),
-     "ExpLossLayer"),
-    (lambda: TorchNet(
-        [["InputLayer", {"img_sz": 8}], ["HiddenLayer", {"n_out": 8}],
-         ["SoftmaxLayer", {"n_out": 4, "loss": "nllsq"}]],
-        {"SEED": 1, "BATCH_SZ": B}), "nllsq"),
-    (lambda: TorchNet(
-        [["InputLayer", {"img_sz": 8}], ["HiddenLayer", {"n_out": 8}],
-         ["SoftmaxLayer", {"n_out": 4, "loss": "nll80"}]],
-        {"SEED": 1, "BATCH_SZ": B}), "truncated nll"),
     (lambda: _with(_base_net(), 4, _base_net().net_layers[1]),
      "outside the fused grammar"),
-], ids=["same", "full", "strided", "mean", "auxconcat", "softaux", "hinge",
-        "exploss", "nllsq", "nllT", "grammar"])
+], ids=["same", "full", "strided", "mean", "grammar"])
 def test_decline_reason_names_the_feature(make, reason):
     net = make()
     assert tm.fused_plan(net) is None
     got = tm.fused_decline_reason(net)
     assert reason in got, got
     if reason != "outside the fused grammar":
-        assert "ROADMAP.md" in got, got
+        assert "ROADMAP.md" in got and "item B2" in got, got
+
+
+def _base_layers(head=("SoftmaxLayer", {"n_out": 4})):
+    return [["InputLayer", {"img_sz": 12}], _conv(2, 3),
+            ["PoolLayer", {"pool_sz": 2}], ["HiddenLayer", {"n_out": 8}],
+            [head[0], dict(head[1])]]
+
+
+def _flat_layers(loss):
+    return [["InputLayer", {"img_sz": 8}], ["HiddenLayer", {"n_out": 8}],
+            ["SoftmaxLayer", {"n_out": 4, "loss": loss}]]
+
+
+# the heads and aux layers that the port's deep family declined until it
+# took the JAX family's head and aux grammar
+NOW_FUSE = {
+    "auxconcat": (_base_layers()[:3]
+                  + [["AuxConcatLayer", {"n_aux": (5, 9),
+                                         "aux_type": "LocationInfo"}]]
+                  + _base_layers()[3:]),
+    "softaux": (_base_layers()[:3]
+                + [["SoftAuxLayer", {"n_out": 4, "n_aux": (5, 9),
+                                     "aux_type": "LocationInfo"}]]),
+    "hinge": _base_layers(("HingeLayer", {"n_out": 4})),
+    "exploss": _base_layers(("ExpLossLayer", {"n_out": 4})),
+    "nllsq": _flat_layers("nllsq"),
+    "nllT": _flat_layers("nll80"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NOW_FUSE))
+def test_heads_and_aux_layers_now_fuse_as_in_jax(name):
+    """Each fuses in the deep family, as in the JAX package, and the port's
+    spec is the JAX package's field for field."""
+    jnet, tnet = _nets(NOW_FUSE[name])
+    plan = tm.fused_plan(tnet)
+    assert plan is not None and plan.epoch_fn is td.deep_epoch
+    assert tm.fused_decline_reason(tnet) is None
+    assert _family(jm.fused_plan(jnet)) == "DeepSpec"
+    _assert_same_spec(jd.deep_spec_from_net(jnet), plan.spec)
+    assert tm.db_lanes(plan.spec) == jm.db_lanes(jd.deep_spec_from_net(jnet))
 
 
 # ------------------------------------------------------- the fused trainer

@@ -145,7 +145,8 @@ def _jax_words(js, nb, key, epoch_no):
 @pytest.mark.parametrize("name,n,rs", [("flagship", 2, "auto"),
                                        ("deep-color-rbf", 2, "1"),
                                        ("flagship", 4, "auto"),
-                                       ("flat", 2, "auto")])
+                                       ("flat", 2, "auto"),
+                                       ("softaux", 2, "auto")])
 def test_ring_reference_follows_jax_ring_kernel(name, n, rs, monkeypatch):
     """One epoch of 3 steps at BATCH_SZ 8: the emulated ranks against the
     JAX package's ring kernel in interpret mode, on JAX's own words (gather
@@ -158,6 +159,8 @@ def test_ring_reference_follows_jax_ring_kernel(name, n, rs, monkeypatch):
     rng = np.random.RandomState(12)
     x = rng.rand(nb * batch, C0, 12, 12).astype(np.float32)
     y = rng.randint(0, n_cls, nb * batch).astype(np.int32)
+    aux = (rng.randn(nb * batch, 2, 2).astype(np.float32)
+           if getattr(ts, "has_aux", False) else None)
     aw = [[np.asarray(w, np.float32) for w in tnet.allwts0[i]]
           for i in plan.layer_idx]
     jkl = (jm.params_to_kernel(aw, js) if name == "flagship"
@@ -168,15 +171,18 @@ def test_ring_reference_follows_jax_ring_kernel(name, n, rs, monkeypatch):
                                   donate=False)
     key, lr = jax.random.PRNGKey(5), 0.1
     kp = [jnp.asarray(t) for t in jkl]
-    jp, jmo, jcm = fn.from_key(kp, [jnp.zeros_like(t) for t in kp],
-                               jnp.asarray(x), jnp.asarray(y), key, 0, lr)
+    jp, jmo, jcm = fn.from_key(
+        kp, [jnp.zeros_like(t) for t in kp], jnp.asarray(x), jnp.asarray(y),
+        key, 0, lr, aux_steps=None if aux is None else jnp.asarray(aux))
     bits = _jax_words(js, nb, key, 0)
     tp = plan.kernel_layout([[torch.tensor(w) for w in lw] for lw in aw], ts)
     shards = [tdp.dp_shard_data(ts, n, r, torch.tensor(x), torch.tensor(y))
               for r in range(n)]
+    aux_shards = None if aux is None else [
+        tdp.dp_shard_aux(ts, n, r, torch.tensor(aux)) for r in range(n)]
     pp, pm, pcm = tring.ring_epoch_reference(
         ts, n, shards, tp, [torch.zeros_like(t) for t in tp], bits, lr,
-        tring.use_rs(n))
+        tring.use_rs(n), aux_shards=aux_shards)
     np.testing.assert_allclose(pcm[:, 0].numpy(), np.asarray(jcm)[:, 0],
                                rtol=1e-4)
     np.testing.assert_allclose(pcm[:, 1].numpy(), np.asarray(jcm)[:, 1],

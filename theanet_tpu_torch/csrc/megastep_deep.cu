@@ -8,17 +8,24 @@
 // theanet_tpu_torch/ops/megastep_deep.py::deep_epoch_reference.
 //
 // What it computes, per step of the epoch, for [Color ->] Input/Elastic ->
-// (Conv -> [Pool])*n -> (Hidden -> [DropOut])*m -> Softmax | CenteredOut:
-// the color jitter and elastic augmentation from the injected bits; every
-// conv level (true valid convolution, activation, max-pool of any size with
-// or without ignore_border, or the identity pool); the dense tail with
-// dropout masks from the step's dropout words (pre-hidden j reads lanes
-// [off_j, off_j + width_j), the final hidden the last n_hid lanes); the
-// head (log-softmax NLL, LOGIT bit probabilities, or RBF distances by the
-// expansion ||v||^2 - 2 v.c + ||c||^2 with a junk column in the partition
-// sum); the hand-derived backward through all of it (pool gradients reach
-// every tied maximum); then L1/L2 gradients, the old-accumulator momentum
-// step and max-norm of every state tensor.
+// (Conv -> [Pool])*n -> [AuxConcat ->] (Hidden -> [DropOut])*m -> Softmax |
+// Hinge | ExpLoss | CenteredOut, or (Conv -> [Pool])*n -> SoftAux: the
+// color jitter and elastic augmentation from the injected bits; every conv
+// level (true valid convolution, activation, max-pool of any size with or
+// without ignore_border, or the identity pool); the LocationInfo aux
+// encoder on the step's (B, 4) aux rows (convex mix with u from dropout
+// lane 0, 2 -> nah leaky .5 -> nao leaky .01), whose output AuxConcat
+// appends to the flatten and SoftAux adds to its scores through the cross
+// weights; the dense tail with dropout masks from the step's dropout words
+// (pre-hidden j reads lanes [off_j, off_j + width_j), starting at lane 1
+// after AuxConcat's draw, the final hidden the last n_hid lanes); the head
+// (log-softmax with loss nll, nllsq or nll clamped at log_thresh, the
+// whole-matrix hinge on the raw scores, exp(-score) on row-centred scores,
+// LOGIT bit probabilities, or RBF distances by the expansion ||v||^2 -
+// 2 v.c + ||c||^2 with a junk column in the partition sum); the
+// hand-derived backward through all of it (pool gradients reach every tied
+// maximum; AuxConcat's frozen encoder gets none); then L1/L2 gradients,
+// the old-accumulator momentum step and max-norm of every state tensor.
 //
 // What bounds it on the card. At galaxy_rbf's shapes (batch 20, 3 x 28 x 28,
 // maps 8/16, hidden 200, 32 RBF features) a step is ~10 M multiply-adds and
@@ -34,9 +41,11 @@
 // activation, slope) drives one conv+pool stage, one pool-backward stage,
 // one weight-gradient stage and one input-gradient stage per level; the
 // dense stages loop over the pre-hidden stack and then the final hidden;
-// a GEMM computes the scores, one single-block head stage the Softmax,
+// a GEMM computes the scores, one single-block head stage the softmax-kind,
 // LOGIT or RBF loss down to dL/dscores (and the RBF centers' gradient when
-// they are learned), spread over (sample, output) pairs; the weight cost is a
+// they are learned), spread over (sample, output) pairs; the aux encoder is
+// one single-block stage forward (k_aux_fwd) and one backward (k_aux_bwd,
+// SoftAux only): its widths are a few units; the weight cost is a
 // two-pass grid reduction; one update launch covers every state tensor.
 // Conv sums are tap by tap in the kernel layout's order with
 // separately rounded multiplies and adds, as in the twin: which pool
@@ -67,7 +76,7 @@ namespace {
 enum {
   I_B, I_C0, I_H, I_NLEV, I_NPRE, I_NH, I_NO, I_NC, I_HEAD, I_ACTH, I_COLOR,
   I_INVERT, I_NEAREST, I_TRANS, I_MAG, I_ZOOM, I_ANGLE, I_LEARNC, I_FBL,
-  I_DBL, I_NSTATE, N_IHEAD
+  I_DBL, I_NSTATE, I_LOSS, I_NAH, I_NAO, I_AUXCAT, N_IHEAD
 };
 enum { L_CIN, L_M, L_F, L_S, L_C, L_P, L_POOL, L_IB, L_ACT, N_ILEV };
 enum { H_W, H_ACT, N_IPRE };
@@ -76,13 +85,23 @@ enum { T_SIZE, T_KIND, T_ROWS, T_COLS, N_ITEN };
 // layer (slope, pdrop) and N_REG per state tensor
 enum {
   F_SLOPEH, F_PDROP, F_TRANS, F_LOGZOOM, F_MAG, F_PFLIP, F_ANGLE, F_CLIPHI,
-  F_LOGBAL, F_LOGGAM, F_MAXVAL, F_INVMAX, F_JUNK, N_FHEAD
+  F_LOGBAL, F_LOGGAM, F_MAXVAL, F_INVMAX, F_JUNK, F_BOOST, F_LOGTHRESH,
+  N_FHEAD
 };
-// ---- pointer table: then n_state params, n_state moms, cost_minf
-enum { P_X, P_Y, P_UB, P_FB, P_PB, P_DB, P_GH, P_GW, P_CENTERS, P_STATE };
+// ---- pointer table: then n_state params, n_state moms, cost_minf. AUXW is
+// AuxConcat's frozen encoder (w1, b1, w2, b2 packed), AUX the (n_steps, B,
+// 4) aux rows; both null when the net has none
+enum {
+  P_X, P_Y, P_UB, P_FB, P_PB, P_DB, P_GH, P_GW, P_CENTERS, P_AUXW, P_AUX,
+  P_STATE
+};
 
 constexpr int MAX_LEVELS = 8, MAX_PRE = 8;
-constexpr int HEAD_SOFTMAX = 0, HEAD_LOGIT = 1, HEAD_RBF = 2;
+constexpr int HEAD_SOFTMAX = 0, HEAD_LOGIT = 1, HEAD_RBF = 2,
+              HEAD_SOFTAUX = 3;
+// a softmax-kind head's loss, in the order of ops/_build.py LOSS_KINDS
+constexpr int LOSS_NLL = 0, LOSS_NLLSQ = 1, LOSS_NLLT = 2, LOSS_HINGE = 3,
+              LOSS_EXP = 4;
 constexpr int KIND_ROWS = 0, KIND_COLS = 1, KIND_BIAS = 2;
 constexpr float LOGIT_EPS = 0.001f;
 
@@ -97,8 +116,8 @@ struct Pre {
 
 struct Net {
   int B, C0, H, HW, nlev, npre, NH, NO, NC, head, acth, learnc, fbl, dbl,
-      nstate, NF;
-  float slopeh, pdrop, junk;
+      nstate, NF, loss, nah, nao, auxcat, NT;   // NT: the dense tail's input
+  float slopeh, pdrop, junk, boost, logthresh;
   Level lv[MAX_LEVELS];
   Pre pre[MAX_PRE];
   const int* ten;     // N_ITEN ints per state tensor
@@ -111,8 +130,10 @@ int parse(const int* is, const float* fs, Net* n) {
   n->nlev = is[I_NLEV]; n->npre = is[I_NPRE]; n->NH = is[I_NH];
   n->NO = is[I_NO]; n->NC = is[I_NC]; n->head = is[I_HEAD];
   n->acth = is[I_ACTH]; n->learnc = is[I_LEARNC]; n->fbl = is[I_FBL];
-  n->dbl = is[I_DBL]; n->nstate = is[I_NSTATE];
+  n->dbl = is[I_DBL]; n->nstate = is[I_NSTATE]; n->loss = is[I_LOSS];
+  n->nah = is[I_NAH]; n->nao = is[I_NAO]; n->auxcat = is[I_AUXCAT];
   n->slopeh = fs[F_SLOPEH]; n->pdrop = fs[F_PDROP]; n->junk = fs[F_JUNK];
+  n->boost = fs[F_BOOST]; n->logthresh = fs[F_LOGTHRESH];
   if (n->nlev > MAX_LEVELS || n->npre > MAX_PRE) return -3;
   if (n->nstate > MAX_TENSORS) return -3;
   const int* li = is + N_IHEAD;
@@ -137,6 +158,7 @@ int parse(const int* is, const float* fs, Net* n) {
   } else {
     n->NF = n->C0 * n->HW;
   }
+  n->NT = n->NF + (n->auxcat ? n->nao : 0);
   return 0;
 }
 
@@ -330,17 +352,191 @@ __global__ void k_dense_bwd(int B, int W, int act, float slope, float pdrop,
   gb[n] = s;
 }
 
-struct HeadArgs {
-  int B, NO, NC, kind;
-  float junk;
+// The LocationInfo encoder's tensors: its weights (AuxConcat's frozen
+// constants or SoftAux's state) and its activations in the workspace.
+struct AuxEnc {
+  int nah, nao;
+  float boost;
+  const float *w1, *b1, *w2, *b2;
+  float *x2, *z1, *h1, *z2, *h2;
 };
 
+// The encoder's forward in one block (its widths are a few units): x2 =
+// (a[:, 0:2] u + a[:, 2:4] (1 - u)) boost with u from dropout lane 0, z1 =
+// x2 w1 + b1, h1 = leaky .5, z2 = h1 w2 + b2, h2 = leaky .01. For SoftAux
+// (``cw`` given) it then adds the aux logits to the scores in place:
+// z4 = (z4 + cb) + h2 cw, z4 holding f Wt + bt (megastep_deep.py:1367-1376).
+__global__ void k_aux_fwd(int B, AuxEnc e, const float* __restrict__ aux,
+                          const int* __restrict__ db, int dbl,
+                          const float* __restrict__ cw,
+                          const float* __restrict__ cb, int NC,
+                          float* __restrict__ z4) {
+  const int tid = threadIdx.x, nt = blockDim.x, nah = e.nah, nao = e.nao;
+  for (int q = tid; q < B * 2; q += nt) {
+    const int b = q / 2, i = q % 2;
+    const float u = u01(db[b * dbl]);
+    e.x2[q] = (aux[b * 4 + i] * u + aux[b * 4 + 2 + i] * (1.0f - u))
+              * e.boost;
+  }
+  __syncthreads();
+  for (int q = tid; q < B * nah; q += nt) {
+    const int b = q / nah, j = q % nah;
+    const float z = (e.x2[2 * b] * e.w1[j] + e.x2[2 * b + 1] * e.w1[nah + j])
+                    + e.b1[j];
+    e.z1[q] = z;
+    e.h1[q] = act_fn(z, ACT_LEAKY, 0.5f);
+  }
+  __syncthreads();
+  for (int q = tid; q < B * nao; q += nt) {
+    const int b = q / nao, k = q % nao;
+    float acc = 0.0f;
+    for (int j = 0; j < nah; ++j) acc += e.h1[b * nah + j] * e.w2[j * nao + k];
+    const float z = acc + e.b2[k];
+    e.z2[q] = z;
+    e.h2[q] = act_fn(z, ACT_LEAKY, 0.01f);
+  }
+  if (!cw) return;
+  __syncthreads();
+  for (int q = tid; q < B * NC; q += nt) {
+    const int b = q / NC, c = q % NC;
+    float acc = 0.0f;
+    for (int k = 0; k < nao; ++k) acc += e.h2[b * nao + k] * cw[k * NC + c];
+    z4[q] = (z4[q] + cb[c]) + acc;
+  }
+}
+
+// AuxConcat: the dense tail's input [f || h2], (B, NF + nao).
+__global__ void k_concat(int B, int NF, int nao, const float* __restrict__ f,
+                         const float* __restrict__ h2,
+                         float* __restrict__ out) {
+  const int W = NF + nao;
+  int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= B * W) return;
+  const int b = q / W, j = q % W;
+  out[q] = j < NF ? f[b * NF + j] : h2[b * nao + j - NF];
+}
+
+// SoftAux's backward through the aux logits and the encoder, in one block
+// (megastep_deep.py:1401-1415): from dz4 (B, NC) the gradients of cw, w2,
+// b2, w1, b1, and cb's, which is bt's (``gbt``, written by k_head).
+// ``dz2`` and ``dz1`` are scratch.
+__global__ void k_aux_bwd(int B, AuxEnc e, int NC,
+                          const float* __restrict__ dz4,
+                          const float* __restrict__ cw,
+                          const float* __restrict__ gbt,
+                          float* __restrict__ dz2, float* __restrict__ dz1,
+                          float* __restrict__ gw1, float* __restrict__ gb1,
+                          float* __restrict__ gw2, float* __restrict__ gb2,
+                          float* __restrict__ gcw, float* __restrict__ gcb) {
+  const int tid = threadIdx.x, nt = blockDim.x, nah = e.nah, nao = e.nao;
+  for (int q = tid; q < nao * NC; q += nt) {   // dcw = h2^T dz4
+    const int k = q / NC, c = q % NC;
+    float acc = 0.0f;
+    for (int b = 0; b < B; ++b) acc += e.h2[b * nao + k] * dz4[b * NC + c];
+    gcw[q] = acc;
+  }
+  for (int c = tid; c < NC; c += nt) gcb[c] = gbt[c];
+  for (int q = tid; q < B * nao; q += nt) {    // dz2 = (dz4 cw^T) act'
+    const int b = q / nao, k = q % nao;
+    float acc = 0.0f;
+    for (int c = 0; c < NC; ++c) acc += dz4[b * NC + c] * cw[k * NC + c];
+    dz2[q] = acc * dact_fn(e.z2[q], ACT_LEAKY, 0.01f);
+  }
+  __syncthreads();
+  for (int q = tid; q < nah * nao; q += nt) {  // dw2 = h1^T dz2
+    const int j = q / nao, k = q % nao;
+    float acc = 0.0f;
+    for (int b = 0; b < B; ++b) acc += e.h1[b * nah + j] * dz2[b * nao + k];
+    gw2[q] = acc;
+  }
+  for (int k = tid; k < nao; k += nt) {
+    float acc = 0.0f;
+    for (int b = 0; b < B; ++b) acc += dz2[b * nao + k];
+    gb2[k] = acc;
+  }
+  for (int q = tid; q < B * nah; q += nt) {    // dz1 = (dz2 w2^T) act'
+    const int b = q / nah, j = q % nah;
+    float acc = 0.0f;
+    for (int k = 0; k < nao; ++k) acc += dz2[b * nao + k] * e.w2[j * nao + k];
+    dz1[q] = acc * dact_fn(e.z1[q], ACT_LEAKY, 0.5f);
+  }
+  __syncthreads();
+  for (int q = tid; q < 2 * nah; q += nt) {    // dw1 = x2^T dz1
+    const int i = q / nah, j = q % nah;
+    float acc = 0.0f;
+    for (int b = 0; b < B; ++b) acc += e.x2[2 * b + i] * dz1[b * nah + j];
+    gw1[q] = acc;
+  }
+  for (int j = tid; j < nah; j += nt) {
+    float acc = 0.0f;
+    for (int b = 0; b < B; ++b) acc += dz1[b * nah + j];
+    gb1[j] = acc;
+  }
+}
+
+struct HeadArgs {
+  int B, NO, NC, kind, loss;
+  float junk, logthresh;
+};
+
+// A softmax-kind head's loss on one sample's scores zb (NO of them, y the
+// label, ok whether it lies in [0, NO)): writes dL/dscores to gb and
+// returns the sample's term of the loss sum; *mfb gets the watchdog value,
+// the true-class log-probability or, for hinge and exp, the true-class
+// score (megastep.py:1513-1563, 1660-1686).
+__device__ float softmax_kind_loss(const HeadArgs& h, const float* zb,
+                                   int yb, bool ok, float* gb, float* mfb) {
+  const int NO = h.NO;
+  const float invB = 1.0f / (float)h.B;
+  if (h.loss == LOSS_HINGE) {   // the mean over the whole (B, NC) matrix
+    const float ts = ok ? zb[yb] : NAN, inv = 1.0f / (float)(h.B * NO);
+    float lsum = 0.0f, msum = 0.0f;
+    for (int c = 0; c < NO; ++c) {
+      float marg = zb[c] + 1.0f - ts;
+      lsum += fmaxf(marg, 0.0f);
+      msum += marg > 0.0f ? 1.0f : 0.0f;
+    }
+    for (int c = 0; c < NO; ++c) {
+      float m = zb[c] + 1.0f - ts > 0.0f ? 1.0f : 0.0f;
+      gb[c] = (m - (c == yb ? msum : 0.0f)) * inv;
+    }
+    *mfb = ts;
+    return lsum;
+  }
+  if (h.loss == LOSS_EXP) {     // on the row-centred scores
+    float mean = 0.0f;
+    for (int c = 0; c < NO; ++c) mean += zb[c];
+    mean /= (float)NO;
+    const float ts = ok ? zb[yb] - mean : NAN, e = expf(-ts);
+    for (int c = 0; c < NO; ++c)
+      gb[c] = (e * invB) * (1.0f / (float)NO - (c == yb ? 1.0f : 0.0f));
+    *mfb = ts;
+    return e;
+  }
+  float mx = -INFINITY;
+  for (int c = 0; c < NO; ++c) mx = fmaxf(mx, zb[c]);
+  float se = 0.0f;
+  for (int c = 0; c < NO; ++c) se += expf(zb[c] - mx);
+  const float lse = logf(se);
+  const float t = ok ? (zb[yb] - mx) - lse : NAN;
+  const float gate = h.logthresh - t > 0.0f ? 1.0f : 0.0f;
+  for (int c = 0; c < NO; ++c) {
+    const float p = expf((zb[c] - mx) - lse), oh = c == yb ? 1.0f : 0.0f;
+    gb[c] = h.loss == LOSS_NLLSQ ? (2.0f * t * invB) * (oh - p)
+            : h.loss == LOSS_NLLT ? (gate * invB) * (p - oh)
+                                  : (p - oh) * invB;
+  }
+  *mfb = t;
+  return h.loss == LOSS_NLLSQ ? t * t
+         : h.loss == LOSS_NLLT ? fmaxf(0.0f, h.logthresh - t) : -t;
+}
+
 // The head's loss and what needs a batch-wide view, in one block: from the
-// scores z4 = h3d wo + bo (a grid GEMM before it), (cost, minf), dL/dz4,
-// dbo and (learned RBF centers) dcenters. The work is spread over
-// (sample, output) pairs; only each sample's normalisation loops over its
-// own classes. The dense backward below the scores runs in the grid stages
-// after it.
+// scores z4 = h3d wo + bo (a grid GEMM before it; for SoftAux f Wt + bt +
+// cb + h2a cw), (cost, minf), dL/dz4, the scores bias's gradient and
+// (learned RBF centers) dcenters. The work is spread over (sample, output)
+// pairs; only each sample's normalisation loops over its own classes. The
+// dense backward below the scores runs in the grid stages after it.
 __global__ void __launch_bounds__(1024)
 k_head(HeadArgs h, const float* __restrict__ z4g,
        const float* __restrict__ cen, const int* __restrict__ y,
@@ -355,7 +551,7 @@ k_head(HeadArgs h, const float* __restrict__ z4g,
   float* csq = dd + B * NC;     // NC RBF ||c||^2
   float* ssv = csq + NC;        // B RBF ||v||^2
   float* rs = ssv + B;          // B RBF sum over classes of dL/d dists
-  float* tl = rs + B;           // B true-class log-probs
+  float* tl = rs + B;           // B per-sample loss terms
   float* mf = tl + B;           // B watchdog features
   const int tid = threadIdx.x, nt = blockDim.x;
   const float invB = 1.0f / (float)B;
@@ -394,18 +590,9 @@ k_head(HeadArgs h, const float* __restrict__ z4g,
     const float* zb = z4 + b * NO;
     float* gb = dz4 + b * NO;
     float t = NAN;  // a label outside [0, NC) poisons the cost
-    if (h.kind == HEAD_SOFTMAX) {
-      float mx = -INFINITY;
-      for (int c = 0; c < NO; ++c) mx = fmaxf(mx, zb[c]);
-      float se = 0.0f;
-      for (int c = 0; c < NO; ++c) se += expf(zb[c] - mx);
-      float lse = logf(se);
-      for (int c = 0; c < NO; ++c) {
-        float lp = (zb[c] - mx) - lse;
-        if (c == yb) t = lp;
-        gb[c] = (expf(lp) - (c == yb ? 1.0f : 0.0f)) * invB;
-      }
-      mf[b] = t;
+    if (h.kind == HEAD_SOFTMAX || h.kind == HEAD_SOFTAUX) {
+      tl[b] = softmax_kind_loss(h, zb, yb, ok, gb, mf + b);
+      continue;
     } else if (h.kind == HEAD_LOGIT) {
       // features squeezed into [eps, 1-eps]; bit probabilities against the
       // true class's center row
@@ -438,7 +625,7 @@ k_head(HeadArgs h, const float* __restrict__ z4g,
       rs[b] = r;
       mf[b] = v[b * NO + yc];
     }
-    tl[b] = t;
+    tl[b] = -t;
   }
   __syncthreads();
   if (rbf)
@@ -456,7 +643,9 @@ k_head(HeadArgs h, const float* __restrict__ z4g,
       s += tl[b];
       mn = fminf(mn, mf[b]);
     }
-    cm[0] = -s / (float)B + (wcost ? wcost[0] : 0.0f);
+    const bool hinge = (h.kind == HEAD_SOFTMAX || h.kind == HEAD_SOFTAUX)
+                       && h.loss == LOSS_HINGE;
+    cm[0] = s / (float)(hinge ? B * NC : B) + (wcost ? wcost[0] : 0.0f);
     cm[1] = mn;
   }
   __syncthreads();   // dz4 is read back below
@@ -488,6 +677,7 @@ struct Workspace {
   float *z[MAX_LEVELS], *p[MAX_LEVELS], *dz[MAX_LEVELS], *dp[MAX_LEVELS];
   float *pz[MAX_PRE], *phd[MAX_PRE], *pdh[MAX_PRE], *pdz[MAX_PRE];
   float *z3, *h3d, *z4, *dz4, *dh3, *dz3;
+  float *x2, *z1a, *h1a, *z2a, *h2a, *dz1a, *dz2a, *fcat;   // aux encoder
   long long total;
 };
 
@@ -517,6 +707,14 @@ Workspace carve(const Net& n, float* base) {
   w.dz4 = take(B * n.NO);
   w.dh3 = take(B * n.NH);
   w.dz3 = take(B * n.NH);
+  w.x2 = take(B * 2);
+  w.z1a = take(B * n.nah);
+  w.h1a = take(B * n.nah);
+  w.dz1a = take(B * n.nah);
+  w.z2a = take(B * n.nao);
+  w.h2a = take(B * n.nao);
+  w.dz2a = take(B * n.nao);
+  w.fcat = take(n.auxcat ? B * n.NT : 0);
   long long np = 0;
   for (int t = 0; t < n.nstate; ++t) np += n.ten[t * N_ITEN + T_SIZE];
   w.grads = take(np);
@@ -528,7 +726,7 @@ Workspace carve(const Net& n, float* base) {
 
 // One step's slice of the data and noise words.
 struct StepIn {
-  const float* x;
+  const float *x, *aux;   // aux: the step's (B, 4) rows or null
   const int *y, *ub, *fb, *pb, *db;
 };
 
@@ -540,6 +738,7 @@ struct StepCtx {
   WarpParams wp;
   AugParams ag;
   HeadArgs ha;
+  AuxEnc enc;   // the aux encoder of an AuxConcat or SoftAux net
   size_t warp_smem, hsm;
   const float *gh, *gw, *cen;
   float* prm[MAX_TENSORS];
@@ -552,8 +751,8 @@ struct StepCtx {
 // CenteredOut centers (unused otherwise); learned ones are the last state
 // tensor of ``prm``.
 int step_setup(const int* is, const float* fs, float* ws, const float* gh,
-               const float* gw, const float* centers, void* const* prm,
-               StepCtx* c) {
+               const float* gw, const float* centers, const float* auxw,
+               void* const* prm, StepCtx* c) {
   int rc = parse(is, fs, &c->n);
   if (rc != 0) return rc;
   const Net& n = c->n;
@@ -591,52 +790,77 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
   c->hsm = head_smem(n);
   if (!smem_opt_in(k_head, c->hsm)) return -2;
   c->ha.B = n.B; c->ha.NO = n.NO; c->ha.NC = n.NC; c->ha.kind = n.head;
-  c->ha.junk = n.junk;
+  c->ha.junk = n.junk; c->ha.loss = n.loss; c->ha.logthresh = n.logthresh;
   c->dboff = n.dbl - n.NH;   // the final hidden's dropout lanes
+  AuxEnc& e = c->enc;
+  e.nah = n.nah; e.nao = n.nao; e.boost = n.boost;
+  if (n.head == HEAD_SOFTAUX) {   // [Wt, bt, w1, b1, w2, b2, cw, cb]
+    e.w1 = c->prm[c->th + 2]; e.b1 = c->prm[c->th + 3];
+    e.w2 = c->prm[c->th + 4]; e.b2 = c->prm[c->th + 5];
+  } else if (n.auxcat) {          // the packed frozen constants
+    e.w1 = auxw; e.b1 = auxw + 2 * n.nah;
+    e.w2 = e.b1 + n.nah; e.b2 = e.w2 + n.nah * n.nao;
+  }
+  e.x2 = c->w.x2; e.z1 = c->w.z1a; e.h1 = c->w.h1a; e.z2 = c->w.z2a;
+  e.h2 = c->w.h2a;
   return 0;
 }
 
-// One step's augmentation, forward and hand-derived backward at the
-// parameters of ``c``: (cost, minf) to cm[0:2] and the data gradients (no
-// L1/L2 term, no update) of every state tensor to the flat buffer
-// ``grads``, back to back in layout order. The epoch entry and the
-// data-parallel step entry both run it.
-int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
-                float* grads, float* cm) {
+// SoftAux head on the flatten f (B, NF), forward and backward: the scores
+// f Wt + bt, the aux logits (k_aux_fwd), the loss (k_head), the encoder's
+// and cross weights' gradients (k_aux_bwd), dWt and df into the last
+// level's pooled gradient.
+int softaux_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
+                   const float* f, float* const* grad, float* cm) {
   const Net& n = c.n;
   const Workspace& w = c.w;
   float* const* prm = c.prm;
-  const int th = c.th, dboff = c.dboff;
-  float* grad[MAX_TENSORS];
-  for (int t = 0; t < n.nstate; ++t) {
-    grad[t] = grads;
-    grads += n.ten[t * N_ITEN + T_SIZE];
-  }
-  const int T = 256, B = n.B, HW = n.HW;
-  const bool need_df = n.nlev > 0 || n.npre > 0;
-  if (c.ag.warp) {
-    k_warp<<<1, 256, c.warp_smem, s>>>(n.H, c.wp, in.ub, in.fb, c.gh, c.gw,
-                                        w.tyx);
-    LAUNCHED();
-  }
-  k_augment<<<blocks((long long)B * n.C0 * HW, T), T, 0, s>>>(
-      B, n.C0, n.H, c.ag, in.x, w.tyx, in.fb, in.pb, w.a);
+  const int th = c.th, B = n.B, NC = n.NO, NF = n.NF;
+  CHECK((gemm<false, false>(s, B, NC, NF, f, NF, prm[th], NC, prm[th + 1],
+                            w.z4)));
+  k_aux_fwd<<<1, 256, 0, s>>>(B, c.enc, in.aux, in.db, n.dbl, prm[th + 6],
+                              prm[th + 7], NC, w.z4);
   LAUNCHED();
-  // forward: conv levels (input (B, Cin, S, S) at strides sb, sc)
-  const float* inp = w.a;
-  int sb = n.C0 * HW, sc = HW;
-  for (int k = 0; k < n.nlev; ++k) {
-    const Level& L = n.lv[k];
-    k_conv_pool<<<blocks((long long)B * L.m * L.p * L.p, T), T, 0, s>>>(
-        B, L, inp, sb, sc, prm[2 * k], prm[2 * k + 1], w.z[k], w.p[k]);
-    LAUNCHED();
-    inp = w.p[k];
-    sb = L.m * L.p * L.p;
-    sc = L.p * L.p;
-  }
-  // dense tail: f is the flatten, then each pre-hidden's dropped output
-  const float* f = inp;
+  if (c.any_wcost) CHECK(wcost(s, c.wt, w.wpart, w.wcost));
+  k_head<<<1, 1024, c.hsm, s>>>(c.ha, w.z4, nullptr, in.y,
+                                c.any_wcost ? w.wcost : nullptr, w.dz4,
+                                grad[th + 1], nullptr, cm);
+  LAUNCHED();
+  k_aux_bwd<<<1, 256, 0, s>>>(B, c.enc, NC, w.dz4, prm[th + 6], grad[th + 1],
+                              w.dz2a, w.dz1a, grad[th + 2], grad[th + 3],
+                              grad[th + 4], grad[th + 5], grad[th + 6],
+                              grad[th + 7]);
+  LAUNCHED();
+  CHECK((gemm<true, false>(s, NF, NC, B, f, NF, w.dz4, NC, nullptr,
+                           grad[th])));
+  return (int)gemm<false, true>(s, B, NF, NC, w.dz4, NC, prm[th], NC,
+                                nullptr, w.dp[n.nlev - 1]);
+}
+
+// [AuxConcat ->] the pre-hiddens, the final hidden and a softmax-kind or
+// CenteredOut head on the flatten f (B, NF), forward and backward; df
+// (its first NF columns: AuxConcat's frozen encoder takes no gradient)
+// lands in the gradient buffer below the tail.
+int dense_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
+                 const float* f, float* const* grad, float* cm) {
+  const Net& n = c.n;
+  const Workspace& w = c.w;
+  float* const* prm = c.prm;
+  const int th = c.th, dboff = c.dboff, T = 256, B = n.B;
+  const bool need_df = n.nlev > 0 || n.npre > 0;
   int fw = n.NF, off = 0;
+  if (n.auxcat) {   // [f || encoder(aux)]; the mix reads dropout lane 0
+    k_aux_fwd<<<1, 256, 0, s>>>(B, c.enc, in.aux, in.db, n.dbl, nullptr,
+                                nullptr, 0, nullptr);
+    LAUNCHED();
+    k_concat<<<blocks((long long)B * n.NT, T), T, 0, s>>>(B, n.NF, n.nao, f,
+                                                          w.h2a, w.fcat);
+    LAUNCHED();
+    f = w.fcat;
+    fw = n.NT;
+    off = 1;
+  }
+  const float* tail_in = f;
   for (int j = 0; j < n.npre; ++j) {
     const Pre& P = n.pre[j];
     const int t = 2 * n.nlev + 2 * j;
@@ -674,20 +898,20 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   LAUNCHED();
   // backward through the dense tail: dwh = f^T dz3; df = dz3 wh^T lands
   // in the gradient buffer of f (the last pre-hidden's output or the
-  // last level's pooled output)
+  // last level's pooled output, the flatten's NF columns)
   CHECK((gemm<true, false>(s, fw, n.NH, B, f, fw, w.dz3, n.NH, nullptr,
                            grad[th])));
   if (need_df) {
     float* dst = n.npre ? w.pdh[n.npre - 1] : w.dp[n.nlev - 1];
-    CHECK((gemm<false, true>(s, B, fw, n.NH, w.dz3, n.NH, prm[th], n.NH,
-                             nullptr, dst)));
+    CHECK((gemm<false, true>(s, B, n.npre ? fw : n.NF, n.NH, w.dz3, n.NH,
+                             prm[th], n.NH, nullptr, dst)));
   }
   for (int j = n.npre - 1; j >= 0; --j) {
     const Pre& P = n.pre[j];
     const int t = 2 * n.nlev + 2 * j;
     off -= P.w;
-    const float* fin = j ? w.phd[j - 1] : (n.nlev ? w.p[n.nlev - 1] : w.a);
-    const int inw = j ? n.pre[j - 1].w : n.NF;
+    const float* fin = j ? w.phd[j - 1] : tail_in;
+    const int inw = j ? n.pre[j - 1].w : n.NT;
     k_dense_bwd<<<blocks(P.w, T), T, 0, s>>>(
         B, P.w, P.act, P.slope, P.pdrop, in.db, n.dbl, off, w.pz[j],
         w.pdh[j], w.pdz[j], grad[t + 1]);
@@ -696,10 +920,53 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
                              nullptr, grad[t])));
     if (j || n.nlev) {
       float* dst = j ? w.pdh[j - 1] : w.dp[n.nlev - 1];
-      CHECK((gemm<false, true>(s, B, inw, P.w, w.pdz[j], P.w, prm[t], P.w,
-                               nullptr, dst)));
+      CHECK((gemm<false, true>(s, B, j ? inw : n.NF, P.w, w.pdz[j], P.w,
+                               prm[t], P.w, nullptr, dst)));
     }
   }
+  return 0;
+}
+
+// One step's augmentation, forward and hand-derived backward at the
+// parameters of ``c``: (cost, minf) to cm[0:2] and the data gradients (no
+// L1/L2 term, no update) of every state tensor to the flat buffer
+// ``grads``, back to back in layout order. The epoch entry and the
+// data-parallel step entry both run it.
+int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
+                float* grads, float* cm) {
+  const Net& n = c.n;
+  const Workspace& w = c.w;
+  float* const* prm = c.prm;
+  float* grad[MAX_TENSORS];
+  for (int t = 0; t < n.nstate; ++t) {
+    grad[t] = grads;
+    grads += n.ten[t * N_ITEN + T_SIZE];
+  }
+  const int T = 256, B = n.B, HW = n.HW;
+  if (c.ag.warp) {
+    k_warp<<<1, 256, c.warp_smem, s>>>(n.H, c.wp, in.ub, in.fb, c.gh, c.gw,
+                                        w.tyx);
+    LAUNCHED();
+  }
+  k_augment<<<blocks((long long)B * n.C0 * HW, T), T, 0, s>>>(
+      B, n.C0, n.H, c.ag, in.x, w.tyx, in.fb, in.pb, w.a);
+  LAUNCHED();
+  // forward: conv levels (input (B, Cin, S, S) at strides sb, sc)
+  const float* inp = w.a;
+  int sb = n.C0 * HW, sc = HW;
+  for (int k = 0; k < n.nlev; ++k) {
+    const Level& L = n.lv[k];
+    k_conv_pool<<<blocks((long long)B * L.m * L.p * L.p, T), T, 0, s>>>(
+        B, L, inp, sb, sc, prm[2 * k], prm[2 * k + 1], w.z[k], w.p[k]);
+    LAUNCHED();
+    inp = w.p[k];
+    sb = L.m * L.p * L.p;
+    sc = L.p * L.p;
+  }
+  // the head, the dense tail and their backward down to the flatten
+  int rc = n.head == HEAD_SOFTAUX ? softaux_stages(c, s, in, inp, grad, cm)
+                                  : dense_stages(c, s, in, inp, grad, cm);
+  if (rc != 0) return rc;
   // backward through the conv levels
   for (int k = n.nlev - 1; k >= 0; --k) {
     const Level& L = n.lv[k];
@@ -765,6 +1032,13 @@ int update_stages(const Net& n, float* const* prm, float* const* mom,
   return 0;
 }
 
+// Whether a net with an aux layer lacks its aux rows (or AuxConcat its
+// encoder) in the pointer table.
+bool aux_missing(const Net& n, void* const* ptrs) {
+  const bool has_aux = n.head == HEAD_SOFTAUX || n.auxcat;
+  return (has_aux && !ptrs[P_AUX]) || (n.auxcat && !ptrs[P_AUXW]);
+}
+
 // The epoch loop of deep_epoch (``R`` null) and deep_ring_epoch:
 // grad_stages, at a data-parallel rank the ring exchange (into the
 // workspace's gradient buffer and cost_minf), then update_stages, a step.
@@ -775,9 +1049,11 @@ int epoch_loop(const int* is, const float* fs, void* const* ptrs,
   StepCtx c;
   int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
                       (const float*)ptrs[P_GW],
-                      (const float*)ptrs[P_CENTERS], ptrs + P_STATE, &c);
+                      (const float*)ptrs[P_CENTERS],
+                      (const float*)ptrs[P_AUXW], ptrs + P_STATE, &c);
   if (rc != 0) return rc;
   const Net& n = c.n;
+  if (aux_missing(n, ptrs)) return -4;
   const int NS = n.nstate, B = n.B, HW = n.HW;
   float* mom[MAX_TENSORS];
   for (int t = 0; t < NS; ++t) mom[t] = (float*)ptrs[P_STATE + NS + t];
@@ -793,6 +1069,8 @@ int epoch_loop(const int* is, const float* fs, void* const* ptrs,
     in.fb = (const int*)ptrs[P_FB] + (size_t)st * n.fbl * HW;
     in.pb = (const int*)ptrs[P_PB] + (size_t)st * n.C0 * B * HW;
     in.db = (const int*)ptrs[P_DB] + (size_t)st * B * n.dbl;
+    in.aux = ptrs[P_AUX] ? (const float*)ptrs[P_AUX] + (size_t)st * B * 4
+                         : nullptr;
     const unsigned long long step = ring ? R->step0 + st + 1 : 0;
     float* g = ring ? ring_slot(R->own, (int)(step & 1), ng) : c.w.grads;
     float* cms = ring ? ring_stats(R->own, (int)(step & 1))
@@ -827,6 +1105,7 @@ const char* deep_error_string(int code) {
   if (code == -1) return "warp field needs more shared memory than a block has";
   if (code == -2) return "the head's batch x widths exceed the head kernel's shared memory";
   if (code == -3) return "more conv levels, hidden layers or state tensors than the kernel's tables hold";
+  if (code == -4) return "the net's aux layer has no aux rows (or AuxConcat no encoder weights)";
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -859,17 +1138,19 @@ int deep_ring_epoch(const int* is, const float* fs, void* const* ptrs,
 
 // One data-parallel step's gradient (the port of megastep_dp.py's
 // _kernel_grad at the deep family): grad_stages on one step's inputs,
-// pointer table x, y, ub, fb, pb, db, gh, gw, centers, the n_state
-// parameters, the flat gradient buffer and cost_minf (2,). Parameters are
-// read only.
+// pointer table x, y, ub, fb, pb, db, gh, gw, centers, auxw, aux (the
+// step's (B, 4) rows), the n_state parameters, the flat gradient buffer and
+// cost_minf (2,). Parameters are read only.
 int deep_grad_step(const int* is, const float* fs, void* const* ptrs,
                    float* ws, int device, void* stream_) {
   CHECK(cudaSetDevice(device));
   StepCtx c;
   int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
                       (const float*)ptrs[P_GW],
-                      (const float*)ptrs[P_CENTERS], ptrs + P_STATE, &c);
+                      (const float*)ptrs[P_CENTERS],
+                      (const float*)ptrs[P_AUXW], ptrs + P_STATE, &c);
   if (rc != 0) return rc;
+  if (aux_missing(c.n, ptrs)) return -4;
   const int NS = c.n.nstate;
   StepIn in;
   in.x = (const float*)ptrs[P_X];
@@ -878,6 +1159,7 @@ int deep_grad_step(const int* is, const float* fs, void* const* ptrs,
   in.fb = (const int*)ptrs[P_FB];
   in.pb = (const int*)ptrs[P_PB];
   in.db = (const int*)ptrs[P_DB];
+  in.aux = (const float*)ptrs[P_AUX];
   return grad_stages(c, (cudaStream_t)stream_, in,
                      (float*)ptrs[P_STATE + NS],
                      (float*)ptrs[P_STATE + NS + 1]);

@@ -1,17 +1,18 @@
 """Layer registry (port of ``theanet_tpu/layers/__init__.py``). The net
 builder dispatches layer-spec names through this module with getattr.
 
-The port has the layers of the flagship, the deep and the flat-MLP fused
-families: Input, Elastic, Color, Conv, Pool, Hidden, DropOut, and the
-Softmax and CenteredOut heads. MeanLayer, the ExpLoss and Hinge heads and
-the aux layers are queued in ROADMAP.md.
+Every layer of the JAX package: Input, Elastic, Color, Conv, Pool, Mean,
+Hidden, DropOut, the aux layers (AuxConcat, and the SoftAux head), and the
+Softmax, ExpLoss, Hinge and CenteredOut heads.
 """
 
 from .base import Layer, DEFAULT_REG
 from .input import InputLayer, ElasticLayer, ColorLayer
-from .conv import ConvLayer, PoolLayer
+from .conv import ConvLayer, PoolLayer, MeanLayer
 from .dense import HiddenLayer, DropOutLayer
-from .out import SoftmaxLayer, CenteredOutLayer, OutputMixin
+from .out import (SoftmaxLayer, ExpLossLayer, HingeLayer, CenteredOutLayer,
+                  OutputMixin)
+from .aux import LocationInfo, AuxConcatLayer, SoftAuxLayer
 
 __all__ = [
     "Layer",
@@ -21,9 +22,15 @@ __all__ = [
     "ColorLayer",
     "ConvLayer",
     "PoolLayer",
+    "MeanLayer",
     "HiddenLayer",
     "DropOutLayer",
     "SoftmaxLayer",
+    "ExpLossLayer",
+    "HingeLayer",
     "CenteredOutLayer",
+    "LocationInfo",
+    "AuxConcatLayer",
+    "SoftAuxLayer",
     "OutputMixin",
 ]

@@ -1,4 +1,4 @@
-"""Convolution and pooling layers: ConvLayer, PoolLayer (port of
+"""Convolution and pooling layers: ConvLayer, PoolLayer, MeanLayer (port of
 ``theanet_tpu/layers/conv.py``; reference theanet/layer/convpool.py)."""
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from ..activations import activation_by_name
 from ..inits import init_wb
 from .base import Layer
 
-__all__ = ["ConvLayer", "PoolLayer", "maxpool"]
+__all__ = ["ConvLayer", "PoolLayer", "MeanLayer", "maxpool"]
 
 
 def _use_conv3x3(x, w, mode, stride):
@@ -176,3 +176,20 @@ class PoolLayer(Layer):
     def apply(self, wts, x, *, train, generator=None):
         # pool the ACTUAL tensor, like Theano's pool_2d (see the JAX port)
         return maxpool(x, self.pool_sz, self.ignore_border)
+
+
+class MeanLayer(Layer):
+    """Global average pool over the spatial dims (reference
+    convpool.py:129-144): (B, M, S, S) -> (B, M)."""
+
+    def __init__(self, num_maps, in_sz):
+        super().__init__()
+        self.num_maps = num_maps
+        self.in_sz = in_sz
+        self.out_sz = 1
+        self.n_out = num_maps
+        self.representation = "Mean Maps:{:2d} Output:{:2d}".format(
+            num_maps, self.out_sz)
+
+    def apply(self, wts, x, *, train, generator=None):
+        return torch.mean(x, dim=(2, 3))

@@ -1,10 +1,12 @@
-"""Output heads: SoftmaxLayer and CenteredOutLayer (LOGIT / RBF) (port of
-``theanet_tpu/layers/out.py``; reference theanet/layer/outlayers.py).
+"""Output heads: Softmax, ExpLoss, Hinge and CenteredOut (LOGIT / RBF)
+(port of ``theanet_tpu/layers/out.py``; reference
+theanet/layer/outlayers.py).
 
 ``apply_head`` returns a head-state dict (output, probs, logprob, features,
 y_preds, and bitprob for LOGIT) that ``cost`` and ``sym_and_oth_err_rate``
-read, as in the JAX package. The port takes the 'nll' loss; the other
-losses and the Hinge and ExpLoss heads are queued in ROADMAP.md.
+read, as in the JAX package. ``cost`` takes every loss of the JAX package's
+dispatch: 'nll', 'nllsq', truncated 'nll<NN>', 'hinge', 'hinge_max' and
+'exp'.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import torch
 
 from .dense import HiddenLayer
 
-__all__ = ["OutputMixin", "SoftmaxLayer", "CenteredOutLayer"]
+__all__ = ["OutputMixin", "SoftmaxLayer", "ExpLossLayer", "HingeLayer",
+           "CenteredOutLayer"]
 
 
 def _true_class(mat, y):
@@ -28,11 +31,52 @@ class OutputMixin:
     kind: str = "SOFTMAX"
 
     def cost(self, hs, y):
-        if self.loss == "nll":
+        """The head's loss (outlayers.py:12-64, theanet_tpu/layers/out.py:
+        46-97)."""
+        loss = self.loss
+        if loss == "nll":
             return -torch.mean(_true_class(hs["logprob"], y))
-        raise NotImplementedError(
-            "loss {!r} is not ported yet (ROADMAP.md queue 1, heads and "
-            "losses)".format(self.loss))
+        if loss == "nllsq":
+            # squared log-likelihood, NOT negated (outlayers.py:41-42)
+            return torch.mean(_true_class(hs["logprob"], y) ** 2)
+        if loss.startswith("nll"):
+            # truncated NLL: 'nllNN' clamps the per-sample NLL at
+            # -log(NN/100) (outlayers.py:19-27,44-48); an unparseable
+            # suffix falls back to plain NLL. The notices print once per
+            # head, as the JAX package's do.
+            try:
+                threshold = float(np.clip(int(loss[-2:]) / 100, 0, 1))
+            except ValueError:
+                if not getattr(self, "_nll_noticed", False):
+                    print("Did not understand {}, using plain NLL".format(
+                        loss))
+                    print("Using threshold: ", 1.0)
+                    self._nll_noticed = True
+                return -torch.mean(_true_class(hs["logprob"], y))
+            if not getattr(self, "_nll_noticed", False):
+                print("Using threshold: ", threshold)
+                self._nll_noticed = True
+            return torch.mean(torch.clamp(
+                np.log(threshold) - _true_class(hs["logprob"], y), min=0.0))
+        if loss == "hinge":
+            # mean over the whole (batch, classes) matrix, the true class
+            # included with its constant 1 (outlayers.py:62-64)
+            out = hs["output"]
+            return torch.mean(torch.clamp(
+                out + 1.0 - _true_class(out, y)[:, None], min=0.0))
+        if loss == "hinge_max":
+            # per-sample hinge against the best wrong class (the reference's
+            # scan variant, outlayers.py:53-60)
+            out = hs["output"]
+            true = _true_class(out, y)
+            is_true = torch.nn.functional.one_hot(y.long(),
+                                                  out.shape[1]).bool()
+            masked = torch.where(is_true, torch.full_like(out, -np.inf), out)
+            return torch.mean(torch.clamp(
+                1.0 + masked.amax(dim=1) - true, min=0.0))
+        if loss == "exp":
+            return torch.mean(torch.exp(-_true_class(hs["output"], y)))
+        raise NotImplementedError("Loss : " + str(loss))
 
     def features_and_predictions(self, hs):
         """(features, y_preds), reference outlayers.py:66-67."""
@@ -78,6 +122,56 @@ class SoftmaxLayer(HiddenLayer, OutputMixin):
 
     def apply(self, wts, x, *, train, generator=None):
         return self.apply_head(wts, x, train=train)["output"]
+
+
+class ExpLossLayer(HiddenLayer, OutputMixin):
+    """Exponential-loss head (outlayers.py:105-126): the linear output
+    centred per row, loss mean(exp(-score_true))."""
+
+    def __init__(self, wts, rand_gen=None, n_in=None, n_out=None, reg=()):
+        HiddenLayer.__init__(self, wts, rand_gen, n_in, n_out,
+                             actvn="linear", reg=reg, pdrop=0)
+        self.kind = "ExpLoss"
+        self.loss = "exp"
+        self.representation = (
+            "ExpLoss In:{:3d} Out:{:3d} Loss:{}"
+            "\n\t  L1:{L1} L2:{L2} Momentum:{momentum} Max Norm:{maxnorm} "
+            "Rate:{rate}".format(self.n_in, self.n_out, self.loss,
+                                 **self.reg))
+
+    def apply_head(self, wts, x, *, train, generator=None):
+        raw = self.linear(wts, x).to(torch.float32)
+        centered = raw - torch.mean(raw, dim=1, keepdim=True)
+        return {
+            "output": centered,
+            "probs": torch.softmax(centered, dim=-1),
+            "logprob": torch.log_softmax(centered, dim=-1),
+            "features": centered,
+            # the argmax of the raw output is the centred one's
+            "y_preds": torch.argmax(raw, dim=1),
+        }
+
+
+class HingeLayer(HiddenLayer, OutputMixin):
+    """Multiclass hinge (SVM) head (outlayers.py:129-147). ``probs`` is the
+    raw score matrix, so the 'P(MLE)' statistic is the mean true-class
+    score, as in the reference."""
+
+    def __init__(self, wts, rand_gen=None, n_in=None, n_out=None, reg=()):
+        HiddenLayer.__init__(self, wts, rand_gen, n_in, n_out,
+                             actvn="linear", reg=reg, pdrop=0)
+        self.kind = "Hinge"
+        self.loss = "hinge"
+        self.representation = (
+            "SVM In:{:3d} Out:{:3d} Loss:{}"
+            "\n\t  L1:{L1} L2:{L2} Momentum:{momentum} Max Norm:{maxnorm} "
+            "Rate:{rate}".format(self.n_in, self.n_out, self.loss,
+                                 **self.reg))
+
+    def apply_head(self, wts, x, *, train, generator=None):
+        out = self.linear(wts, x).to(torch.float32)
+        return {"output": out, "probs": out, "logprob": out,
+                "features": out, "y_preds": torch.argmax(out, dim=1)}
 
 
 _CENTERED_ACTIVS = {"LOGIT": "sigmoid", "RBF": "scaled_tanh"}

@@ -18,9 +18,10 @@ import numpy as np
 import torch
 
 from . import layers as layer_mod
-from .layers import (CenteredOutLayer, ColorLayer, ConvLayer, DropOutLayer,
-                     ElasticLayer, HiddenLayer, InputLayer, OutputMixin,
-                     PoolLayer, SoftmaxLayer)
+from .layers import (AuxConcatLayer, CenteredOutLayer, ColorLayer,
+                     ConvLayer, DropOutLayer, ElasticLayer, ExpLossLayer,
+                     HiddenLayer, HingeLayer, InputLayer, MeanLayer,
+                     OutputMixin, PoolLayer, SoftAuxLayer, SoftmaxLayer)
 from .optim import apply_updates, init_momentum, learning_rate, weight_cost
 
 __all__ = ["NeuralNet", "get_layers_info", "get_wts_info",
@@ -72,7 +73,8 @@ def params_from_allwts(allwts, device):
 
 _INPUT_TYPES = (InputLayer, ElasticLayer, ColorLayer)
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_DENSE_TYPES = (HiddenLayer, SoftmaxLayer)
+_DENSE_TYPES = (AuxConcatLayer, HiddenLayer, SoftmaxLayer, SoftAuxLayer,
+                HingeLayer, ExpLossLayer)
 
 
 class NeuralNet:
@@ -99,6 +101,13 @@ class NeuralNet:
             input_layer_type(rand_gen=self.rand_gen, **layers[0][1]))
         for i in range(1, len(layers)):
             self._append_layer(i, allwts[i] if allwts else None)
+        # the one layer that reads the aux input (neuralnet.py:100-105)
+        self.aux_layer_idx = None
+        for i, lyr in enumerate(self.net_layers):
+            if isinstance(lyr, (AuxConcatLayer, SoftAuxLayer)):
+                if self.aux_layer_idx is not None:
+                    raise ValueError("Multiple Aux Inputs")
+                self.aux_layer_idx = i
 
         head = self.net_layers[-1]
         assert isinstance(head, OutputMixin), "Last layer must be an output head"
@@ -145,14 +154,14 @@ class NeuralNet:
         self.fused_tail, self._fused_slope = True, slope
 
     def _append_layer(self, i, wts):
-        """The builder ladder of theanet_tpu/model.py:216-286, for the
-        layer classes the port has."""
+        """The layer-construction ladder of theanet_tpu/model.py:216-286."""
         layer_type, layer_args = self.layers[i]
         layer_args = dict(layer_args)
         prev = self.net_layers[i - 1]
         cls = getattr(layer_mod, layer_type, None)
 
-        if cls in (ElasticLayer, ColorLayer, ConvLayer, PoolLayer):
+        if cls in (ElasticLayer, ColorLayer, ConvLayer, PoolLayer,
+                   MeanLayer):
             # DropOut has no num_maps: shape info comes from the layer
             # before it (neuralnet.py:123-130)
             use = (self.net_layers[i - 2] if isinstance(prev, DropOutLayer)
@@ -170,7 +179,7 @@ class NeuralNet:
         elif cls is ConvLayer:
             curr = ConvLayer(wts, self.rand_gen, self.batch_sz,
                              num_prev_maps, prev_out_sz, **layer_args)
-        elif cls is PoolLayer:
+        elif cls in (PoolLayer, MeanLayer):
             curr = cls(num_maps=num_prev_maps, in_sz=prev_out_sz,
                        **layer_args)
         elif cls is DropOutLayer:
@@ -192,9 +201,7 @@ class NeuralNet:
             curr = CenteredOutLayer(wts, centers, self.rand_gen, prev.n_out,
                                     **layer_args)
         else:
-            raise NotImplementedError(
-                "layer type {!r} is not ported yet (ROADMAP.md queue 1)"
-                .format(layer_type))
+            raise NotImplementedError(f"Unknown Layer Type {layer_type!r}")
         self.net_layers.append(curr)
 
     # -- compute --------------------------------------------------------------
@@ -229,9 +236,17 @@ class NeuralNet:
         return {"output": probs, "probs": probs, "logprob": logprob,
                 "features": logprob, "y_preds": torch.argmax(logprob, dim=1)}
 
-    def forward(self, params, x, *, train, generator=None):
+    def takes_aux(self):
+        """Whether a layer reads the (batch, 2, 2) aux input."""
+        return self.aux_layer_idx is not None
+
+    def _aux_kw(self, i, aux):
+        return {"aux": aux} if i == self.aux_layer_idx else {}
+
+    def forward(self, params, x, *, train, generator=None, aux=None):
         """Run the stack; returns the head-state dict. Layers draw from
-        ``generator`` in layer order (model.py:325-349)."""
+        ``generator`` in layer order (model.py:325-349); the aux layer
+        reads ``aux``."""
         params, out = self._cast_compute(params, x)
         n_body = len(self.net_layers) - (2 if self.fused_tail else 0)
         for i, lyr in enumerate(self.net_layers):
@@ -239,23 +254,27 @@ class NeuralNet:
                 return self._fused_tail_head(params, out, train, generator)
             if lyr is self.head:
                 return lyr.apply_head(params[i], out, train=train,
-                                      generator=generator)
-            out = lyr.apply(params[i], out, train=train, generator=generator)
+                                      generator=generator,
+                                      **self._aux_kw(i, aux))
+            out = lyr.apply(params[i], out, train=train, generator=generator,
+                            **self._aux_kw(i, aux))
         raise AssertionError("unreachable: head not applied")
 
-    def cost(self, params, x, y, *, generator=None):
+    def cost(self, params, x, y, *, generator=None, aux=None):
         """Head loss + every layer's weight cost (neuralnet.py:208-210)."""
-        hs = self.forward(params, x, train=True, generator=generator)
+        hs = self.forward(params, x, train=True, generator=generator,
+                          aux=aux)
         return self.head.cost(hs, y) + weight_cost(self.net_layers,
                                                    params), hs
 
-    def train_step(self, params, moms, x, y, *, lr, generator=None):
+    def train_step(self, params, moms, x, y, *, lr, generator=None,
+                   aux=None):
         """One SGD step by autograd. Returns (params, moms, cost, features,
         logprob), the reference training fn's observables (neuralnet.py:
         236-241). The input lists are not modified."""
         leaves = [[p.detach().requires_grad_(True) for p in lp]
                   for lp in params]
-        cost, hs = self.cost(leaves, x, y, generator=generator)
+        cost, hs = self.cost(leaves, x, y, generator=generator, aux=aux)
         flat = [p for lp in leaves for p in lp]
         grads_flat = torch.autograd.grad(cost, flat, allow_unused=True)
         it = iter(grads_flat)
@@ -269,32 +288,34 @@ class NeuralNet:
                 hs["logprob"].detach())
 
     @torch.no_grad()
-    def eval_step(self, params, x, y, *, preds_feats=False):
+    def eval_step(self, params, x, y, *, aux=None, preds_feats=False):
         """(error rate, second statistic) of the head (outlayers.py:69-80),
         with (features, y_preds) appended under ``preds_feats``."""
-        hs = self.forward(params, x, train=False)
+        hs = self.forward(params, x, train=False, aux=aux)
         stats = self.head.sym_and_oth_err_rate(hs, y)
         if preds_feats:
             return stats + self.head.features_and_predictions(hs)
         return stats
 
     @torch.no_grad()
-    def predict(self, params, x, *, get_output_of_layers=()):
+    def predict(self, params, x, *, aux=None, get_output_of_layers=()):
         """(features, y_preds, *layer outputs) on raw inputs (reference
         get_data_test_model, neuralnet.py:282-296). Without layer outputs it
         runs the eval forward, FUSED_TAIL included, as eval_step does
         (model.py:385-395)."""
         if not get_output_of_layers:
-            hs = self.forward(params, x, train=False)
+            hs = self.forward(params, x, train=False, aux=aux)
             return hs["features"], hs["y_preds"]
         params, out = self._cast_compute(params, x)
         outs, hs = [], None
         for i, lyr in enumerate(self.net_layers):
             if lyr is self.head:
-                hs = lyr.apply_head(params[i], out, train=False)
+                hs = lyr.apply_head(params[i], out, train=False,
+                                    **self._aux_kw(i, aux))
                 out = hs["output"]
             else:
-                out = lyr.apply(params[i], out, train=False)
+                out = lyr.apply(params[i], out, train=False,
+                                **self._aux_kw(i, aux))
             outs.append(out)
         return tuple([hs["features"], hs["y_preds"]]
                      + [outs[i] for i in get_output_of_layers])

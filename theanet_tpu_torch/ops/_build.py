@@ -50,8 +50,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # activation kinds in the order of stages.cuh's ACT_* codes
 ACT_KINDS = ("leaky", "tanh", "scaled_tanh", "sigmoid", "softplus")
-# head kinds and max-norm kinds in the order of megastep_deep.cu's codes
-HEAD_KINDS = ("softmax", "logit", "rbf")
+# head kinds, softmax-kind losses and max-norm kinds in the order of
+# megastep_deep.cu's codes
+HEAD_KINDS = ("softmax", "logit", "rbf", "softaux")
+LOSS_KINDS = ("nll", "nllsq", "nllT", "hinge", "exp")
 NORM_KINDS = ("rows", "cols", "bias")
 
 _libs = {}
@@ -230,17 +232,19 @@ def _deep_arrays(spec):
     from .megastep_deep import deep_kernel_shapes, deep_reg_kinds
 
     shapes, kinds = deep_kernel_shapes(spec), deep_reg_kinds(spec)
+    nah, nao = spec.n_aux or spec.aux_concat or (0, 0)
     ints = [spec.batch, spec.in_ch, spec.img, spec.n_levels,
             len(spec.pre_hidden), spec.n_hid, spec.n_out, spec.n_classes,
             HEAD_KINDS.index(spec.head), ACT_KINDS.index(spec.act_h),
             int(spec.color), int(spec.invert), int(spec.nearest),
             *_warp_flags(spec), int(spec.learn_centers), fb_lanes(spec),
-            db_lanes(spec), len(shapes)]
+            db_lanes(spec), len(shapes), LOSS_KINDS.index(spec.loss), nah,
+            nao, int(bool(spec.aux_concat))]
     floats = [spec.slope_h, spec.pdrop, spec.translation, math.log(spec.zoom),
               spec.magnitude, spec.pflip, spec.angle * math.pi / 180.0,
               spec.img - 1 - 0.001, math.log(spec.balance),
               math.log(spec.gamma), spec.maxval, 1.0 / spec.maxval,
-              spec.junk_dist]
+              spec.junk_dist, spec.boost, spec.log_thresh]
     cin = spec.in_ch
     for k, (side, c, po) in enumerate(spec.sides):
         ints += [cin, spec.maps[k], spec.filts[k], side, c, po,
@@ -308,13 +312,15 @@ def megastep_launch(spec, x, y, bits, gh, gw, params, moms, cm, lr):
          x.device)
 
 
-def deep_launch(spec, x, y, bits, gh, gw, centers, params, moms, cm, lr):
+def deep_launch(spec, x, y, bits, consts, aux, params, moms, cm, lr):
     """One epoch of the deep CUDA kernel (a DeepSpec; the flat-MLP family
     passes its zero-level one) on the current stream, as megastep_launch;
-    ``centers`` are the frozen CenteredOut centers or None."""
+    ``consts`` are deep_step_constants (gh, gw, the frozen CenteredOut
+    centers, the frozen AuxConcat encoder; None where the net has none),
+    ``aux`` the (n_steps, B, 4) aux rows or None."""
     ispec, fspec = _deep_arrays(spec)
     _run("deep", build()["megastep_deep"], ispec, fspec,
-         [x, y, *bits, gh, gw, centers, *params, *moms, cm], x.shape[0], lr,
+         [x, y, *bits, *consts, aux, *params, *moms, cm], x.shape[0], lr,
          x.device)
 
 
@@ -330,12 +336,13 @@ def megastep_ring_launch(spec, x, y, bits, gh, gw, params, moms, cm, lr,
          x.device, ring)
 
 
-def deep_ring_launch(spec, x, y, bits, gh, gw, centers, params, moms, cm, lr,
+def deep_ring_launch(spec, x, y, bits, consts, aux, params, moms, cm, lr,
                      ring):
-    """As megastep_ring_launch for a DeepSpec (``deep_ring_epoch``)."""
+    """As megastep_ring_launch for a DeepSpec (``deep_ring_epoch``), with
+    deep_launch's ``consts`` and ``aux``."""
     ispec, fspec = _deep_arrays(spec)
     return _run("deep", build()["megastep_deep"], ispec, fspec,
-         [x, y, *bits, gh, gw, centers, *params, *moms, cm], x.shape[0], lr,
+         [x, y, *bits, *consts, aux, *params, *moms, cm], x.shape[0], lr,
          x.device, ring)
 
 
@@ -452,14 +459,14 @@ def megastep_update_launch(spec, params, moms, grads, lr):
            _ptrs([*params, *moms, grads]), lr, dev=grads.device)
 
 
-def deep_grad_launch(spec, x, y, words, gh, gw, centers, params, grads, cm):
-    """As megastep_grad_launch for a DeepSpec (``deep_grad_step``);
-    ``centers`` are the frozen CenteredOut centers or None."""
+def deep_grad_launch(spec, x, y, words, consts, aux, params, grads, cm):
+    """As megastep_grad_launch for a DeepSpec (``deep_grad_step``), with
+    deep_launch's ``consts`` and the step's (B, 4) ``aux`` rows or None."""
     ispec, fspec = _deep_arrays(spec)
     lib = build()["megastep_deep"]
     ws = _workspace("deep", lib, ispec, fspec, x.device)
     _entry("deep", lib, "grad_step", ispec, fspec,
-           _ptrs([x, y, *words, gh, gw, centers, *params, grads, cm]),
+           _ptrs([x, y, *words, *consts, aux, *params, grads, cm]),
            ws.data_ptr(), dev=x.device)
 
 

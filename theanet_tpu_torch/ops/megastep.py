@@ -278,14 +278,16 @@ FUSED_TAIL_REASON = ("FUSED_TAIL is set (the XLA-fused tail variant keeps "
                      "the scanned path)")
 
 
-def fused_plan(net, for_mesh=False):
+def fused_plan(net, for_mesh=False, aux_data=True):
     """FusedPlan of the first family that matches ``net``, in the JAX
     package's order (megastep.py:569-600): the 2-conv flagship, then the
     bare flat MLP, then the deep family (any other conv depth, flat nets the
-    MLP declines, CenteredOut heads, Color prefixes); else None. A
-    FUSED_TAIL net matches none (megastep.py:340-342). With ``for_mesh``
-    the flat-MLP family is skipped: it has no data-parallel kernel, and the
-    deep family takes flat nets as zero-level specs."""
+    MLP declines, CenteredOut, Hinge, ExpLoss and SoftAux heads, AuxConcat,
+    Color prefixes); else None. A FUSED_TAIL net matches none
+    (megastep.py:340-342). With ``for_mesh`` the flat-MLP family is
+    skipped: it has no data-parallel kernel, and the deep family takes flat
+    nets as zero-level specs. Without ``aux_data`` a net whose spec reads
+    the aux input (``has_aux``) matches none (trainer.py:364-371)."""
     from . import megastep_deep as deep
     from . import megastep_mlp as mlp
 
@@ -298,21 +300,25 @@ def fused_plan(net, for_mesh=False):
         return FusedPlan(mspec, mlp.MLP_LAYER_IDX, mlp.mlp_epoch,
                          mlp.kernel_layout_mlp, mlp.framework_layout_mlp)
     dspec = deep.deep_spec_from_net(net)
-    if dspec is not None:
+    if dspec is not None and (aux_data or not dspec.has_aux):
         return FusedPlan(dspec, deep.deep_layer_idx(net), deep.deep_epoch,
                          deep.kernel_layout_deep, deep.framework_layout_deep)
     return None
 
 
-def fused_decline_reason(net):
-    """Why ``fused_plan(net)`` is None (None when a family matches). The
-    deep family's grammar holds the others', so its matcher names the
-    reason."""
+AUX_DATA_REASON = ("aux-input nets (SoftAux head / AuxConcat tail) need "
+                   "aux data (pass aux arrays to the Trainer)")
+
+
+def fused_decline_reason(net, aux_data=True):
+    """Why ``fused_plan(net, aux_data=aux_data)`` is None (None when a
+    family matches). The deep family's grammar holds the others', so its
+    matcher names the reason."""
     from . import megastep_deep as deep
 
-    if fused_plan(net) is not None:
+    if fused_plan(net, aux_data=aux_data) is not None:
         return None
-    return deep.deep_decline_reason(net)
+    return deep.deep_decline_reason(net) or AUX_DATA_REASON
 
 
 # ------------------------------------------------------------------ layouts
@@ -360,9 +366,32 @@ def framework_layout(kparams, spec):
 
 def db_lanes(spec):
     """Dropout words per sample and step: the final hidden's width plus the
-    pre-hidden widths (megastep.py:218-227). Pre-hidden j reads lanes
-    [off_j, off_j + width_j); the final hidden reads the last n_hid."""
-    return spec.n_hid + sum(ph[0] for ph in getattr(spec, "pre_hidden", ()))
+    pre-hidden widths, plus one when an AuxConcat layer draws its convex
+    mix (megastep.py:218-227). That draw reads lane 0, and the pre-hiddens
+    then start at lane 1: pre-hidden j reads lanes [off_j, off_j +
+    width_j); the final hidden reads the last n_hid. A SoftAux head's mix
+    reads lane 0 of its n_hid lanes."""
+    return (spec.n_hid + sum(ph[0] for ph in getattr(spec, "pre_hidden", ()))
+            + (1 if getattr(spec, "aux_concat", ()) else 0))
+
+
+def head_loss_tag(loss):
+    """(tag, log_thresh) of a Softmax head's loss in the fused heads, as
+    the JAX package's ``head_loss_tag`` (megastep.py:230-250): 'nll',
+    'nllsq', truncated 'nll<NN>' as 'nllT' clamped at log(NN/100), and an
+    unparseable suffix as plain 'nll' (the per-layer path prints the
+    notice); None for a loss the fused heads do not take (hinge_max)."""
+    if loss == "nll":
+        return ("nll", 0.0)
+    if loss == "nllsq":
+        return ("nllsq", 0.0)
+    if loss.startswith("nll"):
+        try:
+            t = float(np.clip(int(loss[-2:]) / 100, 0, 1))
+        except ValueError:
+            return ("nll", 0.0)
+        return ("nllT", float(np.log(t)) if t > 0 else -1e30)
+    return None
 
 
 def fb_lanes(spec):

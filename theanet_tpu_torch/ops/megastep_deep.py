@@ -14,23 +14,29 @@ max-norm update of every state tensor.
     launch ``csrc/megastep_deep.cu`` (one C call per epoch) or raise. It
     counts its kernel launches in ``deep_epoch.launches``.
 
-The grammar the port takes (the JAX family's, less what ROADMAP.md queues):
-valid stride-1 convs, each followed by a PoolLayer of any size (with or
-without ignore_border) or by none (the identity pool); Hidden layers each
-with an optional DropOutLayer, whose rate folds into the layer's as
-1-(1-p1)(1-p2); a Softmax(nll) head or a CenteredOut(nll) head, LOGIT
-(frozen centers) or RBF (learned or frozen centers). The bare 2-conv
-Softmax(nll) pattern stays with the flagship family when its matcher takes
-it, and the bare flat Input/Elastic -> Hidden -> Softmax(nll) pattern with
-the flat-MLP family (``fused_plan`` tries flagship, MLP, deep). The TPU's
-VMEM gate and grouped lane-slot layout have no counterpart: the card holds
-every shipped net whole. What the kernel cannot launch (a head or warp
-stage beyond a block's shared memory) is declined by name
-(``megastep.launch_limit_reason``).
+The grammar the port takes (the JAX family's, less the conv geometry that
+ROADMAP.md queues as item B2): valid stride-1 convs, each followed by a
+PoolLayer of any size (with or without ignore_border) or by none (the
+identity pool); an optional AuxConcatLayer (its frozen LocationInfo encoder
+appends its output to the flatten); Hidden layers each with an optional
+DropOutLayer, whose rate folds into the layer's as 1-(1-p1)(1-p2); a
+Softmax head (loss 'nll', 'nllsq' or truncated 'nll<NN>'), a Hinge or an
+ExpLoss head, or a CenteredOut(nll) head, LOGIT (frozen centers) or RBF
+(learned or frozen centers); or, directly on the conv features, a
+SoftAux(nll) head. A net with an aux layer reads a (B, 4) aux row block a
+step (``aux_steps`` (nb, B, 4)). The bare 2-conv Softmax(nll) pattern stays
+with the flagship family when its matcher takes it, and the bare flat
+Input/Elastic -> Hidden -> Softmax(nll) pattern with the flat-MLP family
+(``fused_plan`` tries flagship, MLP, deep). The TPU's VMEM gate and grouped
+lane-slot layout have no counterpart: the card holds every shipped net
+whole. What the kernel cannot launch (a head or warp stage beyond a block's
+shared memory) is declined by name (``megastep.launch_limit_reason``).
 
 Kernel-layout state, per conv level the weights (M, F*F*Cin) indexed
 (u*F+v)*Cin + c and the bias column (M, 1); per dense layer the weights
-(in, out) and the bias row (1, out); learned RBF centers last.
+(in, out) and the bias row (1, out); learned RBF centers last. A SoftAux
+head's eight tensors follow the convs: [Wt, bt, w1a, b1a, w2a, b2a, cw, cb],
+biases as rows. The AuxConcat encoder is a constant, not state.
 """
 
 from __future__ import annotations
@@ -39,27 +45,26 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .megastep import (LayerReg, _act, _conv_true, _conv_true_dgrad,
                        _conv_true_wgrad, _dact, _pool, _u01, act_of, aug_of,
                        apply_updates, augment, centered_nll,
-                       check_epoch_inputs, check_step_inputs,
-                       check_update_inputs, launch_limit_reason, reg_of,
-                       smoothing_factors, softmax_nll, spec_from_net,
-                       split_grads, weight_cost)
+                       check_epoch_inputs, check_step_inputs, check_tensors,
+                       check_update_inputs, head_loss_tag,
+                       launch_limit_reason, reg_of, smoothing_factors,
+                       spec_from_net, split_grads, weight_cost)
 from ..layers.conv import pool_backward
 
 __all__ = ["DeepSpec", "deep_spec_from_net", "deep_decline_reason",
            "deep_layer_idx", "deep_kernel_shapes", "deep_reg_kinds",
            "deep_head_smem", "deep_launch_reason",
            "kernel_layout_deep", "framework_layout_deep",
+           "aux_concat_weights", "head_loss",
            "deep_epoch_reference", "deep_epoch",
            "deep_step_constants", "deep_grad_step_reference",
            "deep_grad_step",
            "deep_update_reference", "deep_update"]
-
-HEADS = ("softmax", "logit", "rbf")
-
 
 class DeepSpec(NamedTuple):
     """The JAX DeepSpec's fields for the port's grammar, without the TPU
@@ -101,6 +106,28 @@ class DeepSpec(NamedTuple):
     # hidden layers before the final one: (width, act kind, slope, pdrop)
     pre_hidden: tuple = ()
     regs_pre: tuple = ()
+    # SoftAux head (head 'softaux'): the encoder's (hidden, out) widths;
+    # ``boost`` scales the aux mix (SoftAux's or AuxConcat's)
+    n_aux: tuple = ()
+    boost: float = 1.0
+    # a softmax-kind head's loss: 'nll' | 'nllsq' | 'nllT' (clamped at
+    # log_thresh) | 'hinge' (HingeLayer) | 'exp' (ExpLossLayer)
+    loss: str = "nll"
+    log_thresh: float = 0.0
+    # AuxConcatLayer after the flatten: the encoder's (hidden, out) widths
+    # and its frozen weights w1 (2, nah), b1, w2 (nah, nao), b2 (f32)
+    aux_concat: tuple = ()
+    aux_wts_bytes: bytes = b""
+
+    @property
+    def has_aux(self):
+        return self.head == "softaux" or bool(self.aux_concat)
+
+    @property
+    def n_tail_in(self):
+        """The dense tail's input width: the flatten, plus the AuxConcat
+        encoder's output."""
+        return self.n_flat + (self.aux_concat[-1] if self.aux_concat else 0)
 
     @property
     def hw(self):
@@ -130,35 +157,54 @@ class DeepSpec(NamedTuple):
 
 # ----------------------------------------------------------------- matcher
 
-_QUEUED = "queued in ROADMAP.md as the next deep-family slice"
+_B2 = "queued in ROADMAP.md as item B2, the deep family's conv geometry"
+_HEADS_TAKEN = ("SoftmaxLayer", "HingeLayer", "ExpLossLayer",
+                "CenteredOutLayer", "SoftAuxLayer")
 
 
 def _head_reason(head):
     """Decline reason of a head layer the port's deep family does not take
     (None when it takes it)."""
     name = type(head).__name__
-    if name in ("HingeLayer", "ExpLossLayer", "SoftAuxLayer"):
-        return (f"{name} head: the port's fused families take Softmax(nll) "
-                f"and CenteredOut(nll) heads ({name} is {_QUEUED})")
-    if name == "SoftmaxLayer" and head.loss != "nll":
-        kind = ("nllsq" if head.loss == "nllsq" else "truncated nll<NN>"
-                if head.loss.startswith("nll") else head.loss)
-        return (f"head loss {head.loss!r} ({kind}): the port's fused heads "
-                f"take 'nll' ({kind} is {_QUEUED})")
-    if name == "CenteredOutLayer" and head.loss != "nll":
-        return (f"CenteredOutLayer loss {head.loss!r}: the fused centered "
-                "head is derived for 'nll'")
-    if name not in ("SoftmaxLayer", "CenteredOutLayer"):
+    if name not in _HEADS_TAKEN:
         return f"the last layer {name} is not an output head"
+    if name == "SoftmaxLayer" and head_loss_tag(head.loss) is None:
+        return (f"head loss {head.loss!r}: the fused Softmax heads take "
+                "'nll', 'nllsq' and 'nll<NN>' (the per-layer path trains "
+                "the others, as in the JAX package)")
+    if name in ("CenteredOutLayer", "SoftAuxLayer") and head.loss != "nll":
+        return (f"{name} loss {head.loss!r}: the fused head is derived for "
+                "'nll'")
     return None
+
+
+def _head_cfg(head):
+    """The DeepSpec fields of a dense-tail head."""
+    name = type(head).__name__
+    if name == "CenteredOutLayer":
+        cfg = dict(head=head.kind.lower(), n_classes=head.n_classes,
+                   junk_dist=min(float(head.junk_dist), 1e30),
+                   learn_centers=bool(head.learn_centers))
+        if not head.learn_centers:
+            cfg["centers_bytes"] = np.ascontiguousarray(
+                head.centers_init, np.float32).tobytes()
+        return cfg
+    if name == "SoftmaxLayer":
+        tag, thresh = head_loss_tag(head.loss)
+        return dict(head="softmax", n_classes=head.n_out, loss=tag,
+                    log_thresh=thresh)
+    return dict(head="softmax", n_classes=head.n_out,
+                loss="hinge" if name == "HingeLayer" else "exp")
 
 
 def _match(net):
     """(DeepSpec, None) when ``net`` is in the port's deep grammar, else
-    (None, reason). The one copy of the family's eligibility rules."""
-    from ..layers import (CenteredOutLayer, ColorLayer, ConvLayer,
+    (None, reason). The one copy of the family's eligibility rules: it
+    takes what the JAX package's ``deep_spec_from_net`` takes
+    (megastep_deep.py:380-535), less item B2's conv geometry."""
+    from ..layers import (AuxConcatLayer, ColorLayer, ConvLayer,
                           DropOutLayer, ElasticLayer, HiddenLayer,
-                          InputLayer, PoolLayer, SoftmaxLayer)
+                          InputLayer, PoolLayer, SoftAuxLayer)
 
     from .megastep import FUSED_TAIL_REASON
 
@@ -170,19 +216,20 @@ def _match(net):
         return None, reason
     for k, lyr in enumerate(L):
         name = type(lyr).__name__
-        if name in ("MeanLayer", "AuxConcatLayer"):
-            return None, f"layer {k} {name} ({name} is {_QUEUED})"
+        if name == "MeanLayer":
+            return None, (f"layer {k} MeanLayer: its flatten constants in "
+                          f"the fused kernel are {_B2}")
         if type(lyr) is ConvLayer and lyr.mode != "valid":
             return None, (f"layer {k} ConvLayer mode={lyr.mode!r}: the "
                           "port's fused families take 'valid' convs "
-                          f"('same' and 'full' are {_QUEUED})")
+                          f"('same' and 'full' are {_B2})")
         if type(lyr) is ConvLayer and lyr.stride != 1:
             return None, (f"layer {k} ConvLayer stride={lyr.stride}: the "
                           "port's fused families take stride 1 (strided "
-                          f"convs are {_QUEUED})")
+                          f"convs are {_B2})")
         actvn = getattr(lyr, "actvn", None)
         if (actvn is not None and act_of(actvn) is None
-                and not isinstance(lyr, (SoftmaxLayer, CenteredOutLayer))):
+                and type(lyr).__name__ not in _HEADS_TAKEN):
             return None, (f"layer {k} activation {actvn!r} is outside the "
                           "fused registry")
         reg = getattr(lyr, "reg", None)
@@ -190,8 +237,10 @@ def _match(net):
             return None, (f"layer {k} {name} is frozen (rate 0); the fused "
                           "layouts carry momentum for every owned layer")
     grammar = ("the layer pattern is outside the fused grammar ([Color ->] "
-               "Input/Elastic -> (Conv -> [Pool])*n -> (Hidden -> "
-               "[DropOut])*m -> Softmax/CenteredOut, m >= 1)")
+               "Input/Elastic -> (Conv -> [Pool])*n -> [AuxConcat ->] "
+               "(Hidden -> [DropOut])*m -> Softmax/Hinge/ExpLoss/"
+               "CenteredOut, m >= 1; or (Conv -> [Pool])*n -> SoftAux, "
+               "n >= 1)")
 
     i, color = 0, dict(color=False)
     if type(L[0]) is ColorLayer:
@@ -217,49 +266,68 @@ def _match(net):
             i += 1
         else:
             pools.append((1, False))      # no PoolLayer: the identity pool
-    hid_groups = []
-    while i < len(L) and type(L[i]) is HiddenLayer:
-        h, pd = L[i], 0.0
-        i += 1
-        if i < len(L) and type(L[i]) is DropOutLayer:
-            pd = float(L[i].pdrop)
-            i += 1
-        hid_groups.append((h, 1.0 - (1.0 - float(h.pdrop)) * (1.0 - pd)))
-    if not hid_groups or i != len(L) - 1:
-        return None, grammar
-    head = L[i]
-    hid, pdrop = hid_groups[-1]
     n = len(convs)
-    if spec_from_net(net) is not None:   # as megastep_deep.py:480-493
-        return None, "the 2-conv Softmax pattern is the flagship family's"
+    aux_cfg = {}
+    if i < len(L) and type(L[i]) is AuxConcatLayer:
+        ac = L[i]
+        aux_cfg = dict(aux_concat=tuple(ac.n_aux), boost=float(ac.boost),
+                       aux_wts_bytes=b"".join(
+                           np.ascontiguousarray(p, np.float32).tobytes()
+                           for p in ac.params_init))
+        i += 1
     in_ch = L[0].num_maps
     if n and convs[0].num_prev_maps != in_ch:
         return None, "the first conv's input maps differ from the input's"
-    if type(head) is CenteredOutLayer:
-        head_cfg = dict(head=head.kind.lower(), n_classes=head.n_classes,
-                        junk_dist=min(float(head.junk_dist), 1e30),
-                        learn_centers=bool(head.learn_centers))
-        if not head.learn_centers:
-            head_cfg["centers_bytes"] = np.ascontiguousarray(
-                head.centers_init, np.float32).tobytes()
-    else:
-        head_cfg = dict(head="softmax", n_classes=head.n_out)
     conv_acts = [act_of(c.actvn) for c in convs]
-    act_h = act_of(hid.actvn)
-    pre = tuple((h.n_out, *act_of(h.actvn), pd) for h, pd in hid_groups[:-1])
-    spec = DeepSpec(
+    common = dict(
         batch=net.batch_sz, img=L[0].out_sz,
         filts=tuple(c.filter_sz for c in convs),
         pools=tuple(p for p, _ in pools), ibs=tuple(ib for _, ib in pools),
         maps=tuple(c.num_maps for c in convs),
         slopes=tuple(s for _, s in conv_acts),
-        acts=tuple(k for k, _ in conv_acts),
-        n_hid=hid.n_out, n_out=head.n_out, slope_h=act_h[1], act_h=act_h[0],
-        pdrop=pdrop, **aug_of(aug_src),
-        regs=tuple(reg_of(c) for c in convs), reg_h=reg_of(hid),
-        reg_o=reg_of(head), in_ch=in_ch, pre_hidden=pre,
-        regs_pre=tuple(reg_of(h) for h, _ in hid_groups[:-1]),
-        **head_cfg, **color)
+        acts=tuple(k for k, _ in conv_acts), **aug_of(aug_src),
+        regs=tuple(reg_of(c) for c in convs), in_ch=in_ch, **color)
+
+    if type(L[-1]) is SoftAuxLayer:
+        # the SoftAux head sits directly on the conv features; its linear
+        # hidden plays the tail's hidden role (megastep_deep.py:412-447)
+        head = L[-1]
+        if not n or i != len(L) - 1:
+            return None, grammar
+        if aux_cfg:
+            return None, ("an AuxConcatLayer feeding a SoftAux head: the "
+                          "fused family takes one aux consumer, as in the "
+                          "JAX package")
+        spec = DeepSpec(n_hid=head.n_out, n_out=head.n_out, slope_h=1.0,
+                        pdrop=0.0, reg_h=reg_of(head), reg_o=reg_of(head),
+                        head="softaux", n_classes=head.n_out,
+                        n_aux=tuple(head.n_aux), boost=float(head.boost),
+                        **common)
+    else:
+        hid_groups = []
+        while i < len(L) and type(L[i]) is HiddenLayer:
+            h, pd = L[i], 0.0
+            i += 1
+            if i < len(L) and type(L[i]) is DropOutLayer:
+                pd = float(L[i].pdrop)
+                i += 1
+            hid_groups.append((h, 1.0 - (1.0 - float(h.pdrop))
+                               * (1.0 - pd)))
+        if not hid_groups or i != len(L) - 1:
+            return None, grammar
+        head = L[i]
+        hid, pdrop = hid_groups[-1]
+        if spec_from_net(net) is not None:   # as megastep_deep.py:480-493
+            return None, "the 2-conv Softmax pattern is the flagship family's"
+        act_h = act_of(hid.actvn)
+        pre = tuple((h.n_out, *act_of(h.actvn), pd)
+                    for h, pd in hid_groups[:-1])
+        spec = DeepSpec(
+            n_hid=hid.n_out, n_out=head.n_out, slope_h=act_h[1],
+            act_h=act_h[0], pdrop=pdrop, reg_h=reg_of(hid),
+            reg_o=reg_of(head), pre_hidden=pre,
+            regs_pre=tuple(reg_of(h) for h, _ in hid_groups[:-1]),
+            **_head_cfg(head), **aux_cfg, **common)
     if any(c <= 0 or po <= 0 for _, c, po in spec.sides):
         return None, "the image is too small for the conv/pool levels"
     return spec, deep_launch_reason(spec)
@@ -308,7 +376,12 @@ def deep_kernel_shapes(spec):
     for F_, m in zip(spec.filts, spec.maps):
         shapes += [(m, F_ * F_ * prev), (m, 1)]
         prev = m
-    prev = spec.n_flat
+    if spec.head == "softaux":
+        nah, nao = spec.n_aux
+        return shapes + [(spec.n_flat, spec.n_out), (1, spec.n_out),
+                         (2, nah), (1, nah), (nah, nao), (1, nao),
+                         (nao, spec.n_out), (1, spec.n_out)]
+    prev = spec.n_tail_in
     for nh in (ph[0] for ph in spec.pre_hidden):
         shapes += [(prev, nh), (1, nh)]
         prev = nh
@@ -321,10 +394,13 @@ def deep_kernel_shapes(spec):
 
 def deep_reg_kinds(spec):
     """(LayerReg, max-norm kind) per kernel-layout tensor: conv kernels are
-    rows, dense weights and centers columns, biases clip."""
+    rows, dense weights and centers columns, biases clip. A SoftAux head's
+    eight tensors share its one LayerReg."""
     out = []
     for reg in spec.regs:
         out += [(reg, "rows"), (reg, "bias")]
+    if spec.head == "softaux":
+        return out + [(spec.reg_o, "cols"), (spec.reg_o, "bias")] * 4
     for reg in spec.regs_pre + (spec.reg_h, spec.reg_o):
         out += [(reg, "cols"), (reg, "bias")]
     if spec.learn_centers:
@@ -343,7 +419,10 @@ def kernel_layout_deep(allwts, spec):
                 b.reshape(m, 1)]
         prev = m
     for lw in allwts[spec.n_levels:]:
-        out += [lw[0], lw[1].reshape(1, -1)]
+        # weight, bias pairs: one for a dense layer, four for SoftAux
+        n_pairs = 4 if spec.head == "softaux" else 1
+        for j in range(n_pairs):
+            out += [lw[2 * j], lw[2 * j + 1].reshape(1, -1)]
     if spec.learn_centers:
         out.append(allwts[-1][2])
     return [t.contiguous() for t in out]
@@ -351,13 +430,16 @@ def kernel_layout_deep(allwts, spec):
 
 def framework_layout_deep(kparams, spec):
     """Inverse of kernel_layout_deep: one [w, b(, centers)] list per owned
-    layer."""
+    layer, the SoftAux head's eight tensors in one."""
     out, prev = [], spec.in_ch
     for k, (F_, m) in enumerate(zip(spec.filts, spec.maps)):
         w = kparams[2 * k].reshape(m, F_, F_, prev).permute(0, 3, 1, 2)
         out.append([w.contiguous(), kparams[2 * k + 1].reshape(m)])
         prev = m
     j = 2 * spec.n_levels
+    if spec.head == "softaux":
+        return out + [[t if i % 2 == 0 else t.reshape(-1)
+                       for i, t in enumerate(kparams[j:j + 8])]]
     while j + 1 < len(kparams):
         out.append([kparams[j], kparams[j + 1].reshape(-1)])
         j += 2
@@ -369,26 +451,116 @@ def framework_layout_deep(kparams, spec):
 def frozen_centers(spec, device):
     """The frozen CenteredOut centers (n_classes, n_feats) on ``device``, or
     None when the head has none (softmax, learned centers)."""
-    if spec.head == "softmax" or spec.learn_centers:
+    if spec.head in ("softmax", "softaux") or spec.learn_centers:
         return None
     c = np.frombuffer(spec.centers_bytes, np.float32).reshape(
         spec.n_classes, spec.n_out)
     return torch.as_tensor(c.copy(), device=device)
 
 
+def aux_concat_weights(spec, device):
+    """The AuxConcat encoder's frozen weights, packed w1 (2, nah), b1, w2
+    (nah, nao), b2 in one flat f32 tensor on ``device`` (the kernel's
+    constant), or None without an AuxConcat layer."""
+    if not spec.aux_concat:
+        return None
+    return torch.as_tensor(np.frombuffer(spec.aux_wts_bytes,
+                                         np.float32).copy(), device=device)
+
+
+def _unpack_aux_weights(spec, flat):
+    """(w1, b1, w2, b2) views of aux_concat_weights, biases as rows."""
+    nah, nao = spec.aux_concat
+    o1, o2, o3 = 2 * nah, 3 * nah, 3 * nah + nah * nao
+    return (flat[:o1].view(2, nah), flat[o1:o2].view(1, nah),
+            flat[o2:o3].view(nah, nao), flat[o3:].view(1, nao))
+
+
 # ------------------------------------------------------------- plain twin
 
-def deep_step_reference(spec, x, y, ub, fb, pb, db, params, centers, gh, gw):
+def head_loss(spec, z4, y, batch):
+    """A softmax-kind head's loss (``spec.loss``) on the scores ``z4``,
+    forward and hand-derived backward (megastep.py:1513-1563, 1660-1686):
+    (cost, minf, dL/dz4). minf is the smallest true-class log-probability,
+    or for 'hinge' and 'exp' the smallest true-class score (raw, or
+    row-centred)."""
+    NC = z4.shape[1]
+    onehot = F.one_hot(y.long(), NC).to(torch.float32)
+    if spec.loss == "hinge":
+        # the mean over the whole (B, NC) matrix, the true class included
+        true_s = (z4 * onehot).sum(dim=1, keepdim=True)
+        marg = z4 + 1.0 - true_s
+        m = (marg > 0).to(torch.float32)
+        cost = torch.clamp(marg, min=0.0).sum() / (batch * NC)
+        dz4 = (m - onehot * m.sum(dim=1, keepdim=True)) * (
+            1.0 / (batch * NC))
+        return cost, true_s.min(), dz4
+    if spec.loss == "exp":
+        zc4 = z4 - z4.mean(dim=1, keepdim=True)
+        true_s = (zc4 * onehot).sum(dim=1, keepdim=True)
+        e = torch.exp(-true_s)
+        dz4 = (e * (1.0 / batch)) * (1.0 / NC - onehot)
+        return e.sum() / batch, true_s.min(), dz4
+    zc = z4 - z4.amax(dim=1, keepdim=True)
+    logp = zc - torch.log(torch.exp(zc).sum(dim=1, keepdim=True))
+    tl = (logp * onehot).sum(dim=1, keepdim=True)
+    if spec.loss == "nll":
+        cost = -tl.sum() / batch
+        dz4 = (torch.exp(logp) - onehot) * (1.0 / batch)
+    elif spec.loss == "nllsq":
+        # squared log-likelihood, not negated
+        cost = (tl * tl).sum() / batch
+        dz4 = (2.0 * tl * (1.0 / batch)) * (onehot - torch.exp(logp))
+    else:   # 'nllT': the clamp's gradient is zero where it is active
+        cost = torch.clamp(spec.log_thresh - tl, min=0.0).sum() / batch
+        gate = (spec.log_thresh - tl > 0).to(torch.float32)
+        dz4 = (gate * (1.0 / batch)) * (torch.exp(logp) - onehot)
+    return cost, tl.min(), dz4
+
+
+def aux_encoder(spec, aux, db, w1, b1, w2, b2):
+    """LocationInfo in the fused family (megastep_deep.py:1331-1345,
+    1367-1376): the convex row mix of the (B, 4) aux rows with u from
+    dropout lane 0, times ``boost``, then 2 -> nah (leaky .5) -> nao
+    (leaky .01). Returns (x2, z1, h1, z2, h2)."""
+    u = _u01(db[:, 0:1])
+    x2 = (aux[:, 0:2] * u + aux[:, 2:4] * (1.0 - u)) * spec.boost
+    z1 = x2 @ w1 + b1
+    h1 = _act(z1, "leaky", 0.5)
+    z2 = h1 @ w2 + b2
+    return x2, z1, h1, z2, _act(z2, "leaky", 0.01)
+
+
+def _softaux_head(spec, f, y, db, aux, tail):
+    """The SoftAux head's forward and hand-derived backward
+    (megastep_deep.py:1367-1415): (cost less weight cost, minf, its eight
+    gradients, dL/df). The cross bias gets the scores bias's gradient."""
+    B = spec.batch
+    Wt, bt, w1a, b1a, w2a, b2a, cw, cb = tail
+    x2, z1a, h1a, z2a, h2a = aux_encoder(spec, aux, db, w1a, b1a, w2a, b2a)
+    z4 = f @ Wt + bt + cb + h2a @ cw
+    cost, minf, dz4 = head_loss(spec, z4, y, B)
+    dbt = dz4.sum(dim=0, keepdim=True)
+    dz2a = (dz4 @ cw.T) * _dact(z2a, "leaky", 0.01)
+    dz1a = (dz2a @ w2a.T) * _dact(z1a, "leaky", 0.5)
+    grads = [f.T @ dz4, dbt, x2.T @ dz1a, dz1a.sum(dim=0, keepdim=True),
+             h1a.T @ dz2a, dz2a.sum(dim=0, keepdim=True), h2a.T @ dz4, dbt]
+    return cost, minf, grads, dz4 @ Wt.T
+
+
+def deep_step_reference(spec, x, y, ub, fb, pb, db, params, centers, gh, gw,
+                        aux=None, auxw=None):
     """One step of the deep family in plain PyTorch (``_deep_fwd_bwd``,
     megastep_deep.py:1176-1524): augmentation, forward, hand-derived
     backward. ``x`` (C0*B, HW) channel-major rows, ``y`` (B,) int32, one
-    step's noise words. Returns (cost, minf, grads) in kernel layout."""
+    step's noise words, ``aux`` the step's (B, 4) aux rows and ``auxw``
+    aux_concat_weights (None without them). Returns (cost, minf, grads) in
+    kernel layout."""
     B, H, C0, n = spec.batch, spec.img, spec.in_ch, spec.n_levels
     m = len(spec.pre_hidden)
     ws, bs = params[0:2 * n:2], params[1:2 * n:2]
     pre = [(params[2 * n + 2 * j], params[2 * n + 2 * j + 1])
            for j in range(m)]
-    wh, bh, wo, bo = params[2 * n + 2 * m:2 * n + 2 * m + 4]
     if spec.learn_centers:
         centers = params[-1]
 
@@ -404,10 +576,52 @@ def deep_step_reference(spec, x, y, ub, fb, pb, db, params, centers, gh, gw):
         saved.append((inp, z, r, p))
         inp, cin = p, M
     f = inp.reshape(B, -1)       # flat nets: (B, C0*HW), flatten(2) order
+    conv_cost = weight_cost(list(zip(spec.regs, zip(ws, bs))))
 
-    # dense tail: pre-hiddens read db lanes [off, off + width), the final
-    # hidden the last n_hid lanes
-    pre_saved, off = [], 0
+    if spec.head == "softaux":
+        tail = params[2 * n:2 * n + 8]
+        cost, minf, tail_grads, df = _softaux_head(spec, f, y, db, aux, tail)
+        cost = cost + conv_cost + weight_cost([(spec.reg_o, tail)])
+        dpre, df_rows = [], df
+    else:
+        cost, minf, tail_grads, dpre, df_rows = _dense_tail(
+            spec, f, y, db, params, pre, centers, aux, auxw)
+        cost = cost + conv_cost
+    dconv = []
+    if n:
+        dp = df_rows[:, :spec.n_flat].reshape(saved[-1][3].shape)
+    for k in range(n - 1, -1, -1):
+        inp, z, r, p = saved[k]
+        side_in, c, _ = spec.sides[k]
+        dz = pool_backward(r, p, dp, c) * _dact(z, spec.acts[k],
+                                                spec.slopes[k])
+        dconv.append((_conv_true_wgrad(inp, dz, spec.filts[k]),
+                      dz.sum(dim=(0, 2, 3)).reshape(-1, 1)))
+        if k:
+            dp = _conv_true_dgrad(dz, ws[k], spec.filts[k], spec.maps[k - 1],
+                                  side_in)
+    dconv.reverse()
+    grads = [g for pair in dconv + dpre for g in pair]
+    return cost, minf, grads + tail_grads
+
+
+def _dense_tail(spec, f, y, db, params, pre, centers, aux, auxw):
+    """[AuxConcat ->] the pre-hiddens, the final hidden and a softmax-kind
+    or CenteredOut head, forward and backward. Returns (cost less the conv
+    levels' weight cost, minf, the hidden's and head's gradients, the
+    pre-hiddens' gradient pairs, dL/d flatten or None)."""
+    B, n, m = spec.batch, spec.n_levels, len(spec.pre_hidden)
+    wh, bh, wo, bo = params[2 * n + 2 * m:2 * n + 2 * m + 4]
+    off = 0
+    if spec.aux_concat:
+        # the frozen encoder's output joins the flatten; its mix reads
+        # dropout lane 0 and the pre-hiddens' lanes start at 1
+        h2a = aux_encoder(spec, aux, db, *_unpack_aux_weights(spec, auxw))[4]
+        f = torch.cat([f, h2a], dim=1)
+        off = 1
+    # pre-hiddens read db lanes [off, off + width), the final hidden the
+    # last n_hid lanes
+    pre_saved = []
     for (nh, kind, slope, pd), (w, b) in zip(spec.pre_hidden, pre):
         z = f @ w + b
         h = _act(z, kind, slope)
@@ -423,16 +637,15 @@ def deep_step_reference(spec, x, y, ub, fb, pb, db, params, centers, gh, gw):
     h3d = h3 * mask3 if spec.pdrop else h3
     z4 = h3d @ wo + bo
     if spec.head == "softmax":
-        cost, minf, dz4 = softmax_nll(z4, y, B)
+        cost, minf, dz4 = head_loss(spec, z4, y, B)
         dcenters = None
     else:
         cost, minf, dz4, dcenters = centered_nll(spec, z4, y, centers)
     head_wts = (wo, bo, centers) if spec.learn_centers else (wo, bo)
     cost = cost + weight_cost(
-        list(zip(spec.regs, zip(ws, bs))) + list(zip(spec.regs_pre, pre))
-        + [(spec.reg_h, (wh, bh)), (spec.reg_o, head_wts)])
+        list(zip(spec.regs_pre, pre)) + [(spec.reg_h, (wh, bh)),
+                                         (spec.reg_o, head_wts)])
 
-    # hand-derived backward
     dwo = h3d.T @ dz4
     dbo = dz4.sum(dim=0, keepdim=True)
     dh3 = dz4 @ wo.T
@@ -450,47 +663,34 @@ def deep_step_reference(spec, x, y, ub, fb, pb, db, params, centers, gh, gw):
         dpre.append((f_in.T @ dz, dz.sum(dim=0, keepdim=True)))
         df = dz @ pre[j][0].T if (j or n) else None
     dpre.reverse()
-    dconv = []
-    if n:
-        dp = df.reshape(saved[-1][3].shape)
-    for k in range(n - 1, -1, -1):
-        inp, z, r, p = saved[k]
-        side_in, c, _ = spec.sides[k]
-        dz = pool_backward(r, p, dp, c) * _dact(z, spec.acts[k],
-                                                spec.slopes[k])
-        dconv.append((_conv_true_wgrad(inp, dz, spec.filts[k]),
-                      dz.sum(dim=(0, 2, 3)).reshape(-1, 1)))
-        if k:
-            dp = _conv_true_dgrad(dz, ws[k], spec.filts[k], spec.maps[k - 1],
-                                  side_in)
-    dconv.reverse()
-    grads = [g for pair in dconv + dpre for g in pair]
-    grads += [dwh, dbh, dwo, dbo]
-    if spec.learn_centers:
-        grads.append(dcenters)
-    return cost, minf, grads
+    grads = [dwh, dbh, dwo, dbo] + ([dcenters] if spec.learn_centers else [])
+    return cost, minf, grads, dpre, df
+
+
+def _step_aux(aux_steps, s):
+    return None if aux_steps is None else aux_steps[s]
 
 
 @torch.no_grad()
-def deep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
+def deep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits, lr, spec,
+                         aux_steps=None):
     """The plain PyTorch twin of the CUDA deep kernel (and of the JAX
     package's ``_kernel_deep``). ``x_steps`` (nb, C0*B, HW) f32
     channel-major rows, ``y_steps`` (nb, B) int32, ``bits`` from
-    epoch_noise_bits. Returns (kparams, kmoms, cost_minf (nb, 2)) as new
-    tensors."""
+    epoch_noise_bits, ``aux_steps`` (nb, B, 4) f32 for a net with an aux
+    layer. Returns (kparams, kmoms, cost_minf (nb, 2)) as new tensors."""
     ub, fb, pb, db = bits
     nb, dev = x_steps.shape[0], x_steps.device
     lr = torch.tensor(lr, dtype=torch.float32, device=dev)
     params = [t.clone() for t in kparams]
     moms = [t.clone() for t in kmoms]
-    gh, gw = smoothing_factors(spec, dev)
-    centers = frozen_centers(spec, dev)
+    gh, gw, centers, auxw = deep_step_constants(spec, dev)
     kinds = deep_reg_kinds(spec)
     cm = torch.empty((nb, 2), dtype=torch.float32, device=dev)
     for s in range(nb):
         cost, minf, grads = deep_step_reference(
             spec, x_steps[s], y_steps[s], ub[s, 0], fb[s], pb[s], db[s],
-            params, centers, gh, gw)
+            params, centers, gh, gw, _step_aux(aux_steps, s), auxw)
         cm[s, 0], cm[s, 1] = cost, minf
         apply_updates(kinds, params, moms, grads, lr)
     return params, moms, cm
@@ -498,24 +698,41 @@ def deep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
 
 # --------------------------------------------------------------- the kernel
 
-def launch_deep(name, kparams, kmoms, x_steps, y_steps, bits, lr, spec):
+def check_aux(name, spec, aux, lead):
+    """Raise unless ``aux`` is what a step (``lead`` ()) or an epoch
+    (``lead`` (nb,)) of ``spec`` reads: (*lead, B, 4) f32 when the spec
+    has an aux layer, else None."""
+    if not spec.has_aux:
+        if aux is not None:
+            raise ValueError(f"{name}: the net has no aux layer, but aux "
+                             "rows were given")
+        return
+    if aux is None:
+        raise ValueError(f"{name}: the net's aux layer needs aux rows")
+    check_tensors(name, [(aux, (*lead, spec.batch, 4), torch.float32)])
+
+
+def launch_deep(name, kparams, kmoms, x_steps, y_steps, bits, lr, spec,
+                aux_steps=None):
     """Check the inputs and run one epoch of csrc/megastep_deep.cu on the
     current stream; returns (kparams, kmoms, cost_minf) as new tensors."""
     from . import _build
 
     check_epoch_inputs(name, kparams, kmoms, x_steps, y_steps, bits, spec,
                        deep_kernel_shapes(spec))
+    check_aux(name, spec, aux_steps, (x_steps.shape[0],))
     dev = x_steps.device
     params = [t.clone() for t in kparams]   # updated in place by the kernel
     moms = [t.clone() for t in kmoms]
     cm = torch.empty((x_steps.shape[0], 2), dtype=torch.float32, device=dev)
-    gh, gw = smoothing_factors(spec, dev)
-    _build.deep_launch(spec, x_steps, y_steps, bits, gh, gw,
-                       frozen_centers(spec, dev), params, moms, cm, float(lr))
+    _build.deep_launch(spec, x_steps, y_steps, bits,
+                       deep_step_constants(spec, dev), aux_steps, params,
+                       moms, cm, float(lr))
     return params, moms, cm
 
 
-def deep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
+def deep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec,
+               aux_steps=None):
     """Train one epoch; same contract as deep_epoch_reference.
 
     A CPU ``x_steps`` runs the plain twin. A CUDA ``x_steps`` launches the
@@ -523,11 +740,11 @@ def deep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec):
     in ``deep_epoch.launches``; any other device raises."""
     if x_steps.device.type == "cpu":
         return deep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits,
-                                    lr, spec)
+                                    lr, spec, aux_steps)
     if x_steps.device.type != "cuda":
         raise ValueError(f"deep_epoch: no kernel for {x_steps.device}")
     out = launch_deep("deep_epoch", kparams, kmoms, x_steps, y_steps, bits,
-                      lr, spec)
+                      lr, spec, aux_steps)
     deep_epoch.launches += 1
     return out
 
@@ -539,27 +756,31 @@ deep_epoch.launches = 0
 
 def deep_step_constants(spec, device):
     """The constant tensors a deep step reads on ``device``: the warp's
-    smoothing factors and the frozen CenteredOut centers (None when the
-    head has none); made once per epoch, as megastep.step_constants."""
-    return (*smoothing_factors(spec, device), frozen_centers(spec, device))
+    smoothing factors, the frozen CenteredOut centers and the frozen
+    AuxConcat encoder (None where the net has none); made once per epoch,
+    as megastep.step_constants."""
+    return (*smoothing_factors(spec, device), frozen_centers(spec, device),
+            aux_concat_weights(spec, device))
 
 
 @torch.no_grad()
-def deep_grad_step_reference(spec, consts, x, y, words, params, grads, cm):
+def deep_grad_step_reference(spec, consts, x, y, words, params, grads, cm,
+                             aux=None):
     """The plain PyTorch version of one data-parallel step's gradient in the
     deep family (the JAX package's ``_kernel_grad`` through
     ``_deep_fwd_bwd``): deep_step_reference at ``spec`` (the per-rank
-    batch) with deep_step_constants ``consts``, writing the data gradients
-    of every state tensor back to back into ``grads`` and (cost, minf) into
-    ``cm`` (2,); as megastep.megastep_grad_step_reference."""
-    gh, gw, centers = consts
+    batch) with deep_step_constants ``consts`` and the step's (B, 4)
+    ``aux`` rows, writing the data gradients of every state tensor back to
+    back into ``grads`` and (cost, minf) into ``cm`` (2,); as
+    megastep.megastep_grad_step_reference."""
+    gh, gw, centers, auxw = consts
     cost, minf, g = deep_step_reference(spec, x, y, *words, params, centers,
-                                        gh, gw)
+                                        gh, gw, aux, auxw)
     grads.copy_(torch.cat([t.reshape(-1) for t in g]))
     cm[0], cm[1] = cost, minf
 
 
-def deep_grad_step(spec, consts, x, y, words, params, grads, cm):
+def deep_grad_step(spec, consts, x, y, words, params, grads, cm, aux=None):
     """One step's gradient; same contract as deep_grad_step_reference.
 
     CPU tensors run the plain version. CUDA tensors launch
@@ -568,14 +789,16 @@ def deep_grad_step(spec, consts, x, y, words, params, grads, cm):
     in ``deep_grad_step.launches``; any other device raises."""
     if x.device.type == "cpu":
         return deep_grad_step_reference(spec, consts, x, y, words, params,
-                                        grads, cm)
+                                        grads, cm, aux)
     if x.device.type != "cuda":
         raise ValueError(f"deep_grad_step: no kernel for {x.device}")
     check_step_inputs("deep_grad_step", x, y, words, params, grads, cm, spec,
                       deep_kernel_shapes(spec))
+    check_aux("deep_grad_step", spec, aux, ())
     from . import _build
 
-    _build.deep_grad_launch(spec, x, y, words, *consts, params, grads, cm)
+    _build.deep_grad_launch(spec, x, y, words, consts, aux, params, grads,
+                            cm)
     deep_grad_step.launches += 1
 
 

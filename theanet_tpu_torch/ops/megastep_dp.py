@@ -25,9 +25,10 @@ global spec, from the run's SEED) and takes its share
 (``dp_shard_words``): the warp words are replicated (one warp per global
 batch), the per-sample pflip, dropout and color words follow the samples.
 So N ranks follow the single-device trajectory up to the order of the
-gradient sum. Each shard's gradient is d(mean over its samples)/dw; their
-mean over ranks is the global batch's, and the weight cost, equal on every
-rank, passes through unchanged.
+gradient sum. A net with an aux layer shares its aux rows as its samples
+(``dp_shard_aux``). Each shard's gradient is d(mean over its samples)/dw;
+their mean over ranks is the global batch's, and the weight cost, equal on
+every rank, passes through unchanged.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ from .megastep_deep import (DeepSpec, deep_grad_step,
                             deep_update, deep_update_reference)
 
 __all__ = ["local_spec", "dp_decline_reason", "dp_shard_data",
-           "dp_shard_words", "Family", "family", "constants", "grad_step",
+           "dp_shard_aux", "dp_shard_words", "Family", "family",
+           "constants", "grad_step",
            "grad_step_reference", "update", "update_reference",
            "make_dp_epoch_fn"]
 
@@ -94,6 +96,21 @@ def dp_shard_data(spec, n_data, rank, x, y):
           .transpose(1, 2).reshape(nb, C0 * b_loc, HW).contiguous())
     ys = y[:nb * B].reshape(nb, n_data, b_loc)[:, rank].contiguous()
     return xs, ys
+
+
+def dp_shard_aux(spec, n_data, rank, aux):
+    """Rank ``rank``'s share of the aux inputs ``aux`` (n, 2, 2) of a net
+    with an aux layer, as dp_shard_data shares the samples: (nb, b_loc, 4)
+    (the JAX package's ``dp_epoch_arrange`` aux rows,
+    megastep_dp.py:267-290, one rank's block); None for other nets or
+    without aux."""
+    if aux is None or not getattr(spec, "has_aux", False):
+        return None
+    B = spec.batch
+    b_loc = B // n_data
+    nb = aux.shape[0] // B
+    return (aux[:nb * B].reshape(nb, n_data, b_loc, 4)[:, rank]
+            .contiguous())
 
 
 def dp_shard_words(spec, n_data, rank, bits):
@@ -153,19 +170,27 @@ def constants(spec, device):
     return family(spec).constants(spec, device)
 
 
-def grad_step(spec, consts, x, y, words, params, grads, cm):
+def _aux_kw(aux):
+    """The aux keyword of a deep step (the flagship takes none)."""
+    return {} if aux is None else {"aux": aux}
+
+
+def grad_step(spec, consts, x, y, words, params, grads, cm, aux=None):
     """One step's gradient on a rank's shard: the family's kernel wrapper
     (the plain version on CPU tensors). ``spec`` is the local spec,
     ``consts`` its ``constants``; ``x`` (C0*b_loc, HW), ``y`` (b_loc,),
-    ``words`` one step's (ub (8,), fb, pb, db); writes the flat ``grads``
-    and ``cm`` = (cost, minf)."""
-    family(spec).grad_step(spec, consts, x, y, words, params, grads, cm)
+    ``words`` one step's (ub (8,), fb, pb, db), ``aux`` the step's
+    (b_loc, 4) aux rows of a net with an aux layer; writes the flat
+    ``grads`` and ``cm`` = (cost, minf)."""
+    family(spec).grad_step(spec, consts, x, y, words, params, grads, cm,
+                           **_aux_kw(aux))
 
 
-def grad_step_reference(spec, consts, x, y, words, params, grads, cm):
+def grad_step_reference(spec, consts, x, y, words, params, grads, cm,
+                        aux=None):
     """The plain version of grad_step on any device."""
     family(spec).grad_step_reference(spec, consts, x, y, words, params,
-                                     grads, cm)
+                                     grads, cm, **_aux_kw(aux))
 
 
 def update(spec, params, moms, grads, lr):
@@ -182,9 +207,10 @@ def update_reference(spec, params, moms, grads, lr):
 def make_dp_epoch_fn(spec, n_batches, mesh):
     """The data-parallel epoch function of a global flagship or deep
     ``spec`` on ``mesh``: ``epoch(kparams, kmoms, x_shard, y_shard, bits,
-    lr)`` with the single-device epoch's contract and return, (kparams,
-    kmoms, cost_minf (nb, 2)) as new tensors. ``x_shard``, ``y_shard`` are
-    the rank's dp_shard_data; ``bits`` the GLOBAL epoch's words. A step is
+    lr, aux_steps=None)`` with the single-device epoch's contract and
+    return, (kparams, kmoms, cost_minf (nb, 2)) as new tensors.
+    ``x_shard``, ``y_shard`` are the rank's dp_shard_data, ``aux_steps``
+    its dp_shard_aux; ``bits`` the GLOBAL epoch's words. A step is
     one gradient launch, one all_reduce of the flat gradient buffer (sum,
     then / n) and one update launch; the cost (sum / n) and minf (min) are
     reduced once per epoch, over all its steps."""
@@ -193,7 +219,7 @@ def make_dp_epoch_fn(spec, n_batches, mesh):
     shapes = family(loc).shapes(loc)
     n_grads = sum(r * c for r, c in shapes)
 
-    def epoch(kparams, kmoms, x_shard, y_shard, bits, lr):
+    def epoch(kparams, kmoms, x_shard, y_shard, bits, lr, aux_steps=None):
         dev = x_shard.device
         ub, fb, pb, db = dp_shard_words(spec, n, mesh.rank, bits)
         params = [t.clone() for t in kparams]   # updated in place
@@ -203,7 +229,8 @@ def make_dp_epoch_fn(spec, n_batches, mesh):
         cm = torch.empty((n_batches, 2), dtype=torch.float32, device=dev)
         for s in range(n_batches):
             grad_step(loc, consts, x_shard[s], y_shard[s],
-                      (ub[s, 0], fb[s], pb[s], db[s]), params, grads, cm[s])
+                      (ub[s, 0], fb[s], pb[s], db[s]), params, grads, cm[s],
+                      None if aux_steps is None else aux_steps[s])
             dist.all_reduce(grads, group=mesh.group)
             grads.div_(n)
             update(loc, params, moms, grads, lr)

@@ -50,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from .megastep import MegaSpec, check_epoch_inputs, smoothing_factors
-from .megastep_deep import frozen_centers
+from .megastep_deep import check_aux, deep_step_constants
 from .megastep_dp import (constants, dp_decline_reason, dp_shard_words,
                           family, grad_step, grad_step_reference,
                           local_spec, update, update_reference)
@@ -279,10 +279,11 @@ ring_exchange.launches = 0
 
 @torch.no_grad()
 def ring_epoch_reference(spec, n, shards, kparams, kmoms, bits, lr, rs,
-                         plain=True):
+                         plain=True, aux_shards=None):
     """n ranks of a ring epoch emulated in one process: each step every
     rank's gradient step on its shard (``shards[r]`` = dp_shard_data of
-    rank r, ``bits`` the GLOBAL epoch's words), ``exchange_reference``, the
+    rank r, ``aux_shards[r]`` its dp_shard_aux for a net with an aux layer,
+    ``bits`` the GLOBAL epoch's words), ``exchange_reference``, the
     update. ``spec`` is the global spec. Returns (kparams, kmoms, cost_minf
     (nb, 2)) as new tensors: what every real rank must hold. With ``plain``
     the steps are ``grad_step_reference`` and ``update_reference`` (the CPU
@@ -310,7 +311,8 @@ def ring_epoch_reference(spec, n, shards, kparams, kmoms, bits, lr, rs,
         for r in range(n):
             ub, fb, pb, db = words[r]
             step_fn(loc, consts, shards[r][0][s], shards[r][1][s],
-                    (ub[s, 0], fb[s], pb[s], db[s]), params, g[r], cmr[r])
+                    (ub[s, 0], fb[s], pb[s], db[s]), params, g[r], cmr[r],
+                    None if aux_shards is None else aux_shards[r][s])
         if n > 1:
             red, cm[s] = exchange_reference(g, cmr, rs, chunks)
         else:
@@ -321,7 +323,8 @@ def ring_epoch_reference(spec, n, shards, kparams, kmoms, bits, lr, rs,
 
 # ------------------------------------------------------------- the kernels
 
-def _launch_ring(name, kparams, kmoms, x, y, bits, lr, spec, table):
+def _launch_ring(name, kparams, kmoms, x, y, bits, lr, spec, table,
+                 aux=None):
     """Check the inputs and run one ring epoch of the family's library on
     the current stream; returns (kparams, kmoms, cost_minf) as new
     tensors, and the number of exchange kernels the epoch launched."""
@@ -329,6 +332,8 @@ def _launch_ring(name, kparams, kmoms, x, y, bits, lr, spec, table):
 
     check_epoch_inputs(name, kparams, kmoms, x, y, bits, spec,
                        family(spec).shapes(spec))
+    if not isinstance(spec, MegaSpec):
+        check_aux(name, spec, aux, (x.shape[0],))
     dev = x.device
     params = [t.clone() for t in kparams]   # updated in place by the kernel
     moms = [t.clone() for t in kmoms]
@@ -338,9 +343,9 @@ def _launch_ring(name, kparams, kmoms, x, y, bits, lr, spec, table):
         n_ex = _build.megastep_ring_launch(spec, x, y, bits, gh, gw, params,
                                            moms, cm, float(lr), table)
     else:
-        n_ex = _build.deep_ring_launch(spec, x, y, bits, gh, gw,
-                                       frozen_centers(spec, dev), params,
-                                       moms, cm, float(lr), table)
+        n_ex = _build.deep_ring_launch(spec, x, y, bits,
+                                       deep_step_constants(spec, dev), aux,
+                                       params, moms, cm, float(lr), table)
     return (params, moms, cm), n_ex
 
 
@@ -360,11 +365,13 @@ def megastep_ring_epoch(kparams, kmoms, x, y, bits, lr, spec, table):
 megastep_ring_epoch.launches = 0
 
 
-def deep_ring_epoch(kparams, kmoms, x, y, bits, lr, spec, table):
+def deep_ring_epoch(kparams, kmoms, x, y, bits, lr, spec, table,
+                    aux_steps=None):
     """As megastep_ring_epoch for a DeepSpec, by ``deep_ring_epoch`` of
-    csrc/megastep_deep.cu; counted in ``deep_ring_epoch.launches``."""
+    csrc/megastep_deep.cu, with the rank's (nb, b_loc, 4) ``aux_steps`` of
+    a net with an aux layer; counted in ``deep_ring_epoch.launches``."""
     out, n_ex = _launch_ring("deep_ring_epoch", kparams, kmoms, x, y, bits,
-                             lr, spec, table)
+                             lr, spec, table, aux_steps)
     deep_ring_epoch.launches += 1
     ring_exchange.launches += n_ex
     return out
@@ -442,7 +449,8 @@ class RingBuffers:
 def make_ring_epoch_fn(spec, n_batches, mesh):
     """The ring epoch function of a global flagship or deep ``spec`` on
     ``mesh``, with make_dp_epoch_fn's contract: ``epoch(kparams, kmoms,
-    x_shard, y_shard, bits, lr)`` -> (kparams, kmoms, cost_minf (nb, 2)),
+    x_shard, y_shard, bits, lr, aux_steps=None)`` -> (kparams, kmoms,
+    cost_minf (nb, 2)),
     ``bits`` the GLOBAL epoch's words; ``.n_data``, ``.local_spec``,
     ``.ring`` (True) and ``.close()``, which frees the exchange buffers
     (every rank calls it). On a card each epoch is one C call a rank
@@ -462,20 +470,23 @@ def make_ring_epoch_fn(spec, n_batches, mesh):
               else deep_ring_epoch)
     state = {"ring": None}
 
-    def cuda_epoch(kparams, kmoms, x, y, words, lr):
+    def cuda_epoch(kparams, kmoms, x, y, words, lr, aux):
+        # only a deep net with an aux layer has aux rows
+        aux_kw = {} if aux is None else {"aux_steps": aux}
         if n == 1:
             table = ring_table(1, 0, False, 0, [], None)
-            return kernel(kparams, kmoms, x, y, words, lr, loc, table)
+            return kernel(kparams, kmoms, x, y, words, lr, loc, table,
+                          **aux_kw)
         if state["ring"] is None:
             state["ring"] = RingBuffers(lib_name, n_grads, mesh)
         ring = state["ring"]
         dist.barrier(group=mesh.group)
         table = ring.table(rs, chunks)
-        out = kernel(kparams, kmoms, x, y, words, lr, loc, table)
+        out = kernel(kparams, kmoms, x, y, words, lr, loc, table, **aux_kw)
         ring.step += x.shape[0]
         return out
 
-    def cpu_epoch(kparams, kmoms, x, y, words, lr):
+    def cpu_epoch(kparams, kmoms, x, y, words, lr, aux):
         ub, fb, pb, db = words
         params = [t.clone() for t in kparams]   # updated in place
         moms = [t.clone() for t in kmoms]
@@ -486,7 +497,8 @@ def make_ring_epoch_fn(spec, n_batches, mesh):
         for s in range(n_batches):
             grad_step(loc, consts, x[s], y[s], (ub[s, 0], fb[s], pb[s],
                                                 db[s]), params,
-                      buf[:n_grads], buf[n_grads:])
+                      buf[:n_grads], buf[n_grads:],
+                      None if aux is None else aux[s])
             if n > 1:
                 dist.all_gather(every, buf, group=mesh.group)
                 red, cm[s] = exchange_reference(
@@ -497,10 +509,10 @@ def make_ring_epoch_fn(spec, n_batches, mesh):
             update(loc, params, moms, red, lr)
         return params, moms, cm
 
-    def epoch(kparams, kmoms, x_shard, y_shard, bits, lr):
+    def epoch(kparams, kmoms, x_shard, y_shard, bits, lr, aux_steps=None):
         words = dp_shard_words(spec, n, mesh.rank, bits)
         run = cuda_epoch if x_shard.device.type == "cuda" else cpu_epoch
-        return run(kparams, kmoms, x_shard, y_shard, words, lr)
+        return run(kparams, kmoms, x_shard, y_shard, words, lr, aux_steps)
 
     def close():
         if state["ring"] is not None:

@@ -73,7 +73,8 @@ def launch(fn, n, backend, init_file, *args, timeout=1800):
 def train_ranks(rank, n, job_file, out_dir):
     """The launch target of a data-parallel training run: for each config of
     the pickled job (``name``, ``layers``, ``training_params``, ``data`` the
-    four arrays training_x, training_y, testing_x, testing_y, ``epochs``,
+    four arrays training_x, training_y, testing_x, testing_y, and for a net
+    with an aux layer training_aux, testing_aux, ``epochs``,
     optional ``profile``, ``dp_ring`` and ``ring_rs``: the THEANET_DP_RING
     and THEANET_RING_RS of the run, default 'auto'), build the net and
     ``Trainer(..., mesh=make_mesh(n))``, train ``epochs`` epochs and pickle
@@ -104,14 +105,16 @@ def train_ranks(rank, n, job_file, out_dir):
         # the job, not the launching process's environment, sets the path
         os.environ["THEANET_DP_RING"] = cfg.get("dp_ring", "auto")
         os.environ["THEANET_RING_RS"] = cfg.get("ring_rs", "auto")
-        tx, ty, vx, vy = cfg["data"]
+        tx, ty, vx, vy, *aux = cfg["data"]
         tx, vx = fixdim(tx), fixdim(vx)
         layers = [[name, dict(a)] for name, a in cfg["layers"]]
         layers[0][1]["img_sz"] = tx.shape[3]
         if "num_maps" not in layers[0][1] and tx.shape[1] != 1:
             layers[0][1]["num_maps"] = tx.shape[1]
         net = NeuralNet(layers, dict(cfg["training_params"]))
-        trainer = Trainer(net, tx, ty, vx, vy, mesh=make_mesh(n))
+        trainer = Trainer(net, tx, ty, vx, vy, mesh=make_mesh(n),
+                          train_aux=aux[0] if aux else None,
+                          test_aux=aux[1] if aux else None)
         cuda = trainer.device.type == "cuda"
         out = {"costs": [], "minf": [], "ms": [],
                "ring": bool(getattr(trainer._mega_epoch, "ring", False))}

@@ -8,12 +8,17 @@
     of P(MLE) for a LOGIT CenteredOut head);
   * rotating-window eval every EPOCHS_TO_TEST epochs; the checkpoint
     <head>_<SEED>_<testerr>.pkl replaces the previous one;
-  * NaN-cost abort with a weight dump, the high-cost weight dump, and the
-    final full-dataset row (cost printed as 0 by protocol).
+  * NaN-cost abort with a weight dump, the ExpLoss head's divergence dump
+    (the smallest true-class score of an epoch below -6; on the fused path
+    the kernel's per-step minimum), the high-cost weight dump, and the
+    final full-dataset row (cost printed as 0 by protocol);
+  * a data module's ``training_aux`` / ``testing_aux`` (n, 2, 2) reach a
+    net with an aux layer.
 
 Epochs between two test rows run as one ``Trainer.run_epochs`` call with a
-single host sync; a NaN inside such a chunk rewinds to the chunk start and
-replays to the failing epoch, so the dump shows the at-failure weights.
+single host sync; a NaN or an ExpLoss divergence inside such a chunk
+rewinds to the chunk start and replays to the failing epoch, so the dump
+shows the at-failure weights.
 The device comes from THEANET_TORCH_DEVICE (default cuda).
 """
 
@@ -126,7 +131,9 @@ def _run(argv, dataset_name, layers, tr_prms, allwts, out_file_head, log):
 
     print("\nCompiling ... ")
     trainer = Trainer(net, training_x, data.training_y, testing_x,
-                      data.testing_y, device=device)
+                      data.testing_y, device=device,
+                      train_aux=getattr(data, "training_aux", None),
+                      test_aux=getattr(data, "testing_aux", None))
     batch_sz, n_epochs = tr_prms["BATCH_SZ"], tr_prms["NUM_EPOCHS"]
     # a LOGIT head's second statistic is its true-class bit error
     aux_err_name = ("BitErr" if getattr(net.head, "kind", None) == "LOGIT"
@@ -156,8 +163,19 @@ def _run(argv, dataset_name, layers, tr_prms, allwts, out_file_head, log):
         aux_err_name))
     n_train_imgs = trainer.n_train_batches * batch_sz
     epochs_to_test = tr_prms["EPOCHS_TO_TEST"]
+    is_exp_head = layers[-1][0][:3] == "Exp"
 
-    def watchdogs(epoch, total_cost, costs):
+    def diverged(min_true_f):
+        return is_exp_head and float(min_true_f.min()) < -6
+
+    def watchdogs(epoch, total_cost, costs, min_true_f):
+        # reference train.py:214-226
+        if diverged(min_true_f):
+            ibatch = int(min_true_f.argmin())
+            print("Epoch:{} Iteration:{}".format(epoch, ibatch))
+            print("min true-class feature:", float(min_true_f.min()))
+            trainer.sync_net()
+            print(net.get_wts_info(detailed=True))
         if np.isnan(total_cost):
             ibatch = int(np.argmax(np.isnan(costs)))
             print("Epoch:{} Iteration:{}".format(epoch, ibatch))
@@ -179,18 +197,26 @@ def _run(argv, dataset_name, layers, tr_prms, allwts, out_file_head, log):
         t_epoch = time.time()
         test_row_epoch = net.get_epoch() + chunk_len - 1
         snap = trainer.snapshot_state()
-        totals, costs2d, _ = trainer.run_epochs(chunk_len)
+        totals, costs2d, minf2d = trainer.run_epochs(chunk_len)
         dt = time.time() - t_epoch
         print("epoch{} {} took {:.2f}s ({:,.0f} images/sec)".format(
             "s" if chunk_len > 1 else "",
             "{}-{}".format(epoch, epoch + chunk_len - 1) if chunk_len > 1
             else epoch, dt, n_train_imgs * chunk_len / dt), file=sys.stderr)
+        replayed = False
         for j in range(chunk_len):
-            if np.isnan(totals[j]) and j < chunk_len - 1:
+            if ((np.isnan(totals[j]) or diverged(minf2d[j]))
+                    and j < chunk_len - 1):
                 # replay to the failing epoch for the at-failure dump
                 trainer.restore_state(snap)
                 trainer.run_epochs(j + 1)
-            watchdogs(epoch + j, float(totals[j]), costs2d[j])
+                replayed = True
+            watchdogs(epoch + j, float(totals[j]), costs2d[j], minf2d[j])
+        if replayed:
+            # only the divergence dump returns here (a NaN raises): train
+            # on from where the chunk had got
+            trainer.restore_state(snap)
+            trainer.run_epochs(chunk_len)
         total_cost = float(totals[-1])
 
         if (epoch + chunk_len - 1) % epochs_to_test == 0:

@@ -38,6 +38,13 @@ the whole replicated state, so evaluation and ``sync_net`` read it locally;
 only rank 0 writes a checkpoint (``save_checkpoint``); ``close`` frees the
 ring's exchange buffers (every rank calls it).
 
+A net with an aux layer (AuxConcat, SoftAux) reads the (n, 2, 2)
+``train_aux`` / ``test_aux`` rows beside the images: the per-layer step and
+the eval window slice them by the samples' indices, a fused epoch takes
+them as (nb, B, 4) step blocks (a rank's share under a mesh), and without
+them the fused families decline the net by name (the JAX package's
+trainer.py:364-371).
+
 Evaluation always runs the per-layer forward in eval mode. On a card the
 Trainer turns TF32 off for cuDNN convolutions and matmuls, so training
 runs in f32 like the JAX package and the CPU.
@@ -75,7 +82,7 @@ def step_generator(seed, step, device):
     (3, B, maps) uniforms; an active ElasticLayer's 7 affine uniforms, its
     (2, H, W) normals (when it has an elastic field) and its (B, C, H, W)
     flip words (when pflip); each dropout's mask, where a FUSED_TAIL tail
-    draws (B, n_hid) words."""
+    draws (B, n_hid) words; a LocationInfo's (B, 1) convex-mix uniforms."""
     state = np.random.SeedSequence([int(seed), 1 << 30, int(step)])
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state.generate_state(1, np.uint64)[0]))
@@ -84,10 +91,12 @@ def step_generator(seed, step, device):
 
 class Trainer:
     def __init__(self, net: NeuralNet, train_x, train_y, test_x, test_y,
-                 device=None, mesh=None):
+                 device=None, mesh=None, train_aux=None, test_aux=None):
         """``mesh``: a data-parallel ``parallel.Mesh``, whose device then
         holds this rank's tensors; else ``device`` (default
-        ``THEANET_TORCH_DEVICE``)."""
+        ``THEANET_TORCH_DEVICE``). ``train_aux``, ``test_aux``: the (n, 2, 2)
+        aux inputs of a net with an aux layer (dropped for other nets, as
+        the reference's train.py:131-135 does)."""
         self.net = net
         self.mesh = mesh
         self.device = (mesh.device if mesh is not None
@@ -117,6 +126,12 @@ class Trainer:
                                         device=dev)
         self.d_test_y = torch.as_tensor(np.asarray(test_y, np.int32),
                                         device=dev)
+        if not net.takes_aux():
+            train_aux = test_aux = None
+        self.d_train_aux, self.d_test_aux = (
+            None if a is None else torch.as_tensor(
+                np.asarray(a, np.float32).reshape(-1, 2, 2), device=dev)
+            for a in (train_aux, test_aux))
         self.params, self.moms = net.init_params(dev)
         if net.tr_prms.get("SHUFFLE", False):
             raise NotImplementedError(
@@ -143,9 +158,11 @@ class Trainer:
         elif train_x.shape[2] != train_x.shape[3]:
             reason = "non-square input images"
         else:
-            plan = megastep.fused_plan(net, for_mesh=mesh is not None)
+            aux_data = self.d_train_aux is not None
+            plan = megastep.fused_plan(net, for_mesh=mesh is not None,
+                                       aux_data=aux_data)
             if plan is None:
-                reason = megastep.fused_decline_reason(net)
+                reason = megastep.fused_decline_reason(net, aux_data)
             elif train_x.shape[1] != plan.spec.in_ch:
                 plan, reason = None, (
                     f"training data has {train_x.shape[1]} channels but the "
@@ -174,6 +191,8 @@ class Trainer:
         n, rank = (1, 0) if mesh is None else (mesh.n_data, mesh.rank)
         self._mega_x, self._mega_y = megastep_dp.dp_shard_data(
             spec, n, rank, self.d_train_x, self.d_train_y)
+        self._mega_aux = megastep_dp.dp_shard_aux(spec, n, rank,
+                                                  self.d_train_aux)
         # (kparams, kmoms, x, y, bits, lr) -> (kparams, kmoms, cost_minf)
         if mesh is None:
             self._mega_epoch = functools.partial(plan.epoch_fn, spec=spec)
@@ -287,8 +306,11 @@ class Trainer:
         bits = self._mega.epoch_noise_bits(
             self.net.tr_prms["SEED"], self.net.get_epoch(), spec,
             self.n_train_batches, self.device)
+        # only an aux net's epoch function takes its aux rows
+        aux = ({"aux_steps": self._mega_aux}
+               if getattr(spec, "has_aux", False) else {})
         self._kp, self._km, cm = self._mega_epoch(
-            self._kp, self._km, self._mega_x, self._mega_y, bits, lr)
+            self._kp, self._km, self._mega_x, self._mega_y, bits, lr, **aux)
         self._state_src = "mega"
         return cm
 
@@ -296,11 +318,12 @@ class Trainer:
 
     def _train_batch(self, ibatch, step, lr):
         bsz = self.batch_sz
-        x = self.d_train_x[ibatch * bsz:(ibatch + 1) * bsz]
-        y = self.d_train_y[ibatch * bsz:(ibatch + 1) * bsz]
+        rows = slice(ibatch * bsz, (ibatch + 1) * bsz)
+        x, y = self.d_train_x[rows], self.d_train_y[rows]
+        aux = None if self.d_train_aux is None else self.d_train_aux[rows]
         gen = step_generator(self.net.tr_prms["SEED"], step, self.device)
         self.params, self.moms, cost, feats, _ = self.net.train_step(
-            self.params, self.moms, x, y, lr=lr, generator=gen)
+            self.params, self.moms, x, y, lr=lr, generator=gen, aux=aux)
         # y clamped to the feature width, as the JAX fused heads do
         # (megastep.py:1618-1624): a CenteredOut head may have more classes
         # than features
@@ -344,11 +367,15 @@ class Trainer:
         all_cm = torch.stack(cms).cpu().numpy()   # one host sync
         return all_cm[:, :, 0].sum(axis=1), all_cm[:, :, 0], all_cm[:, :, 1]
 
-    def predict(self, x, get_output_of_layers=()):
-        """(features, y_preds, *layer outputs) as numpy, on raw inputs."""
+    def predict(self, x, get_output_of_layers=(), aux=None):
+        """(features, y_preds, *layer outputs) as numpy, on raw inputs (and
+        the (n, 2, 2) ``aux`` of a net with an aux layer)."""
         self._mega_sync_frame()
         x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        out = self.net.predict(self.params, x,
+        if aux is not None:
+            aux = torch.as_tensor(np.asarray(aux, np.float32),
+                                  device=self.device)
+        out = self.net.predict(self.params, x, aux=aux,
                                get_output_of_layers=get_output_of_layers)
         return tuple(o.cpu().numpy() for o in out)
 
@@ -366,9 +393,11 @@ class Trainer:
         idx = torch.as_tensor(
             np.concatenate([np.arange(b * bsz, (b + 1) * bsz)
                             for b in batch_ids]), device=self.device)
-        xs, ys = ((self.d_test_x, self.d_test_y) if which == "test"
-                  else (self.d_train_x, self.d_train_y))
+        xs, ys, auxs = ((self.d_test_x, self.d_test_y, self.d_test_aux)
+                        if which == "test" else
+                        (self.d_train_x, self.d_train_y, self.d_train_aux))
         out = self.net.eval_step(self.params, xs[idx], ys[idx],
+                                 aux=None if auxs is None else auxs[idx],
                                  preds_feats=preds_feats)
         stats = (100.0 * float(out[0]), 100.0 * float(out[1]))
         if preds_feats:
