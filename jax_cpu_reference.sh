@@ -6,12 +6,13 @@
 # epochs at each SEED of chip_smoke.GALAXY_SWEEP, then the per-layer slice
 # (mnist_cnn with FUSED_TAIL and 'method': 'pallas', chip_smoke.slice_text)
 # for SLICE_EPOCHS + 1 epochs, then params/synth_aux.prms as shipped (phase
-# 20); last, the eval-mode mean NLL of bench.py's
-# wide model (chip_smoke.wide_spec, wide_data) on its first batch at the
-# initial weights, bf16 and f32, conv2 through the Pallas conv
-# (THEANET_PALLAS_CONV=1). Prints each run's epoch table and the two NLLs;
-# chip_smoke.CONFIGS, GALAXY_SWEEP_JAX, SLICE_JAX, AUX_JAX and WIDE_NLL_JAX
-# hold the numbers.
+# 20), then mnist_cnn's layers with both convs 'same' on synth_hard
+# (chip_smoke.geometry_text("mnist_same"), phase 22); last, the eval-mode
+# mean NLL of bench.py's wide model (chip_smoke.wide_spec, wide_data) on
+# its first batch at the initial weights, bf16 and f32, conv2 through the
+# Pallas conv (THEANET_PALLAS_CONV=1). Prints each run's epoch table and
+# the two NLLs; chip_smoke.CONFIGS, GALAXY_SWEEP_JAX, SLICE_JAX, AUX_JAX,
+# GEOM_JAX and WIDE_NLL_JAX hold the numbers.
 #
 #   sh jax_cpu_reference.sh [output directory, default jax_cpu_reference]
 set -e
@@ -47,6 +48,7 @@ PYTHONPATH="$repo" JAX_PLATFORMS=cpu python "$repo/train.py" synth_aux \
   "$repo/params/synth_aux.prms" > synth_aux.out 2> synth_aux.err
 echo "== synth_aux on synth_aux (as shipped; AUX_JAX)"
 grep -E '^Epoch|^ *[0-9]+ +[0-9.]+ +' synth_aux.out
+run synth_hard mnist_same "geometry_text('mnist_same')"
 echo "== wide model: initial eval NLL of the first batch (WIDE_NLL_JAX)"
 PYTHONPATH="$repo" JAX_PLATFORMS=cpu THEANET_PALLAS_CONV=1 python -c "
 import jax, jax.numpy as jnp, chip_smoke as cs

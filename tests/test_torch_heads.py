@@ -30,6 +30,7 @@ import jax.numpy as jnp
 
 from theanet_tpu.data import synth_aux as jax_synth_aux
 from theanet_tpu.model import NeuralNet as JaxNet
+from theanet_tpu.ops import megastep as jm
 
 from theanet_tpu_torch import train
 from theanet_tpu_torch.data import load_dataset
@@ -173,7 +174,10 @@ def test_mean_layer_matches_jax():
                                get_output_of_layers=(2,))
     assert tuple(tmean.shape) == (B, 3)
     _close(tmean.numpy(), jmean)
-    assert "MeanLayer" in megastep.fused_decline_reason(tnet)
+    # a MeanLayer straight into the head: no Hidden layer, so outside the
+    # fused grammar in both packages
+    assert jm.fused_plan(jnet) is None and megastep.fused_plan(tnet) is None
+    assert "outside the fused grammar" in megastep.fused_decline_reason(tnet)
 
 
 # -------------------------------------------------------------- aux layers

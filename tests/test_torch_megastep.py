@@ -218,10 +218,12 @@ def test_matcher_builds_the_jax_spec():
 def test_megafused_true_raises_with_reason():
     tr = {"SEED": 3, "BATCH_SZ": B, "MEGAFUSED": True, "CUR_EPOCH": 0,
           "INIT_LEARNING_RATE": 0.1, "EPOCHS_TO_HALF_RATE": 1}
-    net = TorchNet(_flag_layers(conv_mode="same"), tr)
+    # a 'full' conv whose pool 2 cannot wash the reference's in+F+1
+    # booking: no family takes it
+    net = TorchNet(_flag_layers(conv_mode="full"), tr)
     x = np.zeros((2 * B, 1, IMG, IMG), np.float32)
     y = np.zeros(2 * B, np.int32)
-    with pytest.raises(ValueError, match="mode='same'"):
+    with pytest.raises(ValueError, match="mode='full'.*wash"):
         Trainer(net, x, y, x, y, device="cpu")
     tr["MEGAFUSED"] = "auto"
     assert Trainer(net, x, y, x, y, device="cpu")._mega is None

@@ -110,8 +110,8 @@ def test_net_without_fused_family_raises_with_reason():
     """The port has no per-layer data-parallel path: a mesh net that the
     fused path declines raises and names why."""
     x, y = data()
-    with pytest.raises(NotImplementedError, match="mode='same'"):
-        Trainer(NeuralNet(layers(conv_mode="same"), prms()), x, y, x, y,
+    with pytest.raises(NotImplementedError, match="mode='full'.*wash"):
+        Trainer(NeuralNet(layers(conv_mode="full"), prms()), x, y, x, y,
                 mesh=fake_mesh(2))
     with pytest.raises(NotImplementedError, match="MEGAFUSED=False"):
         Trainer(NeuralNet(layers(), prms(MEGAFUSED=False)), x, y, x, y,

@@ -502,14 +502,14 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   LAUNCHED();
   k_conv_wgrad<<<dim3(d.M2, d.F2 * d.F2 * d.M1 + 1), T, 0, s>>>(
       d.B, d.M2, d.M1, d.F2, d.c2, d.e2, w.dz2, w.p1, d.M1 * d.P1 * d.P1,
-      d.P1 * d.P1, d.P1, grad[2], grad[3]);
+      d.P1 * d.P1, d.P1, grad[2], grad[3], 1, 0);
   LAUNCHED();
   k_conv2_dgrad_pool1_bwd<<<blocks((long long)d.B * d.M1 * d.P1 * d.P1, T),
                             T, 0, s>>>(d, prm[2], w.dz2, w.z1, w.p1, w.dz1);
   LAUNCHED();
   k_conv_wgrad<<<dim3(d.M1, d.F1 * d.F1 * d.C0 + 1), T, 0, s>>>(
       d.B, d.M1, d.C0, d.F1, d.c1, d.e1, w.dz1, w.a, d.HW, d.B * d.HW, d.H,
-      grad[0], grad[1]);
+      grad[0], grad[1], 1, 0);
   LAUNCHED();
   return 0;
 }

@@ -11,8 +11,11 @@
 // (Conv -> [Pool])*n -> [AuxConcat ->] (Hidden -> [DropOut])*m -> Softmax |
 // Hinge | ExpLoss | CenteredOut, or (Conv -> [Pool])*n -> SoftAux: the
 // color jitter and elastic augmentation from the injected bits; every conv
-// level (true valid convolution, activation, max-pool of any size with or
-// without ignore_border, or the identity pool); the LocationInfo aux
+// level (true convolution, 'valid' at any stride, 'same' or 'full' by
+// zero padding, read directly at y*stride + f-1-u - pad; activation;
+// max-pool of any size with or without ignore_border, or the identity
+// pool); a MeanLayer flatten (the per-map mean of the last pooled level,
+// k_mean_fwd / k_mean_bwd); the LocationInfo aux
 // encoder on the step's (B, 4) aux rows (convex mix with u from dropout
 // lane 0, 2 -> nah leaky .5 -> nao leaky .01), whose output AuxConcat
 // appends to the flatten and SoftAux adds to its scores through the cross
@@ -38,8 +41,10 @@
 // flagship kernel's design, parameterised at run time. One C call per epoch
 // loops the steps on the caller's stream; a level table (input maps, maps,
 // filter, input side, conv side, pooled side, pool, ignore_border,
-// activation, slope) drives one conv+pool stage, one pool-backward stage,
-// one weight-gradient stage and one input-gradient stage per level; the
+// activation, pad, conv stride, slope) drives one conv+pool stage, one
+// pool-backward stage, one weight-gradient stage and one input-gradient
+// stage per level (a padded or strided level reads its input directly;
+// the input gradient visits only the stride lattice); the
 // dense stages loop over the pre-hidden stack and then the final hidden;
 // a GEMM computes the scores, one single-block head stage the softmax-kind,
 // LOGIT or RBF loss down to dL/dscores (and the RBF centers' gradient when
@@ -76,9 +81,11 @@ namespace {
 enum {
   I_B, I_C0, I_H, I_NLEV, I_NPRE, I_NH, I_NO, I_NC, I_HEAD, I_ACTH, I_COLOR,
   I_INVERT, I_NEAREST, I_TRANS, I_MAG, I_ZOOM, I_ANGLE, I_LEARNC, I_FBL,
-  I_DBL, I_NSTATE, I_LOSS, I_NAH, I_NAO, I_AUXCAT, N_IHEAD
+  I_DBL, I_NSTATE, I_LOSS, I_NAH, I_NAO, I_AUXCAT, I_MEAN, N_IHEAD
 };
-enum { L_CIN, L_M, L_F, L_S, L_C, L_P, L_POOL, L_IB, L_ACT, N_ILEV };
+enum {
+  L_CIN, L_M, L_F, L_S, L_C, L_P, L_POOL, L_IB, L_ACT, L_PAD, L_CS, N_ILEV
+};
 enum { H_W, H_ACT, N_IPRE };
 enum { T_SIZE, T_KIND, T_ROWS, T_COLS, N_ITEN };
 // ---- float spec: the header, then 1 per level (slope), 2 per pre-hidden
@@ -105,9 +112,12 @@ constexpr int LOSS_NLL = 0, LOSS_NLLSQ = 1, LOSS_NLLT = 2, LOSS_HINGE = 3,
 constexpr int KIND_ROWS = 0, KIND_COLS = 1, KIND_BIAS = 2;
 constexpr float LOGIT_EPS = 0.001f;
 
+// A conv level: input side s, conv side c, pooled side p; conv output
+// (y, x) reads input row y*cs + f-1-u - pad for tap u (zeros off the
+// input): pad 0 valid, f/2 'same', f-1 'full'.
 struct Level {
-  int cin, m, f, s, c, p, pool, ib, act, e;  // e: extent inside windows
-  float slope;
+  int cin, m, f, s, c, p, pool, ib, act, pad, cs, e;  // e: extent inside
+  float slope;                                        // the pool windows
 };
 struct Pre {
   int w, act;
@@ -116,7 +126,8 @@ struct Pre {
 
 struct Net {
   int B, C0, H, HW, nlev, npre, NH, NO, NC, head, acth, learnc, fbl, dbl,
-      nstate, NF, loss, nah, nao, auxcat, NT;   // NT: the dense tail's input
+      nstate, NF, loss, nah, nao, auxcat, NT,   // NT: the dense tail's input
+      mean;   // a MeanLayer flatten: NF = the last level's maps
   float slopeh, pdrop, junk, boost, logthresh;
   Level lv[MAX_LEVELS];
   Pre pre[MAX_PRE];
@@ -132,6 +143,7 @@ int parse(const int* is, const float* fs, Net* n) {
   n->acth = is[I_ACTH]; n->learnc = is[I_LEARNC]; n->fbl = is[I_FBL];
   n->dbl = is[I_DBL]; n->nstate = is[I_NSTATE]; n->loss = is[I_LOSS];
   n->nah = is[I_NAH]; n->nao = is[I_NAO]; n->auxcat = is[I_AUXCAT];
+  n->mean = is[I_MEAN];
   n->slopeh = fs[F_SLOPEH]; n->pdrop = fs[F_PDROP]; n->junk = fs[F_JUNK];
   n->boost = fs[F_BOOST]; n->logthresh = fs[F_LOGTHRESH];
   if (n->nlev > MAX_LEVELS || n->npre > MAX_PRE) return -3;
@@ -142,7 +154,7 @@ int parse(const int* is, const float* fs, Net* n) {
     Level& L = n->lv[k];
     L.cin = li[L_CIN]; L.m = li[L_M]; L.f = li[L_F]; L.s = li[L_S];
     L.c = li[L_C]; L.p = li[L_P]; L.pool = li[L_POOL]; L.ib = li[L_IB];
-    L.act = li[L_ACT];
+    L.act = li[L_ACT]; L.pad = li[L_PAD]; L.cs = li[L_CS];
     L.e = L.ib ? L.p * L.pool : L.c;
     L.slope = lf[0];
   }
@@ -154,7 +166,7 @@ int parse(const int* is, const float* fs, Net* n) {
   n->reg = lf;
   if (n->nlev) {
     const Level& L = n->lv[n->nlev - 1];
-    n->NF = L.m * L.p * L.p;
+    n->NF = n->mean ? L.m : L.m * L.p * L.p;
   } else {
     n->NF = n->C0 * n->HW;
   }
@@ -228,12 +240,14 @@ __global__ void k_augment(int B, int C0, int H, AugParams g,
   a[idx] = v;
 }
 
-// One conv level (true valid convolution) + bias + act + max-pool: one
-// thread per pooled output; writes the pre-activations z of its window and
-// the pooled max. ``in`` (B, Cin, S, S) is addressed as b*sb + c*sc + y*S + x.
-// Taps are summed in the twin's order with separately rounded multiplies
-// and adds (no FMA): the pool's gradient goes to every exact tie, and which
-// outputs tie depends on the order of the sum.
+// One conv level (true convolution at the level's pad and stride) + bias
+// + act + max-pool: one thread per pooled output; writes the
+// pre-activations z of its window and the pooled max. ``in`` (B, Cin, S,
+// S) is addressed as b*sb + c*sc + y*S + x. Taps are summed in the twin's
+// order with separately rounded multiplies and adds (no FMA): the pool's
+// gradient goes to every exact tie, and which outputs tie depends on the
+// order of the sum. A tap off the input adds nothing, which is what the
+// twin's zero product adds.
 __global__ void k_conv_pool(int B, Level L, const float* __restrict__ in,
                             int sb, int sc, const float* __restrict__ w,
                             const float* __restrict__ bias,
@@ -253,12 +267,17 @@ __global__ void k_conv_pool(int B, Level L, const float* __restrict__ in,
       int xx = j * L.pool + dx;
       if (xx >= c) break;
       float acc = 0.0f;
-      for (int u = 0; u < F; ++u)
-        for (int v = 0; v < F; ++v)
+      for (int u = 0; u < F; ++u) {
+        const int iy = y * L.cs + F - 1 - u - L.pad;
+        if (iy < 0 || iy >= S) continue;
+        for (int v = 0; v < F; ++v) {
+          const int ix = xx * L.cs + F - 1 - v - L.pad;
+          if (ix < 0 || ix >= S) continue;
           for (int ci = 0; ci < Cin; ++ci)
-            acc = __fadd_rn(acc, __fmul_rn(
-                wm[(u * F + v) * Cin + ci],
-                ib[ci * sc + (y + F - 1 - u) * S + (xx + F - 1 - v)]));
+            acc = __fadd_rn(acc, __fmul_rn(wm[(u * F + v) * Cin + ci],
+                                           ib[ci * sc + iy * S + ix]));
+        }
+      }
       float zz = acc + bias[m];
       z[((b * L.m + m) * c + y) * c + xx] = zz;
       best = fmaxf(best, act_fn(zz, L.act, L.slope));
@@ -288,30 +307,58 @@ __global__ void k_pool_bwd(int B, Level L, const float* __restrict__ z,
   dz[idx] = g;
 }
 
+// The first tap u >= 0 whose output row y = (r + u) / cs is a whole
+// number >= 0, for r = i + pad - (F-1) of input row i; the next ones are
+// u + cs, u + 2 cs, ... at y + 1, y + 2, ...
+__device__ __forceinline__ int first_tap(int r, int cs) {
+  return r < 0 ? -r : (cs - r % cs) % cs;
+}
+
 // Input gradient of a conv level: one thread per input position (b, c, i,
 // j) of the level's (B, Cin, S, S) input, which is the previous level's
-// pooled output.
+// pooled output. It visits only the outputs on the stride lattice whose
+// taps read it, inside the pool windows' extent, in the order m, u, v (at
+// stride 1 and pad 0 the valid conv's sum, term for term).
 __global__ void k_conv_dgrad(int B, Level L, const float* __restrict__ w,
                              const float* __restrict__ dz,
                              float* __restrict__ din) {
   int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int S = L.s, F = L.f, Cin = L.cin;
+  const int S = L.s, F = L.f, Cin = L.cin, cs = L.cs;
   if (idx >= B * Cin * S * S) return;
   int j = idx % S, i = (idx / S) % S;
   int ci = (idx / (S * S)) % Cin, b = idx / (S * S * Cin);
+  const int ri = i + L.pad - (F - 1), rj = j + L.pad - (F - 1);
+  const int u0 = first_tap(ri, cs), v0 = first_tap(rj, cs);
+  const int y0 = (ri + u0) / cs, x0 = (rj + v0) / cs;
   float s = 0.0f;
   for (int m = 0; m < L.m; ++m)
-    for (int u = 0; u < F; ++u) {
-      int y = i - (F - 1 - u);
-      if (y < 0 || y >= L.e) continue;
-      for (int v = 0; v < F; ++v) {
-        int x = j - (F - 1 - v);
-        if (x < 0 || x >= L.e) continue;
+    for (int u = u0, y = y0; u < F && y < L.e; u += cs, ++y)
+      for (int v = v0, x = x0; v < F && x < L.e; v += cs, ++x)
         s += w[m * F * F * Cin + (u * F + v) * Cin + ci]
              * dz[((b * L.m + m) * L.c + y) * L.c + x];
-      }
-    }
   din[idx] = s;
+}
+
+// The MeanLayer flatten: f[b, m] = sum over the last level's pn x pn
+// pooled positions, in row-major order, of p * (1/pn^2) (the twin's
+// order); one thread per (b, m).
+__global__ void k_mean_fwd(int BM, int PP, const float* __restrict__ p,
+                           float* __restrict__ f) {
+  int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= BM) return;
+  const float inv = 1.0f / (float)PP;
+  const float* row = p + (size_t)q * PP;
+  float s = __fmul_rn(row[0], inv);
+  for (int k = 1; k < PP; ++k) s = __fadd_rn(s, __fmul_rn(row[k], inv));
+  f[q] = s;
+}
+
+// Its backward: every position of (b, m) gets df[b, m] * (1/pn^2).
+__global__ void k_mean_bwd(int BM, int PP, const float* __restrict__ df,
+                           float* __restrict__ dp) {
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= BM * PP) return;
+  dp[e] = __fmul_rn(df[e / PP], 1.0f / (float)PP);
 }
 
 // The dropout mask of element (b, n) of a dense layer: kept when its word's
@@ -678,6 +725,8 @@ struct Workspace {
   float *pz[MAX_PRE], *phd[MAX_PRE], *pdh[MAX_PRE], *pdz[MAX_PRE];
   float *z3, *h3d, *z4, *dz4, *dh3, *dz3;
   float *x2, *z1a, *h1a, *z2a, *h2a, *dz1a, *dz2a, *fcat;   // aux encoder
+  float *fmean, *dmean;   // the MeanLayer flatten and its gradient
+  float* df;   // where the tail's input gradient lands: the flatten's
   long long total;
 };
 
@@ -715,6 +764,9 @@ Workspace carve(const Net& n, float* base) {
   w.h2a = take(B * n.nao);
   w.dz2a = take(B * n.nao);
   w.fcat = take(n.auxcat ? B * n.NT : 0);
+  w.fmean = take(n.mean ? B * n.NF : 0);
+  w.dmean = take(n.mean ? B * n.NF : 0);
+  w.df = n.mean ? w.dmean : n.nlev ? w.dp[n.nlev - 1] : nullptr;
   long long np = 0;
   for (int t = 0; t < n.nstate; ++t) np += n.ten[t * N_ITEN + T_SIZE];
   w.grads = take(np);
@@ -808,8 +860,8 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
 
 // SoftAux head on the flatten f (B, NF), forward and backward: the scores
 // f Wt + bt, the aux logits (k_aux_fwd), the loss (k_head), the encoder's
-// and cross weights' gradients (k_aux_bwd), dWt and df into the last
-// level's pooled gradient.
+// and cross weights' gradients (k_aux_bwd), dWt and df into w.df (the
+// last level's pooled gradient, or the MeanLayer flatten's).
 int softaux_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
                    const float* f, float* const* grad, float* cm) {
   const Net& n = c.n;
@@ -834,7 +886,7 @@ int softaux_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   CHECK((gemm<true, false>(s, NF, NC, B, f, NF, w.dz4, NC, nullptr,
                            grad[th])));
   return (int)gemm<false, true>(s, B, NF, NC, w.dz4, NC, prm[th], NC,
-                                nullptr, w.dp[n.nlev - 1]);
+                                nullptr, w.df);
 }
 
 // [AuxConcat ->] the pre-hiddens, the final hidden and a softmax-kind or
@@ -897,12 +949,12 @@ int dense_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
       w.dz3, grad[th + 1]);
   LAUNCHED();
   // backward through the dense tail: dwh = f^T dz3; df = dz3 wh^T lands
-  // in the gradient buffer of f (the last pre-hidden's output or the
-  // last level's pooled output, the flatten's NF columns)
+  // in the gradient buffer of f (the last pre-hidden's output or w.df,
+  // the flatten's NF columns)
   CHECK((gemm<true, false>(s, fw, n.NH, B, f, fw, w.dz3, n.NH, nullptr,
                            grad[th])));
   if (need_df) {
-    float* dst = n.npre ? w.pdh[n.npre - 1] : w.dp[n.nlev - 1];
+    float* dst = n.npre ? w.pdh[n.npre - 1] : w.df;
     CHECK((gemm<false, true>(s, B, n.npre ? fw : n.NF, n.NH, w.dz3, n.NH,
                              prm[th], n.NH, nullptr, dst)));
   }
@@ -919,7 +971,7 @@ int dense_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
     CHECK((gemm<true, false>(s, inw, P.w, B, fin, inw, w.pdz[j], P.w,
                              nullptr, grad[t])));
     if (j || n.nlev) {
-      float* dst = j ? w.pdh[j - 1] : w.dp[n.nlev - 1];
+      float* dst = j ? w.pdh[j - 1] : w.df;
       CHECK((gemm<false, true>(s, B, j ? inw : n.NF, P.w, w.pdz[j], P.w,
                                prm[t], P.w, nullptr, dst)));
     }
@@ -963,10 +1015,23 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
     sb = L.m * L.p * L.p;
     sc = L.p * L.p;
   }
+  const Level* last = n.nlev ? &n.lv[n.nlev - 1] : nullptr;
+  if (n.mean) {
+    k_mean_fwd<<<blocks((long long)B * last->m, T), T, 0, s>>>(
+        B * last->m, last->p * last->p, inp, w.fmean);
+    LAUNCHED();
+    inp = w.fmean;
+  }
   // the head, the dense tail and their backward down to the flatten
   int rc = n.head == HEAD_SOFTAUX ? softaux_stages(c, s, in, inp, grad, cm)
                                   : dense_stages(c, s, in, inp, grad, cm);
   if (rc != 0) return rc;
+  if (n.mean) {
+    k_mean_bwd<<<blocks((long long)B * last->m * last->p * last->p, T), T, 0,
+                 s>>>(B * last->m, last->p * last->p, w.dmean,
+                      w.dp[n.nlev - 1]);
+    LAUNCHED();
+  }
   // backward through the conv levels
   for (int k = n.nlev - 1; k >= 0; --k) {
     const Level& L = n.lv[k];
@@ -977,7 +1042,7 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
     const int lsb = k ? L.cin * L.s * L.s : n.C0 * HW;
     k_conv_wgrad<<<dim3(L.m, L.f * L.f * L.cin + 1), T, 0, s>>>(
         B, L.m, L.cin, L.f, L.c, L.e, w.dz[k], lin, lsb, L.s * L.s, L.s,
-        grad[2 * k], grad[2 * k + 1]);
+        grad[2 * k], grad[2 * k + 1], L.cs, L.pad);
     LAUNCHED();
     if (k) {
       k_conv_dgrad<<<blocks((long long)B * L.cin * L.s * L.s, T), T, 0, s>>>(

@@ -234,15 +234,18 @@ __device__ float block_sum(float v, float* red) {
   return warp_sum(t);
 }
 
-// Weight gradient of a true valid convolution, in kernel layout:
-// dw[m, (u*F+v)*Cin + c] = sum_{b,y,x<e} dz[b,m,y,x] * in[b,c,y+F-1-u,x+F-1-v],
+// Weight gradient of a true convolution, in kernel layout:
+// dw[m, (u*F+v)*Cin + c] = sum_{b,y,x<e} dz[b,m,y,x] * in[b,c,iy,ix] with
+// iy = y*cstride + F-1-u - pad (ix likewise; zero off the W x W input),
 // and (blockIdx.y == F*F*Cin) the bias gradient sum_{b,y,x} dz[b,m,y,x].
-// One block per output. ``in`` is addressed as b*sb + c*sc + yy*W + xx.
+// cstride 1 and pad 0 are the valid conv. One block per output. ``in`` is
+// addressed as b*sb + c*sc + iy*W + ix.
 __global__ void k_conv_wgrad(int B, int M, int Cin, int F, int cs, int e,
                              const float* __restrict__ dz,
                              const float* __restrict__ in, int sb, int sc,
                              int W, float* __restrict__ dw,
-                             float* __restrict__ dbias) {
+                             float* __restrict__ dbias, int cstride,
+                             int pad) {
   __shared__ float red[32];
   const int m = blockIdx.x, o = blockIdx.y;
   const bool bias = o == F * F * Cin;
@@ -253,11 +256,24 @@ __global__ void k_conv_wgrad(int B, int M, int Cin, int F, int cs, int e,
     v = (o / Cin) % F;
   }
   float s = 0.0f;
-  for (int t = threadIdx.x; t < B * e * e; t += blockDim.x) {
-    int b = t / (e * e), y = (t / e) % e, x = t % e;
-    float g = dz[((b * M + m) * cs + y) * cs + x];
-    s += bias ? g
-              : g * in[b * sb + c * sc + (y + F - 1 - u) * W + (x + F - 1 - v)];
+  if (cstride == 1 && pad == 0) {   // valid: every tap reads the input
+    for (int t = threadIdx.x; t < B * e * e; t += blockDim.x) {
+      int b = t / (e * e), y = (t / e) % e, x = t % e;
+      float g = dz[((b * M + m) * cs + y) * cs + x];
+      s += bias ? g
+                : g * in[b * sb + c * sc + (y + F - 1 - u) * W
+                         + (x + F - 1 - v)];
+    }
+  } else {
+    for (int t = threadIdx.x; t < B * e * e; t += blockDim.x) {
+      int b = t / (e * e), y = (t / e) % e, x = t % e;
+      float g = dz[((b * M + m) * cs + y) * cs + x];
+      int iy = y * cstride + F - 1 - u - pad;
+      int ix = x * cstride + F - 1 - v - pad;
+      float xv = (iy >= 0 && iy < W && ix >= 0 && ix < W)
+                     ? in[b * sb + c * sc + iy * W + ix] : 0.0f;
+      s += bias ? g : g * xv;
+    }
   }
   s = block_sum(s, red);
   if (threadIdx.x == 0) {

@@ -226,8 +226,9 @@ def _spec_arrays(spec):
 
 def _deep_arrays(spec):
     """The deep kernel's integer and float tables (order fixed by the enums
-    at the top of megastep_deep.cu): a header, one entry per conv level,
-    per pre-hidden layer and per state tensor."""
+    at the top of megastep_deep.cu): a header, one entry per conv level
+    (its geometry from ``DeepSpec.levels``: input side, conv side, pooled
+    side, pad, conv stride), per pre-hidden layer and per state tensor."""
     from .megastep import db_lanes, fb_lanes
     from .megastep_deep import deep_kernel_shapes, deep_reg_kinds
 
@@ -239,17 +240,17 @@ def _deep_arrays(spec):
             int(spec.color), int(spec.invert), int(spec.nearest),
             *_warp_flags(spec), int(spec.learn_centers), fb_lanes(spec),
             db_lanes(spec), len(shapes), LOSS_KINDS.index(spec.loss), nah,
-            nao, int(bool(spec.aux_concat))]
+            nao, int(bool(spec.aux_concat)), int(spec.mean_tail)]
     floats = [spec.slope_h, spec.pdrop, spec.translation, math.log(spec.zoom),
               spec.magnitude, spec.pflip, spec.angle * math.pi / 180.0,
               spec.img - 1 - 0.001, math.log(spec.balance),
               math.log(spec.gamma), spec.maxval, 1.0 / spec.maxval,
               spec.junk_dist, spec.boost, spec.log_thresh]
     cin = spec.in_ch
-    for k, (side, c, po) in enumerate(spec.sides):
+    for k, (side, pad, cs, c, po) in enumerate(spec.levels):
         ints += [cin, spec.maps[k], spec.filts[k], side, c, po,
                  spec.pools[k], int(spec.ibs[k]),
-                 ACT_KINDS.index(spec.acts[k])]
+                 ACT_KINDS.index(spec.acts[k]), pad, cs]
         floats.append(spec.slopes[k])
         cin = spec.maps[k]
     for width, act, slope, pd in spec.pre_hidden:

@@ -603,18 +603,36 @@ def _corr_weights(w_k, spec_f, maps_in):
     return torch.flip(w, (2, 3)).reshape(w_k.shape[0], -1)
 
 
-def _conv_true(x, w_k, spec_f, maps_in):
-    """True (flipped-filter) valid convolution with kernel-layout weights
-    (M, F*F*Cin) on (B, Cin, H, W), summed tap by tap in the kernel layout's
-    order (u, v, c), each step one f32 multiply and one f32 add — the CUDA
-    kernel sums in the same order without fused multiply-adds. The max-pool
-    that follows sends its gradient to every exact tie, and which outputs
-    tie exactly depends on the order of the sum (the +-1/sqrt(fan_in) init
-    and the clipped, resampled pixels make such coincidences common), so
-    the twin and the kernel share one order. A library convolution or GEMM
-    may sum each output in another order."""
-    side = x.shape[2] - spec_f + 1
-    M = w_k.shape[0]
+def _padded(x, spec_f, pad, cstride, side):
+    """``x`` (B, C, S, S) on the zero-padded canvas a conv level reads:
+    ``pad`` zeros before each axis and as many after as the last of the
+    ``side`` outputs at stride ``cstride`` reaches ((side-1)*cstride + F
+    rows in all). A valid stride-1 level reads ``x`` itself."""
+    hi = max(0, (side - 1) * cstride + spec_f - x.shape[2] - pad)
+    if not (pad or hi):
+        return x
+    return F.pad(x, (pad, hi, pad, hi))
+
+
+def _conv_true(x, w_k, spec_f, maps_in, pad=0, cstride=1, side=None):
+    """True (flipped-filter) convolution with kernel-layout weights
+    (M, F*F*Cin) on (B, Cin, S, S): output (y, x), for y, x < ``side``
+    (default the valid stride-1 side), sums tap (u, v) of input row
+    y*cstride + F-1-u - ``pad`` (and its column likewise), zeros outside
+    the input: pad 0 is a valid conv, F-1 a 'full' one. Summed tap by tap
+    in the kernel layout's order (u, v, c), each step one f32 multiply and
+    one f32 add — the CUDA kernel sums in the same order without fused
+    multiply-adds, and adds nothing for a tap off the input, which equals
+    adding this zero product. The max-pool that follows sends its gradient
+    to every exact tie, and which outputs tie exactly depends on the order
+    of the sum (the +-1/sqrt(fan_in) init and the clipped, resampled
+    pixels make such coincidences common), so the twin and the kernel share
+    one order. A library convolution or GEMM may sum each output in another
+    order."""
+    if side is None:
+        side = x.shape[2] - spec_f + 1
+    x = _padded(x, spec_f, pad, cstride, side)
+    M, span = w_k.shape[0], (side - 1) * cstride + 1
     z = torch.zeros((x.shape[0], M, side, side), dtype=x.dtype,
                     device=x.device)
     for u in range(spec_f):
@@ -622,25 +640,33 @@ def _conv_true(x, w_k, spec_f, maps_in):
             oy, ox = spec_f - 1 - u, spec_f - 1 - v
             for c in range(maps_in):
                 w = w_k[:, (u * spec_f + v) * maps_in + c].reshape(1, M, 1, 1)
-                z = z + w * x[:, c:c + 1, oy:oy + side, ox:ox + side]
+                z = z + w * x[:, c:c + 1, oy:oy + span:cstride,
+                              ox:ox + span:cstride]
     return z
 
 
-def _conv_true_dgrad(dz, w_k, spec_f, maps_in, side_in):
+def _conv_true_dgrad(dz, w_k, spec_f, maps_in, side_in, pad=0, cstride=1):
     """d conv_true / d input: scatter each output's gradient back over its
-    patch (the transpose of the patch matrix)."""
+    patch (the transpose of the patch matrix) on _padded's canvas, then
+    crop the input's ``side_in`` square out of it."""
+    side = dz.shape[2]
     dcols = _corr_weights(w_k, spec_f, maps_in).T @ dz.reshape(
         dz.shape[0], dz.shape[1], -1)
-    return F.fold(dcols, (side_in, side_in), spec_f)
+    hi = max(0, (side - 1) * cstride + spec_f - side_in - pad)
+    canvas = pad + side_in + hi
+    d = F.fold(dcols, (canvas, canvas), spec_f, stride=cstride)
+    return d[:, :, pad:pad + side_in, pad:pad + side_in]
 
 
-def _conv_true_wgrad(x, dz, spec_f):
+def _conv_true_wgrad(x, dz, spec_f, pad=0, cstride=1):
     """d conv_true / d w in kernel layout: dw[m, (u*F+v)*C + c] =
-    sum_{b,y,x} dz[b,m,y,x] * x[b,c,y+F-1-u,x+F-1-v]. A patch matrix and
-    one product (not a conv with a dz-sized filter, which a GPU library
-    may run through FFT at a lower precision)."""
+    sum_{b,y,x} dz[b,m,y,x] * x[b,c,y*cs+F-1-u-pad,x*cs+F-1-v-pad] (zero
+    off the input). A patch matrix and one product (not a conv with a
+    dz-sized filter, which a GPU library may run through FFT at a lower
+    precision)."""
     B, M = dz.shape[0], dz.shape[1]
-    cols = F.unfold(x, spec_f)                          # (B, C*F*F, L)
+    x = _padded(x, spec_f, pad, cstride, dz.shape[2])
+    cols = F.unfold(x, spec_f, stride=cstride)          # (B, C*F*F, L)
     dwc = torch.einsum("bml,bkl->mk", dz.reshape(B, M, -1), cols)
     dw = torch.flip(dwc.reshape(M, x.shape[1], spec_f, spec_f), (2, 3))
     return dw.permute(0, 2, 3, 1).reshape(M, -1)

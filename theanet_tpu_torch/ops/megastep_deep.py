@@ -14,23 +14,34 @@ max-norm update of every state tensor.
     launch ``csrc/megastep_deep.cu`` (one C call per epoch) or raise. It
     counts its kernel launches in ``deep_epoch.launches``.
 
-The grammar the port takes (the JAX family's, less the conv geometry that
-ROADMAP.md queues as item B2): valid stride-1 convs, each followed by a
-PoolLayer of any size (with or without ignore_border) or by none (the
-identity pool); an optional AuxConcatLayer (its frozen LocationInfo encoder
-appends its output to the flatten); Hidden layers each with an optional
-DropOutLayer, whose rate folds into the layer's as 1-(1-p1)(1-p2); a
-Softmax head (loss 'nll', 'nllsq' or truncated 'nll<NN>'), a Hinge or an
-ExpLoss head, or a CenteredOut(nll) head, LOGIT (frozen centers) or RBF
-(learned or frozen centers); or, directly on the conv features, a
-SoftAux(nll) head. A net with an aux layer reads a (B, 4) aux row block a
-step (``aux_steps`` (nb, B, 4)). The bare 2-conv Softmax(nll) pattern stays
-with the flagship family when its matcher takes it, and the bare flat
-Input/Elastic -> Hidden -> Softmax(nll) pattern with the flat-MLP family
-(``fused_plan`` tries flagship, MLP, deep). The TPU's VMEM gate and grouped
-lane-slot layout have no counterpart: the card holds every shipped net
-whole. What the kernel cannot launch (a head or warp stage beyond a block's
-shared memory) is declined by name (``megastep.launch_limit_reason``).
+The grammar the port takes is the JAX family's: convs in every geometry
+the JAX family fuses ('valid' at any stride that divides in-F+1, 'same',
+and stride-1 'full' where the level's pool washes out the reference's
+in+F+1 booking; see ``DeepSpec.levels``), each followed by a PoolLayer of
+any size (with or without ignore_border) or by none (the identity pool); an
+optional MeanLayer after the conv stack (the flatten is then the per-map
+mean of the last pooled level: each position times 1/pn^2, summed in
+row-major order; its gradient df/pn^2 at every position); an optional
+AuxConcatLayer (its frozen LocationInfo encoder appends its output to the
+flatten); Hidden layers each with an optional DropOutLayer, whose rate
+folds into the layer's as 1-(1-p1)(1-p2); a Softmax head (loss 'nll',
+'nllsq' or truncated 'nll<NN>'), a Hinge or an ExpLoss head, or a
+CenteredOut(nll) head, LOGIT (frozen centers) or RBF (learned or frozen
+centers); or, directly on the conv features, a SoftAux(nll) head. A net
+with an aux layer reads a (B, 4) aux row block a step (``aux_steps`` (nb,
+B, 4)). The bare 2-conv Softmax(nll) pattern stays with the flagship
+family when its matcher takes it, and the bare flat Input/Elastic ->
+Hidden -> Softmax(nll) pattern with the flat-MLP family (``fused_plan``
+tries flagship, MLP, deep). The TPU's VMEM gate and grouped lane-slot
+layout have no counterpart: the card holds every shipped net whole. What
+the kernel cannot launch (a head or warp stage beyond a block's shared
+memory) is declined by name (``megastep.launch_limit_reason``).
+
+An even 'same' filter reads the port's per-layer path's taps (a full conv
+cropped at (F-1)//2, as the reference's convpool.py does). The JAX
+package's kernel reads them one row and one column lower than its own
+per-layer path, so for even filters the twin follows the JAX per-layer
+step, and for odd filters, where the two agree, the JAX kernel too.
 
 Kernel-layout state, per conv level the weights (M, F*F*Cin) indexed
 (u*F+v)*Cin + c and the bias column (M, 1); per dense layer the weights
@@ -118,6 +129,19 @@ class DeepSpec(NamedTuple):
     # and its frozen weights w1 (2, nah), b1, w2 (nah, nao), b2 (f32)
     aux_concat: tuple = ()
     aux_wts_bytes: bytes = b""
+    # the conv geometry: per level the conv stride and the border mode
+    # ('valid' | 'same' | 'full'); empty means all stride-1 valid. A
+    # MeanLayer after the conv stack makes the flatten the per-map mean of
+    # the last pooled level (n_flat = maps[-1]).
+    conv_strides: tuple = ()
+    modes: tuple = ()
+    mean_tail: bool = False
+
+    def cstride(self, k):
+        return self.conv_strides[k] if self.conv_strides else 1
+
+    def mode(self, k):
+        return self.modes[k] if self.modes else "valid"
 
     @property
     def has_aux(self):
@@ -138,26 +162,48 @@ class DeepSpec(NamedTuple):
         return len(self.filts)
 
     @property
-    def sides(self):
-        """Per level (input side, conv output side, pooled side)."""
+    def levels(self):
+        """Per level (input side, pad, conv stride, conv side, pooled
+        side): conv output (y, x) reads input row y*stride + F-1-u - pad
+        for tap u (zeros off the input). 'valid' pads 0 and keeps
+        (in-F+1)//stride outputs; 'same' pads F//2, the port's per-layer
+        full conv cropped at (F-1)//2, and keeps in; 'full' pads F-1 and
+        keeps in+F-1, the real tensor (the reference books in+F+1, which
+        the matcher lets through only where the pool washes it out)."""
         out, s = [], self.img
-        for f, p, ib in zip(self.filts, self.pools, self.ibs):
-            c = s - f + 1
+        for k, (f, p, ib) in enumerate(zip(self.filts, self.pools,
+                                           self.ibs)):
+            mode, cs = self.mode(k), self.cstride(k)
+            # zeros before the input, and on both sides together
+            pad, both = {"valid": (0, 0), "same": (f // 2, f - 1),
+                         "full": (f - 1, 2 * (f - 1))}[mode]
+            c = (s + both - f + 1) // cs
             po = c // p if ib else -(-c // p)
-            out.append((s, c, po))
+            out.append((s, pad, cs, c, po))
             s = po
         return tuple(out)
+
+    @property
+    def sides(self):
+        """The JAX package's per-level (lane grid side, conv side, pooled
+        side): the grid is the input side, or for a 'full' level the side
+        of the zero-padded grid its kernel works on, in + 2(F-1)."""
+        return tuple((s + 2 * (f - 1) if self.mode(k) == "full" else s, c,
+                      po)
+                     for k, ((s, _, _, c, po), f) in enumerate(
+                         zip(self.levels, self.filts)))
 
     @property
     def n_flat(self):
         if not self.maps:
             return self.in_ch * self.hw
-        return self.maps[-1] * self.sides[-1][2] ** 2
+        if self.mean_tail:
+            return self.maps[-1]
+        return self.maps[-1] * self.levels[-1][4] ** 2
 
 
 # ----------------------------------------------------------------- matcher
 
-_B2 = "queued in ROADMAP.md as item B2, the deep family's conv geometry"
 _HEADS_TAKEN = ("SoftmaxLayer", "HingeLayer", "ExpLossLayer",
                 "CenteredOutLayer", "SoftAuxLayer")
 
@@ -201,10 +247,10 @@ def _match(net):
     """(DeepSpec, None) when ``net`` is in the port's deep grammar, else
     (None, reason). The one copy of the family's eligibility rules: it
     takes what the JAX package's ``deep_spec_from_net`` takes
-    (megastep_deep.py:380-535), less item B2's conv geometry."""
+    (megastep_deep.py:380-535) and declines what it declines."""
     from ..layers import (AuxConcatLayer, ColorLayer, ConvLayer,
                           DropOutLayer, ElasticLayer, HiddenLayer,
-                          InputLayer, PoolLayer, SoftAuxLayer)
+                          InputLayer, MeanLayer, PoolLayer, SoftAuxLayer)
 
     from .megastep import FUSED_TAIL_REASON
 
@@ -216,17 +262,11 @@ def _match(net):
         return None, reason
     for k, lyr in enumerate(L):
         name = type(lyr).__name__
-        if name == "MeanLayer":
-            return None, (f"layer {k} MeanLayer: its flatten constants in "
-                          f"the fused kernel are {_B2}")
-        if type(lyr) is ConvLayer and lyr.mode != "valid":
-            return None, (f"layer {k} ConvLayer mode={lyr.mode!r}: the "
-                          "port's fused families take 'valid' convs "
-                          f"('same' and 'full' are {_B2})")
-        if type(lyr) is ConvLayer and lyr.stride != 1:
-            return None, (f"layer {k} ConvLayer stride={lyr.stride}: the "
-                          "port's fused families take stride 1 (strided "
-                          f"convs are {_B2})")
+        if type(lyr) is ConvLayer:
+            reason = _geometry_reason(k, lyr, L[k + 1] if k + 1 < len(L)
+                                      else None)
+            if reason:
+                return None, reason
         actvn = getattr(lyr, "actvn", None)
         if (actvn is not None and act_of(actvn) is None
                 and type(lyr).__name__ not in _HEADS_TAKEN):
@@ -237,10 +277,10 @@ def _match(net):
             return None, (f"layer {k} {name} is frozen (rate 0); the fused "
                           "layouts carry momentum for every owned layer")
     grammar = ("the layer pattern is outside the fused grammar ([Color ->] "
-               "Input/Elastic -> (Conv -> [Pool])*n -> [AuxConcat ->] "
-               "(Hidden -> [DropOut])*m -> Softmax/Hinge/ExpLoss/"
-               "CenteredOut, m >= 1; or (Conv -> [Pool])*n -> SoftAux, "
-               "n >= 1)")
+               "Input/Elastic -> (Conv -> [Pool])*n -> [Mean ->] "
+               "[AuxConcat ->] (Hidden -> [DropOut])*m -> Softmax/Hinge/"
+               "ExpLoss/CenteredOut, m >= 1; or (Conv -> [Pool])*n -> "
+               "[Mean ->] SoftAux, n >= 1; Mean needs n >= 1)")
 
     i, color = 0, dict(color=False)
     if type(L[0]) is ColorLayer:
@@ -267,6 +307,8 @@ def _match(net):
         else:
             pools.append((1, False))      # no PoolLayer: the identity pool
     n = len(convs)
+    mean_tail = bool(n and i < len(L) and type(L[i]) is MeanLayer)
+    i += mean_tail
     aux_cfg = {}
     if i < len(L) and type(L[i]) is AuxConcatLayer:
         ac = L[i]
@@ -284,6 +326,8 @@ def _match(net):
         filts=tuple(c.filter_sz for c in convs),
         pools=tuple(p for p, _ in pools), ibs=tuple(ib for _, ib in pools),
         maps=tuple(c.num_maps for c in convs),
+        conv_strides=tuple(c.stride for c in convs),
+        modes=tuple(c.mode for c in convs), mean_tail=mean_tail,
         slopes=tuple(s for _, s in conv_acts),
         acts=tuple(k for k, _ in conv_acts), **aug_of(aug_src),
         regs=tuple(reg_of(c) for c in convs), in_ch=in_ch, **color)
@@ -331,6 +375,43 @@ def _match(net):
     if any(c <= 0 or po <= 0 for _, c, po in spec.sides):
         return None, "the image is too small for the conv/pool levels"
     return spec, deep_launch_reason(spec)
+
+
+def _geometry_reason(k, conv, after):
+    """Why the fused family declines conv layer ``k`` (followed by layer
+    ``after``) for its geometry, else None: the JAX package's rules
+    (``_conv_stack_ok``, megastep_deep.py:270-313), its reasons
+    (megastep.py:627-659). The reference books a 'full' conv's output as
+    in+F+1 and a strided one's as (in-F+1)//stride; where that booking
+    disagrees with the real tensor downstream, the reference's net
+    shape-errors, and both packages keep such nets per layer."""
+    from ..layers import PoolLayer
+
+    f, s = conv.filter_sz, conv.in_sz
+    if conv.mode == "full":
+        if conv.stride > 1:
+            return (f"layer {k} ConvLayer mode='full' with stride="
+                    f"{conv.stride}: the reference strides the real in+F-1 "
+                    "tensor while booking (in+F+1)//stride, so strided "
+                    "'full' convs stay per layer, as in the JAX package")
+        pool = after if type(after) is PoolLayer else None
+        psz = pool.pool_sz if pool else 1
+        ib = bool(pool.ignore_border) if pool else False
+        real, booked = s + f - 1, s + f + 1
+        pr, pb = ((real // psz, booked // psz) if ib
+                  else (-(-real // psz), -(-booked // psz)))
+        if pr != pb:
+            return (f"layer {k} ConvLayer mode='full': the pool does not "
+                    f"wash the reference's out=in+filter+1 booking back "
+                    f"onto the real in+filter-1 tensor (pooled {pr} real "
+                    f"against {pb} booked; such nets shape-error at the "
+                    "flatten, and stay per layer, as in the JAX package)")
+    if conv.stride > 1 and (s - f + 1) % conv.stride:
+        return (f"layer {k} ConvLayer stride={conv.stride} does not divide "
+                f"in-filter+1={s - f + 1} (the reference's floor out_sz "
+                "booking disagrees with the strided tensor; such nets "
+                "shape-error, and stay per layer, as in the JAX package)")
+    return None
 
 
 def deep_head_smem(spec):
@@ -548,6 +629,25 @@ def _softaux_head(spec, f, y, db, aux, tail):
     return cost, minf, grads, dz4 @ Wt.T
 
 
+def mean_flatten(p):
+    """The MeanLayer flatten of the last pooled level p (B, M, pn, pn): each
+    position times 1/pn^2, summed in row-major order (the CUDA kernel's
+    order). Returns (B, M)."""
+    inv = 1.0 / (p.shape[2] * p.shape[3])
+    rows = (p * inv).reshape(p.shape[0], p.shape[1], -1)
+    f = rows[:, :, 0]
+    for j in range(1, rows.shape[2]):
+        f = f + rows[:, :, j]
+    return f
+
+
+def mean_flatten_grad(df, shape):
+    """The gradient of mean_flatten at every position of ``shape``: df
+    (B, M) times 1/pn^2."""
+    inv = 1.0 / (shape[2] * shape[3])
+    return (df * inv)[:, :, None, None].expand(shape)
+
+
 def deep_step_reference(spec, x, y, ub, fb, pb, db, params, centers, gh, gw,
                         aux=None, auxw=None):
     """One step of the deep family in plain PyTorch (``_deep_fwd_bwd``,
@@ -566,16 +666,19 @@ def deep_step_reference(spec, x, y, ub, fb, pb, db, params, centers, gh, gw,
 
     a = augment(spec, x, ub, fb, pb, gh, gw)
     inp = a.reshape(C0, B, H, H).transpose(0, 1)           # (B, C0, H, H)
-    saved, cin = [], C0
+    saved, cin, levels = [], C0, spec.levels
     for k in range(n):
-        M = spec.maps[k]
-        z = _conv_true(inp, ws[k], spec.filts[k], cin) + bs[k].reshape(
-            1, M, 1, 1)
+        M, (_, pad, cs, c, _) = spec.maps[k], levels[k]
+        z = _conv_true(inp, ws[k], spec.filts[k], cin, pad, cs, c) + bs[
+            k].reshape(1, M, 1, 1)
         r, p = _pool(spec.pools[k], spec.ibs[k],
                      _act(z, spec.acts[k], spec.slopes[k]))
         saved.append((inp, z, r, p))
         inp, cin = p, M
-    f = inp.reshape(B, -1)       # flat nets: (B, C0*HW), flatten(2) order
+    if spec.mean_tail:
+        f = mean_flatten(inp)
+    else:
+        f = inp.reshape(B, -1)   # flat nets: (B, C0*HW), flatten(2) order
     conv_cost = weight_cost(list(zip(spec.regs, zip(ws, bs))))
 
     if spec.head == "softaux":
@@ -589,17 +692,20 @@ def deep_step_reference(spec, x, y, ub, fb, pb, db, params, centers, gh, gw,
         cost = cost + conv_cost
     dconv = []
     if n:
-        dp = df_rows[:, :spec.n_flat].reshape(saved[-1][3].shape)
+        shape = saved[-1][3].shape
+        df = df_rows[:, :spec.n_flat]
+        dp = (mean_flatten_grad(df, shape) if spec.mean_tail
+              else df.reshape(shape))
     for k in range(n - 1, -1, -1):
         inp, z, r, p = saved[k]
-        side_in, c, _ = spec.sides[k]
+        side_in, pad, cs, c, _ = levels[k]
         dz = pool_backward(r, p, dp, c) * _dact(z, spec.acts[k],
                                                 spec.slopes[k])
-        dconv.append((_conv_true_wgrad(inp, dz, spec.filts[k]),
+        dconv.append((_conv_true_wgrad(inp, dz, spec.filts[k], pad, cs),
                       dz.sum(dim=(0, 2, 3)).reshape(-1, 1)))
         if k:
             dp = _conv_true_dgrad(dz, ws[k], spec.filts[k], spec.maps[k - 1],
-                                  side_in)
+                                  side_in, pad, cs)
     dconv.reverse()
     grads = [g for pair in dconv + dpre for g in pair]
     return cost, minf, grads + tail_grads
