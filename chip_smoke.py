@@ -66,7 +66,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
  14. bench.py's wide model (56x56, conv 64 -> conv 128, hidden 2048,
      softmax 1000, batch 256, bf16, its data) through NeuralNet and
      Trainer with THEANET_PALLAS_CONV=1 and MEGAFUSED 'auto': the Trainer
-     must name the head's shared memory as its decline; the initial eval
+     must name the route rule as its decline (the JAX package's byte
+     models decline it, and its head does not fit shared memory); the
+     initial eval
      NLL is held to the JAX package's CPU forward; 2 epochs of 80 steps and
      the second again from snapshot_state, one conv forward and backward
      launch per step and one forward per eval batch, the replay bit-equal;
@@ -143,6 +145,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      each geometry configuration timed by CUDA events beside the twin's,
      with its bound and its stages; mnist_same at world 2 on the ring
      (two processes on the card), bit-equal to its emulation.
+ 23. the heads and batches the parent declined, which the route rule now
+     takes with their heads in the kernels' workspace: mnist_cnn's layers
+     at BATCH_SZ 3000, at B 128 with 457 classes and at B 20 with 1453
+     classes, flat_mlp's at B 128 with 457 classes, a three-level conv net
+     at B 20 with 1500 classes, on synth_hard: each kernel against its
+     twin, one step and HEAD_LOCKED_STEPS steps step-locked (each state
+     tensor within 1e-5 of max(1, its largest value)); a timed epoch of
+     each, launches counted; megastep_grad_step and deep_grad_step against
+     their plain versions; train.main with mnist_cnn.prms at BATCH_SZ 3000
+     and MEGAFUSED True (3 epochs and a 1-epoch resume, one launch an
+     epoch), its test rows against the JAX package's CPU run; one
+     per-layer epoch at BATCH_SZ 3000 beside the fused one;
+ 24. the probe kernels of csrc/probes.cu (floor, conv section, relay)
+     against their plain versions in every variant and launch mode; their
+     epoch times beside the plain versions and the bounds; then the probe
+     tools (python -m theanet_tpu_torch.tools.floor_probe,
+     .conv_layout_probe) on the card, us/step for every variant at one
+     launch an epoch and one a step, beside the card's name and power
+     limit.
 
 The last three lines are the kernels JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The script imports nothing of
@@ -196,7 +217,7 @@ FREE_TOTAL_RTOL = 5e-3
 # different random bits give mid-curve and fails a net that did not learn.
 MAIN_SEED = 9876
 MAIN_TEST_ERR_MAX = 40.0
-ALL_PHASES = tuple(range(1, 23))
+ALL_PHASES = tuple(range(1, 25))
 
 
 def banner(n, title):
@@ -678,15 +699,33 @@ def load_config(torch, name, dev):
 
 
 def family_fns(plan):
-    """(kernel wrapper, twin) of a deep or flat-MLP plan."""
+    """(kernel wrapper, twin) of a fused plan."""
+    from theanet_tpu_torch.ops import megastep
     from theanet_tpu_torch.ops import megastep_deep as deep
     from theanet_tpu_torch.ops import megastep_mlp as mlp
 
-    for kernel, twin in ((deep.deep_epoch, deep.deep_epoch_reference),
+    for kernel, twin in ((megastep.megastep_epoch,
+                          megastep.megastep_epoch_reference),
+                         (deep.deep_epoch, deep.deep_epoch_reference),
                          (mlp.mlp_epoch, mlp.mlp_epoch_reference)):
         if plan.epoch_fn is kernel:
             return kernel, twin
-    raise AssertionError(f"not a deep or flat-MLP plan: {plan.epoch_fn}")
+    raise AssertionError(f"not a fused plan: {plan.epoch_fn}")
+
+
+def head_bytes(plan):
+    """The bytes of a fused plan's head scratch (shared memory up to the
+    227 KB opt-in, else the kernel's workspace)."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_deep as deep
+    from theanet_tpu_torch.ops import megastep_mlp as mlp
+
+    spec = plan.spec
+    if isinstance(spec, megastep.MegaSpec):
+        return megastep.flagship_head_smem(spec)
+    if isinstance(spec, mlp.MlpSpec):
+        spec = mlp.as_deep(spec)
+    return deep.deep_head_smem(spec)
 
 
 def initial_state(plan, net, dev):
@@ -899,9 +938,9 @@ def cli_run(train, name, family, launches, seed=None, epochs=None):
     return rows
 
 
-def resume_one_epoch(train, name, launches, data=None):
+def resume_one_epoch(train, name, launches, data=None, family="deep_epoch"):
     """Resume the one kept checkpoint of ``name`` for one epoch (on its
-    CONFIGS dataset, or ``data``)."""
+    CONFIGS dataset, or ``data``): one launch of ``family``'s kernel."""
     from theanet_tpu_torch.prms import load_params
 
     pkls = [p for p in os.listdir(".")
@@ -917,8 +956,8 @@ def resume_one_epoch(train, name, launches, data=None):
                      "allwts": allwts}, f, -1)
     out, counts = counted_run(
         train, ["train", data or CONFIGS[name]["data"], "resume.pkl"])
-    assert counts["deep_epoch"] == 1, counts
-    launches["deep_epoch"] += 1
+    assert counts[family] == 1, counts
+    launches[family] += 1
     resumed = epoch_rows(out)
     assert [r[0] for r in resumed] == [start, start + 1], (start, resumed)
     assert all(math.isfinite(r[1]) for r in resumed)
@@ -1059,9 +1098,12 @@ def epoch_bound(spec, inputs, outputs, n_steps):
     return bound(nbytes(*inputs, *outputs), n_steps * step_flops(spec))
 
 
-def time_config(torch, name, dev, card):
-    """(kernel ms, twin ms, (bound ms, bound by)) of one full epoch."""
-    net, plan, x, y = load_config(torch, name, dev)
+def time_config(torch, name, dev, card, loaded=None):
+    """(kernel ms, twin ms, (bound ms, bound by)) of one full epoch of a
+    config (``loaded``: load_config's (net, plan, x_steps, y_steps), by
+    default of CONFIGS or GEOM_CONFIGS ``name``); checks one kernel launch
+    a timed call."""
+    net, plan, x, y = loaded or load_config(torch, name, dev)
     kernel, twin = family_fns(plan)
     spec = plan.spec
     kp = initial_state(plan, net, dev)
@@ -1069,10 +1111,12 @@ def time_config(torch, name, dev, card):
     from theanet_tpu_torch.ops import megastep
 
     bits = megastep.epoch_noise_bits(3, 0, spec, x.shape[0], dev)
-    saved = kernel.launches
+    saved, kernel.launches = kernel.launches, 0
     ms_k1 = timed(torch, lambda: kernel(kp, km, x, y, bits, 0.1, spec), 3)
     ms_t = timed(torch, lambda: twin(kp, km, x, y, bits, 0.1, spec), 1)
     ms_k2 = timed(torch, lambda: kernel(kp, km, x, y, bits, 0.1, spec), 3)
+    # 2 warm-ups + 6 timed calls, one launch each (none on the CPU)
+    assert kernel.launches == (8 if x.is_cuda else 0), kernel.launches
     kernel.launches = saved   # timing launches do not count
     ms_k = min(ms_k1, ms_k2)
     bound = epoch_bound(spec, [x, y, *bits, *kp, *km],
@@ -1082,7 +1126,8 @@ def time_config(torch, name, dev, card):
     print(f"  one {name} epoch ({x.shape[0]} steps x {spec.batch}) on "
           f"{card}: kernel {ms_k1:.3f} / {ms_k2:.3f} ms "
           f"({n_img / ms_k * 1e3:,.0f} images/s), twin {ms_t:.3f} ms; bound "
-          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+          f"{bound[0]:.4f} ms ({bound[1]}); one {kernel.__name__} launch a "
+          f"call; head scratch {head_bytes(plan):,} bytes", flush=True)
     profile_epoch(torch, lambda: kernel(kp, km, x, y, bits, 0.1, spec),
                   x.shape[0])
     kernel.launches = saved
@@ -1625,8 +1670,10 @@ def phase14(torch, card, n_steps=WIDE_STEPS):
     with contextlib.redirect_stderr(err):
         trainer = Trainer(net, x, y, x[:WIDE_B], y[:WIDE_B])
     print("  " + err.getvalue().strip(), flush=True)
-    assert "per-layer path: the head kernel's shared memory" in \
-        err.getvalue(), err.getvalue()
+    for part in ("per-layer path: the route rule: the JAX package's deep "
+                 "VMEM model declines it", "the head does not fit shared "
+                 "memory", "the flagship family declines it too"):
+        assert part in err.getvalue(), err.getvalue()
     assert trainer._mega is None
     dev = trainer.device
     tx, ty = trainer.d_test_x, trainer.d_test_y
@@ -1905,14 +1952,14 @@ def grad_step_flops(spec):
     return step_flops(spec) - 10 * sum(r * c for r, c in shapes)
 
 
-def phase15_case(torch, name, b_loc, dev, card):
-    """One gradient step and one update of a DP_CASES entry, kernel vs plain
-    version, and their times. Returns {kernel: (largest absolute |d|, (ms,
-    plain ms, bound))}."""
+def phase15_case(torch, name, b_loc, dev, card, setup=None):
+    """One gradient step and one update of a DP_CASES entry (or of
+    ``setup``, dp_setup's tuple), kernel vs plain version, and their times.
+    Returns {kernel: (largest absolute |d|, (ms, plain ms, bound))}."""
     from theanet_tpu_torch.ops import megastep
     from theanet_tpu_torch.ops import megastep_dp as dp
 
-    net, plan, kp, x, y = dp_setup(torch, name, dev)
+    net, plan, kp, x, y = setup or dp_setup(torch, name, dev)
     spec = plan.spec
     n = spec.batch // b_loc
     loc = dp.local_spec(spec, b_loc)
@@ -1986,10 +2033,7 @@ def dp_locked_epoch(torch, name, mesh, dev):
 
     net, plan, kp, x, y = dp_setup(torch, name, dev)
     spec = plan.spec
-    kernel, twin = ((megastep.megastep_epoch,
-                     megastep.megastep_epoch_reference)
-                    if isinstance(spec, megastep.MegaSpec)
-                    else family_fns(plan))
+    kernel, twin = family_fns(plan)
     xs, ys = dp.dp_shard_data(spec, 1, 0, x, y)
     nb = xs.shape[0]
     bits = megastep.epoch_noise_bits(3, 0, spec, nb, dev)
@@ -2897,20 +2941,24 @@ def dense_kink(torch, spec, params, x, bits_s, dev):
     return lowest
 
 
-def deep_locked(torch, name, net, plan, x, y, aux, dev):
-    """The deep kernel against its twin, one step at a time from the
+def family_locked(torch, name, net, plan, x, y, aux, dev):
+    """A fused kernel against its twin, one step at a time from the
     kernel's state (the first step from the initial weights and random
     nonzero momenta): cost and minf within STEP_COST_ATOL, each state
     tensor within AUX_REL of the larger of 1 and its largest value; a step
     whose nearest warp has a near-rounding pixel (see step_locked), or
-    beyond AUX_REL with a dense pre-activation within KINK_ATOL of 0,
-    within FLIP_ATOL. Returns the largest absolute |d| of the state over
-    all steps."""
+    (deep and flat-MLP specs) beyond AUX_REL with a dense pre-activation
+    within KINK_ATOL of 0, within FLIP_ATOL. ``aux`` holds a deep net's aux
+    rows (or None). Returns the largest absolute |d| of the state over all
+    steps."""
     from theanet_tpu_torch.ops import megastep
     from theanet_tpu_torch.ops import megastep_deep as deep
+    from theanet_tpu_torch.ops import megastep_mlp as mlp
 
-    assert plan.epoch_fn is deep.deep_epoch, name
+    kernel, twin = family_fns(plan)
     spec = plan.spec
+    dspec = (mlp.as_deep(spec) if isinstance(spec, mlp.MlpSpec)
+             else spec if isinstance(spec, deep.DeepSpec) else None)
     kp = initial_state(plan, net, dev)
     gen = torch.Generator(device=dev).manual_seed(11)
     p = kp
@@ -2922,11 +2970,9 @@ def deep_locked(torch, name, net, plan, x, y, aux, dev):
     for s in range(x.shape[0]):
         sl = slice(s, s + 1)
         b_s = tuple(b[sl] for b in bits)
-        a_s = None if aux is None else aux[sl]
-        got = deep.deep_epoch(p, m, x[sl], y[sl], b_s, 0.1, spec,
-                              aux_steps=a_s)
-        ref = deep.deep_epoch_reference(p, m, x[sl], y[sl], b_s, 0.1, spec,
-                                        aux_steps=a_s)
+        kw = {} if aux is None else {"aux_steps": aux[sl]}
+        got = kernel(p, m, x[sl], y[sl], b_s, 0.1, spec, **kw)
+        ref = twin(p, m, x[sl], y[sl], b_s, 0.1, spec, **kw)
         assert bool(torch.isfinite(got[2]).all()), (name, s, got[2])
         d_cost = max_abs(got[2], ref[2])
         pairs = list(zip(got[0] + got[1], ref[0] + ref[1]))
@@ -2939,8 +2985,8 @@ def deep_locked(torch, name, net, plan, x, y, aux, dev):
             assert d_cost <= STEP_COST_ATOL, (name, s, got[2], ref[2])
             d = max(max_abs(a, b) / max(1.0, float(b.abs().max()))
                     for a, b in pairs)
-            kink = (dense_kink(torch, spec, p, x[s], b_s, dev)
-                    if d > AUX_REL else None)
+            kink = (dense_kink(torch, dspec, p, x[s], b_s, dev)
+                    if d > AUX_REL and dspec is not None else None)
             if kink is not None and kink < KINK_ATOL:
                 n_kink += 1
                 worst_kink = max(worst_kink, d_abs)
@@ -2950,17 +2996,21 @@ def deep_locked(torch, name, net, plan, x, y, aux, dev):
                 worst_abs = max(worst_abs, d_abs)
         p, m = got[0], got[1]
     moved = max(max_abs(a, b) for a, b in zip(p, kp))
-    geometry = ", ".join(f"{mode}/{cs}" for mode, cs in zip(
-        spec.modes, spec.conv_strides)) + (" + mean" if spec.mean_tail
-                                            else "")
-    print(f"  {name} (head {spec.head}, loss {spec.loss}, "
-          f"{spec.n_levels} conv levels [{geometry}], aux {spec.has_aux}, "
-          f"{len(kp)} state tensors): one step |d| state {first:.3e}; "
-          f"{x.shape[0]} steps step-locked |d| state {worst:.3e} (relative "
-          f"to max(1, largest value); absolute {worst_abs:.3e}; "
-          f"{n_near} steps with a near-rounding pixel: {worst_flip:.3e}; "
-          f"{n_kink} beyond it with a dense pre-activation within "
-          f"{KINK_ATOL:g} of 0: {worst_kink:.3e}); params moved "
+    if isinstance(spec, deep.DeepSpec):
+        geometry = ", ".join(f"{mode}/{cs}" for mode, cs in zip(
+            spec.modes, spec.conv_strides)) + (" + mean" if spec.mean_tail
+                                                else "")
+        what = (f"head {spec.head}, loss {spec.loss}, {spec.n_levels} conv "
+                f"levels [{geometry}], aux {spec.has_aux}")
+    else:
+        what = (f"{type(spec).__name__}, BATCH_SZ {spec.batch}, "
+                f"{spec.n_out} outputs")
+    print(f"  {name} ({what}, {len(kp)} state tensors): one step |d| state "
+          f"{first:.3e}; {x.shape[0]} steps step-locked |d| state "
+          f"{worst:.3e} (relative to max(1, largest value); absolute "
+          f"{worst_abs:.3e}; {n_near} steps with a near-rounding pixel: "
+          f"{worst_flip:.3e}; {n_kink} beyond it with a dense pre-activation "
+          f"within {KINK_ATOL:g} of 0: {worst_kink:.3e}); params moved "
           f"{moved:.3e} [{time.time() - t0:.1f} s]", flush=True)
     assert moved > 0
     assert worst <= AUX_REL and max(worst_flip, worst_kink) <= FLIP_ATOL, (
@@ -2974,7 +3024,7 @@ def phase19(torch, dev):
     from theanet_tpu_torch.ops import megastep_deep as deep
 
     saved = deep.deep_epoch.launches
-    worst = max(deep_locked(torch, name, *case, dev)
+    worst = max(family_locked(torch, name, *case, dev)
                 for name, case in aux_cases(torch, dev).items())
     deep.deep_epoch.launches = saved   # the checks do not count
     return worst
@@ -3147,10 +3197,10 @@ def phase21(torch, dev, card):
     worst = 0.0
     for name in GEOM_CONFIGS:
         net, plan, x, y = load_config(torch, name, dev)
-        worst = max(worst, deep_locked(torch, name, net, plan, x, y, None,
+        worst = max(worst, family_locked(torch, name, net, plan, x, y, None,
                                        dev))
     for name in GEOM_SMALL:
-        worst = max(worst, deep_locked(
+        worst = max(worst, family_locked(
             torch, name, *geometry_small(torch, name, dev), None, dev))
     dp_err = phase15_case(torch, "mnist_same", 10, dev, card)
     ring_err = ring_locked(torch, "mnist_same", "0", dev)
@@ -3212,6 +3262,340 @@ def phase22(torch, card):
           flush=True)
     assert launches["deep_epoch"] and launches["deep_ring_epoch"], launches
     return launches, times
+
+
+# ------------------------------------------------------------ phases 23-24
+
+# Phase 23: the heads and batches the parent declined, each on synth_hard
+# (its labels 0-9 are valid under any head): mnist_cnn's layers at BATCH_SZ
+# 3000 (the JAX package tiles it as 100 tiles of 30; the head, 252,000
+# bytes, runs from the workspace), at B 128 with 457 classes (4 tiles of
+# 32), at B 20 with 1453 classes (untiled; a 232,560-byte head, 112 bytes
+# above the opt-in); flat_mlp's layers at B 128 with 457 classes; a
+# three-level conv net at B 20 with 1500 classes.
+HEAD_CONFIGS = ("mnist_b3000", "mnist_b128_457", "mnist_b20_1453",
+                "flat_b128_457", "three_level_b20_1500")
+HEAD_LOCKED_STEPS = 20
+B3K, B3K_EPOCHS = 3000, 3
+# synth_hard's test set (2000 samples) holds no batch of 3000: the CLI run
+# at B3K reads synth_hard drawn with 3000 test samples (make_dataset's
+# n_test; the same training set, and its first 2000 test samples are
+# synth_hard's), registered as data.B3K_DATA for the run.
+B3K_DATA = "synth_hard_3k"
+# The JAX package's CPU run of b3k_text(megafused=False) on B3K_DATA
+# (jax_cpu_reference.sh, its per-layer path: the oracle
+# tests/test_megastep_tiled.py pins its tiled kernel to): the cost on each
+# test row and the final test error, in percent. Held as phase 8 holds
+# galaxy_rbf's: each row within SEED_COST_RTOL, the final error at most
+# ERR_MARGIN above.
+B3K_JAX = dict(costs=(9.76, 9.48, 9.44), test_err=90.57)
+
+
+def b3k_text(epochs=B3K_EPOCHS, megafused=True):
+    """params/mnist_cnn.prms at BATCH_SZ B3K, SEED MAIN_SEED, NUM_EPOCHS
+    ``epochs`` and MEGAFUSED ``megafused``."""
+    with open(os.path.join(REPO, "params", "mnist_cnn.prms")) as f:
+        text = f.read()
+    bsz, n_ep = "'BATCH_SZ':            20,", "'NUM_EPOCHS':          101,"
+    assert bsz in text and n_ep in text
+    text = text.replace(bsz, f"'BATCH_SZ':            {B3K}, 'SEED': "
+                        f"{MAIN_SEED}, 'MEGAFUSED': {megafused},")
+    return text.replace(n_ep, f"'NUM_EPOCHS':          {epochs},")
+
+
+def register_b3k_data(make_dataset):
+    """Register data.B3K_DATA, where train.main's load_dataset looks first:
+    ``make_dataset`` (a synth_hard module's) with 3000 test samples."""
+    import types
+
+    import data  # noqa: F401  (the checkout's data/ plugin package)
+
+    mod = types.ModuleType("data." + B3K_DATA)
+    (mod.training_x, mod.training_y, mod.testing_x,
+     mod.testing_y) = make_dataset(n_test=B3K)
+    sys.modules[mod.__name__] = mod
+
+
+HEAD_SHAPES = {   # BATCH_SZ, classes
+    "mnist_b3000": (B3K, 10), "mnist_b128_457": (128, 457),
+    "mnist_b20_1453": (20, 1453), "flat_b128_457": (128, 457),
+    "three_level_b20_1500": (20, 1500)}
+
+
+def head_config(name):
+    """(layers, training params) of a HEAD_CONFIGS entry at synth_hard's
+    28 x 28: mnist_cnn.prms's or flat_mlp.prms's layers with the entry's
+    batch and classes, or the three-level net (Conv 4@3 -> Pool 2 -> Conv
+    8@3 -> Pool 2 -> Conv 8@2 -> Hidden 200 -> Softmax) with mnist_cnn's
+    augmentation and training parameters; SEED MAIN_SEED."""
+    from theanet_tpu_torch.prms import load_params
+
+    src = "flat_mlp" if name.startswith("flat") else "mnist_cnn"
+    layers, tr, _ = load_params(os.path.join(REPO, "params", src + ".prms"))
+    if name.startswith("three_level"):
+        conv = lambda m, f, a: ["ConvLayer", {"num_maps": m, "filter_sz": f,
+                                              "stride": 1, "actvn": a}]
+        layers = [layers[0], conv(4, 3, "relu10"), ["PoolLayer",
+                  {"pool_sz": 2}], conv(8, 3, "relu05"), ["PoolLayer",
+                  {"pool_sz": 2}], conv(8, 2, "relu05"),
+                  ["HiddenLayer", {"n_out": 200, "pdrop": .5}],
+                  ["SoftmaxLayer", {"n_out": 10}]]
+    batch, n_out = HEAD_SHAPES[name]
+    layers[0][1]["img_sz"] = 28
+    layers[-1][1]["n_out"] = n_out
+    tr.update(SEED=MAIN_SEED, BATCH_SZ=batch)
+    return layers, tr
+
+
+def head_rows(torch, batch, n_steps, dev):
+    """synth_hard's step rows at ``batch``, its epoch repeated up to
+    ``n_steps`` steps (None: one epoch)."""
+    from theanet_tpu_torch.data import synth_hard
+
+    x, y = step_rows(torch, synth_hard, 1, batch, dev)
+    if n_steps is None:
+        return x, y
+    reps = -(-n_steps // x.shape[0])
+    return x.repeat(reps, 1, 1)[:n_steps], y.repeat(reps, 1)[:n_steps]
+
+
+def b3k_cli(train):
+    """train.main with b3k_text() on data.B3K_DATA, B3K_EPOCHS epochs and a
+    1-epoch resume: one megastep_epoch launch an epoch and nothing else.
+    Returns (epoch rows of the first run, {kernel: launches})."""
+    from theanet_tpu_torch.data.synth_hard import make_dataset
+
+    register_b3k_data(make_dataset)
+    launches = {"megastep_epoch": 0}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with open("mnist_b3000.prms", "w") as f:
+                f.write(b3k_text())
+            out, counts = counted_run(train, ["train", B3K_DATA,
+                                              "mnist_b3000.prms"])
+            want = {k: 0 for k in counts}
+            want["megastep_epoch"] = B3K_EPOCHS
+            assert counts == want, counts
+            assert "Device : cuda" in out
+            rows = epoch_rows(out)
+            launches["megastep_epoch"] += B3K_EPOCHS
+            resume_one_epoch(train, "mnist_b3000", launches, B3K_DATA,
+                             "megastep_epoch")
+        finally:
+            os.chdir(cwd)
+    return rows, launches
+
+
+def phase23(torch, dev, card):
+    """The heads and batches the parent declined (HEAD_CONFIGS): each
+    kernel against its twin, one step and HEAD_LOCKED_STEPS steps
+    step-locked; a timed epoch of kernel and twin; megastep_grad_step (at
+    mnist_b128_457) and deep_grad_step (at three_level_b20_1500) against
+    their plain versions; then train.main at BATCH_SZ B3K with MEGAFUSED
+    True (B3K_EPOCHS epochs and a resume, one launch an epoch), its test
+    rows against the JAX package's CPU run; then one per-layer epoch of
+    mnist_b3000. Returns ({kernel: launches in the main path}, {epoch
+    kernel: {config: (largest |d|, times)}}, the DP cases' results)."""
+    import numpy as np
+    from theanet_tpu_torch import train
+    from theanet_tpu_torch.data import synth_hard
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_deep as deep
+    from theanet_tpu_torch.ops import megastep_mlp as mlp
+    from theanet_tpu_torch.trainer import Trainer
+
+    tx, ty = dp_arrays(synth_hard)[:2]
+    wrappers = (megastep.megastep_epoch, deep.deep_epoch,
+                mlp.mlp_epoch) + dp_wrappers()
+    saved = [fn.launches for fn in wrappers]
+    results, dp_res = {}, {}
+    for name in HEAD_CONFIGS:
+        layers, tr = head_config(name)
+        net, plan = build_net(layers, tr)
+        assert head_bytes(plan) > 227 * 1024, name
+        assert plan.spec.batch == HEAD_SHAPES[name][0], plan.spec
+        x, y = head_rows(torch, plan.spec.batch, HEAD_LOCKED_STEPS, dev)
+        err = family_locked(torch, name, net, plan, x, y, None, dev)
+        times = time_config(torch, name, dev, card, (
+            net, plan, *head_rows(torch, plan.spec.batch, None, dev)))
+        results.setdefault(plan.epoch_fn.__name__, {})[name] = (err, times)
+        if name in ("mnist_b128_457", "three_level_b20_1500"):
+            mplan = megastep.fused_plan(net, for_mesh=True)
+            xs = torch.as_tensor(tx, device=dev)
+            ys = torch.as_tensor(np.asarray(ty, np.int32), device=dev)
+            dp_res.update(phase15_case(
+                torch, name, plan.spec.batch, dev, card,
+                setup=(net, mplan, initial_state(mplan, net, dev), xs, ys)))
+    for fn, k in zip(wrappers, saved):   # the checks do not count
+        fn.launches = k
+
+    rows, launches = b3k_cli(train)
+    costs, final = [r[1] for r in rows[:-1]], rows[-1][2]
+    print(f"  mnist_cnn.prms at BATCH_SZ {B3K}, MEGAFUSED True, SEED "
+          f"{MAIN_SEED}: test-row costs {costs} (JAX CPU, per layer: "
+          f"{list(B3K_JAX['costs'])}); final test error {final:.2f}% (JAX "
+          f"CPU {B3K_JAX['test_err']:.2f}%); launches {launches}",
+          flush=True)
+    assert len(costs) == len(B3K_JAX["costs"]), rows
+    for c, cj in zip(costs, B3K_JAX["costs"]):
+        assert abs(c - cj) <= SEED_COST_RTOL * cj, (c, cj)
+    assert final <= B3K_JAX["test_err"] + ERR_MARGIN, final
+
+    # A3: the JAX Trainer declines tiled specs above BATCH_SZ 128 under
+    # 'auto' (a TPU crossover); here one per-layer epoch beside the fused
+    layers, tr = head_config("mnist_b3000")
+    tr["MEGAFUSED"] = False
+    trainer = Trainer(NeuralNet(layers, tr), tx, ty, tx[:B3K], ty[:B3K])
+    trainer.run_epoch()   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run_epoch()
+    torch.cuda.synchronize()
+    ms_pl = (time.perf_counter() - t0) * 1e3
+    ms_fused = results["megastep_epoch"]["mnist_b3000"][1][0]
+    print(f"  mnist_b3000, one epoch on {card}: fused {ms_fused:.3f} ms, per "
+          f"layer {ms_pl:.3f} ms", flush=True)
+    return launches, results, dp_res
+
+
+# Phase 24: the probe kernels of csrc/probes.cu against their plain
+# versions (PROBE_CHECK_STEPS steps: floor exact to rtol 1e-6, the section
+# to SECTION_RTOL of each column's largest value, the relay rtol 1e-6),
+# then the probe tools' main paths on the card at their default 3000
+# steps, timed (us/step), one launch an epoch and one a step.
+PROBE_CHECK_STEPS = 64
+PROBE_STEPS = 3000
+SECTION_RTOL = 1e-5
+PROBE_RTOL = 1e-6
+
+
+def probe_checks(torch, dev):
+    """Each probe kernel against its plain version, in every variant and
+    launch mode. Returns {kernel: largest absolute |d|}."""
+    from theanet_tpu_torch.tools import conv_layout_probe as clp
+    from theanet_tpu_torch.tools import floor_probe as fp
+
+    n = PROBE_CHECK_STEPS
+    worst = {"floor_probe": 0.0, "conv_section_probe": 0.0,
+             "relay_probe": 0.0}
+    for name in fp.VARIANTS:
+        ins = fp.variant_inputs(name, n, dev)
+        for out, u, per in ((o, u, per) for o in fp.OUT_WIDTH
+                            for u in (1, 2) for per in (False, True)):
+            got = fp.floor_probe(ins, fp.OUT_WIDTH[out], u, per)
+            ref = fp.floor_reference(ins, fp.OUT_WIDTH[out], u)
+            torch.cuda.synchronize()
+            d = max_abs(got, ref)
+            assert d <= PROBE_RTOL * float(ref.abs().max()), (name, out, u,
+                                                              per, d)
+            worst["floor_probe"] = max(worst["floor_probe"], d)
+    print(f"  floor: {len(fp.VARIANTS)} variants x out vmem/smem x U 1/2 x "
+          f"launch epoch/step, {n} steps: max|d| {worst['floor_probe']:.3e}",
+          flush=True)
+    x, w2, b2 = clp.section_inputs(n, dev)
+    ref = clp.section_reference(x, w2, b2)
+    for variant in clp.SECTION_VARIANTS:
+        for per in (False, True):
+            got = clp.conv_section(x, w2, b2, variant, per)
+            torch.cuda.synchronize()
+            rel = [max_abs(got[:, c], ref[:, c]) / float(ref[:, c].abs().max())
+                   for c in range(2)]
+            print(f"  section {variant} (launch {'step' if per else 'epoch'})"
+                  f": step 0 {float(got[0, 0]):.7f} (plain "
+                  f"{float(ref[0, 0]):.7f}); max|d| / largest value: output "
+                  f"{rel[0]:.3e}, sum(dpp) {rel[1]:.3e}", flush=True)
+            assert max(rel) <= SECTION_RTOL, (variant, rel)
+            worst["conv_section_probe"] = max(worst["conv_section_probe"],
+                                              max_abs(got, ref))
+    xr = clp.relay_inputs(n, dev)
+    for G, g in ((5, 4), (10, 2)):
+        for per in (False, True):
+            got = clp.relay_probe(xr, G, g, per)
+            ref = clp.relay_reference(xr, G, g)
+            torch.cuda.synchronize()
+            d = max_abs(got, ref)
+            assert d <= PROBE_RTOL * float(ref.abs().max()), (G, g, per, d)
+            worst["relay_probe"] = max(worst["relay_probe"], d)
+    print(f"  relay 5x4 and 10x2, launch epoch/step: max|d| "
+          f"{worst['relay_probe']:.3e}", flush=True)
+    return worst
+
+
+def probe_times(torch, dev):
+    """(ms, plain ms, bound, library ms) of an epoch of PROBE_STEPS steps
+    of each probe kernel: floor 'mirror' (one launch), the section's block
+    layout, the relay at 5x4."""
+    from theanet_tpu_torch.tools import conv_layout_probe as clp
+    from theanet_tpu_torch.tools import floor_probe as fp
+
+    n = PROBE_STEPS
+    ins = fp.variant_inputs("mirror", n, dev)
+    x, w2, b2 = clp.section_inputs(n, dev)
+    xr = clp.relay_inputs(n, dev)
+    out128 = torch.empty((n, 128), device=dev)
+    runs = {
+        "floor_probe": (lambda: fp.floor_probe(ins, 128),
+                        lambda: fp.floor_reference(ins, 128), None,
+                        bound(nbytes(*ins, out128),
+                              sum(t[0].numel() for t in ins) * n)),
+        "conv_section_probe": (
+            lambda: clp.conv_section(x, w2, b2, "block"),
+            lambda: clp.section_reference(x, w2, b2), None,
+            bound(nbytes(x, w2, b2) + 8 * n,
+                  2 * 3 * (clp.M2 * clp.B * 169 * 36) * n)),
+        "relay_probe": (lambda: clp.relay_probe(xr, 5, 4),
+                        lambda: clp.relay_reference(xr, 5, 4),
+                        lambda: xr.sum((1, 2)),
+                        bound(nbytes(xr) + 4 * n, xr.numel())),
+    }
+    out = {}
+    for name, (kernel, plain, lib, bnd) in runs.items():
+        ms = timed(torch, kernel, 5)
+        ms_p = timed(torch, plain, 1)
+        ms_l = timed(torch, lib, 5) if lib else None
+        out[name] = (ms, ms_p, bnd, ms_l)
+        print(f"  {name}: an epoch of {n} steps {ms:.4f} ms (plain "
+              f"{ms_p:.3f} ms; bound {bnd[0]:.5f} ms, {bnd[1]}"
+              + (f"; x.sum((1, 2)) {ms_l:.4f} ms" if lib else "") + ")",
+              flush=True)
+    return out
+
+
+def phase24(torch, dev, card):
+    """The probes: each kernel against its plain version (the checks'
+    launches do not count), their epoch times, then the tools' main paths
+    with the counters set to 0 just before: floor_probe for every variant
+    at one launch an epoch and one a step (and U 2, out smem), the section
+    in both layouts and the relay at 5x4 and 10x2, at one launch an epoch
+    and one a step. Returns ({kernel: launches}, {kernel: |d|},
+    {kernel: times}, {tool run: {variant: ms}})."""
+    from theanet_tpu_torch.tools import conv_layout_probe as clp
+    from theanet_tpu_torch.tools import floor_probe as fp
+
+    fns = (fp.floor_probe, clp.conv_section, clp.relay_probe)
+    saved = [fn.launches for fn in fns]
+    errs = probe_checks(torch, dev)
+    times = probe_times(torch, dev)
+    for fn, k in zip(fns, saved):
+        fn.launches = k
+    for fn in fns:
+        fn.launches = 0
+    base = ["--batches", str(PROBE_STEPS), "--chain", "2", "--reps", "2"]
+    tools = {}
+    for launch in ("epoch", "step"):
+        tools[f"floor {launch}"] = fp.main(base + ["--launch", launch])
+        tools[f"section {launch}"] = clp.main(base + ["--launch", launch])
+    tools["floor U2 smem"] = fp.main(base + ["--grid-u", "2", "--out",
+                                             "smem", "--variants", "mirror"])
+    launches = {"floor_probe": fp.floor_probe.launches,
+                "conv_section_probe": clp.conv_section.launches,
+                "relay_probe": clp.relay_probe.launches}
+    print(f"probe launches in the tools' main paths: {launches}", flush=True)
+    assert all(launches.values()), launches
+    return launches, errs, times, tools
 
 
 def main(argv=None):
@@ -3370,6 +3754,16 @@ def main(argv=None):
                "(+ resume); the geometry configs' epoch times; a world-2 "
                "ring run")
         geom_launches, geom_times = phase22(torch, card)
+    if 23 in phases:
+        banner(23, "heads and batches the parent declined: kernels vs "
+               "twins step-locked, epoch times, the DP gradient steps; "
+               "train.main at BATCH_SZ 3000 (+ resume); a per-layer epoch")
+        head_launches, head_res, head_dp = phase23(torch, dev, card)
+    if 24 in phases:
+        banner(24, "the probe kernels vs their plain versions; the probe "
+               "tools on the card, one launch an epoch and one a step")
+        probe_launches, probe_err, probe_t, probe_tools = phase24(
+            torch, dev, card)
     if phases != set(ALL_PHASES):
         print("chip_smoke: a subset of phases ran; no result", flush=True)
         return 3
@@ -3449,6 +3843,30 @@ def main(argv=None):
         name: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
                "bound_by": t[2][1]} for name, t in geom_times.items()}
     kernels[0]["epoch_step_locked_max_abs_err"] = epoch_err
+    # phase 23's configurations under the three epoch entries, with the
+    # launches of the BATCH_SZ 3000 CLI run (its own main path)
+    for k in kernels[:3]:
+        k["configs"] = {
+            name: {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                   "bound_ms": t[2][0], "bound_by": t[2][1]}
+            for name, (err, t) in head_res.get(k["name"], {}).items()}
+    kernels[0]["configs"]["mnist_b3000"]["launches"] = \
+        head_launches["megastep_epoch"]
+    kernels[0]["configs"]["dp_grad_steps"] = {
+        name: {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+               "bound_ms": t[2][0], "bound_by": t[2][1]}
+        for name, (err, t) in head_dp.items()}
+    for name, line in (("floor_probe", "floor_probe.py:95"),
+                       ("conv_section_probe", "conv_layout_probe.py:215"),
+                       ("relay_probe", "conv_layout_probe.py:255")):
+        ms, plain_ms, bnd, lib_ms = probe_t[name]
+        kernels.append(entry(name, "theanet_tpu_torch/csrc/probes.cu",
+                             "tools/" + line, probe_launches[name],
+                             probe_err[name], (ms, plain_ms, bnd)))
+        kernels[-1]["library_ms"] = lib_ms
+    for k, tool in zip(kernels[-3:], ("floor", "section", "section")):
+        k["tools_ms"] = {run: ms for run, ms in probe_tools.items()
+                         if run.startswith(tool)}
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,12 +7,15 @@
 # (mnist_cnn with FUSED_TAIL and 'method': 'pallas', chip_smoke.slice_text)
 # for SLICE_EPOCHS + 1 epochs, then params/synth_aux.prms as shipped (phase
 # 20), then mnist_cnn's layers with both convs 'same' on synth_hard
-# (chip_smoke.geometry_text("mnist_same"), phase 22); last, the eval-mode
+# (chip_smoke.geometry_text("mnist_same"), phase 22), then mnist_cnn.prms at
+# BATCH_SZ 3000 through the per-layer path (chip_smoke.b3k_text, on
+# synth_hard drawn with 3000 test samples, chip_smoke.register_b3k_data;
+# phase 23); last, the eval-mode
 # mean NLL of bench.py's wide model (chip_smoke.wide_spec, wide_data) on
 # its first batch at the initial weights, bf16 and f32, conv2 through the
 # Pallas conv (THEANET_PALLAS_CONV=1). Prints each run's epoch table and
 # the two NLLs; chip_smoke.CONFIGS, GALAXY_SWEEP_JAX, SLICE_JAX, AUX_JAX,
-# GEOM_JAX and WIDE_NLL_JAX hold the numbers.
+# GEOM_JAX, B3K_JAX and WIDE_NLL_JAX hold the numbers.
 #
 #   sh jax_cpu_reference.sh [output directory, default jax_cpu_reference]
 set -e
@@ -49,6 +52,18 @@ PYTHONPATH="$repo" JAX_PLATFORMS=cpu python "$repo/train.py" synth_aux \
 echo "== synth_aux on synth_aux (as shipped; AUX_JAX)"
 grep -E '^Epoch|^ *[0-9]+ +[0-9.]+ +' synth_aux.out
 run synth_hard mnist_same "geometry_text('mnist_same')"
+PYTHONPATH="$repo" python -c "import chip_smoke, sys; \
+sys.stdout.write(chip_smoke.b3k_text(megafused=False))" > mnist_b3000.prms
+PYTHONPATH="$repo" JAX_PLATFORMS=cpu python -c "
+import runpy, sys, chip_smoke
+from theanet_tpu.data.synth_hard import make_dataset
+chip_smoke.register_b3k_data(make_dataset)
+sys.argv = ['train.py', chip_smoke.B3K_DATA, 'mnist_b3000.prms']
+runpy.run_path('$repo/train.py', run_name='__main__')
+" > mnist_b3000.out 2> mnist_b3000.err
+echo "== mnist_cnn at BATCH_SZ 3000, per layer, on synth_hard with 3000 test \
+samples (B3K_JAX)"
+grep -E '^Epoch|^ *[0-9]+ +[0-9.]+ +' mnist_b3000.out
 echo "== wide model: initial eval NLL of the first batch (WIDE_NLL_JAX)"
 PYTHONPATH="$repo" JAX_PLATFORMS=cpu THEANET_PALLAS_CONV=1 python -c "
 import jax, jax.numpy as jnp, chip_smoke as cs

@@ -1,10 +1,12 @@
 """Which fused family takes a net, in the port and in the JAX package.
 
-The port's matchers decline, by name, every spec its CUDA kernels would
-refuse at launch (a head stage or a warp field beyond a block's shared
-memory), so a net takes the same route on the CPU and on a card. bench.py's
-wide model (batch 256, 1000 classes) is declined by both packages; every
-shipped .prms keeps its family; bf16 does not stop a net from fusing.
+The port's matchers take a spec by the route rule: the JAX package's byte
+model admits it, or its head fits a block's shared memory (a head beyond
+the opt-in runs from the workspace). A warp field beyond a block's shared
+memory is declined by name. The same rule runs on the CPU and on a card.
+bench.py's wide model (batch 256, 1000 classes) fails both clauses and is
+declined by both packages; every shipped .prms keeps its family; bf16 does
+not stop a net from fusing.
 """
 
 import ast
@@ -35,11 +37,17 @@ def small_prms(batch):
 
 @pytest.mark.parametrize("dtype", [None, "bfloat16"])
 def test_port_declines_the_wide_model_by_its_head(dtype):
+    """The reason names both clauses of the route rule that failed: the
+    JAX package's byte models (deep and flagship) and the head's shared
+    memory."""
     net = TorchNet(*chip_smoke.wide_spec(dtype, img=12))
     assert megastep.fused_plan(net) is None
     reason = megastep.fused_decline_reason(net)
-    assert "head kernel's shared memory" in reason, reason
+    assert reason.startswith("the route rule: the JAX package's deep VMEM "
+                             "model declines it"), reason
+    assert "the head does not fit shared memory" in reason, reason
     assert "BATCH_SZ 256 x 1000" in reason, reason
+    assert "flagship VMEM model declines BATCH_SZ 256" in reason, reason
 
 
 def test_jax_declines_the_wide_model_too():
@@ -47,29 +55,30 @@ def test_jax_declines_the_wide_model_too():
     assert jmega.fused_plan(net) is None
 
 
-@pytest.mark.parametrize("n_out,fuses", [(1452, True), (1453, False)])
-def test_flagship_head_limit_is_the_kernels(n_out, fuses):
-    """csrc/megastep.cu takes a head of (2 B NC + B) floats up to the 227 KB
-    a block can opt in to: at batch 20, 1452 classes and not 1453 (the deep
-    family's head is larger, so it declines too)."""
-    net = TorchNet(*chip_smoke.wide_spec(None, img=12, batch=20, maps=(2, 3),
-                                         n_hid=8, n_out=n_out))
+@pytest.mark.parametrize("n_out,in_smem", [(1452, True), (1453, False)])
+def test_flagship_head_limit_is_the_kernels(n_out, in_smem):
+    """csrc/megastep.cu keeps a head of (2 B NC + B) floats in shared memory
+    up to the 227 KB a block can opt in to (at batch 20, 1452 classes and
+    not 1453), and beyond it in the workspace: both fuse, as the JAX
+    package fuses both (untiled at batch 20)."""
+    layers, tr = chip_smoke.wide_spec(None, img=12, batch=20, maps=(2, 3),
+                                      n_hid=8, n_out=n_out)
+    net = TorchNet(layers, tr)
     spec = megastep.spec_from_net(net)
-    assert (spec is not None) == fuses
-    if fuses:
-        assert megastep.flagship_head_smem(spec) <= megastep.SMEM_OPT_IN
-        assert megastep.fused_plan(net).epoch_fn is megastep.megastep_epoch
-    else:
-        assert megastep.fused_plan(net) is None
-        assert "head kernel's shared memory" in megastep.fused_decline_reason(
-            net)
+    assert spec is not None
+    assert (megastep.flagship_head_smem(spec) <= megastep.SMEM_OPT_IN) \
+        == in_smem
+    assert megastep.fused_plan(net).epoch_fn is megastep.megastep_epoch
+    js = jmega.spec_from_net(JaxNet(layers, tr))
+    assert (js.batch, js.n_tiles) == (20, 1)
 
 
-@pytest.mark.parametrize("n_out,fuses", [(951, True), (952, False)])
-def test_flat_head_limit_is_the_deep_kernels(n_out, fuses):
+@pytest.mark.parametrize("n_out,in_smem", [(951, True), (952, False)])
+def test_flat_head_limit_is_the_deep_kernels(n_out, in_smem):
     """The flat-MLP family runs the deep kernel, whose head holds (2 B NO +
-    B NC + NC + 4 B) floats: both matchers decline past the 227 KB a block
-    can opt in to (at batch 20, 951 outputs and not 952)."""
+    B NC + NC + 4 B) floats in shared memory up to the 227 KB a block can
+    opt in to (at batch 20, 951 outputs and not 952), and beyond it in the
+    workspace: both fuse in the flat-MLP family, as in the JAX package."""
     layers = [["InputLayer", {"img_sz": 6}],
               ["HiddenLayer", {"n_out": 8}],
               ["SoftmaxLayer", {"n_out": n_out}]]
@@ -78,13 +87,10 @@ def test_flat_head_limit_is_the_deep_kernels(n_out, fuses):
         batch=20, img=6, n_hid=8, n_out=n_out, slope_h=0.01, pdrop=0.0,
         translation=0, zoom=1, magnitude=0, sigma=1, pflip=0.0, angle=0,
         invert=False, nearest=False, reg_h=None, reg_o=None))
-    assert (deep.deep_head_smem(dspec) <= megastep.SMEM_OPT_IN) == fuses
-    plan = megastep.fused_plan(net)
-    assert (plan is not None) == fuses
-    if fuses:
-        assert plan.epoch_fn is mlp.mlp_epoch
-    else:
-        assert "megastep_deep.cu" in megastep.fused_decline_reason(net)
+    assert (deep.deep_head_smem(dspec) <= megastep.SMEM_OPT_IN) == in_smem
+    assert megastep.fused_plan(net).epoch_fn is mlp.mlp_epoch
+    jplan = jmega.fused_plan(JaxNet(layers, small_prms(20)))
+    assert type(jplan.spec).__name__ == "MlpSpec"
 
 
 @pytest.mark.parametrize("img,fuses", [(120, True), (121, False)])
@@ -185,17 +191,19 @@ def test_the_wide_slice_text_is_bench_py_s_model():
 @pytest.mark.parametrize("batch", [586, 600, 1024, 2767])
 def test_mnist_cnn_fuses_past_the_old_head_limit(batch):
     """With the head kernels opting in to 227 KB of shared memory,
-    mnist_cnn's head (84 B bytes at 10 classes) fuses up to BATCH_SZ 2767,
-    where it declined from 586 at 48 KB; 2768 still declines."""
+    mnist_cnn's head (84 B bytes at 10 classes) fuses in shared memory up
+    to BATCH_SZ 2767, where it declined from 586 at 48 KB; from 2768 it
+    fuses with its head in the workspace (the JAX package tiles 2768 as
+    173 tiles of 16)."""
     layers, tr = shipped_layers("mnist_cnn")
-    for b, fuses in ((batch, True), (2768, False)):
+    for b, in_smem in ((batch, True), (2768, False)):
         tr["BATCH_SZ"] = b
         plan = megastep.fused_plan(TorchNet([[n, dict(a)] for n, a in layers],
                                             dict(tr)))
-        assert (plan is not None) == fuses, b
-        if fuses:
-            assert plan.epoch_fn is megastep.megastep_epoch
-            assert megastep.flagship_head_smem(plan.spec) > 48 * 1024
+        assert plan.epoch_fn is megastep.megastep_epoch, b
+        head = megastep.flagship_head_smem(plan.spec)
+        assert head > 48 * 1024
+        assert (head <= megastep.SMEM_OPT_IN) == in_smem, b
 
 
 def test_batch_600_fuses_and_follows_jax_tiled_kernel():

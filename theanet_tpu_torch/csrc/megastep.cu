@@ -213,15 +213,21 @@ __global__ void k_conv2_pool(Dims d, const float* __restrict__ p1,
 
 // The dense tail's head and everything that needs a batch-wide view, in
 // one block: dropout mask, scores, log-softmax NLL, (cost, minf), dL/dz4,
-// dwo, dbo, dz3 = (dz4 wo^T) * mask * act_h'(z3), dbh.
-__global__ void k_head(Dims d, const float* __restrict__ z3,
+// dwo, dbo, dz3 = (dz4 wo^T) * mask * act_h'(z3), dbh. Its scratch, (2 B NC
+// + B) floats, is dynamic shared memory (WS false) or, for a head beyond
+// the shared memory a block can opt in to, the workspace region ``ws``
+// (WS true); the operations and their order are the same.
+template <bool WS>
+__global__ void k_head(Dims d, float* __restrict__ ws,
+                       const float* __restrict__ z3,
                        const float* __restrict__ wo,
                        const float* __restrict__ bo, const int* __restrict__ db,
                        const int* __restrict__ y, const float* __restrict__ wcost,
                        float* __restrict__ h3d, float* __restrict__ dz3,
                        float* __restrict__ gwo, float* __restrict__ gbo,
                        float* __restrict__ gbh, float* __restrict__ cm) {
-  extern __shared__ float sm[];
+  extern __shared__ float smem[];
+  float* sm = WS ? ws : smem;
   const int B = d.B, NH = d.NH, NC = d.NC;
   float* z4 = sm;              // B*NC scores, then log-probs
   float* dz4 = sm + B * NC;    // B*NC
@@ -356,9 +362,14 @@ __global__ void k_conv2_dgrad_pool1_bwd(Dims d, const float* __restrict__ w2,
 
 struct Workspace {
   float *tyx, *a, *z1, *p1, *z2, *f, *z3, *h3d, *dz3, *df, *dz2, *dz1,
-      *grads, *wcost, *wpart;
+      *grads, *wcost, *wpart, *head;
   long long total;
 };
+
+// Floats of k_head's scratch.
+long long head_floats(const Dims& d) {
+  return 2LL * d.B * d.NC + d.B;
+}
 
 Workspace carve(const Dims& d, float* base) {
   Workspace w;
@@ -383,6 +394,7 @@ Workspace carve(const Dims& d, float* base) {
   w.grads = take(np);
   w.wcost = take(1);
   w.wpart = take(WCOST_BLOCKS);
+  w.head = take(head_floats(d));
   w.total = o;
   return w;
 }
@@ -411,14 +423,16 @@ struct StepCtx {
   int warp, nearest, invert;
   float pflip;
   size_t warp_smem, head_smem;
+  bool head_ws;   // k_head's scratch in the workspace (beyond the opt-in)
   const float *gh, *gw;
   float* prm[8];
   WcostTable t8;
   bool any_wcost;
 };
 
-// 0, or -1 / -2 when the warp or head stage needs more shared memory than
-// a block can have (megastep_error_string).
+// 0, or -1 when the warp stage needs more shared memory than a block can
+// have, -2 when the head's opt-in fails (megastep_error_string). A head
+// beyond the opt-in keeps its scratch in the workspace.
 int step_setup(const int* is, const float* fs, float* ws, const float* gh,
                const float* gw, void* const* prm, StepCtx* c) {
   c->d = make_dims(is, fs);
@@ -438,8 +452,9 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
   c->pflip = is[I_PFLIP] ? fs[F_PFLIP] : 0.0f;
   c->warp_smem = 4 * sizeof(float) * (size_t)d.HW;
   if (c->warp && !warp_smem_ok(c->warp_smem)) return -1;
-  c->head_smem = sizeof(float) * (size_t)(2 * d.B * d.NC + d.B);
-  if (!smem_opt_in(k_head, c->head_smem)) return -2;
+  c->head_smem = sizeof(float) * (size_t)head_floats(d);
+  c->head_ws = c->head_smem > SMEM_OPT_IN;
+  if (!c->head_ws && !smem_opt_in(k_head<false>, c->head_smem)) return -2;
   int sizes[8];
   state_sizes(d, sizes);
   const float* reg = fs + F_REG0;  // conv1, conv2, hidden, out
@@ -488,9 +503,16 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   CHECK((gemm<false, false>(s, d.B, d.NH, d.NF, w.f, d.NF, prm[4], d.NH,
                             prm[5], w.z3)));
   if (c.any_wcost) CHECK(wcost(s, c.t8, w.wpart, w.wcost));
-  k_head<<<1, 1024, c.head_smem, s>>>(d, w.z3, prm[6], prm[7], in.db, in.y,
-                                       c.any_wcost ? w.wcost : nullptr, w.h3d,
-                                       w.dz3, grad[6], grad[7], grad[5], cm);
+  const float* wc = c.any_wcost ? w.wcost : nullptr;
+  if (c.head_ws)
+    k_head<true><<<1, 1024, 0, s>>>(d, w.head, w.z3, prm[6], prm[7], in.db,
+                                    in.y, wc, w.h3d, w.dz3, grad[6], grad[7],
+                                    grad[5], cm);
+  else
+    k_head<false><<<1, 1024, c.head_smem, s>>>(d, nullptr, w.z3, prm[6],
+                                               prm[7], in.db, in.y, wc, w.h3d,
+                                               w.dz3, grad[6], grad[7],
+                                               grad[5], cm);
   LAUNCHED();
   // dwh = f^T dz3 ; df = dz3 wh^T
   CHECK((gemm<true, false>(s, d.NF, d.NH, d.B, w.f, d.NF, w.dz3, d.NH,
@@ -616,7 +638,7 @@ long long megastep_workspace_floats(const int* ispec, const float* fspec) {
 const char* megastep_error_string(int code) {
   if (const char* r = ring_error_string(code)) return r;
   if (code == -1) return "warp field needs more shared memory than a block has";
-  if (code == -2) return "batch x classes too large for the head kernel's shared memory";
+  if (code == -2) return "the head kernel's shared-memory opt-in failed";
   return cudaGetErrorString((cudaError_t)code);
 }
 

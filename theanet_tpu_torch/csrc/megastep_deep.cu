@@ -583,14 +583,19 @@ __device__ float softmax_kind_loss(const HeadArgs& h, const float* zb,
 // cb + h2a cw), (cost, minf), dL/dz4, the scores bias's gradient and
 // (learned RBF centers) dcenters. The work is spread over (sample, output)
 // pairs; only each sample's normalisation loops over its own classes. The
-// dense backward below the scores runs in the grid stages after it.
+// dense backward below the scores runs in the grid stages after it. Its
+// scratch (head_floats) is dynamic shared memory (WS false) or, for a head
+// beyond the shared memory a block can opt in to, the workspace region
+// ``ws`` (WS true); the operations and their order are the same.
+template <bool WS>
 __global__ void __launch_bounds__(1024)
-k_head(HeadArgs h, const float* __restrict__ z4g,
+k_head(HeadArgs h, float* __restrict__ ws, const float* __restrict__ z4g,
        const float* __restrict__ cen, const int* __restrict__ y,
        const float* __restrict__ wcost, float* __restrict__ dz4,
        float* __restrict__ gbo, float* __restrict__ gcen,
        float* __restrict__ cm) {
-  extern __shared__ float sm[];
+  extern __shared__ float smem[];
+  float* sm = WS ? ws : smem;
   const int B = h.B, NO = h.NO, NC = h.NC;
   float* z4 = sm;               // B*NO scores (features' pre-activations)
   float* v = z4 + B * NO;       // B*NO RBF features 1.7 tanh(2/3 z4)
@@ -714,9 +719,9 @@ k_head(HeadArgs h, const float* __restrict__ z4g,
     }
 }
 
-size_t head_smem(const Net& n) {
-  return sizeof(float) * (size_t)(2 * n.B * n.NO + n.B * n.NC + n.NC
-                                  + 4 * n.B);
+// Floats of k_head's scratch.
+long long head_floats(const Net& n) {
+  return 2LL * n.B * n.NO + (long long)n.B * n.NC + n.NC + 4LL * n.B;
 }
 
 struct Workspace {
@@ -727,6 +732,7 @@ struct Workspace {
   float *x2, *z1a, *h1a, *z2a, *h2a, *dz1a, *dz2a, *fcat;   // aux encoder
   float *fmean, *dmean;   // the MeanLayer flatten and its gradient
   float* df;   // where the tail's input gradient lands: the flatten's
+  float* head;   // k_head's scratch when it is beyond the opt-in
   long long total;
 };
 
@@ -772,6 +778,7 @@ Workspace carve(const Net& n, float* base) {
   w.grads = take(np);
   w.wcost = take(1);
   w.wpart = take(WCOST_BLOCKS);
+  w.head = take(head_floats(n));
   w.total = o;
   return w;
 }
@@ -792,6 +799,7 @@ struct StepCtx {
   HeadArgs ha;
   AuxEnc enc;   // the aux encoder of an AuxConcat or SoftAux net
   size_t warp_smem, hsm;
+  bool head_ws;   // k_head's scratch in the workspace (beyond the opt-in)
   const float *gh, *gw, *cen;
   float* prm[MAX_TENSORS];
   WcostTable wt;
@@ -839,8 +847,9 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
   ag.logbal = fs[F_LOGBAL]; ag.loggam = fs[F_LOGGAM];
   c->warp_smem = 4 * sizeof(float) * (size_t)n.HW;
   if (ag.warp && !warp_smem_ok(c->warp_smem)) return -1;
-  c->hsm = head_smem(n);
-  if (!smem_opt_in(k_head, c->hsm)) return -2;
+  c->hsm = sizeof(float) * (size_t)head_floats(n);
+  c->head_ws = c->hsm > SMEM_OPT_IN;
+  if (!c->head_ws && !smem_opt_in(k_head<false>, c->hsm)) return -2;
   c->ha.B = n.B; c->ha.NO = n.NO; c->ha.NC = n.NC; c->ha.kind = n.head;
   c->ha.junk = n.junk; c->ha.loss = n.loss; c->ha.logthresh = n.logthresh;
   c->dboff = n.dbl - n.NH;   // the final hidden's dropout lanes
@@ -856,6 +865,21 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
   e.x2 = c->w.x2; e.z1 = c->w.z1a; e.h1 = c->w.h1a; e.z2 = c->w.z2a;
   e.h2 = c->w.h2a;
   return 0;
+}
+
+// k_head on the step's scores w.z4: its scratch in shared memory, or in
+// the workspace beyond the opt-in (step_setup).
+cudaError_t launch_head(const StepCtx& c, cudaStream_t s, const float* cen,
+                        const int* y, float* gbo, float* gcen, float* cm) {
+  const Workspace& w = c.w;
+  const float* wc = c.any_wcost ? w.wcost : nullptr;
+  if (c.head_ws)
+    k_head<true><<<1, 1024, 0, s>>>(c.ha, w.head, w.z4, cen, y, wc, w.dz4,
+                                    gbo, gcen, cm);
+  else
+    k_head<false><<<1, 1024, c.hsm, s>>>(c.ha, nullptr, w.z4, cen, y, wc,
+                                         w.dz4, gbo, gcen, cm);
+  return cudaGetLastError();
 }
 
 // SoftAux head on the flatten f (B, NF), forward and backward: the scores
@@ -874,10 +898,7 @@ int softaux_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
                               prm[th + 7], NC, w.z4);
   LAUNCHED();
   if (c.any_wcost) CHECK(wcost(s, c.wt, w.wpart, w.wcost));
-  k_head<<<1, 1024, c.hsm, s>>>(c.ha, w.z4, nullptr, in.y,
-                                c.any_wcost ? w.wcost : nullptr, w.dz4,
-                                grad[th + 1], nullptr, cm);
-  LAUNCHED();
+  CHECK(launch_head(c, s, nullptr, in.y, grad[th + 1], nullptr, cm));
   k_aux_bwd<<<1, 256, 0, s>>>(B, c.enc, NC, w.dz4, prm[th + 6], grad[th + 1],
                               w.dz2a, w.dz1a, grad[th + 2], grad[th + 3],
                               grad[th + 4], grad[th + 5], grad[th + 6],
@@ -934,11 +955,8 @@ int dense_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   CHECK((gemm<false, false>(s, B, n.NO, n.NH, w.h3d, n.NH, prm[th + 2],
                             n.NO, prm[th + 3], w.z4)));
   if (c.any_wcost) CHECK(wcost(s, c.wt, w.wpart, w.wcost));
-  k_head<<<1, 1024, c.hsm, s>>>(c.ha, w.z4, c.cen, in.y,
-                                c.any_wcost ? w.wcost : nullptr, w.dz4,
-                                grad[th + 3],
-                                n.learnc ? grad[th + 4] : nullptr, cm);
-  LAUNCHED();
+  CHECK(launch_head(c, s, c.cen, in.y, grad[th + 3],
+                    n.learnc ? grad[th + 4] : nullptr, cm));
   // dwo = h3d^T dz4; dz3 = (dz4 wo^T) * mask * act'(z3), dbh
   CHECK((gemm<true, false>(s, n.NH, n.NO, B, w.h3d, n.NH, w.dz4, n.NO,
                            nullptr, grad[th + 2])));
@@ -1168,7 +1186,7 @@ long long deep_workspace_floats(const int* is, const float* fs) {
 const char* deep_error_string(int code) {
   if (const char* r = ring_error_string(code)) return r;
   if (code == -1) return "warp field needs more shared memory than a block has";
-  if (code == -2) return "the head's batch x widths exceed the head kernel's shared memory";
+  if (code == -2) return "the head kernel's shared-memory opt-in failed";
   if (code == -3) return "more conv levels, hidden layers or state tensors than the kernel's tables hold";
   if (code == -4) return "the net's aux layer has no aux rows (or AuxConcat no encoder weights)";
   return cudaGetErrorString((cudaError_t)code);

@@ -153,13 +153,16 @@ __global__ void k_warp(int H, WarpParams w, const int* __restrict__ ub,
   }
 }
 
+// The most dynamic shared memory a block can opt in to on sm_90.
+constexpr size_t SMEM_OPT_IN = 227 * 1024;
+
 // ``bytes`` of dynamic shared memory for ``kernel``, raising the block's
-// limit above the 48 KB default where needed (up to the 227 KB a block can
-// opt in to on sm_90); false when no block can hold it.
+// limit above the 48 KB default where needed (up to SMEM_OPT_IN); false
+// when no block can hold it.
 template <typename Kernel>
 inline bool smem_opt_in(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return true;
-  if (bytes > 227 * 1024) return false;
+  if (bytes > SMEM_OPT_IN) return false;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes) == cudaSuccess;

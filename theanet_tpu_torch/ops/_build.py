@@ -37,13 +37,14 @@ __all__ = ["build", "megastep_launch", "deep_launch",
            "megastep_update_launch", "deep_update_launch",
            "elastic_resample_launch", "fused_mlp_forward_launch",
            "fused_mlp_backward_launch", "conv3x3_forward_launch",
-           "conv3x3_backward_launch"]
+           "conv3x3_backward_launch", "floor_probe_launch",
+           "conv_section_launch", "relay_probe_launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 # csrc/<name>.cu each
 LIBRARIES = ("megastep", "megastep_deep", "elastic_resample", "fused_mlp",
-             "conv3x3")
+             "conv3x3", "probes")
 HEADERS = ("stages.cuh", "ring.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -124,6 +125,10 @@ ENTRY_POINTS = {
     "conv3x3": {
         "conv3x3_forward": [_P] * 3 + [_I] * 6 + [_P],
         "conv3x3_backward": [_P] * 6 + [_I] * 7 + [_P]},
+    "probes": {
+        "floor_probe": [_P] * 4 + [_I] * 4 + [_P, _I, _P, _I, _P],
+        "conv_section": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I, _P],
+        "relay_probe": [_P] + [_I] * 4 + [_P, _P, _I, _P]},
 }
 
 
@@ -135,6 +140,9 @@ def _bind(name, lib):
         err = getattr(lib, name + "_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        if name == "probes":
+            lib.conv_section_scratch_floats.argtypes = []
+            lib.conv_section_scratch_floats.restype = ctypes.c_longlong
         return lib
     ip, fp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
     prefix = "megastep" if name == "megastep" else "deep"
@@ -538,3 +546,43 @@ def conv3x3_backward_launch(x, w, dz, dx, dw, part):
     _call("conv3x3", "conv3x3_backward", x, w, dz, dx, dw, part,
           *_conv3x3_dims(x, w), part.shape[0],
           int(x.dtype == torch.bfloat16))
+
+
+def floor_probe_launch(inputs, out, U, per_launch):
+    """csrc/probes.cu ``floor_probe`` over the (n_steps, ...) ``inputs``
+    (f32, or int32 words) into ``out`` (n_steps, W); returns the number of
+    kernel launches (1, or n_steps / U with ``per_launch``)."""
+    n = len(inputs)
+    ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in inputs])
+    elems = (ctypes.c_longlong * n)(*[t[0].numel() for t in inputs])
+    cols = (ctypes.c_int * n)(*[t.shape[-1] for t in inputs])
+    isint = (ctypes.c_int * n)(*[int(t.dtype == torch.int32)
+                                 for t in inputs])
+    launched = ctypes.c_longlong(0)
+    _call("probes", "floor_probe", ptrs, elems, cols, isint, n,
+          out.shape[0], U, out.shape[1], out, int(per_launch),
+          ctypes.byref(launched))
+    return launched.value
+
+
+def conv_section_launch(x, w, b2, out, variant, per_launch):
+    """csrc/probes.cu ``conv_section`` over the (n_steps, 8, 128) blocks
+    ``x``: ``out`` (n_steps, 2); ``variant`` 0 a block a step, 1 a thread
+    per output. Returns the number of kernel launches."""
+    scratch = None
+    if variant == 1:
+        n = build()["probes"].conv_section_scratch_floats()
+        scratch = torch.empty(n, dtype=torch.float32, device=x.device)
+    launched = ctypes.c_longlong(0)
+    _call("probes", "conv_section", x, w, b2, x.shape[0], variant,
+          int(per_launch), out, scratch, ctypes.byref(launched))
+    return launched.value
+
+
+def relay_probe_launch(x, G, g, out, per_launch):
+    """csrc/probes.cu ``relay_probe`` over the (n_steps, 20, 784) batches
+    ``x``: ``out`` (n_steps,). Returns the number of kernel launches."""
+    launched = ctypes.c_longlong(0)
+    _call("probes", "relay_probe", x, x.shape[0], G, g, int(per_launch),
+          out, ctypes.byref(launched))
+    return launched.value

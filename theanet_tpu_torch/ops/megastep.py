@@ -44,9 +44,11 @@ import torch
 import torch.nn.functional as F
 
 from ..layers.conv import pool_backward, pool_windows
+from . import route
 
 __all__ = ["LayerReg", "MegaSpec", "act_of", "spec_from_net",
-           "warp_smem_ok", "flagship_head_smem", "launch_limit_reason",
+           "warp_smem_ok", "flagship_head_smem", "warp_limit_reason",
+           "route_reason", "flagship_spec", "flagship_route_reason",
            "fused_decline_reason", "fused_plan", "FusedPlan",
            "MEGA_LAYER_IDX", "kernel_shapes", "kernel_layout",
            "framework_layout", "db_lanes", "fb_lanes", "epoch_noise_bits",
@@ -73,7 +75,11 @@ class LayerReg(NamedTuple):
 class MegaSpec(NamedTuple):
     """The flagship net's static description. Unlike the TPU spec it has
     no layout knobs (group_g, n_tiles/loss_div, exact_movement, unroll): the
-    card takes the whole BATCH_SZ in one step."""
+    card takes the whole BATCH_SZ in one step. A reference batch the JAX
+    package runs as tiles (gradients summed over the tiles, one update a
+    batch) is one step of the whole batch here, and a head beyond the
+    shared memory a block can opt in to keeps its scratch in the
+    workspace (csrc/megastep.cu step_setup)."""
     batch: int
     img: int            # input H = W
     filt1: int
@@ -140,10 +146,12 @@ def warp_active(spec):
                 or spec.zoom != 1)
 
 
-# ------------------------------------------------------------ launch limits
-# Each fused kernel refuses at launch a spec whose stage does not fit a
-# block's shared memory. The matchers decline such a spec with these twins
-# of the C checks, so a net takes the same route on the CPU and on a card.
+# ------------------------------------------------------------- route rule
+# A fused family takes a spec whose grammar holds when the JAX package's
+# byte model admits it (``route.py``) or its head fits a block's shared
+# memory. The head stage takes any head at launch (in shared memory up to
+# the opt-in, else in the workspace); the warp field stays a launch limit.
+# The same rule runs on the CPU and on a card, so a net takes one route.
 
 SMEM_OPT_IN = 227 * 1024      # the most a block can opt in to (sm_90)
 
@@ -156,27 +164,35 @@ def warp_smem_ok(hw):
 
 
 def flagship_head_smem(spec):
-    """csrc/megastep.cu step_setup: k_head's shared memory, (2 B NC + B)
-    floats."""
+    """csrc/megastep.cu step_setup: k_head's scratch, (2 B NC + B) floats;
+    shared memory up to the opt-in, else a workspace region."""
     return 4 * (2 * spec.batch * spec.n_out + spec.batch)
 
 
-def launch_limit_reason(spec, head_bytes, head_src):
+def warp_limit_reason(spec):
     """Why a fused kernel would refuse ``spec`` at launch (None when it
-    takes it): a warp field (active warp) that ``warp_smem_ok`` refuses,
-    or ``head_bytes`` of head shared memory (``head_src`` names the C
-    formula) above the 227 KB the head kernel can opt in to
-    (``smem_opt_in``, csrc/stages.cuh)."""
+    takes it): a warp field (active warp) that ``warp_smem_ok`` refuses."""
     if warp_active(spec) and not warp_smem_ok(spec.hw):
         return (f"the warp field's shared memory: a {spec.img}x{spec.img} "
                 f"image needs {16 * spec.hw:,} bytes, above the "
                 f"{SMEM_OPT_IN:,} a block can hold (csrc/stages.cuh "
                 "warp_smem_ok)")
-    if head_bytes > SMEM_OPT_IN:
-        return (f"the head kernel's shared memory: BATCH_SZ {spec.batch} x "
-                f"{spec.n_out} outputs needs {head_bytes:,} bytes, above the "
-                f"{SMEM_OPT_IN:,} a block can opt in to ({head_src})")
     return None
+
+
+def route_reason(spec, jax_reason, head_bytes, head_src):
+    """Why a family declines ``spec`` (None when it takes it): the warp
+    launch limit, else the route rule, which takes the spec when the JAX
+    package's byte model admits it (``jax_reason`` None) or its head of
+    ``head_bytes`` fits the shared memory a block can opt in to
+    (``head_src`` names the C formula). The reason names both rules."""
+    warp = warp_limit_reason(spec)
+    if warp or jax_reason is None or head_bytes <= SMEM_OPT_IN:
+        return warp
+    return (f"the route rule: {jax_reason}, and the head does not fit "
+            f"shared memory (BATCH_SZ {spec.batch} x {spec.n_out} outputs "
+            f"needs {head_bytes:,} bytes, above the {SMEM_OPT_IN:,} a "
+            f"block can opt in to, {head_src})")
 
 
 # ----------------------------------------------------------------- matcher
@@ -220,10 +236,9 @@ def reg_of(lyr):
                     maxnorm=float(r["maxnorm"]))
 
 
-def spec_from_net(net):
-    """A MegaSpec when ``net`` matches the flagship pattern and the kernel
-    takes it at launch, else None (the deep family, whose grammar holds
-    this one and whose limits are no looser, names the reason)."""
+def flagship_spec(net):
+    """The MegaSpec of ``net`` when it has the flagship pattern, before the
+    route rule; else None."""
     from ..layers import (ConvLayer, ElasticLayer, HiddenLayer, InputLayer,
                           PoolLayer, SoftmaxLayer)
 
@@ -257,10 +272,23 @@ def spec_from_net(net):
         reg1=reg_of(c1), reg2=reg_of(c2), reg_h=reg_of(hid),
         reg_o=reg_of(head), in_ch=in_ch,
     )
-    if spec.p2 < 1 or launch_limit_reason(spec, flagship_head_smem(spec),
-                                          "csrc/megastep.cu"):
-        return None
-    return spec
+    return None if spec.p2 < 1 else spec
+
+
+def spec_from_net(net):
+    """A MegaSpec when ``net`` matches the flagship pattern and the route
+    rule takes it, else None (the deep family, whose grammar holds this
+    one, names the reason)."""
+    spec = flagship_spec(net)
+    return None if spec is None or flagship_route_reason(spec) else spec
+
+
+def flagship_route_reason(spec):
+    """``route_reason`` of a flagship spec: the JAX package's tile search
+    and VMEM model, or the head's shared memory. A spec the JAX package
+    tiles runs here as one step of the whole reference batch."""
+    return route_reason(spec, route.flagship_jax_reason(spec),
+                        flagship_head_smem(spec), "csrc/megastep.cu")
 
 
 class FusedPlan(NamedTuple):

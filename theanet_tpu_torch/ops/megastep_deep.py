@@ -32,10 +32,15 @@ with an aux layer reads a (B, 4) aux row block a step (``aux_steps`` (nb,
 B, 4)). The bare 2-conv Softmax(nll) pattern stays with the flagship
 family when its matcher takes it, and the bare flat Input/Elastic ->
 Hidden -> Softmax(nll) pattern with the flat-MLP family (``fused_plan``
-tries flagship, MLP, deep). The TPU's VMEM gate and grouped lane-slot
-layout have no counterpart: the card holds every shipped net whole. What
-the kernel cannot launch (a head or warp stage beyond a block's shared
-memory) is declined by name (``megastep.launch_limit_reason``).
+tries flagship, MLP, deep). The TPU's grouped lane-slot layout has no
+counterpart. A spec is taken by the route rule (``megastep.route_reason``):
+the JAX package's VMEM model (``route.deep_jax_reason``) admits it, or its
+head fits the shared memory a block can opt in to; a head beyond the
+opt-in keeps its scratch in the workspace (csrc/megastep_deep.cu
+step_setup). A warp field beyond a block's shared memory is declined by
+name. Every family runs a reference batch whole, as one step at B =
+BATCH_SZ (the JAX package tiles only in its flagship, and this package not
+at all).
 
 An even 'same' filter reads the port's per-layer path's taps (a full conv
 cropped at (F-1)//2, as the reference's convpool.py does). The JAX
@@ -63,13 +68,15 @@ from .megastep import (LayerReg, _act, _conv_true, _conv_true_dgrad,
                        apply_updates, augment, centered_nll,
                        check_epoch_inputs, check_step_inputs, check_tensors,
                        check_update_inputs, head_loss_tag,
-                       launch_limit_reason, reg_of, smoothing_factors,
-                       spec_from_net, split_grads, weight_cost)
+                       flagship_route_reason, flagship_spec, reg_of,
+                       route_reason, smoothing_factors, spec_from_net,
+                       split_grads, weight_cost)
+from . import route
 from ..layers.conv import pool_backward
 
 __all__ = ["DeepSpec", "deep_spec_from_net", "deep_decline_reason",
            "deep_layer_idx", "deep_kernel_shapes", "deep_reg_kinds",
-           "deep_head_smem", "deep_launch_reason",
+           "deep_head_smem", "deep_route_reason",
            "kernel_layout_deep", "framework_layout_deep",
            "aux_concat_weights", "head_loss",
            "deep_epoch_reference", "deep_epoch",
@@ -244,9 +251,10 @@ def _head_cfg(head):
 
 
 def _match(net):
-    """(DeepSpec, None) when ``net`` is in the port's deep grammar, else
-    (None, reason). The one copy of the family's eligibility rules: it
-    takes what the JAX package's ``deep_spec_from_net`` takes
+    """(DeepSpec, None) when ``net`` is in the port's deep grammar and the
+    route rule takes it; (DeepSpec, reason) when the route rule declines
+    it; else (None, reason). The one copy of the family's eligibility
+    rules: it takes what the JAX package's ``deep_spec_from_net`` takes
     (megastep_deep.py:380-535) and declines what it declines."""
     from ..layers import (AuxConcatLayer, ColorLayer, ConvLayer,
                           DropOutLayer, ElasticLayer, HiddenLayer,
@@ -374,7 +382,12 @@ def _match(net):
             **_head_cfg(head), **aux_cfg, **common)
     if any(c <= 0 or po <= 0 for _, c, po in spec.sides):
         return None, "the image is too small for the conv/pool levels"
-    return spec, deep_launch_reason(spec)
+    reason = deep_route_reason(spec)
+    fspec = flagship_spec(net) if reason else None
+    if fspec is not None:
+        reason += ("; the flagship family declines it too: "
+                   + flagship_route_reason(fspec))
+    return spec, reason
 
 
 def _geometry_reason(k, conv, after):
@@ -415,22 +428,24 @@ def _geometry_reason(k, conv, after):
 
 
 def deep_head_smem(spec):
-    """csrc/megastep_deep.cu:466-469 (``head_smem``): the head stage's
-    shared memory, (2 B NO + B NC + NC + 4 B) floats, NO the head's width
-    and NC its classes."""
+    """csrc/megastep_deep.cu ``head_smem``: the head stage's scratch, (2 B
+    NO + B NC + NC + 4 B) floats, NO the head's width and NC its classes;
+    shared memory up to the opt-in, else a workspace region."""
     return 4 * (2 * spec.batch * spec.n_out + spec.batch * spec.n_classes
                 + spec.n_classes + 4 * spec.batch)
 
 
-def deep_launch_reason(spec):
-    """Why the deep kernel would refuse ``spec`` at launch, else None."""
-    return launch_limit_reason(spec, deep_head_smem(spec),
-                               "csrc/megastep_deep.cu head_smem")
+def deep_route_reason(spec):
+    """Why the deep family declines ``spec`` by the route rule or the warp
+    launch limit (``megastep.route_reason``), else None."""
+    return route_reason(spec, route.deep_jax_reason(spec),
+                        deep_head_smem(spec),
+                        "csrc/megastep_deep.cu head_smem")
 
 
 def deep_spec_from_net(net):
-    """A DeepSpec when ``net`` is in the port's deep grammar and the kernel
-    takes it at launch, else None."""
+    """A DeepSpec when ``net`` is in the port's deep grammar and the route
+    rule takes it, else None."""
     spec, reason = _match(net)
     return None if reason else spec
 

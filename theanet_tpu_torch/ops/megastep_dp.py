@@ -38,13 +38,13 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from .megastep import (MegaSpec, flagship_head_smem, kernel_shapes,
-                       launch_limit_reason, megastep_grad_step,
+from .megastep import (MegaSpec, kernel_shapes, warp_limit_reason,
+                       megastep_grad_step,
                        megastep_grad_step_reference, megastep_update,
                        megastep_update_reference, step_constants)
 from .megastep_deep import (DeepSpec, deep_grad_step,
                             deep_grad_step_reference, deep_kernel_shapes,
-                            deep_launch_reason, deep_step_constants,
+                            deep_step_constants,
                             deep_update, deep_update_reference)
 
 __all__ = ["local_spec", "dp_decline_reason", "dp_shard_data",
@@ -67,20 +67,19 @@ def dp_decline_reason(spec, n_data):
     spec) on an ``n_data``-rank mesh, or None (the JAX package's
     ``dp_supported``, with the reason named). The global batch must divide
     across the ranks, and the kernels must take the local spec at launch
-    (the head and warp stages' shared memory, ``launch_limit_reason``).
-    The limits are checked on the CPU as on a card, so a net takes the same
-    route on both."""
+    (the warp stage's shared memory, ``warp_limit_reason``; the head takes
+    any shard, in shared memory or the workspace). The global spec has
+    passed its family's route rule, and the JAX package re-poses a tiled
+    spec untiled on its mesh paths (``_untiled_global``), so nothing is
+    tiled here either. The limits are checked on the CPU as on a card, so
+    a net takes the same route on both."""
     if not isinstance(spec, (MegaSpec, DeepSpec)):
         return (f"{type(spec).__name__} has no data-parallel kernel (the "
                 "flagship and deep families have one)")
     if spec.batch % n_data:
         return (f"BATCH_SZ {spec.batch} does not divide across the "
                 f"{n_data} data ranks")
-    loc = local_spec(spec, spec.batch // n_data)
-    if isinstance(spec, MegaSpec):
-        return launch_limit_reason(loc, flagship_head_smem(loc),
-                                   "csrc/megastep.cu")
-    return deep_launch_reason(loc)
+    return warp_limit_reason(local_spec(spec, spec.batch // n_data))
 
 
 def dp_shard_data(spec, n_data, rank, x, y):

@@ -19,11 +19,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-from .megastep import LayerReg, act_of, aug_of, reg_of
-from .megastep_deep import (DeepSpec, deep_epoch_reference,
-                            deep_launch_reason, launch_deep)
+from . import route
+from .megastep import LayerReg, act_of, aug_of, reg_of, route_reason
+from .megastep_deep import (DeepSpec, deep_epoch_reference, deep_head_smem,
+                            launch_deep)
 
-__all__ = ["MlpSpec", "mlp_spec_from_net", "MLP_LAYER_IDX", "as_deep",
+__all__ = ["MlpSpec", "mlp_spec", "mlp_spec_from_net", "MLP_LAYER_IDX",
+           "as_deep",
            "mlp_kernel_shapes", "kernel_layout_mlp", "framework_layout_mlp",
            "mlp_epoch_reference", "mlp_epoch"]
 
@@ -61,11 +63,10 @@ class MlpSpec(NamedTuple):
         return self.in_ch * self.hw
 
 
-def mlp_spec_from_net(net):
-    """An MlpSpec when ``net`` is Input/Elastic -> Hidden -> Softmax(nll)
-    with a fusable hidden activation and no frozen layer, else None
-    (megastep_mlp.py:98-154; the deep kernel's launch limits in place of
-    the VMEM budget)."""
+def mlp_spec(net):
+    """The MlpSpec of ``net`` when it is Input/Elastic -> Hidden ->
+    Softmax(nll) with a fusable hidden activation and no frozen layer,
+    before the route rule; else None (megastep_mlp.py:98-135)."""
     from ..layers import ElasticLayer, HiddenLayer, InputLayer, SoftmaxLayer
 
     L = net.net_layers
@@ -80,14 +81,26 @@ def mlp_spec_from_net(net):
         return None
     if any(not lyr.reg["rate"] for lyr in (hid, head)):
         return None
-    spec = MlpSpec(batch=net.batch_sz, img=L[0].out_sz, n_hid=hid.n_out,
+    return MlpSpec(batch=net.batch_sz, img=L[0].out_sz, n_hid=hid.n_out,
                    n_out=head.n_out, slope_h=act_h[1], act_h=act_h[0],
                    pdrop=float(hid.pdrop), **aug_of(L[0]),
                    reg_h=reg_of(hid), reg_o=reg_of(head),
                    in_ch=L[0].num_maps)
-    # the deep kernel runs it: its launch limits (the deep matcher, which
-    # then sees the same net, names the reason)
-    return None if deep_launch_reason(as_deep(spec)) else spec
+
+
+def mlp_spec_from_net(net):
+    """``mlp_spec(net)`` when the route rule takes it, else None: the JAX
+    package's 24 MB gate (megastep_mlp.py:137-152, ``route.mlp_jax_reason``)
+    admits it or the deep kernel's head fits shared memory. The deep
+    kernel runs it, and the deep matcher, which then sees the same net,
+    names the reason."""
+    spec = mlp_spec(net)
+    if spec is None:
+        return None
+    dspec = as_deep(spec)
+    why = route_reason(dspec, route.mlp_jax_reason(spec),
+                       deep_head_smem(dspec), "csrc/megastep_deep.cu")
+    return None if why else spec
 
 
 def as_deep(spec):

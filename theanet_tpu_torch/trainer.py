@@ -10,10 +10,18 @@ Two training paths:
     family (``ops.megastep.fused_plan``: the 2-conv flagship, the flat MLP
     or the deep family), an epoch is ONE call of the plan's epoch function
     (its CUDA kernel on a card, its plain twin on the CPU), with the noise
-    words drawn for the plan's spec. Training state stays in the kernel
-    layout between epochs and is synced to the framework layout on eval,
-    checkpoint and ``sync_net``. ``MEGAFUSED=True`` raises with the decline
-    reason when the net cannot fuse; ``False`` never fuses.
+    words drawn for the plan's spec. A family takes a net whose grammar it
+    holds by the route rule: the JAX package's byte model admits it
+    (``ops/route.py``) or its head fits a block's shared memory; a
+    reference batch the JAX package runs as tiles is one step of the whole
+    batch here. Training state stays in the kernel layout between epochs
+    and is synced to the framework layout on eval, checkpoint and
+    ``sync_net``. ``MEGAFUSED=True`` raises with the decline reason when
+    the net cannot fuse; ``False`` never fuses. The JAX Trainer's 'auto'
+    also keeps tiled specs above BATCH_SZ 128 on its scanned path, a
+    crossover measured on the TPU (theanet_tpu/trainer.py:338-357); the
+    port fuses them (chip_smoke.py phase 23 times one such batch fused and
+    per layer).
   * per-layer: autograd ``NeuralNet.train_step`` per batch, for nets the
     matchers decline (with ``MEGAFUSED='auto'`` the Trainer names the
     reason on stderr). Each step draws from its own generator
