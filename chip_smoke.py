@@ -59,10 +59,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      test error is held to the JAX package's CPU run of the same .prms;
      then one per-layer epoch timed with FUSED_TAIL and 'pallas', and with
      neither;
- 13. the 3x3 conv kernel (csrc/conv3x3.cu: forward, dx, dw) vs its plain
-     version in f32 and bf16 at bench.py's wide conv2, the shapes of
-     tests/test_conv_pallas.py and one ragged shape; the backward twice,
-     bit-equal; times at the wide shape beside cuDNN's;
+ 13. the 3x3 conv kernel (csrc/conv3x3.cu: forward, dx, dw on the tensor
+     cores, bf16 MMA and 3xTF32) vs its plain version in f32 and bf16 at
+     bench.py's wide conv2, the shapes of tests/test_conv_pallas.py and
+     four ragged shapes; the backward twice, bit-equal; at the wide shape
+     the kernel's time with its achieved TFLOP/s and share of the bound
+     beside the plain version's and cuDNN's, and each stage's device time
+     (torch.profiler: the layout passes, the weight tables, the forward,
+     dx, dw and the slice sum);
  14. bench.py's wide model (56x56, conv 64 -> conv 128, hidden 2048,
      softmax 1000, batch 256, bf16, its data) through NeuralNet and
      Trainer with THEANET_PALLAS_CONV=1 and MEGAFUSED 'auto': the Trainer
@@ -1134,6 +1138,24 @@ def time_config(torch, name, dev, card, loaded=None):
     return ms_k, ms_t, bound
 
 
+def kernel_times(prof):
+    """{kernel name: (device us, launches)} of a torch.profiler run; a
+    kernel of csrc/ by its name and template arguments."""
+    stages = {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        m = re.search(r"k_\w+(<[^>]*>)?", e.key)
+        name = m.group(0) if m else re.sub(
+            r"^void |at::native::|\(anonymous namespace\)::", "", e.key)[:48]
+        total, count = stages.get(name, (0.0, 0))
+        stages[name] = (total + t, count + e.count)
+    return stages
+
+
 def profile_epoch(torch, run, n_steps, what="one epoch", top=None):
     """Print the device time of each stage kernel over one epoch (or what
     ``run`` does: ``n_steps`` steps or calls) by torch.profiler, per step,
@@ -1150,18 +1172,7 @@ def profile_epoch(torch, run, n_steps, what="one epoch", top=None):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    stages = {}
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        m = re.search(r"k_\w+(<[^>]*>)?", e.key)
-        name = m.group(0) if m else re.sub(
-            r"^void |at::native::|\(anonymous namespace\)::", "", e.key)[:48]
-        total, count = stages.get(name, (0.0, 0))
-        stages[name] = (total + t, count + e.count)
+    stages = kernel_times(prof)
     busy = sum(t for t, _ in stages.values())
     print(f"    torch.profiler, {what}: wall {wall_us / 1e3:.2f} ms, device "
           f"kernels busy {busy / 1e3:.2f} ms, idle share "
@@ -1472,11 +1483,14 @@ def phase12(torch, card):
 
 # phase 13: the conv kernel (csrc/conv3x3.cu) against its plain version,
 # (B, C, H, M): bench.py's wide conv2, the shapes of
-# tests/test_conv_pallas.py and one that fills no tile evenly (72 maps,
-# 11x11 outputs, depth 9 x 24 = 216)
+# tests/test_conv_pallas.py, one that fills no tile evenly (72 maps,
+# 11x11 outputs, depth 9 x 24 = 216), and the ragged edges of the
+# tensor-core tiling: one output pixel, 28 output rows (not a whole number
+# of 4-row strips) and C, M past one tile (136 channels, 200 maps)
 CONV_WIDE = (256, 64, 27, 128)
 CONV_CASES = [CONV_WIDE, (4, 16, 9, 8), (2, 32, 12, 16), (8, 8, 27, 8),
-              (6, 16, 9, 8), (4, 16, 11, 8), (3, 24, 13, 72)]
+              (6, 16, 9, 8), (4, 16, 11, 8), (3, 24, 13, 72), (1, 16, 3, 8),
+              (5, 40, 30, 24), (2, 136, 9, 200)]
 # The inputs are at a trained net's scales (activations in [0, 1), weights
 # of std 0.5 / sqrt(9 C), dz at a mean loss's 1 / sqrt(B O O)), so z and dw
 # are O(1) and dx about 1e-2. Each of z, dx and dw is held to its own
@@ -1512,6 +1526,35 @@ def conv_bounds(shape, dtype):
     x, w, z = B * C * H * H * size, M * C * 9 * size, B * M * O * O * size
     return (bound(x + w + z, fl, rate), bound(x + w + z + x + w, 2 * fl,
                                               rate))
+
+
+# the stages of conv3x3_forward and conv3x3_backward, by kernel name (the
+# conv body is the forward, or the backward's dx)
+CONV_STAGES = (("k_to_cl", "layout pass"), ("k_wprep", "weight table"),
+               ("k_conv", None), ("k_wgrad", "dw slices"),
+               ("k_dw_reduce", "slice sum"))
+
+
+def conv_stage_line(torch, fn, what, n=10):
+    """Each stage's device us a call of a conv3x3 entry, over n calls of fn
+    after a warm-up call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for name, (t, _) in kernel_times(prof).items():
+        key = re.sub(r"<.*", "", name)
+        times[key] = times.get(key, 0.0) + t / n
+    parts = [f"{label or ('forward' if what == 'forward' else 'dx')} "
+             f"{times[key]:.2f}" for key, label in CONV_STAGES
+             if key in times]
+    return ", ".join(parts) + f" us (sum {sum(times.values()):.2f})"
 
 
 def phase13(torch, dev, card):
@@ -1559,21 +1602,25 @@ def phase13(torch, dev, card):
                lambda: (conv2d_input(x.shape, w, dz),
                         conv2d_weight(x, w.shape, dz)))
         f_bound, b_bound = conv_bounds(CONV_WIDE, name)
+        B, C, H, M = CONV_WIDE
+        gflop = 2 * B * M * C * 9 * (H - 2) ** 2 / 1e9
         for what, (kern, plain, lib), bnd in (("forward", fwd, f_bound),
                                               ("backward", bwd, b_bound)):
             k1 = timed(torch, kern, 10)
             p = timed(torch, plain, 5)
             lb = timed(torch, lib, 10)
             k2 = timed(torch, kern, 10)
-            times[(what, name)] = (min(k1, k2), p, bnd, lb)
+            k = min(k1, k2)
+            fl = gflop * (1 if what == "forward" else 2)
+            times[(what, name)] = (k, p, bnd, lb)
             print(f"  conv3x3 {what} at {CONV_WIDE} {name} on {card}: kernel"
-                  f" {k1:.3f} / {k2:.3f} ms, plain {p:.3f} ms, cuDNN "
-                  f"(yardstick only) {lb:.3f} ms; bound {bnd[0]:.4f} ms "
-                  f"({bnd[1]})", flush=True)
-        if dtype == torch.bfloat16:
-            profile_epoch(torch, lambda: [(fwd[0](), bwd[0]())
-                                          for _ in range(5)], 5,
-                          "5 forward + backward kernel calls, bf16")
+                  f" {k1:.4f} / {k2:.4f} ms ({fl / k:.1f} TFLOP/s, "
+                  f"{100 * bnd[0] / k:.1f}% of the bound), plain {p:.3f} ms,"
+                  f" cuDNN (yardstick only) {lb:.4f} ms (kernel / cuDNN "
+                  f"{k / lb:.2f}); bound {bnd[0]:.4f} ms ({bnd[1]})",
+                  flush=True)
+            print("    device time by stage: "
+                  + conv_stage_line(torch, kern, what), flush=True)
     cv.conv3x3_forward.launches, cv.conv3x3_backward.launches = saved
     return worst, times
 
@@ -1766,7 +1813,7 @@ def phase14(torch, card, n_steps=WIDE_STEPS):
     torch.cuda.reset_peak_memory_stats()
     profile_epoch(torch, lambda: [trainer._train_batch(i, i, lr)
                                   for i in range(10)], 10,
-                  "10 per-layer wide steps, conv3x3 kernel", top=12)
+                  "10 per-layer wide steps, conv3x3 kernel", top=20)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  one wide epoch ({n_steps} steps x {WIDE_B}, bf16) on {card}: "
           f"conv3x3 kernel {ms['1']} ms, cuDNN (switch off) {ms['0']} ms; "

@@ -123,8 +123,8 @@ ENTRY_POINTS = {
         "fused_mlp_backward": [_P] * 14 + [_I] * 4 + [_F] * 2 + [_I] * 2
                               + [_P]},
     "conv3x3": {
-        "conv3x3_forward": [_P] * 3 + [_I] * 6 + [_P],
-        "conv3x3_backward": [_P] * 6 + [_I] * 7 + [_P]},
+        "conv3x3_forward": [_P] * 5 + [_I] * 5 + [_P, _I, _P],
+        "conv3x3_backward": [_P] * 9 + [_I] * 5 + [_P, _I, _P]},
     "probes": {
         "floor_probe": [_P] * 4 + [_I] * 4 + [_P, _I, _P, _I, _P],
         "conv_section": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_I, _P],
@@ -527,25 +527,31 @@ def fused_mlp_backward_launch(x, w1, w2, h, mask, logp, g, dx, dw1, db1, dw2,
           w2.shape[1], slope, keep, drop)
 
 
-def _conv3x3_dims(x, w):
+def _conv3x3_args(x, w, plan):
+    """(B, C, H, M, bf16, plan integers) of a conv3x3 entry."""
     b, c, h, _ = x.shape
-    return b, c, h, w.shape[0]
+    ints = plan.ints()
+    return (b, c, h, w.shape[0], int(x.dtype == torch.bfloat16),
+            (ctypes.c_int * len(ints))(*ints))
 
 
-def conv3x3_forward_launch(x, w, out):
-    """The forward of csrc/conv3x3.cu (1 launch) on the current stream, in
-    x's dtype: ``out`` (B, M, H-2, H-2)."""
-    _call("conv3x3", "conv3x3_forward", x, w, out, *_conv3x3_dims(x, w),
-          int(x.dtype == torch.bfloat16))
+def conv3x3_forward_launch(x, w, out, plan, wt_fwd, x_cl):
+    """The forward of csrc/conv3x3.cu (3 launches: the weight table, the
+    channel-last x, the conv) on the current stream, in x's dtype: ``out``
+    (B, M, H-2, H-2); ``plan`` is ops/conv3x3.py's conv3x3_plan, the rest
+    its scratch."""
+    _call("conv3x3", "conv3x3_forward", x, w, out, wt_fwd, x_cl,
+          *_conv3x3_args(x, w, plan))
 
 
-def conv3x3_backward_launch(x, w, dz, dx, dw, part):
-    """The backward of csrc/conv3x3.cu (3 launches) on the current stream,
-    in x's dtype: ``dx`` and ``dw`` from ``dz``; ``part`` is its f32
-    scratch of one (M, 9C) slab per batch slice."""
-    _call("conv3x3", "conv3x3_backward", x, w, dz, dx, dw, part,
-          *_conv3x3_dims(x, w), part.shape[0],
-          int(x.dtype == torch.bfloat16))
+def conv3x3_backward_launch(x, w, dz, dx, dw, plan, wt_dgrad, dz_cl, x_cl,
+                            part):
+    """The backward of csrc/conv3x3.cu (6 launches: dx's weight table, the
+    channel-last dz with its zero halo, dx, the channel-last x, the dw
+    slices, their sum) on the current stream, in x's dtype: ``dx`` and
+    ``dw`` from ``dz``; the rest is conv3x3_plan's scratch."""
+    _call("conv3x3", "conv3x3_backward", x, w, dz, dx, dw, wt_dgrad, dz_cl,
+          x_cl, part, *_conv3x3_args(x, w, plan))
 
 
 def floor_probe_launch(inputs, out, U, per_launch):
