@@ -16,21 +16,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (cost, minf, all 8 params and 8 momenta after the step); then the
      kernel's other options (activation kinds, ignore_border pools, three
      input channels, 5x5 filters and 3x3 pools, L1/L2/max-norm) at small
-     shapes, three steps each, step-locked;
+     shapes, three steps each, step-locked; the head's stages of the
+     full-shape step by torch.profiler beside the head's bound; a label
+     outside the classes and a dropped unit with an inf pre-activation give
+     a NaN cost;
   3. one full synth_hard epoch (600 steps): kernel vs twin, cost stream and
-     final params;
+     final params; the free-running epoch times and the head's stages;
   4. the main path: ``theanet_tpu_torch.train.main`` on synth_hard with
      params/mnist_cnn.prms (NUM_EPOCHS cut to 2, SEED pinned), then a
      resume of one epoch from the kept checkpoint; the kernel's launch
      counter must show that every epoch went through the kernel;
-  5. time one epoch of the kernel and one of the twin;
+  5. time one epoch of the kernel and one of the twin; its stages and its
+     head's stages (torch.profiler) beside the head's bound;
   6. the deep kernel (csrc/megastep_deep.cu) vs its twin: one step, then
      every step of a step-locked epoch, for galaxy_rbf on synth3 and
      logit_centered and synth_quick on synth at their shipped widths; then
      small variants (three conv levels with an identity and an
      ignore_border pool, a pre-hidden stack with DropOut, a flat net with a
      Color prefix and two hiddens, RBF with frozen centers and junk_dist
-     inf) with L1, L2 and max-norm on;
+     inf) with L1, L2 and max-norm on; a label outside the classes gives a
+     NaN cost;
   7. the flat-MLP kernel (the deep library at a zero-level table) vs its
      twin: flat_mlp at full width on synth_hard, one step and a
      step-locked epoch;
@@ -41,8 +46,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      epoch, and each run's test rows are printed beside, and held to, the
      JAX package's CPU run of the same configuration
      (jax_cpu_reference.sh);
-  9. time one epoch of each new kernel and of its twin at full width, and
-     print each kernel's device time by stage (torch.profiler);
+  9. time one epoch of each of phase 8's configurations, kernel and twin,
+     at full width, and print each kernel's device time by stage and its
+     head's stages beside the head's bound (torch.profiler);
  10. the elastic resample kernel (csrc/elastic_resample.cu) vs its plain
      version on the same warp and flip words: mnist_cnn's batch (nearest,
      invert, pflip .03), a 3-channel bilinear batch and a 48x48 one; its
@@ -102,7 +108,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      deep_ring_epoch at galaxy_rbf) at 2 ranks in this process, one thread
      and stream a rank, one step a call, step-locked against
      ring_epoch_reference's plain version; then mnist_cnn at BATCH_SZ 600
-     and 1024, whose heads need more than 48 KB of shared memory: it fuses,
+     and 1024 (beyond 48 KB of the former one-block head's scratch): it
+     fuses,
      and the flagship kernel follows its twin step-locked;
  18. the ring main path, ``Trainer(mesh=make_mesh())`` under
      THEANET_DP_RING: at world 1 in this process (NCCL) mnist_cnn and
@@ -149,18 +156,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      each geometry configuration timed by CUDA events beside the twin's,
      with its bound and its stages; mnist_same at world 2 on the ring
      (two processes on the card), bit-equal to its emulation.
- 23. the heads and batches the parent declined, which the route rule now
-     takes with their heads in the kernels' workspace: mnist_cnn's layers
+ 23. the heads and batches beyond the route rule's head threshold, which
+     its JAX clause takes: mnist_cnn's layers
      at BATCH_SZ 3000, at B 128 with 457 classes and at B 20 with 1453
      classes, flat_mlp's at B 128 with 457 classes, a three-level conv net
      at B 20 with 1500 classes, on synth_hard: each kernel against its
      twin, one step and HEAD_LOCKED_STEPS steps step-locked (each state
      tensor within 1e-5 of max(1, its largest value)); a timed epoch of
-     each, launches counted; megastep_grad_step and deep_grad_step against
+     each, launches counted, with its head's stages, their share of the
+     busy time and the head's bound; megastep_grad_step and deep_grad_step against
      their plain versions; train.main with mnist_cnn.prms at BATCH_SZ 3000
      and MEGAFUSED True (3 epochs and a 1-epoch resume, one launch an
-     epoch), its test rows against the JAX package's CPU run; one
-     per-layer epoch at BATCH_SZ 3000 beside the fused one;
+     epoch), its test rows against the JAX package's CPU run; the fused
+     Trainer's epochs beside the per-layer one's, alternated, at BATCH_SZ
+     256 to 3000 (the JAX Trainer's 'auto' crossover, ROADMAP fault 3);
  24. the probe kernels of csrc/probes.cu (floor, conv section, relay)
      against their plain versions in every variant and launch mode; their
      epoch times beside the plain versions and the bounds; then the probe
@@ -308,6 +317,10 @@ def phase2(torch, data, dev):
             (d_cost, d_minf)
         assert d_p <= STEP_ATOL and d_m <= STEP_ATOL, (d_p, d_m)
         worst = max(worst, d_cost, d_minf, d_p, d_m)
+        if nearest:
+            profile_epoch(torch, lambda: megastep.megastep_epoch(
+                kp, km, x[:1], y[:1], bits, 0.1, spec), 1, "one step",
+                top=0, head=("mnist_cnn, one step", spec))
     return worst
 
 
@@ -341,6 +354,33 @@ def variant_spec(megastep, kw):
     return megastep.MegaSpec(reg1=r1, reg2=r2, reg_h=rh, reg_o=ro, **base)
 
 
+def kink_flips(torch, megastep, spec, params, x, bits_s):
+    """The flagship twin's step resolved at the leaky kink: for a step whose
+    kept hidden units have pre-activations within KINK_ATOL of 0 (at most
+    KINK_UNITS of them), each nonempty subset of those units as a (1, B, NH)
+    bool mask for megastep_epoch_reference's ``flips`` (their derivative
+    on the other side of 0, where the kernel's sum order may put them);
+    else no mask."""
+    if not isinstance(spec, megastep.MegaSpec) or spec.act_h != "leaky":
+        return []
+    gh, gw = megastep.smoothing_factors(spec, x.device)
+    z3 = megastep.forward_to_hidden(spec, x, bits_s[0][0, 0], bits_s[1][0],
+                                    bits_s[2][0], params, gh, gw)[-1]
+    near = z3.abs() < KINK_ATOL
+    if spec.pdrop:
+        near &= megastep._u01(bits_s[3][0]) >= spec.pdrop
+    units = near.nonzero().tolist()
+    if not units or len(units) > KINK_UNITS:
+        return []
+    masks = []
+    for pick in range(1, 1 << len(units)):
+        mask = torch.zeros_like(near)
+        for i, (b, j) in enumerate(units):
+            mask[b, j] = bool(pick >> i & 1)
+        masks.append(mask[None])
+    return masks
+
+
 def step_locked(torch, megastep, spec, p, m, x, y, bits, fns=None,
                 cost_atol=None):
     """Each step of both versions from the kernel's state: (worst |d| on
@@ -348,25 +388,48 @@ def step_locked(torch, megastep, spec, p, m, x, y, bits, fns=None,
     such steps, final kernel state). ``fns`` is the (kernel wrapper, twin)
     pair, the flagship's by default. The worst |d| covers the state tensors
     and, unless ``cost_atol`` is given (then each step's cost and minf are
-    held to it here), the cost and minf too."""
+    held to it here), the cost and minf too. A flagship step beyond
+    STEP_ATOL with hidden pre-activations within KINK_ATOL of 0 is compared
+    with the twin run with each resolution of those units' leaky
+    derivative (kink_flips) as well, and the closest counts, still held to
+    STEP_ATOL: the tiled and the library GEMM may round such a
+    pre-activation to either side of 0."""
     kernel, twin = fns or (megastep.megastep_epoch,
                            megastep.megastep_epoch_reference)
     worst_clean = worst_flip = 0.0
     n_near = 0
+
+    def diff(ref):
+        d = max(max_abs(a, b) for a, b in zip(got[0] + got[1],
+                                              ref[0] + ref[1]))
+        return d, max_abs(got[2], ref[2])
+
     for s in range(x.shape[0]):
         sl = slice(s, s + 1)
         b_s = tuple(b[sl] for b in bits)
         got = kernel(p, m, x[sl], y[sl], b_s, 0.1, spec)
         ref = twin(p, m, x[sl], y[sl], b_s, 0.1, spec)
         assert bool(torch.isfinite(got[2]).all())
-        d = max(max_abs(a, b) for a, b in zip(got[0] + got[1],
-                                              ref[0] + ref[1]))
-        d_cost = max_abs(got[2], ref[2])
+        d, d_cost = diff(ref)
         if spec.nearest and near_rounding_pixels(torch, megastep, spec, b_s,
                                                  0):
             n_near += 1
             worst_flip = max(worst_flip, d, d_cost)
-        elif cost_atol is None:
+            p, m = got[0], got[1]
+            continue
+        if d > STEP_ATOL and twin is megastep.megastep_epoch_reference:
+            d_run, flips = d, kink_flips(torch, megastep, spec, p, x[s], b_s)
+            for mask in flips:
+                d_f, d_cost_f = diff(twin(p, m, x[sl], y[sl], b_s, 0.1, spec,
+                                          flips=mask))
+                if d_f < d:
+                    d, d_cost = d_f, d_cost_f
+            if flips:
+                print(f"    step {s}: hidden pre-activations within "
+                      f"{KINK_ATOL:g} of 0; max|d| {d_run:.3e} against the "
+                      f"twin, {d:.3e} against the closest of its "
+                      f"{len(flips)} resolutions at the kink", flush=True)
+        if cost_atol is None:
             worst_clean = max(worst_clean, d, d_cost)
         else:
             assert d_cost <= cost_atol, (s, got[2], ref[2])
@@ -403,6 +466,38 @@ def phase2_variants(torch, dev):
     return worst
 
 
+def nan_edges(torch, dev):
+    """The flagship kernel's NaN cases at a small spec (pdrop .5): a label
+    outside [0, NC) gives a NaN cost (the twin refuses such a label), and a
+    hidden bias of inf (a pre-activation of inf in every sample, 0 * inf
+    where dropped) gives a NaN cost in the kernel and the twin."""
+    from theanet_tpu_torch.ops import megastep
+
+    spec = variant_spec(megastep, dict(pdrop=0.5))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = [0.3 * torch.randn(s, generator=gen, device=dev)
+         for s in megastep.kernel_shapes(spec)]
+    m = [torch.zeros_like(t) for t in p]
+    x = torch.rand((1, spec.batch, spec.hw), generator=gen, device=dev)
+    y = torch.randint(0, spec.n_out, (1, spec.batch), generator=gen,
+                      device=dev, dtype=torch.int32)
+    bits = megastep.epoch_noise_bits(9, 0, spec, 1, dev)
+    y_bad = y.clone()
+    y_bad[0, 2] = spec.n_out
+    c_label = float(megastep.megastep_epoch(p, m, x, y_bad, bits, 0.1,
+                                            spec)[2][0, 0])
+    p_inf = [t.clone() for t in p]
+    p_inf[5][0, 3] = math.inf   # the hidden bias (kernel layout (1, NH))
+    c_inf = [float(fn(p_inf, m, x, y, bits, 0.1, spec)[2][0, 0])
+             for fn in (megastep.megastep_epoch,
+                        megastep.megastep_epoch_reference)]
+    print(f"  NaN cases: a label outside the classes, kernel cost {c_label};"
+          f" an inf hidden pre-activation, kernel {c_inf[0]}, twin "
+          f"{c_inf[1]}", flush=True)
+    assert math.isnan(c_label) and all(map(math.isnan, c_inf)), (c_label,
+                                                                  c_inf)
+
+
 def epoch_inputs(torch, megastep, spec, data, dev):
     from theanet_tpu_torch.model import params_from_allwts
 
@@ -430,10 +525,18 @@ def phase3(torch, data, dev):
     assert worst_clean <= STEP_ATOL and worst_flip <= FLIP_ATOL, \
         (worst_clean, worst_flip)
 
-    # free-running
-    got = megastep.megastep_epoch(kp, km, x, y, bits, 0.1, spec)
-    ref = megastep.megastep_epoch_reference(kp, km, x, y, bits, 0.1, spec)
-    torch.cuda.synchronize()
+    # free-running, each epoch timed once by CUDA events
+    out = {}
+    ms_k = timed_once(torch, lambda: out.update(k=megastep.megastep_epoch(
+        kp, km, x, y, bits, 0.1, spec)))
+    ms_t = timed_once(torch, lambda: out.update(
+        t=megastep.megastep_epoch_reference(kp, km, x, y, bits, 0.1, spec)))
+    got, ref = out["k"], out["t"]
+    print(f"free-running epoch: kernel {ms_k:.3f} ms (first call), twin "
+          f"{ms_t:.3f} ms", flush=True)
+    profile_epoch(torch, lambda: megastep.megastep_epoch(
+        kp, km, x, y, bits, 0.1, spec), nb, top=0,
+        head=("mnist_cnn, phase 3", spec))
     d_cost = max_abs(got[2][:, 0], ref[2][:, 0])
     d_p = max(max_abs(a, b) for a, b in zip(got[0], ref[0]))
     tot_k, tot_t = float(got[2][:, 0].sum()), float(ref[2][:, 0].sum())
@@ -530,6 +633,9 @@ def phase5(torch, data, dev, card):
           "images/s)", flush=True)
     bound = epoch_bound(spec, [x, y, *bits, *kp, *km],
                         [*kp, *km, torch.empty((x.shape[0], 2))], x.shape[0])
+    profile_epoch(torch, lambda: megastep.megastep_epoch(
+        kp, km, x, y, bits, 0.1, spec), x.shape[0], head=("mnist_cnn", spec))
+    megastep.megastep_epoch.launches = saved
     return ms_k, ms_t, bound
 
 
@@ -718,8 +824,9 @@ def family_fns(plan):
 
 
 def head_bytes(plan):
-    """The bytes of a fused plan's head scratch (shared memory up to the
-    227 KB opt-in, else the kernel's workspace)."""
+    """The route rule's head threshold of a fused plan, in bytes (the
+    scratch of the one-block head the kernels once had; the rule
+    takes a spec the JAX package declines when it is at most 227 KB)."""
     from theanet_tpu_torch.ops import megastep
     from theanet_tpu_torch.ops import megastep_deep as deep
     from theanet_tpu_torch.ops import megastep_mlp as mlp
@@ -871,10 +978,16 @@ def phase6_variants(torch, dev):
                                            y, bits, fns=fns,
                                            cost_atol=STEP_COST_ATOL)
         moved = max(max_abs(a, b) for a, b in zip(p1, kp))
+        y_bad = y[:1].clone()
+        y_bad[0, 1] = spec.n_classes   # a label outside the classes
+        cm = fns[0](kp, km, x[:1], y_bad, tuple(b[:1] for b in bits), 0.1,
+                    spec)[2]
         print(f"  {name}: {nb} steps step-locked, max|d| state {clean:.3e}; "
-              f"params moved {moved:.3e}", flush=True)
+              f"params moved {moved:.3e}; a label outside the classes: cost "
+              f"{float(cm[0, 0])}", flush=True)
         assert moved > 0, "the steps did not move the parameters"
         assert clean <= STEP_ATOL, clean
+        assert math.isnan(float(cm[0, 0])), cm
         worst = max(worst, clean)
     return worst
 
@@ -1131,9 +1244,10 @@ def time_config(torch, name, dev, card, loaded=None):
           f"{card}: kernel {ms_k1:.3f} / {ms_k2:.3f} ms "
           f"({n_img / ms_k * 1e3:,.0f} images/s), twin {ms_t:.3f} ms; bound "
           f"{bound[0]:.4f} ms ({bound[1]}); one {kernel.__name__} launch a "
-          f"call; head scratch {head_bytes(plan):,} bytes", flush=True)
+          f"call; route-rule head threshold {head_bytes(plan):,} bytes",
+          flush=True)
     profile_epoch(torch, lambda: kernel(kp, km, x, y, bits, 0.1, spec),
-                  x.shape[0])
+                  x.shape[0], head=(name, spec))
     kernel.launches = saved
     return ms_k, ms_t, bound
 
@@ -1156,12 +1270,99 @@ def kernel_times(prof):
     return stages
 
 
-def profile_epoch(torch, run, n_steps, what="one epoch", top=None):
+# {configuration: (head us/step, head bound us/step, share of busy)} of the
+# profiled epochs (profile_epoch's ``head``), for the kernels JSON line
+HEAD_REPORT = {}
+
+
+def head_bound(spec):
+    """(us, what bounds it) of one step's head at ``spec``'s shape, the work
+    of the k_head_* stages. Flagship: from h3d (with z3 and the dropout
+    words for dz3's epilogue), wo, bo and the labels to dz3, dwo, dbo, dbh
+    and (cost, minf): the three products (scores, dwo, dz3; 2 operations a
+    multiply-add), the softmax (5 a score), dz3's epilogue (3 an element)
+    and the two column sums. Deep: the loss from the scores to dz4 (8 a
+    score), dbo and (cost, minf); RBF adds its three products over (B, NC,
+    NO), ||c||^2 and its softmax; learned centers write dcenters."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_mlp as mlp
+
+    B = spec.batch
+    if isinstance(spec, megastep.MegaSpec):
+        NH, NC = spec.n_hid, spec.n_out
+        flops = 6 * B * NH * NC + 6 * B * NC + 4 * B * NH
+        n_bytes = 4 * (4 * B * NH + 2 * NH * NC + 2 * NC + NH + B + 2)
+        ms, by = bound(n_bytes, flops)
+        return ms * 1e3, by
+    if isinstance(spec, mlp.MlpSpec):
+        spec = mlp.as_deep(spec)
+    NO, NC = spec.n_out, spec.n_classes or spec.n_out
+    flops = 9 * B * NO
+    n_bytes = 4 * (2 * B * NO + NO + B + 2)
+    if spec.head in ("logit", "rbf"):
+        n_bytes += 4 * NC * NO
+    if spec.head == "rbf":
+        flops += 6 * B * NC * NO + 2 * NC * NO + 8 * B * NC
+        if spec.learn_centers:
+            n_bytes += 4 * NC * NO
+    ms, by = bound(n_bytes, flops)
+    return ms * 1e3, by
+
+
+def head_line(stages, spans, busy, n_steps, name, spec):
+    """Print the head stages' device time a step (the k_head_* kernels) by
+    kernel name, each its span (a stage started by a programmatic
+    dependent launch waits inside its span for the stage before it), and
+    the head's device time (the union of their spans) beside the head's
+    bound (head_bound) and its share of the busy time (the union of every
+    kernel's span); record them in HEAD_REPORT[name]."""
+    heads = {k: v for k, v in stages.items() if k.startswith("k_head")}
+    head_us = union_us([sp for sp in spans if sp[2].startswith("k_head")])
+    us = head_us / n_steps
+    b_us, by = head_bound(spec)
+    share = head_us / busy if busy else 0.0
+    print(f"    head of {name} (B {spec.batch} x {spec.n_out}): spans "
+          + ", ".join(f"{k} {t / n_steps:.2f}" for k, (t, _) in
+                      sorted(heads.items()))
+          + f" us/step; the head {us:.2f} us/step, {100 * share:.1f}% of "
+          f"busy; bound {b_us:.3f} us/step ({by})", flush=True)
+    HEAD_REPORT[name] = (us, b_us, share)
+
+
+def device_spans(prof):
+    """[(start us, end us, kernel name)] of every device kernel of a
+    torch.profiler run (kernel_times' names)."""
+    spans = []
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        m = re.search(r"k_\w+(<[^>]*>)?", e.name)
+        spans.append((e.time_range.start, e.time_range.end,
+                      m.group(0) if m else e.name))
+    return spans
+
+
+def union_us(spans):
+    """The time covered by the union of ``spans``: where kernels overlap
+    (a kernel started by a programmatic dependent launch runs, waiting,
+    beside the one before it) each instant counts once."""
+    total, end = 0.0, -math.inf
+    for start, stop, _ in sorted(spans):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def profile_epoch(torch, run, n_steps, what="one epoch", top=None,
+                  head=None):
     """Print the device time of each stage kernel over one epoch (or what
     ``run`` does: ``n_steps`` steps or calls) by torch.profiler, per step,
-    and the device's idle share: 1 - busy time over the wall time,
-    launches from the host included; ``top`` limits the kernels listed.
-    Returns the idle share."""
+    and the device's idle share: 1 - busy time (the union of the kernels'
+    spans) over the wall time, launches from the host included; ``top``
+    limits the kernels listed.
+    ``head`` (configuration name, spec): also print its head line
+    (head_line). Returns the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     run()   # warm-up
@@ -1173,7 +1374,8 @@ def profile_epoch(torch, run, n_steps, what="one epoch", top=None):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     stages = kernel_times(prof)
-    busy = sum(t for t, _ in stages.values())
+    spans = device_spans(prof)
+    busy = union_us(spans)
     print(f"    torch.profiler, {what}: wall {wall_us / 1e3:.2f} ms, device "
           f"kernels busy {busy / 1e3:.2f} ms, idle share "
           f"{100 * (1 - busy / wall_us):.1f}%", flush=True)
@@ -1182,12 +1384,16 @@ def profile_epoch(torch, run, n_steps, what="one epoch", top=None):
         print(f"    {name:24s} {t / n_steps:8.2f} us/step "
               f"{count / n_steps:5.1f} launches/step "
               f"{100 * t / busy:5.1f}% of busy", flush=True)
+    if head is not None:
+        head_line(stages, spans, busy, n_steps, *head)
     return 1 - busy / wall_us
 
 
 def phase9(torch, dev, card):
-    return {"deep_epoch": time_config(torch, "galaxy_rbf", dev, card),
-            "mlp_epoch": time_config(torch, "flat_mlp", dev, card)}
+    """Each CONFIGS entry (phase 8's configurations) timed and profiled:
+    {"deep_epoch": galaxy_rbf's times, "mlp_epoch": flat_mlp's}."""
+    times = {name: time_config(torch, name, dev, card) for name in CONFIGS}
+    return {"deep_epoch": times["galaxy_rbf"], "mlp_epoch": times["flat_mlp"]}
 
 
 # ----------------------------------------------------------- phases 10-12
@@ -2489,8 +2695,9 @@ def exchange_case(torch, name, n, rs_env, dev):
 
 
 def phase17_heads(torch, dev, data_mod):
-    """mnist_cnn at BATCH_SZ 600 and 1024 fuses (the head kernel opts in
-    above 48 KB) and the flagship kernel follows its twin step-locked.
+    """mnist_cnn at BATCH_SZ 600 and 1024 fuses (beyond 48 KB of the former
+    one-block head's scratch) and the flagship kernel follows its twin
+    step-locked.
     Returns the largest |d| on steps without a near-rounding pixel."""
     from theanet_tpu_torch.model import NeuralNet
     from theanet_tpu_torch.ops import megastep
@@ -2520,8 +2727,9 @@ def phase17_heads(torch, dev, data_mod):
         clean, flip, n_near, (p1, _) = step_locked(torch, megastep, spec, kp,
                                                    km, x, y, bits)
         moved = max(max_abs(a, b) for a, b in zip(p1, kp))
-        print(f"  mnist_cnn at BATCH_SZ {batch} (head {head:,} bytes of "
-              f"shared memory): fuses; {nb} steps step-locked, kernel vs "
+        print(f"  mnist_cnn at BATCH_SZ {batch} (route-rule head "
+              f"threshold {head:,} bytes): fuses; {nb} steps step-locked, "
+              f"kernel vs "
               f"twin max|d| {clean:.3e} ({n_near} steps with a near-rounding "
               f"pixel: {flip:.3e}); params moved {moved:.3e}", flush=True)
         assert moved > 0 and clean <= STEP_ATOL and flip <= FLIP_ATOL, (
@@ -2956,6 +3164,9 @@ def aux_cases(torch, dev):
 # 2.98e-8, momenta 9.9e-5 apart). A step beyond AUX_REL whose twin has a
 # dense pre-activation within KINK_ATOL of 0 is held to FLIP_ATOL instead.
 KINK_ATOL = 1e-6
+# step_locked resolves a flagship step at the kink when at most this many
+# hidden units sit within KINK_ATOL of 0 (2**KINK_UNITS - 1 twin runs).
+KINK_UNITS = 4
 
 
 def dense_kink(torch, spec, params, x, bits_s, dev):
@@ -3313,17 +3524,23 @@ def phase22(torch, card):
 
 # ------------------------------------------------------------ phases 23-24
 
-# Phase 23: the heads and batches the parent declined, each on synth_hard
-# (its labels 0-9 are valid under any head): mnist_cnn's layers at BATCH_SZ
-# 3000 (the JAX package tiles it as 100 tiles of 30; the head, 252,000
-# bytes, runs from the workspace), at B 128 with 457 classes (4 tiles of
-# 32), at B 20 with 1453 classes (untiled; a 232,560-byte head, 112 bytes
-# above the opt-in); flat_mlp's layers at B 128 with 457 classes; a
-# three-level conv net at B 20 with 1500 classes.
+# Phase 23: heads and batches beyond the route rule's head threshold, each
+# on synth_hard (its labels 0-9 are valid under any head): mnist_cnn's
+# layers at BATCH_SZ 3000 (the JAX package tiles it as 100 tiles of 30; a
+# 252,000-byte threshold head), at B 128 with 457 classes (4 tiles of 32),
+# at B 20 with 1453 classes (untiled; 232,560 bytes, 112 above the
+# threshold); flat_mlp's layers at B 128 with 457 classes; a three-level
+# conv net at B 20 with 1500 classes.
 HEAD_CONFIGS = ("mnist_b3000", "mnist_b128_457", "mnist_b20_1453",
                 "flat_b128_457", "three_level_b20_1500")
 HEAD_LOCKED_STEPS = 20
 B3K, B3K_EPOCHS = 3000, 3
+# the batches at which phase 23 times the fused epoch beside the per-layer
+# one (ROADMAP fault 3): from the JAX Trainer's first per-layer batch under
+# 'auto' (BATCH_SZ > 128) up to B3K; CROSSOVER_REPS epochs of each,
+# alternated, after one warm-up epoch of each
+CROSSOVER_BATCHES = (256, 512, 1024, 2048, B3K)
+CROSSOVER_REPS = 7
 # synth_hard's test set (2000 samples) holds no batch of 3000: the CLI run
 # at B3K reads synth_hard drawn with 3000 test samples (make_dataset's
 # n_test; the same training set, and its first 2000 test samples are
@@ -3435,16 +3652,48 @@ def b3k_cli(train):
     return rows, launches
 
 
+def crossover_times(torch, Trainer, NeuralNet, tx, ty, batch, card):
+    """mnist_cnn's layers at ``batch`` on synth_hard: the fused and the
+    per-layer Trainer's epochs, one warm-up each, then CROSSOVER_REPS of
+    each alternated, each timed by CUDA events. Returns {path: (median,
+    min, max) ms}."""
+    import statistics
+
+    trainers = {}
+    for path, fused in (("fused", True), ("per_layer", False)):
+        layers, tr = head_config("mnist_b3000")
+        tr.update(BATCH_SZ=batch, MEGAFUSED=fused)
+        trainers[path] = Trainer(NeuralNet(layers, tr), tx, ty, tx[:B3K],
+                                 ty[:B3K])
+        assert (trainers[path]._mega is not None) == fused, path
+        trainers[path].run_epoch()   # warm-up
+    ms = {path: [] for path in trainers}
+    for _ in range(CROSSOVER_REPS):
+        for path, trainer in trainers.items():
+            ms[path].append(timed_once(torch, trainer.run_epoch))
+    out = {path: (statistics.median(t), min(t), max(t))
+           for path, t in ms.items()}
+    print(f"  mnist_cnn at BATCH_SZ {batch}, {CROSSOVER_REPS} epochs each "
+          f"alternated on {card}: " + "; ".join(
+              f"{path} median {m:.3f} ms (min {lo:.3f}, max {hi:.3f})"
+              for path, (m, lo, hi) in out.items()), flush=True)
+    return out
+
+
 def phase23(torch, dev, card):
-    """The heads and batches the parent declined (HEAD_CONFIGS): each
-    kernel against its twin, one step and HEAD_LOCKED_STEPS steps
-    step-locked; a timed epoch of kernel and twin; megastep_grad_step (at
+    """The heads and batches beyond the route rule's head threshold
+    (HEAD_CONFIGS): each kernel against its twin, one step and
+    HEAD_LOCKED_STEPS steps step-locked; a timed and profiled epoch of
+    kernel and twin (the head's stages beside its bound); megastep_grad_step (at
     mnist_b128_457) and deep_grad_step (at three_level_b20_1500) against
     their plain versions; then train.main at BATCH_SZ B3K with MEGAFUSED
     True (B3K_EPOCHS epochs and a resume, one launch an epoch), its test
-    rows against the JAX package's CPU run; then one per-layer epoch of
-    mnist_b3000. Returns ({kernel: launches in the main path}, {epoch
-    kernel: {config: (largest |d|, times)}}, the DP cases' results)."""
+    rows against the JAX package's CPU run; then, at each of
+    CROSSOVER_BATCHES, the fused epochs beside the per-layer ones
+    (crossover_times). Returns
+    ({kernel: launches in the main path}, {epoch kernel: {config: (largest
+    |d|, times)}, "crossover": {batch: crossover_times}}, the DP
+    cases' results)."""
     import numpy as np
     from theanet_tpu_torch import train
     from theanet_tpu_torch.data import synth_hard
@@ -3491,20 +3740,17 @@ def phase23(torch, dev, card):
         assert abs(c - cj) <= SEED_COST_RTOL * cj, (c, cj)
     assert final <= B3K_JAX["test_err"] + ERR_MARGIN, final
 
-    # A3: the JAX Trainer declines tiled specs above BATCH_SZ 128 under
-    # 'auto' (a TPU crossover); here one per-layer epoch beside the fused
-    layers, tr = head_config("mnist_b3000")
-    tr["MEGAFUSED"] = False
-    trainer = Trainer(NeuralNet(layers, tr), tx, ty, tx[:B3K], ty[:B3K])
-    trainer.run_epoch()   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.run_epoch()
-    torch.cuda.synchronize()
-    ms_pl = (time.perf_counter() - t0) * 1e3
-    ms_fused = results["megastep_epoch"]["mnist_b3000"][1][0]
-    print(f"  mnist_b3000, one epoch on {card}: fused {ms_fused:.3f} ms, per "
-          f"layer {ms_pl:.3f} ms", flush=True)
+    # Fault 3: the JAX Trainer's 'auto' keeps a spec it tiles above
+    # BATCH_SZ 128 per layer (a crossover measured on the TPU); here the
+    # fused Trainer (MEGAFUSED True) beside the per-layer one at
+    # CROSSOVER_BATCHES, their epochs alternated
+    saved = megastep.megastep_epoch.launches
+    crossover = {}
+    for batch in CROSSOVER_BATCHES:
+        crossover[batch] = crossover_times(torch, Trainer, NeuralNet, tx, ty,
+                                           batch, card)
+    megastep.megastep_epoch.launches = saved   # timing launches do not count
+    results["crossover"] = crossover
     return launches, results, dp_res
 
 
@@ -3696,6 +3942,7 @@ def main(argv=None):
                "kernel's other options at small shapes)")
         step_err = max(phase2(torch, data, dev),
                        phase2_variants(torch, dev))
+        nan_edges(torch, dev)
     if 3 in phases:
         banner(3, "one epoch, kernel vs twin")
         epoch_err = phase3(torch, data, dev)
@@ -3759,7 +4006,8 @@ def main(argv=None):
                 dp_launches, dp_report = phase16(torch, card, mesh)
             if 17 in phases:
                 banner(17, "the ring's exchange kernel vs its plain version "
-                       "in every mode; the flagship head above 48 KB")
+                       "in every mode; the flagship at BATCH_SZ 600 and "
+                       "1024")
                 ring_err, ring_times, _, ring_locked_err = phase17(
                     torch, dev, card)
             if 18 in phases:
@@ -3802,9 +4050,10 @@ def main(argv=None):
                "ring run")
         geom_launches, geom_times = phase22(torch, card)
     if 23 in phases:
-        banner(23, "heads and batches the parent declined: kernels vs "
-               "twins step-locked, epoch times, the DP gradient steps; "
-               "train.main at BATCH_SZ 3000 (+ resume); a per-layer epoch")
+        banner(23, "wide heads and BATCH_SZ 3000: kernels vs twins "
+               "step-locked, epoch times and head stages, the DP gradient "
+               "steps; train.main at BATCH_SZ 3000 (+ resume); fused against "
+               "per layer from 256 to 3000")
         head_launches, head_res, head_dp = phase23(torch, dev, card)
     if 24 in phases:
         banner(24, "the probe kernels vs their plain versions; the probe "
@@ -3892,11 +4141,19 @@ def main(argv=None):
     kernels[0]["epoch_step_locked_max_abs_err"] = epoch_err
     # phase 23's configurations under the three epoch entries, with the
     # launches of the BATCH_SZ 3000 CLI run (its own main path)
-    for k in kernels[:3]:
+    for k, main in zip(kernels[:3], ("mnist_cnn", "galaxy_rbf",
+                                     "flat_mlp")):
+        k["head_us_per_step"], k["head_bound_us"] = HEAD_REPORT[main][:2]
         k["configs"] = {
             name: {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
-                   "bound_ms": t[2][0], "bound_by": t[2][1]}
+                   "bound_ms": t[2][0], "bound_by": t[2][1],
+                   "head_us_per_step": HEAD_REPORT[name][0],
+                   "head_bound_us": HEAD_REPORT[name][1]}
             for name, (err, t) in head_res.get(k["name"], {}).items()}
+    kernels[0]["configs"]["crossover"] = {
+        f"mnist_b{b}": {f"{path}_ms": {"median": m, "min": lo, "max": hi}
+                        for path, (m, lo, hi) in t.items()}
+        for b, t in head_res["crossover"].items()}
     kernels[0]["configs"]["mnist_b3000"]["launches"] = \
         head_launches["megastep_epoch"]
     kernels[0]["configs"]["dp_grad_steps"] = {

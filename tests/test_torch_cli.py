@@ -238,3 +238,14 @@ def test_cli_fused_tail_slice_trains_per_layer_and_resumes(tiny_data, capsys):
             if l[:3].strip().isdigit()]
     assert [int(r.split()[0]) for r in rows] == [2, 3, 4]
     assert resumed.net.get_epoch() == 4
+
+
+@pytest.mark.parametrize("var,value", [("THEANET_STEPWISE", "1"),
+                                       ("THEANET_PROFILE_DIR", "trace")])
+def test_unported_cli_switches_raise(var, value, tiny_data, monkeypatch):
+    """The JAX CLI's THEANET_STEPWISE=1 and THEANET_PROFILE_DIR are not
+    ported: the port's CLI stops and names the switch instead of training
+    without it."""
+    monkeypatch.setenv(var, value)
+    with pytest.raises(NotImplementedError, match=var):
+        train.main(["train", "torch_cli_tiny", "tiny.prms"])

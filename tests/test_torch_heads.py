@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from theanet_tpu.data import synth_aux as jax_synth_aux
 from theanet_tpu.model import NeuralNet as JaxNet
 from theanet_tpu.ops import megastep as jm
+from theanet_tpu.trainer import Trainer as JaxTrainer
 
 from theanet_tpu_torch import train
 from theanet_tpu_torch.data import load_dataset
@@ -469,3 +470,31 @@ def test_cli_exp_head_divergence_watchdog(tmp_path, monkeypatch, capsys):
     assert "min true-class feature: -7.0" in out
     # the chunk, the replay to epoch 1, the chunk again
     assert calls == [1, 2, 1, 2]
+
+
+@pytest.mark.parametrize("name", sorted(AUX_NETS))
+def test_positional_trainer_and_predict_match_jax(name, capsys):
+    """Both packages' Trainer built by position with the aux rows (net,
+    train_x, train_y, test_x, test_y, train_aux, test_aux), then
+    ``predict(x, aux)`` by position: the same features and predictions,
+    and the same serving-shape notice (BATCH_SZ is not 1), printed on the
+    first call only."""
+    jnet, tnet = _nets(AUX_NETS[name], MEGAFUSED=False)
+    rng = np.random.RandomState(6)
+    x = rng.rand(2 * B, 1, 6, 6).astype(np.float32)
+    y = rng.randint(0, 4, 2 * B).astype(np.int32)
+    aux = _aux(steps=2).reshape(-1, 2, 2)
+    jt = JaxTrainer(jnet, x, y, x, y, aux, aux)
+    tt = Trainer(tnet, x, y, x, y, aux, aux, device="cpu")
+    assert tt.d_train_aux is not None and tt.d_test_aux is not None
+    capsys.readouterr()
+    fj, pj = jt.predict(x[:B], aux[:B])
+    printed_j = capsys.readouterr().out
+    ft, pt = tt.predict(x[:B], aux[:B])
+    printed_t = capsys.readouterr().out
+    assert "BATCH SIZE IS NOT 1" in printed_j
+    assert printed_t == printed_j
+    _close(ft, fj)
+    np.testing.assert_array_equal(pt, np.asarray(pj))
+    tt.predict(x[:B], aux[:B])
+    assert capsys.readouterr().out == ""

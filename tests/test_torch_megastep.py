@@ -283,3 +283,48 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
     y = np.zeros(2 * B, np.int32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(TorchNet(_flag_layers(), tr), x, y, x, y)
+
+
+def test_twin_flips_take_the_kink_from_the_other_side():
+    """megastep_epoch_reference's ``flips`` (chip_smoke.py's resolution of
+    a hidden pre-activation that sum orders round to either side of the
+    leaky kink): with one pre-activation moved onto 0, the flipped unit
+    gives the step of that pre-activation 1e-3 across 0 (within 1e-4: the
+    shift itself moves the momenta ~1e-5), the unflipped twin a step 1e-3
+    or more away; an all-False mask changes no bit."""
+    _, ts = _specs()
+    p = tm.kernel_layout([[torch.tensor(w) for w in l]
+                          for l in _weights(ts)], ts)
+    m = [torch.zeros_like(t) for t in p]
+    rng = np.random.RandomState(7)
+    x = torch.tensor(rng.rand(1, B, ts.hw).astype(np.float32))
+    y = torch.tensor(rng.randint(0, NC, (1, B)).astype(np.int32))
+    bits = _bits(1, ts, 7)[1]
+    gh, gw = tm.smoothing_factors(ts, torch.device("cpu"))
+
+    def z3_of(params):
+        return tm.forward_to_hidden(ts, x[0], bits[0][0, 0], bits[1][0],
+                                    bits[2][0], params, gh, gw)[-1]
+
+    b, j, delta = 1, 0, 1e-3
+    p[5][0, j] -= z3_of(p)[b, j]
+    z3 = z3_of(p)
+    assert abs(float(z3[b, j])) < 1e-6
+    others = torch.cat([z3[:b, j], z3[b + 1:, j]])
+    assert float(others.abs().min()) > 10 * delta
+    across = [t.clone() for t in p]
+    across[5][0, j] += -delta if z3[b, j] > 0 else delta
+    mask = torch.zeros((1, B, NH), dtype=torch.bool)
+    mask[0, b, j] = True
+
+    def moms(params, flips=None):
+        return tm.megastep_epoch_reference(params, m, x, y, bits, 0.1, ts,
+                                           flips=flips)[1]
+
+    want = moms(across)
+    d_flip = max(float((u - v).abs().max())
+                 for u, v in zip(moms(p, mask), want))
+    d_plain = max(float((u - v).abs().max()) for u, v in zip(moms(p), want))
+    assert d_flip < 1e-4 and d_plain > 1e-3, (d_flip, d_plain)
+    for u, v in zip(moms(p, torch.zeros_like(mask)), moms(p)):
+        assert torch.equal(u, v)

@@ -149,3 +149,26 @@ def test_twin_follows_jax_tiled_kernel(in_ch):
     for a, b in zip(jp + jmo, tp + tmo):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
                                    atol=5e-5)
+
+
+@pytest.mark.parametrize("batch", [64, 256, 2048, 2080])
+def test_auto_fuses_batches_the_jax_package_tiles(batch, capsys):
+    """'auto' fuses a spec the JAX package runs as tiles of 32 at every
+    batch, where the JAX Trainer keeps those above 128 per layer (its TPU
+    crossover, theanet_tpu/trainer.py:338-357): on the H100 the fused
+    epoch wins from 256 to 2048 and the per-layer one does not beat it
+    beyond its spread at 3000 (chip_smoke.py phase 23). The fused plan is
+    the one MEGAFUSED=True takes, and nothing is said on stderr."""
+    rng = np.random.RandomState(4)
+    x = rng.rand(batch, 1, IMG, IMG).astype(np.float32)
+    y = rng.randint(0, 4, batch).astype(np.int32)
+    js = jm.spec_from_net(JaxNet(_layers(), _tr(batch)))
+    assert (js.batch, js.n_tiles) == (32, batch // 32)
+    capsys.readouterr()
+    tt = Trainer(TorchNet(_layers(), dict(_tr(batch), MEGAFUSED="auto")), x,
+                 y, x, y, device="cpu")
+    assert capsys.readouterr().err == ""
+    forced = Trainer(TorchNet(_layers(), _tr(batch)), x, y, x, y,
+                     device="cpu")
+    assert tt._mega_plan.epoch_fn is tm.megastep_epoch
+    assert tt._mega_plan.spec == forced._mega_plan.spec

@@ -26,13 +26,14 @@
 // lives in device memory, where it stays resident in the 50 MB L2.
 //
 // What the design does about it (the simplest correct form, first): one C
-// call per epoch loops the steps on the caller's stream and launches 13
+// call per epoch loops the steps on the caller's stream and launches 16
 // small stage kernels per step (fewer when the config has no warp, weight
 // cost or max-norm). Each stage is one thread per output element, or one
 // block per reduction, sized so that every stage puts at least a few
 // thousand threads on the card; the dense products use one hand-written
-// 16x16 shared-memory tiled GEMM; the softmax head and its backward run in
-// one block. Nothing is computed by a library kernel. Fewer stages
+// 16x16 shared-memory tiled GEMM; the softmax head and its backward run as
+// grid stages around a loss of one block a sample (k_head_*). Nothing is
+// computed by a library kernel. Fewer stages
 // (persistent kernels, CUDA graphs, wgmma) are later work; PERF.md has the
 // measured times.
 //
@@ -211,95 +212,185 @@ __global__ void k_conv2_pool(Dims d, const float* __restrict__ p1,
   f[idx] = best;  // idx == b*NF + m*P2*P2 + i*P2 + j
 }
 
-// The dense tail's head and everything that needs a batch-wide view, in
-// one block: dropout mask, scores, log-softmax NLL, (cost, minf), dL/dz4,
-// dwo, dbo, dz3 = (dz4 wo^T) * mask * act_h'(z3), dbh. Its scratch, (2 B NC
-// + B) floats, is dynamic shared memory (WS false) or, for a head beyond
-// the shared memory a block can opt in to, the workspace region ``ws``
-// (WS true); the operations and their order are the same.
-template <bool WS>
-__global__ void k_head(Dims d, float* __restrict__ ws,
-                       const float* __restrict__ z3,
-                       const float* __restrict__ wo,
-                       const float* __restrict__ bo, const int* __restrict__ db,
-                       const int* __restrict__ y, const float* __restrict__ wcost,
-                       float* __restrict__ h3d, float* __restrict__ dz3,
-                       float* __restrict__ gwo, float* __restrict__ gbo,
-                       float* __restrict__ gbh, float* __restrict__ cm) {
-  extern __shared__ float smem[];
-  float* sm = WS ? ws : smem;
-  const int B = d.B, NH = d.NH, NC = d.NC;
-  float* z4 = sm;              // B*NC scores, then log-probs
-  float* dz4 = sm + B * NC;    // B*NC
-  float* tl = sm + 2 * B * NC; // B true-class log-probs
-  const int tid = threadIdx.x, nt = blockDim.x;
+// The dense tail's head, in stages that each spread over the card (no
+// stage holds a batch-wide view in one block, none adds floats atomically,
+// every sum runs in one fixed order):
+//   k_hidden       z3 = f wh + bh (a tiled GEMM) with the epilogue
+//                  h3d = dropout(act_h(z3));
+//   k_head_scores  the scores' products z4 = h3d wo as HEAD_KS-wide slices
+//                  of K = NH (split-K), one tile and slice a block;
+//   k_head_loss    one block a sample: its row of NC scores (the slices
+//                  added in order, then bo), max and sum of exp by block
+//                  reductions, the log-probs, dL/dz4 and the true-class
+//                  log-prob;
+//   k_head_bwd     dwo = h3d^T dz4 (split-K over the batch when it is long)
+//                  and dz3 = (dz4 wo^T) * mask * act_h'(z3), tiled GEMMs in
+//                  one launch;
+//   k_head_finish  (cost, minf) over the per-sample terms, the column sums
+//                  dbo (over dz4) and dbh (over dz3), and dwo's slices added
+//                  in order.
+// The last three start by programmatic dependent launch (launch_pdl): at
+// mnist_cnn's 20 x 10 head each stage runs a few microseconds, about its
+// launch latency. The dropout test is !(u01(db) >= pdrop) and a dropped
+// unit is 0 * h (a NaN or inf still propagates; no rescale); a label
+// outside [0, NC) gives a NaN cost.
+constexpr int HEAD_KS = 64;    // K = NH per scores slice
+constexpr int HEAD_KB = 256;   // K = B per dwo slice
 
-  for (int e = tid; e < B * NH; e += nt) {
-    float h = act_fn(z3[e], d.acth, d.slopeh);
-    if (d.pdrop > 0.0f && !(u01(db[e]) >= d.pdrop)) h = 0.0f * h;
-    h3d[e] = h;
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ bool dropped(const Dims& d, const int* db, int e) {
+  return d.pdrop > 0.0f && !(u01(db[e]) >= d.pdrop);
+}
+
+__global__ void k_hidden(Dims d, const float* __restrict__ f,
+                         const float* __restrict__ wh,
+                         const float* __restrict__ bh,
+                         const int* __restrict__ db, float* __restrict__ z3,
+                         float* __restrict__ h3d) {
+  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
+  float acc = gemm_tile<false, false>(d.B, d.NH, 0, d.NF, f, d.NF, wh, d.NH,
+                                      m0, n0);
+  const int m = m0 + threadIdx.y, n = n0 + threadIdx.x;
+  if (m >= d.B || n >= d.NH) return;
+  const int e = m * d.NH + n;
+  const float z = acc + bh[n];
+  float h = act_fn(z, d.acth, d.slopeh);
+  if (dropped(d, db, e)) h = 0.0f * h;
+  z3[e] = z;
+  h3d[e] = h;
+}
+
+// part[s] (B, NC) = h3d[:, K_s] wo[K_s, :] over slice s = blockIdx.z of
+// K = NH.
+__global__ void k_head_scores(Dims d, const float* __restrict__ h3d,
+                              const float* __restrict__ wo,
+                              float* __restrict__ part) {
+  pdl_trigger();
+  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
+  const int kb = blockIdx.z * HEAD_KS, ke = min(d.NH, kb + HEAD_KS);
+  float acc = gemm_tile<false, false>(d.B, d.NC, kb, ke, h3d, d.NH, wo, d.NC,
+                                      m0, n0);
+  const int m = m0 + threadIdx.y, n = n0 + threadIdx.x;
+  if (m < d.B && n < d.NC)
+    part[((size_t)blockIdx.z * d.B + m) * d.NC + n] = acc;
+}
+
+// Sample b = blockIdx.x: z4 = sum of the ``ns`` slices (in order) + bo,
+// log-softmax, dz4[b, :] = (exp(lp) - onehot) / B and tl[b] = the
+// true-class log-prob (NaN for a label outside [0, NC)). The row's scores
+// are kept in dz4's row (read back by the thread that wrote them).
+__global__ void __launch_bounds__(HEAD_T)
+k_head_loss(Dims d, int ns, const float* __restrict__ part,
+            const float* __restrict__ bo, const int* __restrict__ y,
+            float* __restrict__ dz4, float* __restrict__ tl) {
+  pdl_wait();
+  pdl_trigger();
+  __shared__ float red[32];
+  const int b = blockIdx.x, B = d.B, NC = d.NC;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* row = dz4 + (size_t)b * NC;
+  float mx = -INFINITY;
+  for (int c = tid; c < NC; c += nt) {
+    float z = 0.0f;
+    for (int s = 0; s < ns; ++s) z += part[((size_t)s * B + b) * NC + c];
+    z = z + bo[c];
+    row[c] = z;
+    mx = fmaxf(mx, z);
   }
-  __syncthreads();
-  const int lane = tid & 31, wid = tid >> 5, nw = nt >> 5;
-  for (int o = wid; o < B * NC; o += nw) {
-    int b = o / NC, c = o % NC;
-    float s = 0.0f;
-    for (int n = lane; n < NH; n += 32) s += h3d[b * NH + n] * wo[n * NC + c];
-    s = warp_sum(s);
-    if (lane == 0) z4[o] = s + bo[c];
-  }
-  __syncthreads();
+  mx = block_extreme<false>(mx, red);
+  float se = 0.0f;
+  for (int c = tid; c < NC; c += nt) se += expf(row[c] - mx);
+  const float lse = logf(block_sum(se, red));
+  const int yb = y[b];
   const float invB = 1.0f / (float)B;
-  for (int b = tid; b < B; b += nt) {
-    float mx = -INFINITY;
-    for (int c = 0; c < NC; ++c) mx = fmaxf(mx, z4[b * NC + c]);
-    float se = 0.0f;
-    for (int c = 0; c < NC; ++c) se += expf(z4[b * NC + c] - mx);
-    float lse = logf(se);
-    int yb = y[b];
-    float t = NAN;  // a label outside [0, NC) poisons the cost
-    for (int c = 0; c < NC; ++c) {
-      float lp = (z4[b * NC + c] - mx) - lse;
-      z4[b * NC + c] = lp;
-      if (c == yb) t = lp;
-      dz4[b * NC + c] = (expf(lp) - (c == yb ? 1.0f : 0.0f)) * invB;
-    }
-    tl[b] = t;
+  if (tid == 0 && !(yb >= 0 && yb < NC)) tl[b] = NAN;
+  for (int c = tid; c < NC; c += nt) {
+    const float lp = (row[c] - mx) - lse;
+    if (c == yb) tl[b] = lp;
+    row[c] = (expf(lp) - (c == yb ? 1.0f : 0.0f)) * invB;
   }
-  __syncthreads();
-  if (tid == 0) {
+}
+
+// dwo (or its slices, ``sw`` > 1: K = B cut at HEAD_KB) then dz3 with its
+// epilogue: the first NC/16 x NH/16 x sw blocks are dwo's tiles, the rest
+// dz3's.
+__global__ void k_head_bwd(Dims d, int sw, const float* __restrict__ h3d,
+                           const float* __restrict__ dz4,
+                           const float* __restrict__ wo,
+                           const float* __restrict__ z3,
+                           const int* __restrict__ db,
+                           float* __restrict__ gwo, float* __restrict__ dz3) {
+  pdl_wait();
+  pdl_trigger();
+  const int B = d.B, NH = d.NH, NC = d.NC;
+  const int tnc = cdiv(NC, TILE), tnh = cdiv(NH, TILE);
+  const int nwo = tnc * tnh * sw;
+  int blk = blockIdx.x;
+  if (blk < nwo) {
+    const int s = blk / (tnc * tnh), r = blk % (tnc * tnh);
+    const int m0 = (r / tnc) * TILE, n0 = (r % tnc) * TILE;
+    const int kb = s * HEAD_KB, ke = min(B, kb + HEAD_KB);
+    float acc = gemm_tile<true, false>(NH, NC, kb, ke, h3d, NH, dz4, NC, m0,
+                                       n0);
+    const int m = m0 + threadIdx.y, n = n0 + threadIdx.x;
+    if (m < NH && n < NC) gwo[((size_t)s * NH + m) * NC + n] = acc;
+    return;
+  }
+  blk -= nwo;
+  const int m0 = (blk / tnh) * TILE, n0 = (blk % tnh) * TILE;
+  float acc = gemm_tile<false, true>(B, NH, 0, NC, dz4, NC, wo, NC, m0, n0);
+  const int m = m0 + threadIdx.y, n = n0 + threadIdx.x;
+  if (m >= B || n >= NH) return;
+  const int e = m * NH + n;
+  if (dropped(d, db, e)) acc = 0.0f * acc;
+  dz3[e] = acc * dact_fn(z3[e], d.acth, d.slopeh);
+}
+
+// Block 0: cm = (-sum(tl) / B + wcost, min(tl)); then NC/32 blocks of dbo,
+// NH/32 of dbh (block_colsum32), and, when dwo came in ``sw`` > 1 slices,
+// a thread an element adding them in order.
+__global__ void __launch_bounds__(COLSUM_THREADS)
+k_head_finish(Dims d, int sw, const float* __restrict__ tl,
+              const float* __restrict__ dz4, const float* __restrict__ dz3,
+              const float* __restrict__ wpart,
+              const float* __restrict__ wcost, float* __restrict__ gwo,
+              float* __restrict__ gbo, float* __restrict__ gbh,
+              float* __restrict__ cm) {
+  pdl_wait();
+  __shared__ float red[32];
+  const int B = d.B, NH = d.NH, NC = d.NC;
+  int blk = blockIdx.x;
+  if (blk == 0) {
     float s = 0.0f, mn = INFINITY;
-    for (int b = 0; b < B; ++b) {
+    for (int b = threadIdx.x; b < B; b += blockDim.x) {
       s += tl[b];
       mn = fminf(mn, tl[b]);
     }
-    cm[0] = -s / (float)B + (wcost ? wcost[0] : 0.0f);
-    cm[1] = mn;
+    s = block_sum(s, red);
+    mn = block_extreme<true>(mn, red);
+    if (threadIdx.x == 0) {
+      cm[0] = -s / (float)B + (wcost ? wcost[0] : 0.0f);
+      cm[1] = mn;
+    }
+    return;
   }
-  for (int e = tid; e < NH * NC; e += nt) {
-    int n = e / NC, c = e % NC;
-    float s = 0.0f;
-    for (int b = 0; b < B; ++b) s += h3d[b * NH + n] * dz4[b * NC + c];
-    gwo[e] = s;
+  blk -= 1;
+  if (blk < cdiv(NC, 32)) {
+    block_colsum32(B, NC, dz4, blk * 32, gbo);
+    return;
   }
-  for (int c = tid; c < NC; c += nt) {
-    float s = 0.0f;
-    for (int b = 0; b < B; ++b) s += dz4[b * NC + c];
-    gbo[c] = s;
+  blk -= cdiv(NC, 32);
+  if (blk < cdiv(NH, 32)) {
+    block_colsum32(B, NH, dz3, blk * 32, gbh);
+    return;
   }
-  for (int e = tid; e < B * NH; e += nt) {
-    int b = e / NH, n = e % NH;
-    float s = 0.0f;
-    for (int c = 0; c < NC; ++c) s += dz4[b * NC + c] * wo[n * NC + c];
-    if (d.pdrop > 0.0f && !(u01(db[e]) >= d.pdrop)) s = 0.0f * s;
-    dz3[e] = s * dact_fn(z3[e], d.acth, d.slopeh);
-  }
-  __syncthreads();
-  for (int n = tid; n < NH; n += nt) {
-    float s = 0.0f;
-    for (int b = 0; b < B; ++b) s += dz3[b * NH + n];
-    gbh[n] = s;
-  }
+  blk -= cdiv(NH, 32);
+  const int e = blk * blockDim.x + threadIdx.x;
+  if (e >= NH * NC) return;
+  float s = 0.0f;
+  for (int k = 0; k < sw; ++k) s += wpart[(size_t)k * NH * NC + e];
+  gwo[e] = s;
 }
 
 // pool2 backward + act2': one thread per conv2 output position.
@@ -362,14 +453,15 @@ __global__ void k_conv2_dgrad_pool1_bwd(Dims d, const float* __restrict__ w2,
 
 struct Workspace {
   float *tyx, *a, *z1, *p1, *z2, *f, *z3, *h3d, *dz3, *df, *dz2, *dz1,
-      *grads, *wcost, *wpart, *head;
-  long long total;
+      *grads, *wcost, *wpart;
+  float *sparts, *dz4, *tl, *wparts;   // the head's: scores' slices, dL/dz4,
+  long long total;                     // per-sample terms, dwo's slices
 };
 
-// Floats of k_head's scratch.
-long long head_floats(const Dims& d) {
-  return 2LL * d.B * d.NC + d.B;
-}
+// The head's slice counts: of the scores' K = NH, of dwo's K = B (1: dwo
+// is written whole).
+int score_slices(const Dims& d) { return cdiv(d.NH, HEAD_KS); }
+int dwo_slices(const Dims& d) { return cdiv(d.B, HEAD_KB); }
 
 Workspace carve(const Dims& d, float* base) {
   Workspace w;
@@ -394,7 +486,11 @@ Workspace carve(const Dims& d, float* base) {
   w.grads = take(np);
   w.wcost = take(1);
   w.wpart = take(WCOST_BLOCKS);
-  w.head = take(head_floats(d));
+  w.sparts = take((long long)score_slices(d) * d.B * d.NC);
+  w.dz4 = take((long long)d.B * d.NC);
+  w.tl = take(d.B);
+  const int sw = dwo_slices(d);
+  w.wparts = take(sw > 1 ? (long long)sw * d.NH * d.NC : 0);
   w.total = o;
   return w;
 }
@@ -422,8 +518,7 @@ struct StepCtx {
   WarpParams wp;
   int warp, nearest, invert;
   float pflip;
-  size_t warp_smem, head_smem;
-  bool head_ws;   // k_head's scratch in the workspace (beyond the opt-in)
+  size_t warp_smem;
   const float *gh, *gw;
   float* prm[8];
   WcostTable t8;
@@ -431,8 +526,7 @@ struct StepCtx {
 };
 
 // 0, or -1 when the warp stage needs more shared memory than a block can
-// have, -2 when the head's opt-in fails (megastep_error_string). A head
-// beyond the opt-in keeps its scratch in the workspace.
+// have (megastep_error_string).
 int step_setup(const int* is, const float* fs, float* ws, const float* gh,
                const float* gw, void* const* prm, StepCtx* c) {
   c->d = make_dims(is, fs);
@@ -452,9 +546,6 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
   c->pflip = is[I_PFLIP] ? fs[F_PFLIP] : 0.0f;
   c->warp_smem = 4 * sizeof(float) * (size_t)d.HW;
   if (c->warp && !warp_smem_ok(c->warp_smem)) return -1;
-  c->head_smem = sizeof(float) * (size_t)head_floats(d);
-  c->head_ws = c->head_smem > SMEM_OPT_IN;
-  if (!c->head_ws && !smem_opt_in(k_head<false>, c->head_smem)) return -2;
   int sizes[8];
   state_sizes(d, sizes);
   const float* reg = fs + F_REG0;  // conv1, conv2, hidden, out
@@ -500,20 +591,27 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   k_conv2_pool<<<blocks((long long)d.B * d.M2 * d.P2 * d.P2, T), T, 0, s>>>(
       d, w.p1, prm[2], prm[3], w.z2, w.f);
   LAUNCHED();
-  CHECK((gemm<false, false>(s, d.B, d.NH, d.NF, w.f, d.NF, prm[4], d.NH,
-                            prm[5], w.z3)));
+  const dim3 tile(TILE, TILE);
+  k_hidden<<<dim3(cdiv(d.NH, TILE), cdiv(d.B, TILE)), tile, 0, s>>>(
+      d, w.f, prm[4], prm[5], in.db, w.z3, w.h3d);
+  LAUNCHED();
   if (c.any_wcost) CHECK(wcost(s, c.t8, w.wpart, w.wcost));
   const float* wc = c.any_wcost ? w.wcost : nullptr;
-  if (c.head_ws)
-    k_head<true><<<1, 1024, 0, s>>>(d, w.head, w.z3, prm[6], prm[7], in.db,
-                                    in.y, wc, w.h3d, w.dz3, grad[6], grad[7],
-                                    grad[5], cm);
-  else
-    k_head<false><<<1, 1024, c.head_smem, s>>>(d, nullptr, w.z3, prm[6],
-                                               prm[7], in.db, in.y, wc, w.h3d,
-                                               w.dz3, grad[6], grad[7],
-                                               grad[5], cm);
+  const int ns = score_slices(d), sw = dwo_slices(d);
+  k_head_scores<<<dim3(cdiv(d.NC, TILE), cdiv(d.B, TILE), ns), tile, 0, s>>>(
+      d, w.h3d, prm[6], w.sparts);
   LAUNCHED();
+  CHECK(launch_pdl(k_head_loss, dim3(d.B), dim3(HEAD_T), s, d, ns, w.sparts,
+                   prm[7], in.y, w.dz4, w.tl));
+  const int nwo = cdiv(d.NC, TILE) * cdiv(d.NH, TILE) * sw;
+  CHECK(launch_pdl(k_head_bwd, dim3(nwo + cdiv(d.B, TILE) * cdiv(d.NH, TILE)),
+                   tile, s, d, sw, w.h3d, w.dz4, prm[6], w.z3, in.db,
+                   sw > 1 ? w.wparts : grad[6], w.dz3));
+  const int nfin = 1 + cdiv(d.NC, 32) + cdiv(d.NH, 32)
+                   + (sw > 1 ? cdiv(d.NH * d.NC, COLSUM_THREADS) : 0);
+  CHECK(launch_pdl(k_head_finish, dim3(nfin), dim3(COLSUM_THREADS), s, d, sw,
+                   w.tl, w.dz4, w.dz3, w.wparts, wc, grad[6], grad[7],
+                   grad[5], cm));
   // dwh = f^T dz3 ; df = dz3 wh^T
   CHECK((gemm<true, false>(s, d.NF, d.NH, d.B, w.f, d.NF, w.dz3, d.NH,
                            nullptr, grad[4])));
@@ -638,7 +736,6 @@ long long megastep_workspace_floats(const int* ispec, const float* fspec) {
 const char* megastep_error_string(int code) {
   if (const char* r = ring_error_string(code)) return r;
   if (code == -1) return "warp field needs more shared memory than a block has";
-  if (code == -2) return "the head kernel's shared-memory opt-in failed";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -46,9 +46,10 @@
 // stage per level (a padded or strided level reads its input directly;
 // the input gradient visits only the stride lattice); the
 // dense stages loop over the pre-hidden stack and then the final hidden;
-// a GEMM computes the scores, one single-block head stage the softmax-kind,
-// LOGIT or RBF loss down to dL/dscores (and the RBF centers' gradient when
-// they are learned), spread over (sample, output) pairs; the aux encoder is
+// a GEMM computes the scores, a head stage of one block a sample the
+// softmax-kind, LOGIT or RBF loss down to dL/dscores, a grid stage the
+// cost, the scores bias's gradient and (learned RBF centers) dcenters, each
+// in one fixed order with no atomics; the aux encoder is
 // one single-block stage forward (k_aux_fwd) and one backward (k_aux_bwd,
 // SoftAux only): its widths are a few units; the weight cost is a
 // two-pass grid reduction; one update launch covers every state tensor.
@@ -465,7 +466,7 @@ __global__ void k_concat(int B, int NF, int nao, const float* __restrict__ f,
 
 // SoftAux's backward through the aux logits and the encoder, in one block
 // (megastep_deep.py:1401-1415): from dz4 (B, NC) the gradients of cw, w2,
-// b2, w1, b1, and cb's, which is bt's (``gbt``, written by k_head).
+// b2, w1, b1, and cb's, which is bt's (``gbt``, written by k_head_reduce).
 // ``dz2`` and ``dz1`` are scratch.
 __global__ void k_aux_bwd(int B, AuxEnc e, int NC,
                           const float* __restrict__ dz4,
@@ -526,202 +527,203 @@ struct HeadArgs {
   float junk, logthresh;
 };
 
-// A softmax-kind head's loss on one sample's scores zb (NO of them, y the
-// label, ok whether it lies in [0, NO)): writes dL/dscores to gb and
-// returns the sample's term of the loss sum; *mfb gets the watchdog value,
-// the true-class log-probability or, for hinge and exp, the true-class
-// score (megastep.py:1513-1563, 1660-1686).
-__device__ float softmax_kind_loss(const HeadArgs& h, const float* zb,
-                                   int yb, bool ok, float* gb, float* mfb) {
-  const int NO = h.NO;
-  const float invB = 1.0f / (float)h.B;
-  if (h.loss == LOSS_HINGE) {   // the mean over the whole (B, NC) matrix
-    const float ts = ok ? zb[yb] : NAN, inv = 1.0f / (float)(h.B * NO);
-    float lsum = 0.0f, msum = 0.0f;
-    for (int c = 0; c < NO; ++c) {
-      float marg = zb[c] + 1.0f - ts;
-      lsum += fmaxf(marg, 0.0f);
-      msum += marg > 0.0f ? 1.0f : 0.0f;
-    }
-    for (int c = 0; c < NO; ++c) {
-      float m = zb[c] + 1.0f - ts > 0.0f ? 1.0f : 0.0f;
-      gb[c] = (m - (c == yb ? msum : 0.0f)) * inv;
-    }
-    *mfb = ts;
-    return lsum;
-  }
-  if (h.loss == LOSS_EXP) {     // on the row-centred scores
-    float mean = 0.0f;
-    for (int c = 0; c < NO; ++c) mean += zb[c];
-    mean /= (float)NO;
-    const float ts = ok ? zb[yb] - mean : NAN, e = expf(-ts);
-    for (int c = 0; c < NO; ++c)
-      gb[c] = (e * invB) * (1.0f / (float)NO - (c == yb ? 1.0f : 0.0f));
-    *mfb = ts;
-    return e;
-  }
-  float mx = -INFINITY;
-  for (int c = 0; c < NO; ++c) mx = fmaxf(mx, zb[c]);
-  float se = 0.0f;
-  for (int c = 0; c < NO; ++c) se += expf(zb[c] - mx);
-  const float lse = logf(se);
-  const float t = ok ? (zb[yb] - mx) - lse : NAN;
-  const float gate = h.logthresh - t > 0.0f ? 1.0f : 0.0f;
-  for (int c = 0; c < NO; ++c) {
-    const float p = expf((zb[c] - mx) - lse), oh = c == yb ? 1.0f : 0.0f;
-    gb[c] = h.loss == LOSS_NLLSQ ? (2.0f * t * invB) * (oh - p)
-            : h.loss == LOSS_NLLT ? (gate * invB) * (p - oh)
-                                  : (p - oh) * invB;
-  }
-  *mfb = t;
-  return h.loss == LOSS_NLLSQ ? t * t
-         : h.loss == LOSS_NLLT ? fmaxf(0.0f, h.logthresh - t) : -t;
-}
-
-// The head's loss and what needs a batch-wide view, in one block: from the
-// scores z4 = h3d wo + bo (a grid GEMM before it; for SoftAux f Wt + bt +
-// cb + h2a cw), (cost, minf), dL/dz4, the scores bias's gradient and
-// (learned RBF centers) dcenters. The work is spread over (sample, output)
-// pairs; only each sample's normalisation loops over its own classes. The
-// dense backward below the scores runs in the grid stages after it. Its
-// scratch (head_floats) is dynamic shared memory (WS false) or, for a head
-// beyond the shared memory a block can opt in to, the workspace region
-// ``ws`` (WS true); the operations and their order are the same.
-template <bool WS>
-__global__ void __launch_bounds__(1024)
-k_head(HeadArgs h, float* __restrict__ ws, const float* __restrict__ z4g,
-       const float* __restrict__ cen, const int* __restrict__ y,
-       const float* __restrict__ wcost, float* __restrict__ dz4,
-       float* __restrict__ gbo, float* __restrict__ gcen,
-       float* __restrict__ cm) {
-  extern __shared__ float smem[];
-  float* sm = WS ? ws : smem;
-  const int B = h.B, NO = h.NO, NC = h.NC;
-  float* z4 = sm;               // B*NO scores (features' pre-activations)
-  float* v = z4 + B * NO;       // B*NO RBF features 1.7 tanh(2/3 z4)
-  float* dd = v + B * NO;       // B*NC RBF: -dists, then dL/d dists
-  float* csq = dd + B * NC;     // NC RBF ||c||^2
-  float* ssv = csq + NC;        // B RBF ||v||^2
-  float* rs = ssv + B;          // B RBF sum over classes of dL/d dists
-  float* tl = rs + B;           // B per-sample loss terms
-  float* mf = tl + B;           // B watchdog features
+// The head's loss down to dL/dscores, one block a sample (b = blockIdx.x):
+// the sample's row of scores z4 (NO of them, read from L2; for SoftAux f Wt
+// + bt + cb + h2a cw) and its label. It writes dz4's row, the sample's term
+// of the loss sum tl[b] and its watchdog value mf[b]: the true-class
+// log-probability or, for hinge and exp, the true-class score, raw or
+// row-centred (megastep.py:1513-1563, 1660-1686); LOGIT the raw sigmoid of
+// the true class's feature, RBF its feature 1.7 tanh(2/3 z) (the class
+// clamped to the feature width). Each per-class loop is a block
+// reduction. RBF: the sample's features v to hv, its row of -dists by the
+// expansion -((||v||^2 - 2 v.c) + ||c||^2) (a warp a class), the
+// log-softmax with the junk column in the partition sum, dL/d dists to
+// hdd's row, then dz4 through the features, 2 (v rs - dd cen) 1.7 (2/3)
+// (1 - t^2). A label outside [0, NC) gives a NaN term.
+__global__ void __launch_bounds__(HEAD_T)
+k_head_loss(HeadArgs h, const float* __restrict__ z4,
+            const float* __restrict__ cen, const int* __restrict__ y,
+            float* __restrict__ dz4, float* __restrict__ tl,
+            float* __restrict__ mf, float* __restrict__ hv,
+            float* __restrict__ hdd) {
+  pdl_trigger();
+  __shared__ float red[32];
+  const int b = blockIdx.x, B = h.B, NO = h.NO, NC = h.NC;
   const int tid = threadIdx.x, nt = blockDim.x;
   const float invB = 1.0f / (float)B;
-  const bool rbf = h.kind == HEAD_RBF;
+  const int yb = y[b];
+  const bool ok = yb >= 0 && yb < NC;
+  const int yc = max(0, min(yb, NO - 1));   // the watchdog's feature
+  const float* zb = z4 + (size_t)b * NO;
+  float* gb = dz4 + (size_t)b * NO;
 
-  for (int e = tid; e < B * NO; e += nt) z4[e] = z4g[e];
-  if (rbf)
-    for (int c = tid; c < NC; c += nt) {
-      float s = 0.0f;
-      for (int f = 0; f < NO; ++f) s += cen[c * NO + f] * cen[c * NO + f];
-      csq[c] = s;
-    }
-  __syncthreads();
-  if (rbf) {
-    for (int e = tid; e < B * NO; e += nt)
-      v[e] = 1.7f * tanhf(z4[e] * (2.0f / 3.0f));
-    __syncthreads();
-    for (int b = tid; b < B; b += nt) {
-      float s = 0.0f;
-      for (int f = 0; f < NO; ++f) s += v[b * NO + f] * v[b * NO + f];
-      ssv[b] = s;
-    }
-    __syncthreads();
-    for (int e = tid; e < B * NC; e += nt) {  // -dists, by the expansion
-      int b = e / NC, c = e % NC;
-      float dot = 0.0f;
-      for (int f = 0; f < NO; ++f) dot += v[b * NO + f] * cen[c * NO + f];
-      dd[e] = -((ssv[b] - 2.0f * dot) + csq[c]);
-    }
-    __syncthreads();
-  }
-  for (int b = tid; b < B; b += nt) {
-    const int yb = y[b];
-    const bool ok = yb >= 0 && yb < NC;
-    const int yc = max(0, min(yb, NO - 1));   // the watchdog's feature
-    const float* zb = z4 + b * NO;
-    float* gb = dz4 + b * NO;
-    float t = NAN;  // a label outside [0, NC) poisons the cost
-    if (h.kind == HEAD_SOFTMAX || h.kind == HEAD_SOFTAUX) {
-      tl[b] = softmax_kind_loss(h, zb, yb, ok, gb, mf + b);
-      continue;
-    } else if (h.kind == HEAD_LOGIT) {
-      // features squeezed into [eps, 1-eps]; bit probabilities against the
-      // true class's center row
-      float s = 0.0f;
-      for (int f = 0; f < NO; ++f) {
-        float sg = 1.0f / (1.0f + expf(-zb[f]));
-        float vf = sg * (1.0f - 2.0f * LOGIT_EPS) + LOGIT_EPS;
-        float c = ok ? cen[yb * NO + f] : NAN;
-        float bp = c * vf + (1.0f - c) * (1.0f - vf);
-        s += logf(bp);
-        gb[f] = (1.0f - 2.0f * c) / ((float)B * bp)
-                * (1.0f - 2.0f * LOGIT_EPS) * sg * (1.0f - sg);
+  if (h.kind == HEAD_SOFTMAX || h.kind == HEAD_SOFTAUX) {
+    if (h.loss == LOSS_HINGE) {   // the mean over the whole (B, NC) matrix
+      const float ts = ok ? zb[yb] : NAN, inv = 1.0f / (float)(B * NO);
+      float ls = 0.0f, ms = 0.0f;
+      for (int c = tid; c < NO; c += nt) {
+        const float marg = zb[c] + 1.0f - ts;
+        ls += fmaxf(marg, 0.0f);
+        ms += marg > 0.0f ? 1.0f : 0.0f;
       }
-      if (ok) t = s;
+      ls = block_sum(ls, red);
+      ms = block_sum(ms, red);
+      for (int c = tid; c < NO; c += nt) {
+        const float m = zb[c] + 1.0f - ts > 0.0f ? 1.0f : 0.0f;
+        gb[c] = (m - (c == yb ? ms : 0.0f)) * inv;
+      }
+      if (tid == 0) { tl[b] = ls; mf[b] = ts; }
+      return;
+    }
+    if (h.loss == LOSS_EXP) {     // on the row-centred scores
+      float mean = 0.0f;
+      for (int c = tid; c < NO; c += nt) mean += zb[c];
+      mean = block_sum(mean, red) / (float)NO;
+      const float ts = ok ? zb[yb] - mean : NAN, e = expf(-ts);
+      for (int c = tid; c < NO; c += nt)
+        gb[c] = (e * invB) * (1.0f / (float)NO - (c == yb ? 1.0f : 0.0f));
+      if (tid == 0) { tl[b] = e; mf[b] = ts; }
+      return;
+    }
+    float mx = -INFINITY;
+    for (int c = tid; c < NO; c += nt) mx = fmaxf(mx, zb[c]);
+    mx = block_extreme<false>(mx, red);
+    float se = 0.0f;
+    for (int c = tid; c < NO; c += nt) se += expf(zb[c] - mx);
+    const float lse = logf(block_sum(se, red));
+    const float t = ok ? (zb[yb] - mx) - lse : NAN;
+    const float gate = h.logthresh - t > 0.0f ? 1.0f : 0.0f;
+    for (int c = tid; c < NO; c += nt) {
+      const float p = expf((zb[c] - mx) - lse), oh = c == yb ? 1.0f : 0.0f;
+      gb[c] = h.loss == LOSS_NLLSQ ? (2.0f * t * invB) * (oh - p)
+              : h.loss == LOSS_NLLT ? (gate * invB) * (p - oh)
+                                    : (p - oh) * invB;
+    }
+    if (tid == 0) {
+      tl[b] = h.loss == LOSS_NLLSQ ? t * t
+              : h.loss == LOSS_NLLT ? fmaxf(0.0f, h.logthresh - t) : -t;
+      mf[b] = t;
+    }
+    return;
+  }
+  if (h.kind == HEAD_LOGIT) {
+    // features squeezed into [eps, 1-eps]; bit probabilities against the
+    // true class's center row
+    float s = 0.0f;
+    for (int f = tid; f < NO; f += nt) {
+      const float sg = 1.0f / (1.0f + expf(-zb[f]));
+      const float vf = sg * (1.0f - 2.0f * LOGIT_EPS) + LOGIT_EPS;
+      const float c = ok ? cen[yb * NO + f] : NAN;
+      const float bp = c * vf + (1.0f - c) * (1.0f - vf);
+      s += logf(bp);
+      gb[f] = (1.0f - 2.0f * c) / ((float)B * bp)
+              * (1.0f - 2.0f * LOGIT_EPS) * sg * (1.0f - sg);
+    }
+    s = block_sum(s, red);
+    if (tid == 0) {
+      tl[b] = -(ok ? s : NAN);
       mf[b] = 1.0f / (1.0f + expf(-zb[yc]));
-    } else {   // the junk column joins the partition sum only
-      float* db_ = dd + b * NC;
-      float mx = -h.junk;
-      for (int c = 0; c < NC; ++c) mx = fmaxf(mx, db_[c]);
-      float se = 0.0f;
-      for (int c = 0; c < NC; ++c) se += expf(db_[c] - mx);
-      float lse = logf(se + expf(-h.junk - mx));
-      float r = 0.0f;
-      for (int c = 0; c < NC; ++c) {
-        float lp = db_[c] - mx - lse;
-        if (c == yb) t = lp;
-        db_[c] = -((expf(lp) - (c == yb ? 1.0f : 0.0f)) * invB);
-        r += db_[c];
-      }
-      rs[b] = r;
-      mf[b] = v[b * NO + yc];
     }
-    tl[b] = -t;
+    return;
+  }
+  // RBF: the junk column joins the partition sum only
+  float* vb = hv + (size_t)b * NO;
+  float* db_ = hdd + (size_t)b * NC;
+  float sv = 0.0f;
+  for (int f = tid; f < NO; f += nt) {
+    const float v = 1.7f * tanhf(zb[f] * (2.0f / 3.0f));
+    vb[f] = v;
+    sv += v * v;
+  }
+  const float ssv = block_sum(sv, red);   // syncs: vb is written
+  const int lane = tid & 31, wid = tid >> 5, nw = nt >> 5;
+  for (int c = wid; c < NC; c += nw) {    // -dists, by the expansion
+    float dot = 0.0f, cc = 0.0f;
+    for (int f = lane; f < NO; f += 32) {
+      const float cf = cen[c * NO + f];
+      dot += vb[f] * cf;
+      cc += cf * cf;
+    }
+    dot = warp_sum(dot);
+    cc = warp_sum(cc);
+    if (lane == 0) db_[c] = -((ssv - 2.0f * dot) + cc);
   }
   __syncthreads();
-  if (rbf)
-    for (int e = tid; e < B * NO; e += nt) {  // through the features
-      int b = e / NO, f = e % NO;
-      float s = 0.0f;
-      for (int c = 0; c < NC; ++c) s += dd[b * NC + c] * cen[c * NO + f];
-      float tf = tanhf(z4[e] * (2.0f / 3.0f));
-      float dv = 2.0f * (v[e] * rs[b] - s);
-      dz4[e] = dv * 1.7f * (2.0f / 3.0f) * (1.0f - tf * tf);
-    }
-  if (tid == 0) {
+  float mx = -h.junk;
+  for (int c = tid; c < NC; c += nt) mx = fmaxf(mx, db_[c]);
+  mx = block_extreme<false>(mx, red);
+  float se = 0.0f;
+  for (int c = tid; c < NC; c += nt) se += expf(db_[c] - mx);
+  const float lse = logf(block_sum(se, red) + expf(-h.junk - mx));
+  if (tid == 0 && !ok) tl[b] = NAN;
+  float r = 0.0f;
+  for (int c = tid; c < NC; c += nt) {
+    const float lp = db_[c] - mx - lse;
+    if (c == yb) tl[b] = -lp;
+    const float g = -((expf(lp) - (c == yb ? 1.0f : 0.0f)) * invB);
+    db_[c] = g;
+    r += g;
+  }
+  const float rs = block_sum(r, red);     // syncs: db_ holds dL/d dists
+  for (int f = tid; f < NO; f += nt) {    // through the features
+    float s = 0.0f;
+    for (int c = 0; c < NC; ++c) s += db_[c] * cen[c * NO + f];
+    const float tf = tanhf(zb[f] * (2.0f / 3.0f));
+    const float dv = 2.0f * (vb[f] * rs - s);
+    gb[f] = dv * 1.7f * (2.0f / 3.0f) * (1.0f - tf * tf);
+  }
+  if (tid == 0) mf[b] = vb[yc];
+}
+
+// What needs the whole batch, spread over blocks of COLSUM_THREADS: block
+// 0 the cost, sum(tl) / (B, or B NC for hinge) + the weight cost, and
+// min(mf); then NO/32 blocks of the scores bias's gradient (column sums of
+// dz4, block_colsum32); for learned RBF centers a thread an element of
+// dcenters = 2 (cen colsum(dd) - dd^T v), each summed over the batch in
+// order.
+__global__ void __launch_bounds__(COLSUM_THREADS)
+k_head_reduce(HeadArgs h, const float* __restrict__ tl,
+              const float* __restrict__ mf, const float* __restrict__ dz4,
+              const float* __restrict__ cen, const float* __restrict__ hv,
+              const float* __restrict__ hdd,
+              const float* __restrict__ wcost, float* __restrict__ gbo,
+              float* __restrict__ gcen, float* __restrict__ cm) {
+  pdl_wait();
+  __shared__ float red[32];
+  const int B = h.B, NO = h.NO, NC = h.NC;
+  int blk = blockIdx.x;
+  if (blk == 0) {
     float s = 0.0f, mn = INFINITY;
-    for (int b = 0; b < B; ++b) {
+    for (int b = threadIdx.x; b < B; b += blockDim.x) {
       s += tl[b];
       mn = fminf(mn, mf[b]);
     }
-    const bool hinge = (h.kind == HEAD_SOFTMAX || h.kind == HEAD_SOFTAUX)
-                       && h.loss == LOSS_HINGE;
-    cm[0] = s / (float)(hinge ? B * NC : B) + (wcost ? wcost[0] : 0.0f);
-    cm[1] = mn;
-  }
-  __syncthreads();   // dz4 is read back below
-  for (int c = tid; c < NO; c += nt) {
-    float s = 0.0f;
-    for (int b = 0; b < B; ++b) s += dz4[b * NO + c];
-    gbo[c] = s;
-  }
-  if (rbf && gcen)
-    for (int e = tid; e < NC * NO; e += nt) {
-      int c = e / NO, f = e % NO;
-      float cs = 0.0f, s = 0.0f;
-      for (int b = 0; b < B; ++b) {
-        float g = dd[b * NC + c];
-        cs += g;
-        s += g * v[b * NO + f];
-      }
-      gcen[e] = 2.0f * (cen[e] * cs - s);
+    s = block_sum(s, red);
+    mn = block_extreme<true>(mn, red);
+    if (threadIdx.x == 0) {
+      const bool hinge = (h.kind == HEAD_SOFTMAX || h.kind == HEAD_SOFTAUX)
+                         && h.loss == LOSS_HINGE;
+      cm[0] = s / (float)(hinge ? B * NC : B) + (wcost ? wcost[0] : 0.0f);
+      cm[1] = mn;
     }
-}
-
-// Floats of k_head's scratch.
-long long head_floats(const Net& n) {
-  return 2LL * n.B * n.NO + (long long)n.B * n.NC + n.NC + 4LL * n.B;
+    return;
+  }
+  blk -= 1;
+  const int nbo = (NO + 31) / 32;
+  if (blk < nbo) {
+    block_colsum32(B, NO, dz4, blk * 32, gbo);
+    return;
+  }
+  const int e = (blk - nbo) * blockDim.x + threadIdx.x;
+  if (e >= NC * NO) return;
+  const int c = e / NO, f = e % NO;
+  float cs = 0.0f, s = 0.0f;
+  for (int b = 0; b < B; ++b) {
+    const float g = hdd[(size_t)b * NC + c];
+    cs += g;
+    s += g * hv[(size_t)b * NO + f];
+  }
+  gcen[e] = 2.0f * (cen[e] * cs - s);
 }
 
 struct Workspace {
@@ -732,8 +734,8 @@ struct Workspace {
   float *x2, *z1a, *h1a, *z2a, *h2a, *dz1a, *dz2a, *fcat;   // aux encoder
   float *fmean, *dmean;   // the MeanLayer flatten and its gradient
   float* df;   // where the tail's input gradient lands: the flatten's
-  float* head;   // k_head's scratch when it is beyond the opt-in
-  long long total;
+  float *tl, *mf, *hv, *hdd;   // the head's per-sample terms and watchdog
+  long long total;             // values; RBF features and dL/d dists
 };
 
 Workspace carve(const Net& n, float* base) {
@@ -778,7 +780,10 @@ Workspace carve(const Net& n, float* base) {
   w.grads = take(np);
   w.wcost = take(1);
   w.wpart = take(WCOST_BLOCKS);
-  w.head = take(head_floats(n));
+  w.tl = take(B);
+  w.mf = take(B);
+  w.hv = take(n.head == HEAD_RBF ? B * n.NO : 0);
+  w.hdd = take(n.head == HEAD_RBF ? B * n.NC : 0);
   w.total = o;
   return w;
 }
@@ -798,8 +803,7 @@ struct StepCtx {
   AugParams ag;
   HeadArgs ha;
   AuxEnc enc;   // the aux encoder of an AuxConcat or SoftAux net
-  size_t warp_smem, hsm;
-  bool head_ws;   // k_head's scratch in the workspace (beyond the opt-in)
+  size_t warp_smem;
   const float *gh, *gw, *cen;
   float* prm[MAX_TENSORS];
   WcostTable wt;
@@ -847,9 +851,6 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
   ag.logbal = fs[F_LOGBAL]; ag.loggam = fs[F_LOGGAM];
   c->warp_smem = 4 * sizeof(float) * (size_t)n.HW;
   if (ag.warp && !warp_smem_ok(c->warp_smem)) return -1;
-  c->hsm = sizeof(float) * (size_t)head_floats(n);
-  c->head_ws = c->hsm > SMEM_OPT_IN;
-  if (!c->head_ws && !smem_opt_in(k_head<false>, c->hsm)) return -2;
   c->ha.B = n.B; c->ha.NO = n.NO; c->ha.NC = n.NC; c->ha.kind = n.head;
   c->ha.junk = n.junk; c->ha.loss = n.loss; c->ha.logthresh = n.logthresh;
   c->dboff = n.dbl - n.NH;   // the final hidden's dropout lanes
@@ -867,23 +868,26 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
   return 0;
 }
 
-// k_head on the step's scores w.z4: its scratch in shared memory, or in
-// the workspace beyond the opt-in (step_setup).
+// The head on the step's scores w.z4: k_head_loss, a block a sample, then
+// k_head_reduce.
 cudaError_t launch_head(const StepCtx& c, cudaStream_t s, const float* cen,
                         const int* y, float* gbo, float* gcen, float* cm) {
   const Workspace& w = c.w;
+  const HeadArgs& h = c.ha;
   const float* wc = c.any_wcost ? w.wcost : nullptr;
-  if (c.head_ws)
-    k_head<true><<<1, 1024, 0, s>>>(c.ha, w.head, w.z4, cen, y, wc, w.dz4,
-                                    gbo, gcen, cm);
-  else
-    k_head<false><<<1, 1024, c.hsm, s>>>(c.ha, nullptr, w.z4, cen, y, wc,
-                                         w.dz4, gbo, gcen, cm);
-  return cudaGetLastError();
+  k_head_loss<<<h.B, HEAD_T, 0, s>>>(h, w.z4, cen, y, w.dz4, w.tl, w.mf,
+                                     w.hv, w.hdd);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  int nblk = 1 + (h.NO + 31) / 32;
+  if (h.kind == HEAD_RBF && gcen)
+    nblk += (h.NC * h.NO + COLSUM_THREADS - 1) / COLSUM_THREADS;
+  return launch_pdl(k_head_reduce, dim3(nblk), dim3(COLSUM_THREADS), s, h,
+                    w.tl, w.mf, w.dz4, cen, w.hv, w.hdd, wc, gbo, gcen, cm);
 }
 
 // SoftAux head on the flatten f (B, NF), forward and backward: the scores
-// f Wt + bt, the aux logits (k_aux_fwd), the loss (k_head), the encoder's
+// f Wt + bt, the aux logits (k_aux_fwd), the loss (launch_head), the encoder's
 // and cross weights' gradients (k_aux_bwd), dWt and df into w.df (the
 // last level's pooled gradient, or the MeanLayer flatten's).
 int softaux_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
@@ -1186,7 +1190,6 @@ long long deep_workspace_floats(const int* is, const float* fs) {
 const char* deep_error_string(int code) {
   if (const char* r = ring_error_string(code)) return r;
   if (code == -1) return "warp field needs more shared memory than a block has";
-  if (code == -2) return "the head kernel's shared-memory opt-in failed";
   if (code == -3) return "more conv levels, hidden layers or state tensors than the kernel's tables hold";
   if (code == -4) return "the net's aux layer has no aux rows (or AuxConcat no encoder weights)";
   return cudaGetErrorString((cudaError_t)code);

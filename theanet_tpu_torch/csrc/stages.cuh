@@ -1,7 +1,8 @@
 // Stage kernels shared by the fused-epoch kernels (megastep.cu,
 // megastep_deep.cu), each compiled into its own library: the injected-bit
 // uniforms, the activation registry, the step's warp field, a tiled GEMM,
-// block reductions, the conv weight gradient, the weight cost and the
+// block reductions and fixed-order column sums, programmatic dependent
+// launch, the conv weight gradient, the weight cost and the
 // old-accumulator momentum update with max-norm. Every function here
 // follows a line of the plain PyTorch twins in theanet_tpu_torch/ops/.
 #pragma once
@@ -176,37 +177,51 @@ inline bool warp_smem_ok(size_t bytes) { return smem_opt_in(k_warp, bytes); }
 // coalesced along the stored rows in every transpose case.
 constexpr int TILE = 16;
 
+// The product element (m0 + threadIdx.y, n0 + threadIdx.x) of one 16x16
+// output tile, summed over k in [kb, ke) tile by tile (kb = 0, ke = K: the
+// whole sum, in k_gemm's order). Every thread of the TILE x TILE block
+// calls it: it synchronises the block.
 template <bool TA, bool TB>
-__global__ void k_gemm(int M, int N, int K, const float* __restrict__ A,
-                       int lda, const float* __restrict__ Bm, int ldb,
-                       const float* __restrict__ bias, float* __restrict__ C,
-                       int ldc) {
+__device__ __forceinline__ float gemm_tile(int M, int N, int kb, int ke,
+                                           const float* __restrict__ A,
+                                           int lda,
+                                           const float* __restrict__ Bm,
+                                           int ldb, int m0, int n0) {
   __shared__ float As[TILE][TILE + 1];  // As[m][k]
   __shared__ float Bs[TILE][TILE + 1];  // Bs[k][n]
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
   float acc = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += TILE) {
+  for (int k0 = kb; k0 < ke; k0 += TILE) {
     if (TA) {
       int m = m0 + tx, k = k0 + ty;
-      As[tx][ty] = (m < M && k < K) ? A[(size_t)k * lda + m] : 0.0f;
+      As[tx][ty] = (m < M && k < ke) ? A[(size_t)k * lda + m] : 0.0f;
     } else {
       int m = m0 + ty, k = k0 + tx;
-      As[ty][tx] = (m < M && k < K) ? A[(size_t)m * lda + k] : 0.0f;
+      As[ty][tx] = (m < M && k < ke) ? A[(size_t)m * lda + k] : 0.0f;
     }
     if (TB) {
       int n = n0 + ty, k = k0 + tx;
-      Bs[tx][ty] = (n < N && k < K) ? Bm[(size_t)n * ldb + k] : 0.0f;
+      Bs[tx][ty] = (n < N && k < ke) ? Bm[(size_t)n * ldb + k] : 0.0f;
     } else {
       int k = k0 + ty, n = n0 + tx;
-      Bs[ty][tx] = (n < N && k < K) ? Bm[(size_t)k * ldb + n] : 0.0f;
+      Bs[ty][tx] = (n < N && k < ke) ? Bm[(size_t)k * ldb + n] : 0.0f;
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < TILE; ++kk) acc += As[ty][kk] * Bs[kk][tx];
     __syncthreads();
   }
-  int m = m0 + ty, n = n0 + tx;
+  return acc;
+}
+
+template <bool TA, bool TB>
+__global__ void k_gemm(int M, int N, int K, const float* __restrict__ A,
+                       int lda, const float* __restrict__ Bm, int ldb,
+                       const float* __restrict__ bias, float* __restrict__ C,
+                       int ldc) {
+  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
+  float acc = gemm_tile<TA, TB>(M, N, 0, K, A, lda, Bm, ldb, m0, n0);
+  int m = m0 + threadIdx.y, n = n0 + threadIdx.x;
   if (m < M && n < N) C[(size_t)m * ldc + n] = bias ? acc + bias[n] : acc;
 }
 
@@ -235,6 +250,81 @@ __device__ float block_sum(float v, float* red) {
   int nw = blockDim.x >> 5;
   float t = lane < nw ? red[lane] : 0.0f;
   return warp_sum(t);
+}
+
+// block_sum's form for the largest (or, ``MIN``, the smallest) value, by
+// fmaxf / fminf: a NaN is passed over, as in a serial fmaxf loop.
+template <bool MIN>
+__device__ float block_extreme(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) {
+    float u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = MIN ? fminf(v, u) : fmaxf(v, u);
+  }
+  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) red[wid] = v;
+  __syncthreads();
+  int nw = blockDim.x >> 5;
+  float t = lane < nw ? red[lane] : (MIN ? INFINITY : -INFINITY);
+  for (int o = 16; o > 0; o >>= 1) {
+    float u = __shfl_xor_sync(0xffffffffu, t, o);
+    t = MIN ? fminf(t, u) : fmaxf(t, u);
+  }
+  return t;
+}
+
+// Programmatic dependent launch (sm_90). A kernel started by launch_pdl may
+// be scheduled while the kernel before it on the stream still runs, once
+// that kernel has called pdl_trigger() (or ended): its launch latency then
+// overlaps the other kernel's work. It calls pdl_wait() before it touches
+// memory, which returns when the kernel before it has ended and its writes
+// are visible; so the stream's order of effects is the plain launch's.
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename... KArgs, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                       cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+}
+
+constexpr int HEAD_T = 256;   // threads of a head block a sample
+
+// Column sums of a row-major (R, N) matrix for the 32 columns [n0, n0 +
+// 32) of one block of COLSUM_THREADS threads: row group g = threadIdx.x /
+// 32 sums rows g, g + 8, ... in order, then group 0 adds the 8 groups in
+// order. One fixed order for a given R (no atomics): the same sum on every
+// run and every rank. Call with the whole block.
+constexpr int COLSUM_THREADS = 256, COLSUM_GROUPS = COLSUM_THREADS / 32;
+
+__device__ void block_colsum32(int R, int N, const float* __restrict__ x,
+                               int n0, float* __restrict__ out) {
+  __shared__ float part[COLSUM_GROUPS][33];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5, n = n0 + lane;
+  float s = 0.0f;
+  if (n < N)
+    for (int r = g; r < R; r += COLSUM_GROUPS) s += x[(size_t)r * N + n];
+  part[g][lane] = s;
+  __syncthreads();
+  if (g == 0 && n < N) {
+    float t = part[0][lane];
+    for (int k = 1; k < COLSUM_GROUPS; ++k) t += part[k][lane];
+    out[n] = t;
+  }
 }
 
 // Weight gradient of a true convolution, in kernel layout:

@@ -52,7 +52,7 @@ __all__ = ["LayerReg", "MegaSpec", "act_of", "spec_from_net",
            "fused_decline_reason", "fused_plan", "FusedPlan",
            "MEGA_LAYER_IDX", "kernel_shapes", "kernel_layout",
            "framework_layout", "db_lanes", "fb_lanes", "epoch_noise_bits",
-           "color_rows", "softmax_nll", "centered_nll",
+           "color_rows", "forward_to_hidden", "softmax_nll", "centered_nll",
            "megastep_epoch_reference", "megastep_epoch",
            "step_constants", "megastep_grad_step_reference",
            "megastep_grad_step",
@@ -148,10 +148,13 @@ def warp_active(spec):
 
 # ------------------------------------------------------------- route rule
 # A fused family takes a spec whose grammar holds when the JAX package's
-# byte model admits it (``route.py``) or its head fits a block's shared
-# memory. The head stage takes any head at launch (in shared memory up to
-# the opt-in, else in the workspace); the warp field stays a launch limit.
-# The same rule runs on the CPU and on a card, so a net takes one route.
+# byte model admits it (``route.py``) or the head-scratch formula
+# (``flagship_head_smem``, ``megastep_deep.deep_head_smem``) fits the
+# 227 KB a block can opt in to. That formula is the route rule's threshold,
+# kept from when the head ran in one block over that scratch; the head's
+# stages now spread over the card and take any head at launch. The warp
+# field stays a launch limit. The same rule runs on the CPU and on a card,
+# so a net takes one route.
 
 SMEM_OPT_IN = 227 * 1024      # the most a block can opt in to (sm_90)
 
@@ -164,8 +167,9 @@ def warp_smem_ok(hw):
 
 
 def flagship_head_smem(spec):
-    """csrc/megastep.cu step_setup: k_head's scratch, (2 B NC + B) floats;
-    shared memory up to the opt-in, else a workspace region."""
+    """The route rule's head threshold for the flagship, (2 B NC + B)
+    floats: the scratch of the one-block head the kernel had before its
+    head stages spread over the card. It is no longer a launch limit."""
     return 4 * (2 * spec.batch * spec.n_out + spec.batch)
 
 
@@ -184,8 +188,9 @@ def route_reason(spec, jax_reason, head_bytes, head_src):
     """Why a family declines ``spec`` (None when it takes it): the warp
     launch limit, else the route rule, which takes the spec when the JAX
     package's byte model admits it (``jax_reason`` None) or its head of
-    ``head_bytes`` fits the shared memory a block can opt in to
-    (``head_src`` names the C formula). The reason names both rules."""
+    ``head_bytes`` (the former one-block head's scratch) fits the shared
+    memory a block can opt in to (``head_src`` names the formula). The
+    reason names both rules."""
     warp = warp_limit_reason(spec)
     if warp or jax_reason is None or head_bytes <= SMEM_OPT_IN:
         return warp
@@ -288,7 +293,8 @@ def flagship_route_reason(spec):
     and VMEM model, or the head's shared memory. A spec the JAX package
     tiles runs here as one step of the whole reference batch."""
     return route_reason(spec, route.flagship_jax_reason(spec),
-                        flagship_head_smem(spec), "csrc/megastep.cu")
+                        flagship_head_smem(spec),
+                        "ops/megastep.py flagship_head_smem")
 
 
 class FusedPlan(NamedTuple):
@@ -705,14 +711,12 @@ def _pool(spec_pool, ib, h):
     return r, r.amax(dim=(3, 5))
 
 
-def step_reference(spec, x, y, ub, fb, pb, db, params, gh, gw):
-    """One step of the fused kernel in plain PyTorch: augmentation, forward,
-    hand-derived backward. ``x`` (C0*B, HW) channel-major rows, ``y`` (B,)
-    int32, bits as in epoch_noise_bits (one step's slice). Returns
-    (cost, minf, grads) with grads in kernel layout; params unchanged."""
+def forward_to_hidden(spec, x, ub, fb, pb, params, gh, gw):
+    """The twin's forward from the raw rows to the hidden pre-activation:
+    (a, z1, r1, p1, z2, r2, p2, f, z3), arguments as in step_reference."""
     B, H, C0 = spec.batch, spec.img, spec.in_ch
     M1, M2 = spec.maps1, spec.maps2
-    w1, b1, w2, b2, wh, bh, wo, bo = params
+    w1, b1, w2, b2, wh, bh = params[:6]
 
     a = augment(spec, x, ub, fb, pb, gh, gw)
     a = a.reshape(C0, B, H, H).transpose(0, 1)            # (B, C0, H, H)
@@ -724,8 +728,22 @@ def step_reference(spec, x, y, ub, fb, pb, db, params, gh, gw):
     h2 = _act(z2, spec.act2, spec.slope2)
     r2, p2 = _pool(spec.pool2, spec.ib2, h2)
     f = p2.reshape(B, spec.n_flat)
+    return a, z1, r1, p1, z2, r2, p2, f, f @ wh + bh
 
-    z3 = f @ wh + bh
+
+def step_reference(spec, x, y, ub, fb, pb, db, params, gh, gw, flip=None):
+    """One step of the fused kernel in plain PyTorch: augmentation, forward,
+    hand-derived backward. ``x`` (C0*B, HW) channel-major rows, ``y`` (B,)
+    int32, bits as in epoch_noise_bits (one step's slice). Returns
+    (cost, minf, grads) with grads in kernel layout; params unchanged.
+    ``flip``: None, or a (B, NH) bool mask of leaky hidden units whose
+    derivative is taken on the other side of the kink (a pre-activation
+    within rounding of 0, which another sum order puts on that side)."""
+    B, M1, M2 = spec.batch, spec.maps1, spec.maps2
+    w1, b1, w2, b2, wh, bh, wo, bo = params
+
+    a, z1, r1, p1, z2, r2, p2, f, z3 = forward_to_hidden(
+        spec, x, ub, fb, pb, params, gh, gw)
     h3 = _act(z3, spec.act_h, spec.slope_h)
     if spec.pdrop:
         mask = (_u01(db) >= spec.pdrop).to(torch.float32)  # no rescale
@@ -744,7 +762,12 @@ def step_reference(spec, x, y, ub, fb, pb, db, params, gh, gw):
     dh3 = dz4 @ wo.T
     if spec.pdrop:
         dh3 = dh3 * mask
-    dz3 = dh3 * _dact(z3, spec.act_h, spec.slope_h)
+    dact_h = _dact(z3, spec.act_h, spec.slope_h)
+    if flip is not None:
+        assert spec.act_h == "leaky", spec.act_h
+        dact_h = torch.where(flip, torch.where(z3 > 0, spec.slope_h, 1.0),
+                             dact_h).to(z3.dtype)
+    dz3 = dh3 * dact_h
     dwh = f.T @ dz3
     dbh = dz3.sum(dim=0, keepdim=True)
     df = dz3 @ wh.T
@@ -870,11 +893,13 @@ def apply_updates(kinds, params, moms, grads, lr):
 
 @torch.no_grad()
 def megastep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits, lr,
-                             spec):
+                             spec, flips=None):
     """The plain PyTorch twin of the CUDA epoch kernel (and of the JAX
     package's ``_kernel``). ``x_steps`` (nb, C0*B, HW) f32 channel-major
-    rows, ``y_steps`` (nb, B) int32, ``bits`` from epoch_noise_bits.
-    Returns (kparams, kmoms, cost_minf (nb, 2)) as new tensors."""
+    rows, ``y_steps`` (nb, B) int32, ``bits`` from epoch_noise_bits;
+    ``flips`` None or (nb, B, NH) bool, each step's ``flip`` of
+    step_reference. Returns (kparams, kmoms, cost_minf (nb, 2)) as new
+    tensors."""
     ub, fb, pb, db = bits
     nb = x_steps.shape[0]
     lr = torch.tensor(lr, dtype=torch.float32, device=x_steps.device)
@@ -885,7 +910,7 @@ def megastep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits, lr,
     for s in range(nb):
         cost, minf, grads = step_reference(
             spec, x_steps[s], y_steps[s], ub[s, 0], fb[s], pb[s], db[s],
-            params, gh, gw)
+            params, gh, gw, None if flips is None else flips[s])
         cm[s, 0], cm[s, 1] = cost, minf
         apply_updates(reg_kinds(spec), params, moms, grads, lr)
     return params, moms, cm

@@ -428,9 +428,10 @@ def _geometry_reason(k, conv, after):
 
 
 def deep_head_smem(spec):
-    """csrc/megastep_deep.cu ``head_smem``: the head stage's scratch, (2 B
-    NO + B NC + NC + 4 B) floats, NO the head's width and NC its classes;
-    shared memory up to the opt-in, else a workspace region."""
+    """The route rule's head threshold for the deep family, (2 B NO + B NC
+    + NC + 4 B) floats, NO the head's width and NC its classes: the scratch
+    of the one-block head the kernel had before its loss ran a block a
+    sample. It is no longer a launch limit."""
     return 4 * (2 * spec.batch * spec.n_out + spec.batch * spec.n_classes
                 + spec.n_classes + 4 * spec.batch)
 
@@ -440,7 +441,7 @@ def deep_route_reason(spec):
     launch limit (``megastep.route_reason``), else None."""
     return route_reason(spec, route.deep_jax_reason(spec),
                         deep_head_smem(spec),
-                        "csrc/megastep_deep.cu head_smem")
+                        "ops/megastep_deep.py deep_head_smem")
 
 
 def deep_spec_from_net(net):

@@ -67,8 +67,8 @@ def dp_decline_reason(spec, n_data):
     spec) on an ``n_data``-rank mesh, or None (the JAX package's
     ``dp_supported``, with the reason named). The global batch must divide
     across the ranks, and the kernels must take the local spec at launch
-    (the warp stage's shared memory, ``warp_limit_reason``; the head takes
-    any shard, in shared memory or the workspace). The global spec has
+    (the warp stage's shared memory, ``warp_limit_reason``; the head's
+    stages take any shard). The global spec has
     passed its family's route rule, and the JAX package re-poses a tiled
     spec untiled on its mesh paths (``_untiled_global``), so nothing is
     tiled here either. The limits are checked on the CPU as on a card, so

@@ -19,7 +19,9 @@ Epochs between two test rows run as one ``Trainer.run_epochs`` call with a
 single host sync; a NaN or an ExpLoss divergence inside such a chunk
 rewinds to the chunk start and replays to the failing epoch, so the dump
 shows the at-failure weights.
-The device comes from THEANET_TORCH_DEVICE (default cuda).
+The device comes from THEANET_TORCH_DEVICE (default cuda). The JAX CLI's
+THEANET_STEPWISE=1 and THEANET_PROFILE_DIR are not ported: set, they stop
+the run with an error that names them.
 """
 
 from __future__ import annotations
@@ -70,6 +72,19 @@ class OutputLog:
         return getattr(self._target, attr)
 
 
+def _refuse_unported_switches():
+    """The JAX CLI's THEANET_STEPWISE=1 (per-batch steps) and
+    THEANET_PROFILE_DIR (a profiler trace of an epoch) are not ported: the
+    run stops and names the switch rather than train without it."""
+    for var, on in (("THEANET_STEPWISE",
+                     os.environ.get("THEANET_STEPWISE") == "1"),
+                    ("THEANET_PROFILE_DIR",
+                     bool(os.environ.get("THEANET_PROFILE_DIR")))):
+        if on:
+            raise NotImplementedError(
+                f"{var} is not ported yet (ROADMAP.md queue 1 item 3)")
+
+
 def main(argv=None):
     argv = list(sys.argv if argv is None else argv)
     if len(argv) < 3:
@@ -84,6 +99,7 @@ def main(argv=None):
             "<config>_<SEED>.txt\n")
         sys.exit(1)
 
+    _refuse_unported_switches()
     dataset_name, prms_file_name = argv[1], argv[2]
     layers, tr_prms, allwts = load_params(prms_file_name)
     out_file_head = os.path.basename(prms_file_name).replace(

@@ -20,8 +20,10 @@ Two training paths:
     the net cannot fuse; ``False`` never fuses. The JAX Trainer's 'auto'
     also keeps tiled specs above BATCH_SZ 128 on its scanned path, a
     crossover measured on the TPU (theanet_tpu/trainer.py:338-357); the
-    port fuses them (chip_smoke.py phase 23 times one such batch fused and
-    per layer).
+    port fuses them: on the H100 the fused epoch wins at every batch from
+    256 to 2048 (10-18x at 256), and at 3000 the host-bound per-layer
+    epoch does not beat it beyond its spread (chip_smoke.py phase 23 times
+    both; PERF.md).
   * per-layer: autograd ``NeuralNet.train_step`` per batch, for nets the
     matchers decline (with ``MEGAFUSED='auto'`` the Trainer names the
     reason on stderr). Each step draws from its own generator
@@ -99,14 +101,16 @@ def step_generator(seed, step, device):
 
 class Trainer:
     def __init__(self, net: NeuralNet, train_x, train_y, test_x, test_y,
-                 device=None, mesh=None, train_aux=None, test_aux=None):
-        """``mesh``: a data-parallel ``parallel.Mesh``, whose device then
-        holds this rank's tensors; else ``device`` (default
-        ``THEANET_TORCH_DEVICE``). ``train_aux``, ``test_aux``: the (n, 2, 2)
-        aux inputs of a net with an aux layer (dropped for other nets, as
-        the reference's train.py:131-135 does)."""
+                 train_aux=None, test_aux=None, mesh=None, *, device=None):
+        """The JAX Trainer's positional order (theanet_tpu/trainer.py:43-53).
+        ``train_aux``, ``test_aux``: the (n, 2, 2) aux inputs of a net with
+        an aux layer (dropped for other nets, as the reference's
+        train.py:131-135 does). ``mesh``: a data-parallel
+        ``parallel.Mesh``, whose device then holds this rank's tensors;
+        else ``device`` (keyword only; default ``THEANET_TORCH_DEVICE``)."""
         self.net = net
         self.mesh = mesh
+        self._predict_keys = set()   # layer sets predict has served
         self.device = (mesh.device if mesh is not None
                        else default_device() if device is None
                        else torch.device(device))
@@ -375,16 +379,25 @@ class Trainer:
         all_cm = torch.stack(cms).cpu().numpy()   # one host sync
         return all_cm[:, :, 0].sum(axis=1), all_cm[:, :, 0], all_cm[:, :, 1]
 
-    def predict(self, x, get_output_of_layers=(), aux=None):
+    def predict(self, x, aux=None, get_output_of_layers=()):
         """(features, y_preds, *layer outputs) as numpy, on raw inputs (and
-        the (n, 2, 2) ``aux`` of a net with an aux layer)."""
+        the (n, 2, 2) ``aux`` of a net with an aux layer); the JAX
+        Trainer's argument order (theanet_tpu/trainer.py:694). The first
+        call for a set of layers prints the reference's serving-shape
+        notice when BATCH_SZ is not 1 (neuralnet.py:284-286)."""
         self._mega_sync_frame()
+        layer_key = tuple(get_output_of_layers)
+        if layer_key not in self._predict_keys:
+            self._predict_keys.add(layer_key)
+            if self.batch_sz != 1:
+                print("\n****WARNING****: BATCH SIZE IS NOT 1. "
+                      "WILL BE EXPECTING A BATCH OF INPUT IMAGES AT A TIME.\n")
         x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
         if aux is not None:
             aux = torch.as_tensor(np.asarray(aux, np.float32),
                                   device=self.device)
         out = self.net.predict(self.params, x, aux=aux,
-                               get_output_of_layers=get_output_of_layers)
+                               get_output_of_layers=layer_key)
         return tuple(o.cpu().numpy() for o in out)
 
     def evaluate(self, which: str, batch_ids, preds_feats: bool = False):
