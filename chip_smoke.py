@@ -33,9 +33,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      logit_centered and synth_quick on synth at their shipped widths; then
      small variants (three conv levels with an identity and an
      ignore_border pool, a pre-hidden stack with DropOut, a flat net with a
-     Color prefix and two hiddens, RBF with frozen centers and junk_dist
-     inf) with L1, L2 and max-norm on; a label outside the classes gives a
-     NaN cost;
+     Color prefix and two hiddens, three levels the first wider than a
+     warp, RBF with frozen centers and junk_dist inf) with L1, L2 and
+     max-norm on; a label outside the classes gives a NaN cost;
   7. the flat-MLP kernel (the deep library at a zero-level table) vs its
      twin: flat_mlp at full width on synth_hard, one step and a
      step-locked epoch;
@@ -48,7 +48,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (jax_cpu_reference.sh);
   9. time one epoch of each of phase 8's configurations, kernel and twin,
      at full width, and print each kernel's device time by stage and its
-     head's stages beside the head's bound (torch.profiler);
+     head's stages beside the head's bound (torch.profiler); then, at
+     mnist_cnn, galaxy_rbf and flat_mlp, the three stage kinds of
+     csrc/stages.cuh (conv weight gradient, conv input gradient, dense
+     products) in us/step beside their bound and one PyTorch call of the
+     same work (a yardstick, TF32 off); and every launch plan of
+     ops/stage_plan.py held to the C's (stage_*_plan) and the mirrored
+     workspace to *_workspace_floats, over PLAN_CONFIGS;
  10. the elastic resample kernel (csrc/elastic_resample.cu) vs its plain
      version on the same warp and flip words: mnist_cnn's batch (nearest,
      invert, pflip .03), a 3-channel bilinear batch and a 48x48 one; its
@@ -941,6 +947,20 @@ DEEP_VARIANTS = {
         ("HiddenLayer", dict(n_out=20, pdrop=0.5, reg=R1)),
         ("HiddenLayer", dict(n_out=12, actvn="softplus", reg=R2)),
         ("SoftmaxLayer", dict(n_out=4, reg=R1))]),
+    # 44 -> 42 (wider than a warp: the weight gradient's lanes take
+    # column chunks) -> pool 2 -> 21 -> 19 -> ceil pool 2 -> 10 -> 9
+    "level-wider-than-a-warp": (44, 1, [
+        ("InputLayer", {}),
+        ("ConvLayer", dict(num_maps=3, filter_sz=3, stride=1,
+                           actvn="relu10", reg=R1)),
+        ("PoolLayer", dict(pool_sz=2)),
+        ("ConvLayer", dict(num_maps=4, filter_sz=3, stride=1,
+                           actvn="relu05", reg=R2)),
+        ("PoolLayer", dict(pool_sz=2)),
+        ("ConvLayer", dict(num_maps=3, filter_sz=2, stride=1,
+                           actvn="relu10", reg=R1)),
+        ("HiddenLayer", dict(n_out=12, pdrop=0.5, reg=R1)),
+        ("SoftmaxLayer", dict(n_out=4, reg=R2))]),
     "rbf-frozen-centers-junk-inf": (12, 1, [
         ("InputLayer", {}),
         ("ConvLayer", dict(num_maps=3, filter_sz=3, stride=1,
@@ -1273,6 +1293,11 @@ def kernel_times(prof):
 # {configuration: (head us/step, head bound us/step, share of busy)} of the
 # profiled epochs (profile_epoch's ``head``), for the kernels JSON line
 HEAD_REPORT = {}
+# {configuration: (device spans, steps)} of the same profiled epochs, and
+# {configuration: {stage kind: (us/step, bound us/step, bound by, PyTorch
+# us/step)}} of phase 9's stage lines
+STAGE_SPANS = {}
+STAGE_REPORT = {}
 
 
 def head_bound(spec):
@@ -1386,14 +1411,247 @@ def profile_epoch(torch, run, n_steps, what="one epoch", top=None,
               f"{100 * t / busy:5.1f}% of busy", flush=True)
     if head is not None:
         head_line(stages, spans, busy, n_steps, *head)
+        STAGE_SPANS[head[0]] = (spans, n_steps)
     return 1 - busy / wall_us
 
 
-def phase9(torch, dev, card):
-    """Each CONFIGS entry (phase 8's configurations) timed and profiled:
+def phase9(torch, data, dev, card):
+    """Each CONFIGS entry (phase 8's configurations) timed and profiled,
+    then the stage lines of mnist_cnn (phase 5's profile, or one taken
+    here), galaxy_rbf and flat_mlp and the plan mirrors' check:
     {"deep_epoch": galaxy_rbf's times, "mlp_epoch": flat_mlp's}."""
     times = {name: time_config(torch, name, dev, card) for name in CONFIGS}
+    if "mnist_cnn" not in STAGE_SPANS:
+        phase5(torch, data, dev, card)
+    for name in STAGE_CONFIGS:
+        stage_lines(torch, name, dev, card)
+    plan_mirrors()
     return {"deep_epoch": times["galaxy_rbf"], "mlp_epoch": times["flat_mlp"]}
+
+
+# The three stage kinds ops/stage_plan.py plans (csrc/stages.cuh), by their
+# kernels' names, and the PyTorch call each is measured against (a
+# yardstick timed outside the path, TF32 off; the port never calls it).
+STAGE_KINDS = {
+    "conv weight gradient": (("k_wgrad",), "torch.nn.grad.conv2d_weight"),
+    "conv input gradient": (("k_conv2_dgrad_pool1_bwd", "k_conv_dgrad"),
+                            "torch.nn.grad.conv2d_input"),
+    "dense products": (("k_gemm_sk",), "torch.matmul"),
+}
+STAGE_CONFIGS = ("mnist_cnn", "galaxy_rbf", "flat_mlp")
+STAGE_REPS = 50
+
+
+def stage_shapes(spec):
+    """(weight-gradient levels, input-gradient levels, products) of one
+    step at ``spec`` (ops/stage_plan.py's ConvGeom and (name, M, N, K))."""
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import stage_plan as sp
+
+    if isinstance(spec, megastep.MegaSpec):
+        lv = sp.flagship_levels(spec)
+        return lv, lv[:1], sp.flagship_products(spec)
+    lv = sp.deep_levels(spec)
+    return lv, lv[1:], sp.deep_products(spec)
+
+
+def stage_bounds(spec):
+    """{stage kind: (us, what bounds it)}: the least time of one step's
+    work of each kind (each input read once, each output written once;
+    2 operations a multiply-add). The weight gradient reads dz and the
+    level's input and writes the weights and bias; the input gradient
+    reads dz and the weights and writes the input's gradient (the
+    flagship's epilogue also reads z1 and p1 and writes dz1); a product
+    reads A and B and writes C (a hidden layer's also the dropout words
+    and h)."""
+    from theanet_tpu_torch.ops import megastep
+
+    levels, dlevels, products = stage_shapes(spec)
+    flagship = isinstance(spec, megastep.MegaSpec)
+    out = {}
+    n_bytes = flops = 0
+    for g in levels:
+        taps = g.F * g.F * g.Cin
+        flops += 2 * g.B * g.M * g.e * g.e * taps + g.B * g.M * g.e * g.e
+        n_bytes += 4 * (g.B * g.M * g.c * g.c + g.B * g.Cin * g.W * g.W
+                        + g.M * (taps + 1))
+    out["conv weight gradient"] = (n_bytes, flops)
+    n_bytes = flops = 0
+    for g in dlevels:
+        flops += 2 * g.B * g.M * g.e * g.e * g.F * g.F * g.Cin
+        n_bytes += 4 * (g.B * g.M * g.c * g.c + g.M * g.F * g.F * g.Cin
+                        + g.B * g.Cin * g.W * g.W)
+        if flagship:
+            n_bytes += 4 * (2 * g.B * g.Cin * spec.c1 ** 2)
+    out["conv input gradient"] = (n_bytes, flops)
+    n_bytes = flops = 0
+    for name, M, N, K in products:
+        flops += 2 * M * N * K
+        n_bytes += 4 * (M * K + K * N + M * N)
+        if name == "z3" or name.startswith("pre"):
+            n_bytes += 8 * M * N
+    out["dense products"] = (n_bytes, flops)
+    return {k: ((lambda ms, by: (ms * 1e3, by))(*bound(b, f)) if f else
+                (0.0, "none")) for k, (b, f) in out.items()}
+
+
+def stage_yardstick(torch, spec, kind, dev):
+    """us per step of the PyTorch calls of one step's work of ``kind``
+    (STAGE_KINDS' call per level or product, at its shapes; CUDA events
+    over STAGE_REPS steps after a warm-up), or None when the step has
+    none."""
+    levels, dlevels, products = stage_shapes(spec)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *shape: torch.randn(shape, device=dev, generator=gen)
+    calls = []
+    if kind == "conv weight gradient":
+        for g in levels:
+            x, dz = rnd(g.B, g.Cin, g.W, g.W), rnd(g.B, g.M, g.c, g.c)
+            calls.append(lambda x=x, dz=dz, g=g: torch.nn.grad.conv2d_weight(
+                x, (g.M, g.Cin, g.F, g.F), dz, stride=g.cs, padding=g.pad))
+    elif kind == "conv input gradient":
+        for g in dlevels:
+            w, dz = rnd(g.M, g.Cin, g.F, g.F), rnd(g.B, g.M, g.c, g.c)
+            calls.append(lambda w=w, dz=dz, g=g: torch.nn.grad.conv2d_input(
+                (g.B, g.Cin, g.W, g.W), w, dz, stride=g.cs, padding=g.pad))
+    else:
+        for _, M, N, K in products:
+            a, b = rnd(M, K), rnd(K, N)
+            calls.append(lambda a=a, b=b: torch.matmul(a, b))
+    if not calls:
+        return None
+    ms = timed(torch, lambda: [c() for c in calls], STAGE_REPS)
+    return ms * 1e3
+
+
+def attributed_us(spans):
+    """{kernel name: us}: each instant of the trace attributed to the
+    earliest-started kernel running then. A kernel started by programmatic
+    dependent launch is resident, waiting, while the kernel before it
+    runs; that time is the earlier kernel's."""
+    import heapq
+
+    spans = sorted(spans)
+    edges = sorted({t for a, b, _ in spans for t in (a, b)})
+    out, active, i = {}, [], 0
+    for t0, t1 in zip(edges, edges[1:]):
+        while i < len(spans) and spans[i][0] <= t0:
+            heapq.heappush(active, spans[i])
+            i += 1
+        while active and active[0][1] <= t0:
+            heapq.heappop(active)
+        if active:
+            name = active[0][2]
+            out[name] = out.get(name, 0.0) + (t1 - t0)
+    return out
+
+
+def stage_lines(torch, name, dev, card):
+    """Print, for each stage kind of STAGE_KINDS, its device time a step in
+    the profiled epoch of ``name`` (attributed_us: the instants when one of
+    its kernels is the earliest-started one running), its bound
+    (stage_bounds) and its PyTorch yardstick (stage_yardstick); record
+    them in STAGE_REPORT[name]."""
+    spans, n_steps = STAGE_SPANS[name]
+    spec = plan_spec(name, None)
+    bounds = stage_bounds(spec)
+    owned = attributed_us(spans)
+    rep = STAGE_REPORT.setdefault(name, {})
+    print(f"  stages of {name} (B {spec.batch}) on {card}:", flush=True)
+    for kind, (kernels, lib) in STAGE_KINDS.items():
+        mine = [sp for sp in spans if sp[2].startswith(kernels)]
+        us = sum(t for k, t in owned.items()
+                 if k.startswith(kernels)) / n_steps
+        b_us, by = bounds[kind]
+        lib_us = stage_yardstick(torch, spec, kind, dev)
+        rep[kind] = (us, b_us, by, lib_us)
+        names = sorted({sp[2] for sp in mine})
+        print(f"    {kind}: {us:.2f} us/step ({', '.join(names) or 'none'}),"
+              f" bound {b_us:.3f} us/step ({by}), PyTorch {lib} "
+              + (f"{lib_us:.2f} us/step" if lib_us is not None else "none"),
+              flush=True)
+
+
+def plan_spec(name, batch):
+    """The fused spec a PLAN_CONFIGS configuration trains on, at BATCH_SZ
+    ``batch`` (None: its own)."""
+    from theanet_tpu_torch.model import NeuralNet
+    from theanet_tpu_torch.ops import megastep
+
+    if name in HEAD_CONFIGS:
+        layers, tr = head_config(name)
+    else:
+        layers, tr, _ = dp_config(name)
+    if batch is not None:
+        tr = dict(tr, BATCH_SZ=batch)
+    plan = megastep.fused_plan(NeuralNet(layers, tr))
+    assert plan is not None, name
+    return plan.spec
+
+
+# Wide levels whose plans the mirrors are held to beside PLAN_CONFIGS':
+# dgrad_plan's (B, Cin, W, M, F) with one row a band and a canvas wider
+# than the block, or a band wider than DG_MAX_THREADS, and the levels just
+# inside and past the shared-memory limit the route rule declines by;
+# wgrad_plan's (B, M, Cin, F, e, cs) with rows wider than the block and at
+# that limit
+WIDE_DGRAD = ((20, 4, 256, 12, 3), (20, 4, 510, 12, 5), (4, 2, 1030, 2, 3),
+              (1, 1, 1100, 1, 5), (4, 1, 172, 64, 5), (4, 1, 173, 64, 5))
+WIDE_WGRAD = ((4, 2, 1, 3, 1028, 1), (20, 4, 64, 5, 172, 1),
+              (20, 4, 64, 5, 174, 1), (3000, 4, 3, 5, 300, 2))
+
+
+def plan_mirrors():
+    """Hold ops/stage_plan.py's mirrors to the C on the card: every stage
+    plan of every PLAN_CONFIGS configuration equal to stages.cuh's
+    (stage_*_plan exports), and the mirrored workspace to the library's
+    *_workspace_floats, the floats the wrappers allocate."""
+    from theanet_tpu_torch.ops import _build, megastep
+    from theanet_tpu_torch.ops import megastep_mlp as mlp
+    from theanet_tpu_torch.ops import stage_plan as sp
+
+    n_plans = 0
+    for name, batch in PLAN_CONFIGS:
+        spec = plan_spec(name, batch)
+        if isinstance(spec, megastep.MegaSpec):
+            lib, prefix = "megastep", "megastep"
+            mirror_ws = sp.megastep_workspace_floats(spec)
+        else:
+            if isinstance(spec, mlp.MlpSpec):
+                spec = mlp.as_deep(spec)
+            lib, prefix = "megastep_deep", "deep"
+            mirror_ws = sp.deep_workspace_floats(spec)
+        levels, dlevels, products = stage_shapes(spec)
+        want, got = [], []
+        for g in levels:
+            want.append(tuple(sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e,
+                                            g.cs)))
+            got.append(_build.stage_plan_c("stage_wgrad_plan", g.B, g.M,
+                                           g.Cin, g.F, g.e, g.cs, lib=lib))
+        for g in dlevels:
+            want.append(tuple(sp.dgrad_plan(g.B, g.Cin, g.W, g.M, g.F)))
+            got.append(_build.stage_plan_c("stage_dgrad_plan", g.B, g.Cin,
+                                           g.W, g.M, g.F, lib=lib))
+        for _, M, N, K in products:
+            want.append(tuple(sp.gemm_plan(M, N, K)))
+            got.append(_build.stage_plan_c("stage_gemm_plan", M, N, K,
+                                           lib=lib))
+        assert want == got, (name, batch, want, got)
+        c_ws = _build.workspace_floats_c(prefix, spec)
+        assert mirror_ws == c_ws, (name, batch, mirror_ws, c_ws)
+        n_plans += len(want)
+    for shape in WIDE_DGRAD:
+        want = tuple(sp.dgrad_plan(*shape))
+        got = _build.stage_plan_c("stage_dgrad_plan", *shape)
+        assert want == got, (shape, want, got)
+    for shape in WIDE_WGRAD:
+        want = tuple(sp.wgrad_plan(*shape))
+        got = _build.stage_plan_c("stage_wgrad_plan", *shape)
+        assert want == got, (shape, want, got)
+    print(f"  plan mirrors: {n_plans} stage plans of {len(PLAN_CONFIGS)} "
+          f"configurations and {len(WIDE_DGRAD) + len(WIDE_WGRAD)} of wide "
+          "levels equal to csrc/stages.cuh's, and each mirrored workspace "
+          "equal to its library's *_workspace_floats", flush=True)
 
 
 # ----------------------------------------------------------- phases 10-12
@@ -3393,10 +3651,14 @@ def phase20(torch, card):
 # ----------------------------------------------------------- phases 21-22
 
 # Phase 21's small cases: the geometries of tests/test_fused_modes.py's
-# CASES, an even 'same' filter, and a MeanLayer after a valid stack, each
-# (img, [(maps, filter, stride, mode, pool or None)], MeanLayer) at
+# CASES, an even 'same' filter, a MeanLayer after a valid stack, and two
+# wide levels 1 in the input gradient's long forms (a 256-wide input at 12
+# maps: one row a band, the canvas wider than the block; a 1030-wide one:
+# a thread two positions), each (img, [(maps, filter, stride, mode, pool
+# or None)], MeanLayer) at
 # BATCH_SZ 4 with L2 and max-norm on the convs, GEOM_LOCKED_STEPS steps of
-# random pixels step-locked
+# random pixels step-locked (the wide cases GEOM_WIDE_STEPS: their twin's
+# tap-by-tap conv takes seconds a step at 1032 x 1032)
 GEOM_SMALL = {
     "same-stack": (10, [(3, 3, 1, "same", 2), (4, 3, 1, "same", 2)], False),
     "stride2": (14, [(3, 3, 2, "valid", 2)], False),
@@ -3412,8 +3674,13 @@ GEOM_SMALL = {
                          False),
     "mean-after-valid": (12, [(2, 3, 1, "valid", 2), (5, 3, 1, "valid", None)],
                          True),
+    "wide-l1": (258, [(2, 3, 1, "valid", None), (12, 3, 1, "valid", 2)],
+                True),
+    "wider-l1": (1032, [(2, 3, 1, "valid", None), (2, 3, 1, "valid", 2)],
+                 True),
 }
 GEOM_LOCKED_STEPS = 40
+GEOM_WIDE_STEPS = {"wide-l1": 4, "wider-l1": 3}
 
 
 def geometry_small(torch, name, dev):
@@ -3434,7 +3701,7 @@ def geometry_small(torch, name, dev):
                ["SoftmaxLayer", {"n_out": 4}]]
     net, plan = build_net(layers, {"SEED": 23, "BATCH_SZ": 4})
     gen = torch.Generator(device=dev).manual_seed(5)
-    n = GEOM_LOCKED_STEPS
+    n = GEOM_WIDE_STEPS.get(name, GEOM_LOCKED_STEPS)
     x = torch.rand((n, 4, img * img), generator=gen, device=dev)
     y = torch.randint(0, 4, (n, 4), generator=gen, device=dev,
                       dtype=torch.int32)
@@ -3584,6 +3851,21 @@ HEAD_SHAPES = {   # BATCH_SZ, classes
     "mnist_b3000": (B3K, 10), "mnist_b128_457": (128, 457),
     "mnist_b20_1453": (20, 1453), "flat_b128_457": (128, 457),
     "three_level_b20_1500": (20, 1500)}
+
+
+# The configurations whose stage plans the mirror check covers (and
+# tests/test_torch_stage_plan.py pins on the CPU), as (name, BATCH_SZ or
+# None for its own): every shipped .prms, the per-rank batches of the
+# data-parallel and ring runs (20 over 2 and 4 ranks), phase 23's
+# configurations and the geometry configurations.
+SHIPPED_PRMS = ("mnist_cnn", "galaxy_rbf", "logit_centered", "synth_quick",
+                "flat_mlp", "synth_aux")
+PLAN_CONFIGS = ([(n, None) for n in SHIPPED_PRMS]
+                + [(n, b) for n in ("mnist_cnn", "galaxy_rbf", "flat_mlp")
+                   for b in (5, 10)]
+                + [("synth_aux", 10), ("mnist_same", 10)]
+                + [(n, None) for n in HEAD_CONFIGS]
+                + [(n, None) for n in GEOM_CONFIGS])
 
 
 def head_config(name):
@@ -3966,7 +4248,7 @@ def main(argv=None):
         new_launches = phase8(torch)
     if 9 in phases:
         banner(9, "epoch time of the deep and flat-MLP kernels vs twins")
-        new_timing = phase9(torch, dev, card)
+        new_timing = phase9(torch, data, dev, card)
     if 10 in phases:
         banner(10, "elastic resample kernel vs plain version")
         el_err, el_timing, el_lib = phase10(torch, dev, card)
@@ -4150,6 +4432,12 @@ def main(argv=None):
                    "head_us_per_step": HEAD_REPORT[name][0],
                    "head_bound_us": HEAD_REPORT[name][1]}
             for name, (err, t) in head_res.get(k["name"], {}).items()}
+    for k, main in zip(kernels[:3], STAGE_CONFIGS):
+        k["stages_us_per_step"] = {
+            kind: {"us": us, "bound_us": b_us, "bound_by": by,
+                   "library_us": lib_us}
+            for kind, (us, b_us, by, lib_us) in STAGE_REPORT[main].items()
+            if b_us}
     kernels[0]["configs"]["crossover"] = {
         f"mnist_b{b}": {f"{path}_ms": {"median": m, "min": lo, "max": hi}
                         for path, (m, lo, hi) in t.items()}

@@ -25,22 +25,28 @@
 // momentum state (2 x 1.47 MB) does not fit one SM's shared memory and
 // lives in device memory, where it stays resident in the 50 MB L2.
 //
-// What the design does about it (the simplest correct form, first): one C
-// call per epoch loops the steps on the caller's stream and launches 16
-// small stage kernels per step (fewer when the config has no warp, weight
-// cost or max-norm). Each stage is one thread per output element, or one
-// block per reduction, sized so that every stage puts at least a few
-// thousand threads on the card; the dense products use one hand-written
-// 16x16 shared-memory tiled GEMM; the softmax head and its backward run as
-// grid stages around a loss of one block a sample (k_head_*). Nothing is
-// computed by a library kernel. Fewer stages
-// (persistent kernels, CUDA graphs, wgmma) are later work; PERF.md has the
-// measured times.
+// What the design does about it: one C call per epoch loops the steps on
+// the caller's stream and launches a few small stage kernels per step (fewer
+// when the config has no warp, weight cost or max-norm), each sized to the
+// card rather than to the data: the forward convs a thread per pooled
+// output (their sum order decides which pool windows tie); the dense
+// products on 16x16 tiles that cut K into slices when the tiles alone are
+// too few to fill 132 SMs, with the bias, activation and dropout in the
+// pass that writes the result (stages.cuh gemm); the conv weight gradients
+// over fixed batch slices, a block a (tap group, map, slice) staging its
+// rows in shared memory, the slices added in order (conv_wgrad); the conv2
+// input gradient a block a (row band, map, sample) on a zero-padded copy
+// of the sample's dz, with pool1's backward in its epilogue; the softmax
+// head and its backward as grid stages around a loss of one block a sample
+// (k_head_*). Every cross-block sum runs in one order fixed by the shapes;
+// nothing is added atomically and nothing is computed by a library kernel.
+// Fewer stages (persistent kernels, CUDA graphs, wgmma) are later work;
+// PERF.md has the measured times.
 //
 // Data-parallel training (the port of theanet_tpu/ops/megastep_dp.py's
 // _kernel_grad at the flagship) splits a step in two entries that run the
 // epoch's own helpers: megastep_grad_step runs grad_stages (k_warp through
-// the last k_conv_wgrad) at the per-rank batch into a caller-owned flat
+// the last conv_wgrad) at the per-rank batch into a caller-owned flat
 // gradient buffer, and megastep_update runs update_stages (k_update and the
 // max-norm kernels) on that buffer after the caller's all-reduce. The epoch
 // loop calls the same two helpers, so the two paths cannot drift apart.
@@ -215,7 +221,7 @@ __global__ void k_conv2_pool(Dims d, const float* __restrict__ p1,
 // The dense tail's head, in stages that each spread over the card (no
 // stage holds a batch-wide view in one block, none adds floats atomically,
 // every sum runs in one fixed order):
-//   k_hidden       z3 = f wh + bh (a tiled GEMM) with the epilogue
+//   (before it)    z3 = f wh + bh (stages.cuh gemm) with the epilogue
 //                  h3d = dropout(act_h(z3));
 //   k_head_scores  the scores' products z4 = h3d wo as HEAD_KS-wide slices
 //                  of K = NH (split-K), one tile and slice a block;
@@ -237,28 +243,8 @@ __global__ void k_conv2_pool(Dims d, const float* __restrict__ p1,
 constexpr int HEAD_KS = 64;    // K = NH per scores slice
 constexpr int HEAD_KB = 256;   // K = B per dwo slice
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 __device__ __forceinline__ bool dropped(const Dims& d, const int* db, int e) {
   return d.pdrop > 0.0f && !(u01(db[e]) >= d.pdrop);
-}
-
-__global__ void k_hidden(Dims d, const float* __restrict__ f,
-                         const float* __restrict__ wh,
-                         const float* __restrict__ bh,
-                         const int* __restrict__ db, float* __restrict__ z3,
-                         float* __restrict__ h3d) {
-  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  float acc = gemm_tile<false, false>(d.B, d.NH, 0, d.NF, f, d.NF, wh, d.NH,
-                                      m0, n0);
-  const int m = m0 + threadIdx.y, n = n0 + threadIdx.x;
-  if (m >= d.B || n >= d.NH) return;
-  const int e = m * d.NH + n;
-  const float z = acc + bh[n];
-  float h = act_fn(z, d.acth, d.slopeh);
-  if (dropped(d, db, e)) h = 0.0f * h;
-  z3[e] = z;
-  h3d[e] = h;
 }
 
 // part[s] (B, NC) = h3d[:, K_s] wo[K_s, :] over slice s = blockIdx.z of
@@ -412,41 +398,34 @@ __global__ void k_pool2_bwd(Dims d, const float* __restrict__ z2,
   dz2[idx] = g;
 }
 
-// conv2 input gradient + pool1 backward + act1': one thread per pooled1
-// position; writes dz1 for the members of its window.
-__global__ void k_conv2_dgrad_pool1_bwd(Dims d, const float* __restrict__ w2,
+// conv2 input gradient (stages.cuh dgrad_stage / dgrad_sum: a block a row
+// band of pooled1 rows, map m1 and sample, the taps on a zero-padded copy
+// of the sample's dz2) + pool1 backward + act1': a thread a pooled1
+// position; it writes dz1 to every member of its window equal to the
+// window's max.
+__global__ void k_conv2_dgrad_pool1_bwd(Dims d, ConvGeom g, DgradPlan p,
+                                        const float* __restrict__ w2,
                                         const float* __restrict__ dz2,
                                         const float* __restrict__ z1,
                                         const float* __restrict__ p1,
                                         float* __restrict__ dz1) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= d.B * d.M1 * d.P1 * d.P1) return;
-  const int F = d.F2, M1 = d.M1;
-  int j = idx % d.P1, i = (idx / d.P1) % d.P1;
-  int m1 = (idx / (d.P1 * d.P1)) % M1, b = idx / (d.P1 * d.P1 * M1);
-  float dp = 0.0f;
-  for (int m2 = 0; m2 < d.M2; ++m2)
-    for (int u = 0; u < F; ++u) {
-      int y = i - (F - 1 - u);
-      if (y < 0 || y >= d.e2) continue;
-      for (int v = 0; v < F; ++v) {
-        int x = j - (F - 1 - v);
-        if (x < 0 || x >= d.e2) continue;
-        dp += w2[m2 * F * F * M1 + (u * F + v) * M1 + m1]
-              * dz2[((b * d.M2 + m2) * d.c2 + y) * d.c2 + x];
+  const int n = dgrad_stage(g, p, w2, dz2);
+  const int m1 = blockIdx.y, b = blockIdx.z, M1 = d.M1;
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    const float dp = dgrad_sum(g, p, t);
+    const int i = blockIdx.x * p.rows + t / d.P1, j = t % d.P1;
+    const float mx = p1[((b * M1 + m1) * d.P1 + i) * d.P1 + j];
+    for (int dy = 0; dy < d.pool1; ++dy) {
+      int y = i * d.pool1 + dy;
+      if (y >= d.c1) break;
+      for (int dx = 0; dx < d.pool1; ++dx) {
+        int x = j * d.pool1 + dx;
+        if (x >= d.c1) break;
+        int zi = ((b * M1 + m1) * d.c1 + y) * d.c1 + x;
+        float z = z1[zi];
+        dz1[zi] = act_fn(z, d.act1, d.slope1) == mx
+                      ? dp * dact_fn(z, d.act1, d.slope1) : 0.0f;
       }
-    }
-  float mx = p1[idx];
-  for (int dy = 0; dy < d.pool1; ++dy) {
-    int y = i * d.pool1 + dy;
-    if (y >= d.c1) break;
-    for (int dx = 0; dx < d.pool1; ++dx) {
-      int x = j * d.pool1 + dx;
-      if (x >= d.c1) break;
-      int zi = ((b * M1 + m1) * d.c1 + y) * d.c1 + x;
-      float z = z1[zi];
-      dz1[zi] = act_fn(z, d.act1, d.slope1) == mx
-                    ? dp * dact_fn(z, d.act1, d.slope1) : 0.0f;
     }
   }
 }
@@ -455,13 +434,29 @@ struct Workspace {
   float *tyx, *a, *z1, *p1, *z2, *f, *z3, *h3d, *dz3, *df, *dz2, *dz1,
       *grads, *wcost, *wpart;
   float *sparts, *dz4, *tl, *wparts;   // the head's: scores' slices, dL/dz4,
-  long long total;                     // per-sample terms, dwo's slices
+                                       // per-sample terms, dwo's slices
+  float *wgparts, *gparts;   // the conv weight gradients' slices, the
+                             // products' K slices
+  unsigned* ctr;   // the products' tile counters, then the weight
+  long long nctr;  // gradients' (zeroed at each entry: zero_counters)
+  long long total;
 };
 
 // The head's slice counts: of the scores' K = NH, of dwo's K = B (1: dwo
 // is written whole).
 int score_slices(const Dims& d) { return cdiv(d.NH, HEAD_KS); }
 int dwo_slices(const Dims& d) { return cdiv(d.B, HEAD_KB); }
+
+// The two conv levels for the gradient stages (stages.cuh ConvGeom): conv2
+// reads pooled1 (B, M1, P1, P1); conv1 the channel-major augmented rows
+// (c*B + b, HW).
+ConvGeom conv2_geom(const Dims& d) {
+  return {d.B, d.M2, d.M1, d.F2, d.c2, d.e2, 1, 0, d.P1,
+          d.M1 * d.P1 * d.P1, d.P1 * d.P1};
+}
+ConvGeom conv1_geom(const Dims& d) {
+  return {d.B, d.M1, d.C0, d.F1, d.c1, d.e1, 1, 0, d.H, d.HW, d.B * d.HW};
+}
 
 Workspace carve(const Dims& d, float* base) {
   Workspace w;
@@ -491,6 +486,11 @@ Workspace carve(const Dims& d, float* base) {
   w.tl = take(d.B);
   const int sw = dwo_slices(d);
   w.wparts = take(sw > 1 ? (long long)sw * d.NH * d.NC : 0);
+  const ConvGeom g2 = conv2_geom(d), g1 = conv1_geom(d);
+  w.wgparts = take(std::max(wgrad_part_floats(g2), wgrad_part_floats(g1)));
+  w.gparts = take(GEMM_PART_CAP);
+  w.nctr = GEMM_TARGET + std::max(wgrad_counters(g2), wgrad_counters(g1));
+  w.ctr = (unsigned*)take(w.nctr);
   w.total = o;
   return w;
 }
@@ -591,13 +591,14 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   k_conv2_pool<<<blocks((long long)d.B * d.M2 * d.P2 * d.P2, T), T, 0, s>>>(
       d, w.p1, prm[2], prm[3], w.z2, w.f);
   LAUNCHED();
-  const dim3 tile(TILE, TILE);
-  k_hidden<<<dim3(cdiv(d.NH, TILE), cdiv(d.B, TILE)), tile, 0, s>>>(
-      d, w.f, prm[4], prm[5], in.db, w.z3, w.h3d);
-  LAUNCHED();
+  CHECK((gemm<false, false>(s, d.B, d.NH, d.NF, w.f, d.NF, prm[4], d.NH,
+                            hidden_out(w.z3, d.NH, prm[5], w.h3d, d.acth,
+                                       d.slopeh, d.pdrop, in.db, d.NH, 0),
+                            w.gparts, w.ctr)));
   if (c.any_wcost) CHECK(wcost(s, c.t8, w.wpart, w.wcost));
   const float* wc = c.any_wcost ? w.wcost : nullptr;
   const int ns = score_slices(d), sw = dwo_slices(d);
+  const dim3 tile(TILE, TILE);
   k_head_scores<<<dim3(cdiv(d.NC, TILE), cdiv(d.B, TILE), ns), tile, 0, s>>>(
       d, w.h3d, prm[6], w.sparts);
   LAUNCHED();
@@ -614,24 +615,24 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
                    grad[5], cm));
   // dwh = f^T dz3 ; df = dz3 wh^T
   CHECK((gemm<true, false>(s, d.NF, d.NH, d.B, w.f, d.NF, w.dz3, d.NH,
-                           nullptr, grad[4])));
+                           gemm_out(grad[4], d.NH), w.gparts, w.ctr)));
   CHECK((gemm<false, true>(s, d.B, d.NF, d.NH, w.dz3, d.NH, prm[4], d.NH,
-                           nullptr, w.df)));
+                           gemm_out(w.df, d.NF), w.gparts, w.ctr)));
   k_pool2_bwd<<<blocks((long long)d.B * d.M2 * d.c2 * d.c2, T), T, 0, s>>>(
       d, w.z2, w.f, w.df, w.dz2);
   LAUNCHED();
-  k_conv_wgrad<<<dim3(d.M2, d.F2 * d.F2 * d.M1 + 1), T, 0, s>>>(
-      d.B, d.M2, d.M1, d.F2, d.c2, d.e2, w.dz2, w.p1, d.M1 * d.P1 * d.P1,
-      d.P1 * d.P1, d.P1, grad[2], grad[3], 1, 0);
-  LAUNCHED();
-  k_conv2_dgrad_pool1_bwd<<<blocks((long long)d.B * d.M1 * d.P1 * d.P1, T),
-                            T, 0, s>>>(d, prm[2], w.dz2, w.z1, w.p1, w.dz1);
-  LAUNCHED();
-  k_conv_wgrad<<<dim3(d.M1, d.F1 * d.F1 * d.C0 + 1), T, 0, s>>>(
-      d.B, d.M1, d.C0, d.F1, d.c1, d.e1, w.dz1, w.a, d.HW, d.B * d.HW, d.H,
-      grad[0], grad[1], 1, 0);
-  LAUNCHED();
-  return 0;
+  const ConvGeom g2 = conv2_geom(d);
+  int rc = conv_wgrad(s, g2, w.dz2, w.p1, w.wgparts, w.ctr + GEMM_TARGET,
+                      grad[2], grad[3]);
+  if (rc != 0) return rc;
+  const DgradPlan dg = dgrad_plan(d.B, d.M1, d.P1, d.M2, d.F2);
+  const size_t dsm = sizeof(float) * dg.smem_floats;
+  if (!smem_opt_in(k_conv2_dgrad_pool1_bwd, dsm)) return ERR_STAGE_SMEM;
+  CHECK(launch_pdl(k_conv2_dgrad_pool1_bwd, dim3(dg.nbands, d.M1, d.B),
+                   dim3(dg.threads), dsm, s, d, g2, dg, prm[2], w.dz2, w.z1,
+                   w.p1, w.dz1));
+  return conv_wgrad(s, conv1_geom(d), w.dz1, w.a, w.wgparts,
+                    w.ctr + GEMM_TARGET, grad[0], grad[1]);
 }
 
 // L1/L2 gradient, old-accumulator momentum step and max-norm of the 8 state
@@ -690,6 +691,7 @@ int epoch_loop(const int* is, const float* fs, void* const* ptrs,
   int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
                       (const float*)ptrs[P_GW], ptrs + P_PARAMS, &c);
   if (rc != 0) return rc;
+  CHECK(zero_counters(c.w.ctr, c.w.nctr, s));
   const Dims& d = c.d;
   float* mom[8];
   for (int k = 0; k < 8; ++k) mom[k] = (float*)ptrs[P_MOMS + k];
@@ -736,6 +738,7 @@ long long megastep_workspace_floats(const int* ispec, const float* fspec) {
 const char* megastep_error_string(int code) {
   if (const char* r = ring_error_string(code)) return r;
   if (code == -1) return "warp field needs more shared memory than a block has";
+  if (code == ERR_STAGE_SMEM) return stage_smem_error;
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -780,6 +783,7 @@ int megastep_grad_step(const int* is, const float* fs, void* const* ptrs,
   int rc = step_setup(is, fs, ws, (const float*)ptrs[P_GH],
                       (const float*)ptrs[P_GW], ptrs + P_PARAMS, &c);
   if (rc != 0) return rc;
+  CHECK(zero_counters(c.w.ctr, c.w.nctr, (cudaStream_t)stream_));
   StepIn in;
   in.x = (const float*)ptrs[P_X];
   in.y = (const int*)ptrs[P_Y];

@@ -37,23 +37,27 @@
 // bytes; flat_mlp (784 x 1000 hidden) moves most bytes in its dense
 // products, still far below the card's rate at batch 20.
 //
-// What the design does about it (the simplest correct form, first): the
-// flagship kernel's design, parameterised at run time. One C call per epoch
-// loops the steps on the caller's stream; a level table (input maps, maps,
-// filter, input side, conv side, pooled side, pool, ignore_border,
-// activation, pad, conv stride, slope) drives one conv+pool stage, one
-// pool-backward stage, one weight-gradient stage and one input-gradient
-// stage per level (a padded or strided level reads its input directly;
-// the input gradient visits only the stride lattice); the
-// dense stages loop over the pre-hidden stack and then the final hidden;
-// a GEMM computes the scores, a head stage of one block a sample the
-// softmax-kind, LOGIT or RBF loss down to dL/dscores, a grid stage the
-// cost, the scores bias's gradient and (learned RBF centers) dcenters, each
-// in one fixed order with no atomics; the aux encoder is
-// one single-block stage forward (k_aux_fwd) and one backward (k_aux_bwd,
-// SoftAux only): its widths are a few units; the weight cost is a
-// two-pass grid reduction; one update launch covers every state tensor.
-// Conv sums are tap by tap in the kernel layout's order with
+// What the design does about it: the flagship kernel's design,
+// parameterised at run time. One C call per epoch loops the steps on the
+// caller's stream; a level table (input maps, maps, filter, input side,
+// conv side, pooled side, pool, ignore_border, activation, pad, conv
+// stride, slope) drives one conv+pool stage, one pool-backward stage, one
+// weight-gradient stage (stages.cuh conv_wgrad: fixed batch slices, a
+// block a tap group, map and slice staging its rows in shared memory, the
+// slices added in order) and one input-gradient stage (a block a row band,
+// input map and sample on the sample's dz dilated by the stride onto a
+// zero canvas) per level (a padded or strided level reads its input
+// directly); the dense stages loop over the pre-hidden stack and then the
+// final hidden, each product on stages.cuh gemm (16x16 tiles, K cut into
+// slices added in order when the tiles are too few for the card; the bias,
+// activation and dropout ride in the pass that writes the product); a head
+// stage of one block a sample the softmax-kind, LOGIT or RBF loss down to
+// dL/dscores, a grid stage the cost, the scores bias's gradient and
+// (learned RBF centers) dcenters, each in one fixed order with no atomics;
+// the aux encoder is one single-block stage forward (k_aux_fwd) and one
+// backward (k_aux_bwd, SoftAux only): its widths are a few units; the
+// weight cost is a two-pass grid reduction; one update launch covers every
+// state tensor. Conv sums are tap by tap in the kernel layout's order with
 // separately rounded multiplies and adds, as in the twin: which pool
 // windows tie exactly depends on that order. Nothing is computed by a
 // library kernel.
@@ -308,36 +312,20 @@ __global__ void k_pool_bwd(int B, Level L, const float* __restrict__ z,
   dz[idx] = g;
 }
 
-// The first tap u >= 0 whose output row y = (r + u) / cs is a whole
-// number >= 0, for r = i + pad - (F-1) of input row i; the next ones are
-// u + cs, u + 2 cs, ... at y + 1, y + 2, ...
-__device__ __forceinline__ int first_tap(int r, int cs) {
-  return r < 0 ? -r : (cs - r % cs) % cs;
-}
-
-// Input gradient of a conv level: one thread per input position (b, c, i,
-// j) of the level's (B, Cin, S, S) input, which is the previous level's
-// pooled output. It visits only the outputs on the stride lattice whose
-// taps read it, inside the pool windows' extent, in the order m, u, v (at
-// stride 1 and pad 0 the valid conv's sum, term for term).
-__global__ void k_conv_dgrad(int B, Level L, const float* __restrict__ w,
+// Input gradient of a conv level into the previous level's pooled
+// gradient (B, Cin, S, S): stages.cuh dgrad_stage / dgrad_sum, a block a
+// (row band, input map, sample), a thread a position; the taps in the
+// order m, u, v (at stride 1 and pad 0 the valid conv's sum, term for
+// term).
+__global__ void k_conv_dgrad(ConvGeom g, DgradPlan p,
+                             const float* __restrict__ w,
                              const float* __restrict__ dz,
                              float* __restrict__ din) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int S = L.s, F = L.f, Cin = L.cin, cs = L.cs;
-  if (idx >= B * Cin * S * S) return;
-  int j = idx % S, i = (idx / S) % S;
-  int ci = (idx / (S * S)) % Cin, b = idx / (S * S * Cin);
-  const int ri = i + L.pad - (F - 1), rj = j + L.pad - (F - 1);
-  const int u0 = first_tap(ri, cs), v0 = first_tap(rj, cs);
-  const int y0 = (ri + u0) / cs, x0 = (rj + v0) / cs;
-  float s = 0.0f;
-  for (int m = 0; m < L.m; ++m)
-    for (int u = u0, y = y0; u < F && y < L.e; u += cs, ++y)
-      for (int v = v0, x = x0; v < F && x < L.e; v += cs, ++x)
-        s += w[m * F * F * Cin + (u * F + v) * Cin + ci]
-             * dz[((b * L.m + m) * L.c + y) * L.c + x];
-  din[idx] = s;
+  const int n = dgrad_stage(g, p, w, dz);
+  float* out = din + (((size_t)blockIdx.z * g.Cin + blockIdx.y) * g.W
+                      + (size_t)blockIdx.x * p.rows) * g.W;
+  for (int t = threadIdx.x; t < n; t += blockDim.x)
+    out[t] = dgrad_sum(g, p, t);
 }
 
 // The MeanLayer flatten: f[b, m] = sum over the last level's pn x pn
@@ -367,17 +355,6 @@ __global__ void k_mean_bwd(int BM, int PP, const float* __restrict__ df,
 __device__ __forceinline__ bool kept(const int* db, int dbl, int off, int b,
                                      int n, float pdrop) {
   return !(pdrop > 0.0f) || u01(db[b * dbl + off + n]) >= pdrop;
-}
-
-// A pre-hidden layer's act + dropout: hd = act(z) * mask.
-__global__ void k_act_drop(int B, int W, int act, float slope, float pdrop,
-                           const int* __restrict__ db, int dbl, int off,
-                           const float* __restrict__ z,
-                           float* __restrict__ hd) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B * W) return;
-  float h = act_fn(z[e], act, slope);
-  hd[e] = kept(db, dbl, off, e / W, e % W, pdrop) ? h : 0.0f * h;
 }
 
 // A pre-hidden layer's backward below its output: dz = dh * mask * act'(z)
@@ -735,8 +712,21 @@ struct Workspace {
   float *fmean, *dmean;   // the MeanLayer flatten and its gradient
   float* df;   // where the tail's input gradient lands: the flatten's
   float *tl, *mf, *hv, *hdd;   // the head's per-sample terms and watchdog
-  long long total;             // values; RBF features and dL/d dists
+                               // values; RBF features and dL/d dists
+  float *wgparts, *gparts;   // the conv weight gradients' slices, the
+                             // products' K slices
+  unsigned* ctr;   // the products' tile counters, then the weight
+  long long nctr;  // gradients' (zeroed at each entry: zero_counters)
+  long long total;
 };
+
+// Level k for the gradient stages (stages.cuh ConvGeom): level 0 reads the
+// augmented rows (B, C0, H, H), the others the pooled output before them.
+ConvGeom level_geom(const Net& n, int k) {
+  const Level& L = n.lv[k];
+  return {n.B, L.m, L.cin, L.f, L.c, L.e, L.cs, L.pad, L.s,
+          L.cin * L.s * L.s, L.s * L.s};
+}
 
 Workspace carve(const Net& n, float* base) {
   Workspace w;
@@ -784,6 +774,15 @@ Workspace carve(const Net& n, float* base) {
   w.mf = take(B);
   w.hv = take(n.head == HEAD_RBF ? B * n.NO : 0);
   w.hdd = take(n.head == HEAD_RBF ? B * n.NC : 0);
+  long long nwg = 0, nwc = 0;   // the levels run one after another: one
+  for (int k = 0; k < n.nlev; ++k) {   // region
+    nwg = std::max(nwg, wgrad_part_floats(level_geom(n, k)));
+    nwc = std::max(nwc, wgrad_counters(level_geom(n, k)));
+  }
+  w.wgparts = take(nwg);
+  w.gparts = take(GEMM_PART_CAP);
+  w.nctr = GEMM_TARGET + nwc;
+  w.ctr = (unsigned*)take(w.nctr);
   w.total = o;
   return w;
 }
@@ -896,8 +895,8 @@ int softaux_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   const Workspace& w = c.w;
   float* const* prm = c.prm;
   const int th = c.th, B = n.B, NC = n.NO, NF = n.NF;
-  CHECK((gemm<false, false>(s, B, NC, NF, f, NF, prm[th], NC, prm[th + 1],
-                            w.z4)));
+  CHECK((gemm<false, false>(s, B, NC, NF, f, NF, prm[th], NC,
+                            gemm_out(w.z4, NC, prm[th + 1]), w.gparts, w.ctr)));
   k_aux_fwd<<<1, 256, 0, s>>>(B, c.enc, in.aux, in.db, n.dbl, prm[th + 6],
                               prm[th + 7], NC, w.z4);
   LAUNCHED();
@@ -908,10 +907,10 @@ int softaux_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
                               grad[th + 4], grad[th + 5], grad[th + 6],
                               grad[th + 7]);
   LAUNCHED();
-  CHECK((gemm<true, false>(s, NF, NC, B, f, NF, w.dz4, NC, nullptr,
-                           grad[th])));
+  CHECK((gemm<true, false>(s, NF, NC, B, f, NF, w.dz4, NC,
+                           gemm_out(grad[th], NC), w.gparts, w.ctr)));
   return (int)gemm<false, true>(s, B, NF, NC, w.dz4, NC, prm[th], NC,
-                                nullptr, w.df);
+                                gemm_out(w.df, NF), w.gparts, w.ctr);
 }
 
 // [AuxConcat ->] the pre-hiddens, the final hidden and a softmax-kind or
@@ -942,30 +941,28 @@ int dense_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
     const Pre& P = n.pre[j];
     const int t = 2 * n.nlev + 2 * j;
     CHECK((gemm<false, false>(s, B, P.w, fw, f, fw, prm[t], P.w,
-                              prm[t + 1], w.pz[j])));
-    k_act_drop<<<blocks((long long)B * P.w, T), T, 0, s>>>(
-        B, P.w, P.act, P.slope, P.pdrop, in.db, n.dbl, off, w.pz[j],
-        w.phd[j]);
-    LAUNCHED();
+                              hidden_out(w.pz[j], P.w, prm[t + 1], w.phd[j],
+                                         P.act, P.slope, P.pdrop, in.db,
+                                         n.dbl, off), w.gparts, w.ctr)));
     f = w.phd[j];
     fw = P.w;
     off += P.w;
   }
   CHECK((gemm<false, false>(s, B, n.NH, fw, f, fw, prm[th], n.NH,
-                            prm[th + 1], w.z3)));
-  k_act_drop<<<blocks((long long)B * n.NH, T), T, 0, s>>>(
-      B, n.NH, n.acth, n.slopeh, n.pdrop, in.db, n.dbl, dboff, w.z3, w.h3d);
-  LAUNCHED();
+                            hidden_out(w.z3, n.NH, prm[th + 1], w.h3d,
+                                       n.acth, n.slopeh, n.pdrop, in.db,
+                                       n.dbl, dboff), w.gparts, w.ctr)));
   CHECK((gemm<false, false>(s, B, n.NO, n.NH, w.h3d, n.NH, prm[th + 2],
-                            n.NO, prm[th + 3], w.z4)));
+                            n.NO, gemm_out(w.z4, n.NO, prm[th + 3]),
+                            w.gparts, w.ctr)));
   if (c.any_wcost) CHECK(wcost(s, c.wt, w.wpart, w.wcost));
   CHECK(launch_head(c, s, c.cen, in.y, grad[th + 3],
                     n.learnc ? grad[th + 4] : nullptr, cm));
   // dwo = h3d^T dz4; dz3 = (dz4 wo^T) * mask * act'(z3), dbh
   CHECK((gemm<true, false>(s, n.NH, n.NO, B, w.h3d, n.NH, w.dz4, n.NO,
-                           nullptr, grad[th + 2])));
+                           gemm_out(grad[th + 2], n.NO), w.gparts, w.ctr)));
   CHECK((gemm<false, true>(s, B, n.NH, n.NO, w.dz4, n.NO, prm[th + 2],
-                           n.NO, nullptr, w.dh3)));
+                           n.NO, gemm_out(w.dh3, n.NH), w.gparts, w.ctr)));
   k_dense_bwd<<<blocks(n.NH, T), T, 0, s>>>(
       B, n.NH, n.acth, n.slopeh, n.pdrop, in.db, n.dbl, dboff, w.z3, w.dh3,
       w.dz3, grad[th + 1]);
@@ -973,12 +970,13 @@ int dense_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   // backward through the dense tail: dwh = f^T dz3; df = dz3 wh^T lands
   // in the gradient buffer of f (the last pre-hidden's output or w.df,
   // the flatten's NF columns)
-  CHECK((gemm<true, false>(s, fw, n.NH, B, f, fw, w.dz3, n.NH, nullptr,
-                           grad[th])));
+  CHECK((gemm<true, false>(s, fw, n.NH, B, f, fw, w.dz3, n.NH,
+                           gemm_out(grad[th], n.NH), w.gparts, w.ctr)));
   if (need_df) {
     float* dst = n.npre ? w.pdh[n.npre - 1] : w.df;
-    CHECK((gemm<false, true>(s, B, n.npre ? fw : n.NF, n.NH, w.dz3, n.NH,
-                             prm[th], n.NH, nullptr, dst)));
+    const int nd = n.npre ? fw : n.NF;
+    CHECK((gemm<false, true>(s, B, nd, n.NH, w.dz3, n.NH, prm[th], n.NH,
+                             gemm_out(dst, nd), w.gparts, w.ctr)));
   }
   for (int j = n.npre - 1; j >= 0; --j) {
     const Pre& P = n.pre[j];
@@ -991,11 +989,12 @@ int dense_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
         w.pdh[j], w.pdz[j], grad[t + 1]);
     LAUNCHED();
     CHECK((gemm<true, false>(s, inw, P.w, B, fin, inw, w.pdz[j], P.w,
-                             nullptr, grad[t])));
+                             gemm_out(grad[t], P.w), w.gparts, w.ctr)));
     if (j || n.nlev) {
       float* dst = j ? w.pdh[j - 1] : w.df;
-      CHECK((gemm<false, true>(s, B, j ? inw : n.NF, P.w, w.pdz[j], P.w,
-                               prm[t], P.w, nullptr, dst)));
+      const int nd = j ? inw : n.NF;
+      CHECK((gemm<false, true>(s, B, nd, P.w, w.pdz[j], P.w, prm[t], P.w,
+                               gemm_out(dst, nd), w.gparts, w.ctr)));
     }
   }
   return 0;
@@ -1061,15 +1060,17 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
         B, L, w.z[k], w.p[k], w.dp[k], w.dz[k]);
     LAUNCHED();
     const float* lin = k ? w.p[k - 1] : w.a;
-    const int lsb = k ? L.cin * L.s * L.s : n.C0 * HW;
-    k_conv_wgrad<<<dim3(L.m, L.f * L.f * L.cin + 1), T, 0, s>>>(
-        B, L.m, L.cin, L.f, L.c, L.e, w.dz[k], lin, lsb, L.s * L.s, L.s,
-        grad[2 * k], grad[2 * k + 1], L.cs, L.pad);
-    LAUNCHED();
+    const ConvGeom g = level_geom(n, k);
+    rc = conv_wgrad(s, g, w.dz[k], lin, w.wgparts, w.ctr + GEMM_TARGET,
+                    grad[2 * k], grad[2 * k + 1]);
+    if (rc != 0) return rc;
     if (k) {
-      k_conv_dgrad<<<blocks((long long)B * L.cin * L.s * L.s, T), T, 0, s>>>(
-          B, L, prm[2 * k], w.dz[k], w.dp[k - 1]);
-      LAUNCHED();
+      const DgradPlan dg = dgrad_plan(B, L.cin, L.s, L.m, L.f);
+      const size_t dsm = sizeof(float) * dg.smem_floats;
+      if (!smem_opt_in(k_conv_dgrad, dsm)) return ERR_STAGE_SMEM;
+      CHECK(launch_pdl(k_conv_dgrad, dim3(dg.nbands, L.cin, B),
+                       dim3(dg.threads), dsm, s, g, dg, prm[2 * k], w.dz[k],
+                       w.dp[k - 1]));
     }
   }
   return 0;
@@ -1141,6 +1142,7 @@ int epoch_loop(const int* is, const float* fs, void* const* ptrs,
   if (rc != 0) return rc;
   const Net& n = c.n;
   if (aux_missing(n, ptrs)) return -4;
+  CHECK(zero_counters(c.w.ctr, c.w.nctr, s));
   const int NS = n.nstate, B = n.B, HW = n.HW;
   float* mom[MAX_TENSORS];
   for (int t = 0; t < NS; ++t) mom[t] = (float*)ptrs[P_STATE + NS + t];
@@ -1192,6 +1194,7 @@ const char* deep_error_string(int code) {
   if (code == -1) return "warp field needs more shared memory than a block has";
   if (code == -3) return "more conv levels, hidden layers or state tensors than the kernel's tables hold";
   if (code == -4) return "the net's aux layer has no aux rows (or AuxConcat no encoder weights)";
+  if (code == ERR_STAGE_SMEM) return stage_smem_error;
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -1237,6 +1240,7 @@ int deep_grad_step(const int* is, const float* fs, void* const* ptrs,
                       (const float*)ptrs[P_AUXW], ptrs + P_STATE, &c);
   if (rc != 0) return rc;
   if (aux_missing(c.n, ptrs)) return -4;
+  CHECK(zero_counters(c.w.ctr, c.w.nctr, (cudaStream_t)stream_));
   const int NS = c.n.nstate;
   StepIn in;
   in.x = (const float*)ptrs[P_X];

@@ -1,15 +1,21 @@
 // Stage kernels shared by the fused-epoch kernels (megastep.cu,
 // megastep_deep.cu), each compiled into its own library: the injected-bit
-// uniforms, the activation registry, the step's warp field, a tiled GEMM,
-// block reductions and fixed-order column sums, programmatic dependent
-// launch, the conv weight gradient, the weight cost and the
-// old-accumulator momentum update with max-norm. Every function here
-// follows a line of the plain PyTorch twins in theanet_tpu_torch/ops/.
+// uniforms, the activation registry, the step's warp field, the heads'
+// 16x16 tile, block reductions and fixed-order column sums, programmatic
+// dependent launch, the dense products at a small batch (split-K tiles),
+// the conv weight gradient (batch slices) and the conv input gradient's
+// staging, the weight cost and the old-accumulator momentum update with
+// max-norm. Every launch plan here depends on the shapes alone, and every
+// cross-block sum runs in that plan's fixed order (no atomics).
+// ops/stage_plan.py mirrors the plans; every function here follows a line
+// of the plain PyTorch twins in theanet_tpu_torch/ops/.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #define CHECK(expr)                        \
   do {                                     \
@@ -172,15 +178,15 @@ inline bool smem_opt_in(Kernel kernel, size_t bytes) {
 // Dynamic shared memory of k_warp, opting in where the image needs it.
 inline bool warp_smem_ok(size_t bytes) { return smem_opt_in(k_warp, bytes); }
 
-// C[M,N] = A(M,K) @ B(K,N) (+ bias[N]); A(m,k) = TA ? A[k*lda+m] : A[m*lda+k],
-// B(k,n) = TB ? B[n*ldb+k] : B[k*ldb+n]. 16x16 shared-memory tiles, loads
-// coalesced along the stored rows in every transpose case.
+// The product element (m0 + threadIdx.y, n0 + threadIdx.x) of one 16x16
+// output tile of A(M,K) @ B(K,N), A(m,k) = TA ? A[k*lda+m] : A[m*lda+k],
+// B(k,n) = TB ? B[n*ldb+k] : B[k*ldb+n], summed over k in [kb, ke) in order,
+// 16 k a shared-memory round (loads coalesced along the stored rows in every
+// transpose case). Every thread of the TILE x TILE block calls it: it
+// synchronises the block. The heads' stages (k_head_*) run on it; the
+// products of the dense tails run on gemm below.
 constexpr int TILE = 16;
 
-// The product element (m0 + threadIdx.y, n0 + threadIdx.x) of one 16x16
-// output tile, summed over k in [kb, ke) tile by tile (kb = 0, ke = K: the
-// whole sum, in k_gemm's order). Every thread of the TILE x TILE block
-// calls it: it synchronises the block.
 template <bool TA, bool TB>
 __device__ __forceinline__ float gemm_tile(int M, int N, int kb, int ke,
                                            const float* __restrict__ A,
@@ -212,26 +218,6 @@ __device__ __forceinline__ float gemm_tile(int M, int N, int kb, int ke,
     __syncthreads();
   }
   return acc;
-}
-
-template <bool TA, bool TB>
-__global__ void k_gemm(int M, int N, int K, const float* __restrict__ A,
-                       int lda, const float* __restrict__ Bm, int ldb,
-                       const float* __restrict__ bias, float* __restrict__ C,
-                       int ldc) {
-  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  float acc = gemm_tile<TA, TB>(M, N, 0, K, A, lda, Bm, ldb, m0, n0);
-  int m = m0 + threadIdx.y, n = n0 + threadIdx.x;
-  if (m < M && n < N) C[(size_t)m * ldc + n] = bias ? acc + bias[n] : acc;
-}
-
-template <bool TA, bool TB>
-cudaError_t gemm(cudaStream_t s, int M, int N, int K, const float* A,
-                 int lda, const float* Bm, int ldb, const float* bias,
-                 float* C) {
-  dim3 block(TILE, TILE), grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  k_gemm<TA, TB><<<grid, block, 0, s>>>(M, N, K, A, lda, Bm, ldb, bias, C, N);
-  return cudaGetLastError();
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -288,11 +274,11 @@ __device__ __forceinline__ void pdl_wait() {
 
 template <typename... KArgs, typename... Args>
 cudaError_t launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block,
-                       cudaStream_t s, Args... args) {
+                       size_t smem, cudaStream_t s, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = block;
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -300,6 +286,254 @@ cudaError_t launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+}
+
+// launch_pdl with no dynamic shared memory.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                       cudaStream_t s, Args... args) {
+  return launch_pdl(kernel, grid, block, (size_t)0, s, args...);
+}
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Loads a thread issues before it waits on any of them, where a stage
+// reads a run of independent values (sum_slices).
+constexpr int STAGE_BATCH = 8;
+
+inline int blocks(long long n, int t) { return (int)((n + t - 1) / t); }
+
+// ---- the launch plans of the gradient and product stages. Each depends on
+// the shapes alone (never on the data or on the card found at run time), so
+// every sum below runs in one order on every run and every rank;
+// theanet_tpu_torch/ops/stage_plan.py mirrors them line for line.
+constexpr int SM_COUNT = 132;              // the H100 SXM's SMs
+constexpr int STAGE_FLOATS = 12 * 1024;    // 48 KB: the default shared limit
+constexpr int ERR_STAGE_SMEM = -5;         // a stage's staging exceeds 227 KB
+const char* const stage_smem_error =
+    "a conv level's gradient stage needs more shared memory than a block has";
+
+// Dense products C = A B at a small batch: M = B rows (1 to 20 on the main
+// path, 3000 in the long-batch runs) against K of hundreds. One 16 x 16
+// tile a block takes GK of K a shared-memory round; when the tiles are too
+// few to fill the card, K is cut into ``nks`` slices of ``kslice`` (whole
+// rounds), one block a (tile, slice), each writing its partial tile, and
+// the tile's last block to finish adds the slices in slice order
+// (last_block). The bias, and for a hidden layer the activation and the
+// dropout mask, ride in the block that writes C (GemmEpi). At most
+// GEMM_PART_CAP partial floats: the workspace region.
+constexpr int GK = 64;
+constexpr int GEMM_KMIN = 128;             // the shortest slice of K
+constexpr int GEMM_TARGET = 1024;          // blocks wanted: ~8 an SM
+constexpr long long GEMM_PART_CAP = 1LL << 18;
+
+struct GemmPlan {
+  int nks, kslice;
+  long long part_floats;
+};
+
+inline GemmPlan gemm_plan(int M, int N, int K) {
+  const int tiles = cdiv(M, TILE) * cdiv(N, TILE);
+  int nks = std::min(cdiv(K, GEMM_KMIN),
+                     std::max(1, cdiv(GEMM_TARGET, tiles)));
+  nks = (int)std::min<long long>(
+      nks, std::max(1LL, GEMM_PART_CAP / ((long long)M * N)));
+  GemmPlan p;
+  p.kslice = cdiv(cdiv(K, nks), GK) * GK;
+  p.nks = cdiv(K, p.kslice);
+  p.part_floats = p.nks > 1 ? (long long)p.nks * M * N : 0;
+  return p;
+}
+
+// Where a product's rows land: C (leading dimension ldc) = A B + bias;
+// with ``h``, also h = act(C) and, where the unit's dropout word
+// u01(db[m*dbl + off + n]) is below pdrop, h = 0 * h (a NaN or inf still
+// propagates; no rescale).
+struct GemmEpi {
+  const float* bias;
+  float* C;
+  int ldc;
+  float* h;
+  int act;
+  float slope, pdrop;
+  const int* db;
+  int dbl, off;
+};
+
+inline GemmEpi gemm_out(float* C, int ldc, const float* bias = nullptr) {
+  GemmEpi e = {};
+  e.bias = bias;
+  e.C = C;
+  e.ldc = ldc;
+  return e;
+}
+
+// A hidden layer's product through its epilogue: z = f W + b to ``z``,
+// then hd = act(z) with the dropout mask of lanes [off, off + width) of the
+// step's dropout words (GemmEpi) to ``hd``.
+inline GemmEpi hidden_out(float* z, int width, const float* bias, float* hd,
+                          int act, float slope, float pdrop, const int* db,
+                          int dbl, int off) {
+  GemmEpi e = gemm_out(z, width, bias);
+  e.h = hd;
+  e.act = act;
+  e.slope = slope;
+  e.pdrop = pdrop;
+  e.db = db;
+  e.dbl = dbl;
+  e.off = off;
+  return e;
+}
+
+__device__ __forceinline__ void gemm_store(const GemmEpi& ep, int m, int n,
+                                           float acc) {
+  const float z = ep.bias ? acc + ep.bias[n] : acc;
+  const size_t e = (size_t)m * ep.ldc + n;
+  ep.C[e] = z;
+  if (ep.h) {
+    float h = act_fn(z, ep.act, ep.slope);
+    if (ep.pdrop > 0.0f
+        && !(u01(ep.db[(size_t)m * ep.dbl + ep.off + n]) >= ep.pdrop))
+      h = 0.0f * h;
+    ep.h[e] = h;
+  }
+}
+
+// gemm_tile's element over k in [kb, ke), GK of k a shared-memory round:
+// the block loads a 16 x GK slab of A and a GK x 16 slab of B (eight loads
+// a thread, issued together), then each thread adds the round's products
+// in k order. (On the H100 at the small-batch shapes this tile, with K
+// cut into slices of 128, ran faster than a 32 x 32 tile of four outputs
+// a thread and than an in-block split of K.)
+template <bool TA, bool TB>
+__device__ __forceinline__ float gemm_tile_gk(int M, int N, int kb, int ke,
+                                              const float* __restrict__ A,
+                                              int lda,
+                                              const float* __restrict__ Bm,
+                                              int ldb, int m0, int n0) {
+  __shared__ float As[TILE][GK + 1];   // As[m][k]
+  __shared__ float Bs[GK][TILE + 1];   // Bs[k][n]
+  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * TILE + tx;
+  const int ta = t % TILE, tb = t / TILE;   // along the stored rows / across
+  float acc = 0.0f;
+  for (int k0 = kb; k0 < ke; k0 += GK) {
+#pragma unroll
+    for (int j = 0; j < GK / TILE; ++j) {
+      if (TA) {   // A stored (K, M): rows of k, m along them
+        const int m = m0 + ta, kk = tb + TILE * j, k = k0 + kk;
+        As[ta][kk] = (m < M && k < ke) ? A[(size_t)k * lda + m] : 0.0f;
+      } else {
+        const int m = m0 + tb, kk = ta + TILE * j, k = k0 + kk;
+        As[tb][kk] = (m < M && k < ke) ? A[(size_t)m * lda + k] : 0.0f;
+      }
+      if (TB) {   // B stored (N, K)
+        const int n = n0 + tb, kk = ta + TILE * j, k = k0 + kk;
+        Bs[kk][tb] = (n < N && k < ke) ? Bm[(size_t)n * ldb + k] : 0.0f;
+      } else {
+        const int n = n0 + ta, kk = tb + TILE * j, k = k0 + kk;
+        Bs[kk][ta] = (n < N && k < ke) ? Bm[(size_t)k * ldb + n] : 0.0f;
+      }
+    }
+    __syncthreads();
+    if (ke - k0 >= GK) {   // a whole round unrolled: its loads pipelined
+#pragma unroll
+      for (int kk = 0; kk < GK; ++kk) acc += As[ty][kk] * Bs[kk][tx];
+    } else {
+      for (int kk = 0; kk < ke - k0; ++kk) acc += As[ty][kk] * Bs[kk][tx];
+    }
+    __syncthreads();
+  }
+  return acc;
+}
+
+// The last of ``n`` blocks to reach this point for counter ``ctr`` (an
+// integer count, an order-free event: every sum stays in its fixed order)
+// returns true, and then sees the others' global writes; the counter is
+// back at 0 when it returns. Each block calls it once, with the whole
+// block, after its writes. The barrier orders the block's writes before
+// its first thread's atomic, whose release (acq_rel, gpu scope) publishes
+// them and whose acquire in the last block, then that block's barrier,
+// makes every block's visible to its threads (read them with __ldcg).
+__device__ __forceinline__ bool last_block(unsigned* ctr, unsigned n) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    unsigned prev;
+    asm volatile("atom.acq_rel.gpu.add.u32 %0, [%1], 1;"
+                 : "=r"(prev) : "l"(ctr) : "memory");
+    last = prev == n - 1;
+    if (last) *ctr = 0u;   // every block of this launch has counted
+  }
+  __syncthreads();
+  return last;
+}
+
+// p[0] + p[stride] + ... in order from 0.0f, read through L2 (the writes of
+// other blocks of this launch), STAGE_BATCH loads in flight.
+__device__ __forceinline__ float sum_slices(const float* p, long long stride,
+                                            int n) {
+  float s = 0.0f;
+  for (int k0 = 0; k0 < n; k0 += STAGE_BATCH) {
+    float v[STAGE_BATCH];
+#pragma unroll
+    for (int r = 0; r < STAGE_BATCH; ++r)
+      v[r] = k0 + r < n ? __ldcg(p + (k0 + r) * stride) : 0.0f;
+#pragma unroll
+    for (int r = 0; r < STAGE_BATCH; ++r)
+      if (k0 + r < n) s += v[r];
+  }
+  return s;
+}
+
+// One (tile, K slice) a block (blockIdx.z the slice): the whole product
+// through the epilogue when K is one slice; else the slice's partial tile
+// to part[slice] (M, N), and the tile's last block to finish adds the
+// slices in slice order and runs the epilogue (ctr: a zeroed counter a
+// tile).
+template <bool TA, bool TB>
+__global__ void __launch_bounds__(TILE * TILE)
+k_gemm_sk(int M, int N, int K, int kslice, const float* __restrict__ A,
+          int lda, const float* __restrict__ Bm, int ldb, GemmEpi ep,
+          float* __restrict__ part, unsigned* __restrict__ ctr) {
+  pdl_wait();
+  pdl_trigger();
+  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
+  const int kb = blockIdx.z * kslice, ke = min(K, kb + kslice);
+  const float acc = gemm_tile_gk<TA, TB>(M, N, kb, ke, A, lda, Bm, ldb, m0,
+                                         n0);
+  const int m = m0 + threadIdx.y, n = n0 + threadIdx.x;
+  const bool in = m < M && n < N;
+  if (gridDim.z == 1) {
+    if (in) gemm_store(ep, m, n, acc);
+    return;
+  }
+  const long long MN = (long long)M * N, e = (long long)m * N + n;
+  if (in) part[blockIdx.z * MN + e] = acc;
+  if (!last_block(ctr + blockIdx.y * gridDim.x + blockIdx.x, gridDim.z))
+    return;
+  if (in) gemm_store(ep, m, n, sum_slices(part + e, MN, gridDim.z));
+}
+
+// The stages' counters (last_block) start at 0 in every C entry call; each
+// use leaves them at 0.
+inline cudaError_t zero_counters(unsigned* ctr, long long n, cudaStream_t s) {
+  return cudaMemsetAsync(ctr, 0, sizeof(unsigned) * n, s);
+}
+
+// C = A(M,K) B(K,N) through ``ep`` on gemm_plan's grid, started by
+// programmatic dependent launch (its launch overlaps the stage before it;
+// it waits for that stage's writes before it reads); ``part`` holds
+// GEMM_PART_CAP floats, ``ctr`` GEMM_TARGET zeroed counters (a split
+// product has fewer tiles).
+template <bool TA, bool TB>
+cudaError_t gemm(cudaStream_t s, int M, int N, int K, const float* A,
+                 int lda, const float* Bm, int ldb, const GemmEpi& ep,
+                 float* part, unsigned* ctr) {
+  const GemmPlan p = gemm_plan(M, N, K);
+  return launch_pdl(k_gemm_sk<TA, TB>,
+                    dim3(cdiv(N, TILE), cdiv(M, TILE), p.nks),
+                    dim3(TILE, TILE), s, M, N, K, p.kslice, A, lda, Bm, ldb,
+                    ep, part, ctr);
 }
 
 constexpr int HEAD_T = 256;   // threads of a head block a sample
@@ -327,51 +561,366 @@ __device__ void block_colsum32(int R, int N, const float* __restrict__ x,
   }
 }
 
-// Weight gradient of a true convolution, in kernel layout:
-// dw[m, (u*F+v)*Cin + c] = sum_{b,y,x<e} dz[b,m,y,x] * in[b,c,iy,ix] with
-// iy = y*cstride + F-1-u - pad (ix likewise; zero off the W x W input),
-// and (blockIdx.y == F*F*Cin) the bias gradient sum_{b,y,x} dz[b,m,y,x].
-// cstride 1 and pad 0 are the valid conv. One block per output. ``in`` is
-// addressed as b*sb + c*sc + iy*W + ix.
-__global__ void k_conv_wgrad(int B, int M, int Cin, int F, int cs, int e,
-                             const float* __restrict__ dz,
-                             const float* __restrict__ in, int sb, int sc,
-                             int W, float* __restrict__ dw,
-                             float* __restrict__ dbias, int cstride,
-                             int pad) {
-  __shared__ float red[32];
-  const int m = blockIdx.x, o = blockIdx.y;
-  const bool bias = o == F * F * Cin;
-  int u = 0, v = 0, c = 0;
-  if (!bias) {
-    c = o % Cin;
-    u = (o / Cin) / F;
-    v = (o / Cin) % F;
+// A conv level's geometry for its gradient stages: conv output (y, x) of
+// map m (B, M, c, c) reads input row y*cs + F-1-u - pad for tap u (zero off
+// the W x W input); the pools' windows cover y, x < e. ``in`` (B, Cin, W, W)
+// is addressed as b*sb + ci*sc + iy*W + ix.
+struct ConvGeom {
+  int B, M, Cin, F, c, e, cs, pad, W, sb, sc;
+};
+
+// ---- Weight gradient, in kernel layout: dw[m, (u*F+v)*Cin + ci] =
+// sum_{b, y, x < e} dz[b,m,y,x] * in[b, ci, y*cs+F-1-u-pad, x*cs+F-1-v-pad],
+// and the bias's sum_{b,y,x} dz[b,m,y,x] as output nout-1 of the map.
+// At mnist_cnn's conv1 that is 4 maps x 10 outputs of 13,520 terms each:
+// one block an output leaves most SMs idle, and a long batch (B 3000)
+// leaves each block millions of terms. So the batch is cut into nsl fixed
+// slices of nb samples, one block of WG_WARPS warps a (tap group, map,
+// slice). A block stages nbs samples at a time (a level too wide for that:
+// one sample in bands of ny output rows): their dz rows of its map and the
+// input rows under them, zero-padded (no bounds test in the sum), in
+// shared memory, a warp a row and WG_RB rows' loads in flight; warp w sums
+// its group's outputs w, w + WG_WARPS, ... (opw of them) over the staged
+// samples, lane by lane in (sample, position) order (a lane keeps one
+// column and steps its rows by a constant stride), then by warp_sum. The last block of a (tap
+// group, map) to finish adds the slices' partials in slice order
+// (last_block). Tap groups are as few as fill the card: staging a sample
+// costs the same for 8 outputs as for 32.
+constexpr int WG_WARPS = 8, WG_THREADS = 32 * WG_WARPS;
+constexpr int WG_OPW = 4;                 // outputs a warp, at most
+constexpr int WG_RB = 4;                  // rows a warp stages at a time
+constexpr int WG_TARGET = 3 * SM_COUNT;   // blocks wanted
+constexpr int WG_SLICE_TERMS = 2048;      // (sample, position) terms a slice
+
+struct WgradPlan {
+  int nout, ntg, opw, nsl, nb, nbs, ny, sp, hb, smem_floats;
+};
+
+// floats a staged sample takes in a band of ny output rows: its dz rows
+// (ny x e) and the input rows under them (Cin x hb x sp)
+inline int wgrad_sample_floats(int ny, int e, int Cin, int F, int cs,
+                               int sp) {
+  return ny * e + Cin * ((ny - 1) * cs + F) * sp;
+}
+
+// the block's fixed shared floats at ny: the row table (4 ints a staged
+// row of a sample)
+inline int wgrad_table_floats(int ny, int Cin, int F, int cs) {
+  return 4 * (ny + Cin * ((ny - 1) * cs + F));
+}
+
+inline WgradPlan wgrad_plan(int B, int M, int Cin, int F, int e, int cs) {
+  WgradPlan p;
+  p.nout = F * F * Cin + 1;
+  const int ntg_min = cdiv(p.nout, WG_WARPS * WG_OPW);
+  const int want = std::max(cdiv(WG_TARGET, M * ntg_min),
+                            cdiv(B * e * e, WG_SLICE_TERMS));
+  p.nsl = std::min(B, want);
+  p.nb = cdiv(B, p.nsl);
+  p.nsl = cdiv(B, p.nb);
+  p.ntg = ntg_min;   // more groups only where the slices leave SMs idle
+  if (p.ntg * M * p.nsl < SM_COUNT)
+    p.ntg = std::min(cdiv(p.nout, WG_WARPS), cdiv(SM_COUNT, M * p.nsl));
+  p.opw = cdiv(p.nout, p.ntg * WG_WARPS);
+  p.sp = (e - 1) * cs + F;
+  p.ny = e;   // the tables and one sample must fit
+  while (p.ny > 1 && wgrad_table_floats(p.ny, Cin, F, cs)
+                         + wgrad_sample_floats(p.ny, e, Cin, F, cs, p.sp)
+                     > STAGE_FLOATS)
+    --p.ny;
+  const int fixed = wgrad_table_floats(p.ny, Cin, F, cs);
+  const int per = wgrad_sample_floats(p.ny, e, Cin, F, cs, p.sp);
+  p.nbs = p.ny < e ? 1
+          : std::max(1, std::min(p.nb, (STAGE_FLOATS - fixed) / per));
+  p.hb = (p.ny - 1) * cs + F;
+  p.smem_floats = fixed + p.nbs * per;
+  return p;
+}
+
+// part: nsl x M x nout floats; ctr: M x ntg zeroed counters.
+__global__ void __launch_bounds__(WG_THREADS)
+k_wgrad(ConvGeom g, WgradPlan p, const float* __restrict__ dz,
+        const float* __restrict__ in, float* __restrict__ part,
+        unsigned* __restrict__ ctr, float* __restrict__ dw,
+        float* __restrict__ dbias) {
+  pdl_wait();
+  pdl_trigger();
+  extern __shared__ float sm[];
+  const int e = g.e, cs = g.cs, F = g.F, sp = p.sp, chan = p.hb * sp;
+  const int nqs = p.ny * e, per = nqs + g.Cin * chan;   // a staged sample:
+  const int rows_per = p.ny + g.Cin * p.hb;   // dz (nqs) then input (Cin x
+  int4* tab = (int4*)sm;                      // hb x sp); tab: its rows
+  float* st = sm + 4 * rows_per;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m = blockIdx.y, sl = blockIdx.z;
+  const int o0 = blockIdx.x * WG_WARPS * p.opw;   // the group's outputs
+  const int o1 = min(p.nout, o0 + WG_WARPS * p.opw);
+  int ooff[WG_OPW];   // output o's tap (u, v) and channel in a sample;
+  float acc[WG_OPW];  // -1: no output; -2: the bias
+#pragma unroll
+  for (int j = 0; j < WG_OPW; ++j) {
+    const int o = o0 + warp + WG_WARPS * j;
+    acc[j] = 0.0f;
+    ooff[j] = -1;
+    if (j < p.opw && o < o1) {
+      const int ci = o % g.Cin, u = (o / g.Cin) / F, v = (o / g.Cin) % F;
+      ooff[j] = o == p.nout - 1 ? -2
+                : nqs + ci * chan + (F - 1 - u) * sp + (F - 1 - v);
+    }
   }
+  // the staged rows of a sample: its ny dz rows (e wide), then Cin x hb
+  // input rows (sp wide); per row, once a band, its source offset from the
+  // sample's dz or input, its place in the sample and the columns [lo, hi)
+  // that hold data (zeros elsewhere): the copy below costs no division
+  const int cw = min(sp, WG_THREADS), rstep = WG_THREADS / cw;
+  const int cwq = min(e, 32), rpi = 32 / cwq;   // a warp's columns, rows
+  const int lane_y = lane / cwq, lane_x = lane % cwq;
+  const size_t dzs = (size_t)g.M * g.c * g.c;   // dz floats a sample
+  const int b1 = min(g.B, (sl + 1) * p.nb);
+  for (int b0 = sl * p.nb; b0 < b1; b0 += p.nbs) {
+    const int nbt = min(p.nbs, b1 - b0), nrows = nbt * rows_per;
+    for (int y0 = 0; y0 < e; y0 += p.ny) {
+      const int ny = min(p.ny, e - y0), hb = (ny - 1) * cs + F;
+      __syncthreads();   // the previous samples are summed
+      for (int r = tid; r < rows_per; r += WG_THREADS) {
+        int4 row = make_int4(0, 0, 0, 0);
+        if (r < p.ny) {   // dz row y0 + r of map m
+          row.y = r * e;
+          if (r < ny) {
+            row.x = (m * g.c + y0 + r) * g.c;
+            row.w = e;
+          }
+        } else {          // input row iy of channel ci, from column -pad
+          const int i = r - p.ny, ci = i / p.hb, h = i % p.hb;
+          const int iy = y0 * cs + h - g.pad;
+          row.y = nqs + ci * chan + h * sp;
+          if (h < hb && iy >= 0 && iy < g.W) {
+            row.x = ci * g.sc + iy * g.W - g.pad;
+            row.z = g.pad;
+            row.w = min(sp, g.W + g.pad);
+          }
+        }
+        tab[r] = row;
+      }
+      __syncthreads();
+      for (int c0 = 0; c0 < sp && tid < rstep * cw; c0 += cw) {
+        // a column a thread, WG_RB rows at a time
+        const int col = c0 + tid % cw, r0 = tid / cw;
+        int bi = r0 / rows_per, rr = r0 - bi * rows_per;   // row r0
+        for (int r = r0; r < nrows; ) {
+          float v[WG_RB];
+          int at[WG_RB];
+#pragma unroll
+          for (int k = 0; k < WG_RB; ++k) {
+            at[k] = -1;
+            v[k] = 0.0f;
+            if (r < nrows) {
+              const int4 row = tab[rr];
+              const bool isdz = rr < p.ny;
+              if (col < (isdz ? e : sp)) {
+                at[k] = bi * per + row.y + col;
+                if (col >= row.z && col < row.w)
+                  v[k] = isdz ? dz[(b0 + bi) * dzs + row.x + col]
+                              : in[(size_t)(b0 + bi) * g.sb + row.x + col];
+              }
+            }
+            r += rstep;   // the next row: (bi, rr) without a division
+            rr += rstep;
+            while (rr >= rows_per) { rr -= rows_per; ++bi; }
+          }
+#pragma unroll
+          for (int k = 0; k < WG_RB; ++k)
+            if (at[k] >= 0) st[at[k]] = v[k];
+        }
+      }
+      __syncthreads();
+      // lane l takes row l / cwq and column x0 + l % cwq of every group
+      // of rpi rows: its positions then step by constant strides
+      for (int x0 = 0; x0 < e && lane < rpi * cwq; x0 += cwq) {
+        const int x = x0 + lane_x;
+        if (x >= e) break;
+        for (int bi = 0; bi < nbt; ++bi) {
+          const float* smp = st + bi * per;
+#pragma unroll 4
+          for (int y = lane_y, q = lane_y * e + x,
+                   qo = lane_y * cs * sp + x * cs;
+               y < ny; y += rpi, q += rpi * e, qo += rpi * cs * sp) {
+            const float d = smp[q];
+#pragma unroll
+            for (int j = 0; j < WG_OPW; ++j) {
+              if (ooff[j] == -2) acc[j] += d;
+              else if (ooff[j] >= 0) acc[j] += d * smp[qo + ooff[j]];
+            }
+          }
+        }
+      }
+    }
+  }
+  const size_t M_nout = (size_t)g.M * p.nout;
+#pragma unroll
+  for (int j = 0; j < WG_OPW; ++j) {
+    const float v = warp_sum(acc[j]);
+    if (lane == 0 && ooff[j] != -1)
+      part[sl * M_nout + (size_t)m * p.nout + o0 + warp + WG_WARPS * j] = v;
+  }
+  if (!last_block(ctr + m * p.ntg + blockIdx.x, p.nsl)) return;
+  for (int o = o0 + tid; o < o1; o += WG_THREADS) {
+    const float s = sum_slices(part + (size_t)m * p.nout + o, M_nout, p.nsl);
+    if (o == p.nout - 1) dbias[m] = s;
+    else dw[m * (p.nout - 1) + o] = s;
+  }
+}
+
+// The level's weight and bias gradients, started by programmatic dependent
+// launch; ``part`` holds wgrad_plan's nsl * M * nout floats, ``ctr`` M *
+// ntg zeroed counters.
+inline int conv_wgrad(cudaStream_t s, const ConvGeom& g, const float* dz,
+                      const float* in, float* part, unsigned* ctr, float* dw,
+                      float* dbias) {
+  const WgradPlan p = wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
+  const size_t smem = sizeof(float) * p.smem_floats;
+  if (!smem_opt_in(k_wgrad, smem)) return ERR_STAGE_SMEM;
+  CHECK(launch_pdl(k_wgrad, dim3(p.ntg, g.M, p.nsl), dim3(WG_THREADS), smem,
+                   s, g, p, dz, in, part, ctr, dw, dbias));
+  return 0;
+}
+
+// Floats of a level's weight-gradient slices, and its counters.
+inline long long wgrad_part_floats(const ConvGeom& g) {
+  const WgradPlan p = wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
+  return (long long)p.nsl * g.M * p.nout;
+}
+inline long long wgrad_counters(const ConvGeom& g) {
+  return (long long)g.M * wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs).ntg;
+}
+
+// ---- Input gradient: din[b, ci, i, j] = sum over m, u, v (in that order)
+// of w[m, (u*F+v)*Cin + ci] * dz[b, m, y, x] over the outputs whose tap
+// (u, v) reads (i, j): y*cs + F-1-u-pad == i, y < e (x likewise). One block
+// a (row band, input map, sample) on ``rows`` input rows of the W x W map,
+// a thread a position (a thread every ``threads`` positions where a band
+// holds more than DG_MAX_THREADS; at least DG_MIN_THREADS threads, for the
+// staging). It stages its map's weights and its sample's dz, dilated by
+// the stride and shifted by off = F-1-pad onto a zero canvas (dzd[m][Y][X]
+// = dz[m][y][x] at Y = y*cs + off): then every tap is dzd[m][i + u][j + v],
+// with no bounds test and no stride test in the sum.
+// Bands are cut so that a batch of 20 at mnist_cnn's conv2 gives the card
+// at least one block an SM.
+constexpr int DG_TARGET = 2 * SM_COUNT;
+constexpr int DG_MIN_THREADS = 256, DG_MAX_THREADS = 1024;
+constexpr int DG_RB = 4;   // canvas rows a thread stages at a time
+
+struct DgradPlan {
+  int rows, nbands, dp, threads, smem_floats;
+};
+
+inline int dgrad_band_floats(int rows, int M, int F, int dp) {
+  return M * F * F + M * (rows + F - 1) * dp;
+}
+
+inline DgradPlan dgrad_plan(int B, int Cin, int W, int M, int F) {
+  DgradPlan p;
+  p.dp = W + F - 1;
+  const int nb = std::min(W, std::max(1, cdiv(DG_TARGET, B * Cin)));
+  p.rows = std::min(cdiv(W, nb), std::max(1, DG_MAX_THREADS / W));
+  while (p.rows > 1 && dgrad_band_floats(p.rows, M, F, p.dp) > STAGE_FLOATS)
+    --p.rows;
+  p.nbands = cdiv(W, p.rows);
+  p.threads = std::min(DG_MAX_THREADS,
+                       std::max(DG_MIN_THREADS, cdiv(p.rows * W, 32) * 32));
+  p.smem_floats = dgrad_band_floats(p.rows, M, F, p.dp);
+  return p;
+}
+
+// The taps of one position, in the order m, u, v: ws the staged weights
+// (M x F x F), dm the canvas at (map 0, row il, column j), a map every
+// ``mstride`` floats, a row every ``dp``. FT > 0 is F known at compile
+// time (the loops unrolled: a runtime-bound loop of loads costs several
+// times its arithmetic here); FT == 0 reads F at run time.
+template <int FT>
+__device__ __forceinline__ float dgrad_taps(int M, int Frt, const float* ws,
+                                            const float* dm, int mstride,
+                                            int dp) {
+  const int F = FT > 0 ? FT : Frt;
   float s = 0.0f;
-  if (cstride == 1 && pad == 0) {   // valid: every tap reads the input
-    for (int t = threadIdx.x; t < B * e * e; t += blockDim.x) {
-      int b = t / (e * e), y = (t / e) % e, x = t % e;
-      float g = dz[((b * M + m) * cs + y) * cs + x];
-      s += bias ? g
-                : g * in[b * sb + c * sc + (y + F - 1 - u) * W
-                         + (x + F - 1 - v)];
-    }
-  } else {
-    for (int t = threadIdx.x; t < B * e * e; t += blockDim.x) {
-      int b = t / (e * e), y = (t / e) % e, x = t % e;
-      float g = dz[((b * M + m) * cs + y) * cs + x];
-      int iy = y * cstride + F - 1 - u - pad;
-      int ix = x * cstride + F - 1 - v - pad;
-      float xv = (iy >= 0 && iy < W && ix >= 0 && ix < W)
-                     ? in[b * sb + c * sc + iy * W + ix] : 0.0f;
-      s += bias ? g : g * xv;
+  for (int m = 0; m < M; ++m, ws += F * F, dm += mstride) {
+#pragma unroll
+    for (int u = 0; u < F; ++u)
+#pragma unroll
+      for (int v = 0; v < F; ++v) s += ws[u * F + v] * dm[u * dp + v];
+  }
+  return s;
+}
+
+// The block's staging: its map's weights and its band's canvas into
+// shared memory; returns the band's positions, nr * W. Every thread of the
+// block calls it: it synchronises the block. The canvas is staged a
+// column a thread (of each chunk of cw = min(dp, blockDim.x) columns, the
+// thread's column fixed and its rows every blockDim.x / cw, DG_RB loads in
+// flight), so that no staged element costs an integer division at stride
+// 1. Then each thread sums the positions t = threadIdx.x, + blockDim.x,
+// ... below the count (dgrad_sum).
+__device__ __forceinline__ int dgrad_stage(const ConvGeom& g,
+                                           const DgradPlan& p,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ dz) {
+  pdl_wait();   // the kernels are started by programmatic dependent launch
+  pdl_trigger();
+  extern __shared__ float sm[];
+  const int F = g.F, FF = F * F, M = g.M, dp = p.dp, cs = g.cs;
+  const int b = blockIdx.z, ci = blockIdx.y, i0 = blockIdx.x * p.rows;
+  const int nr = min(p.rows, g.W - i0), hr = nr + F - 1;
+  const int off = F - 1 - g.pad, tid = threadIdx.x, nt = blockDim.x;
+  float* ws = sm;            // w[m, u, v, ci]: M x F x F
+  float* dzd = sm + M * FF;  // M x hr x dp, canvas rows i0 ...
+  for (int k = tid; k < M * FF; k += nt)
+    ws[k] = w[(size_t)(k / FF) * FF * g.Cin + (k % FF) * g.Cin + ci];
+  const int cw = min(dp, nt), rstep = nt / cw, nrows = M * hr;
+  for (int c0 = 0; c0 < dp && tid < rstep * cw; c0 += cw) {
+    const int col = c0 + tid % cw;
+    if (col >= dp) break;
+    const int X = col - off;   // the canvas column's dz column x*cs
+    const int x = cs == 1 ? X : X / cs;
+    const bool colok = X >= 0 && (cs == 1 || X % cs == 0) && x < g.e;
+    const float* dzb = dz + (size_t)b * M * g.c * g.c + (colok ? x : 0);
+    int r = tid / cw, m = r / hr, h = r % hr;   // the thread's first row
+    while (r < nrows) {
+      float v[DG_RB];
+      int at[DG_RB];
+#pragma unroll
+      for (int k = 0; k < DG_RB; ++k) {
+        const int Y = i0 + h - off, y = cs == 1 ? Y : Y / cs;
+        const bool ok = r < nrows && colok && Y >= 0
+                        && (cs == 1 || Y % cs == 0) && y < g.e;
+        v[k] = ok ? dzb[((size_t)m * g.c + y) * g.c] : 0.0f;
+        at[k] = r < nrows ? r * dp + col : -1;
+        r += rstep;   // the next row: (m, h) advanced without a division
+        h += rstep;
+        while (h >= hr) { h -= hr; ++m; }
+      }
+#pragma unroll
+      for (int k = 0; k < DG_RB; ++k)
+        if (at[k] >= 0) dzd[at[k]] = v[k];
     }
   }
-  s = block_sum(s, red);
-  if (threadIdx.x == 0) {
-    if (bias) dbias[m] = s;
-    else dw[m * F * F * Cin + o] = s;
+  __syncthreads();
+  return nr * g.W;
+}
+
+// The input gradient at band position t (input row i0 + t / W, column
+// t % W) from dgrad_stage's shared memory.
+__device__ __forceinline__ float dgrad_sum(const ConvGeom& g,
+                                           const DgradPlan& p, int t) {
+  extern __shared__ float sm[];
+  const int F = g.F, M = g.M, dp = p.dp;
+  const int hr = min(p.rows, g.W - (int)blockIdx.x * p.rows) + F - 1;
+  const float* dm = sm + M * F * F + (t / g.W) * dp + t % g.W;
+  switch (F) {
+    case 2: return dgrad_taps<2>(M, F, sm, dm, hr * dp, dp);
+    case 3: return dgrad_taps<3>(M, F, sm, dm, hr * dp, dp);
+    case 4: return dgrad_taps<4>(M, F, sm, dm, hr * dp, dp);
+    case 5: return dgrad_taps<5>(M, F, sm, dm, hr * dp, dp);
+    default: return dgrad_taps<0>(M, F, sm, dm, hr * dp, dp);
   }
 }
 
@@ -485,6 +1034,34 @@ __global__ void k_maxnorm_cols(float* __restrict__ p, int rows, int cols,
   for (int r = 0; r < rows; ++r) p[(size_t)r * cols + c] *= scale;
 }
 
-inline int blocks(long long n, int t) { return (int)((n + t - 1) / t); }
-
 }  // namespace
+
+extern "C" {
+
+// The launch plans above at the given shapes, for the check of their
+// mirror in theanet_tpu_torch/ops/stage_plan.py on the card: wgrad_plan's
+// (nout, ntg, nsl, nb, ny, sp, hb, smem_floats), dgrad_plan's (rows,
+// nbands, dp, threads, smem_floats), gemm_plan's (nks, kslice,
+// part_floats).
+void stage_wgrad_plan(int B, int M, int Cin, int F, int e, int cs,
+                      long long* out) {
+  const WgradPlan p = wgrad_plan(B, M, Cin, F, e, cs);
+  const long long v[] = {p.nout, p.ntg, p.opw, p.nsl, p.nb, p.nbs, p.ny,
+                         p.sp, p.hb, p.smem_floats};
+  for (int k = 0; k < 10; ++k) out[k] = v[k];
+}
+
+void stage_dgrad_plan(int B, int Cin, int W, int M, int F, long long* out) {
+  const DgradPlan p = dgrad_plan(B, Cin, W, M, F);
+  const long long v[] = {p.rows, p.nbands, p.dp, p.threads, p.smem_floats};
+  for (int k = 0; k < 5; ++k) out[k] = v[k];
+}
+
+void stage_gemm_plan(int M, int N, int K, long long* out) {
+  const GemmPlan p = gemm_plan(M, N, K);
+  out[0] = p.nks;
+  out[1] = p.kslice;
+  out[2] = p.part_floats;
+}
+
+}  // extern "C"

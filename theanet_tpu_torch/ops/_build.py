@@ -193,7 +193,36 @@ def _bind(name, lib):
         getattr(lib, fn).restype = ctypes.c_int
     lib.ring_buffer_bytes.argtypes = [ctypes.c_longlong]
     lib.ring_buffer_bytes.restype = ctypes.c_longlong
+    for fn, n_int in STAGE_PLANS.items():
+        getattr(lib, fn).argtypes = [ctypes.c_int] * n_int + [ll]
+        getattr(lib, fn).restype = None
     return lib
+
+
+# stages.cuh's plan exports (both fused libraries): integer arguments, and
+# the integers each writes (ops/stage_plan.py's plan fields, in order)
+STAGE_PLANS = {"stage_wgrad_plan": 6, "stage_dgrad_plan": 5,
+               "stage_gemm_plan": 3}
+STAGE_PLAN_WIDTH = {"stage_wgrad_plan": 10, "stage_dgrad_plan": 5,
+                    "stage_gemm_plan": 3}
+
+
+def stage_plan_c(fn, *args, lib="megastep"):
+    """The C plan ``fn`` of stages.cuh (a STAGE_PLANS key) at integer
+    shapes ``args``, as a tuple, from library ``lib``."""
+    out = (ctypes.c_longlong * STAGE_PLAN_WIDTH[fn])()
+    getattr(build()[lib], fn)(*args, out)
+    return tuple(out)
+
+
+def workspace_floats_c(prefix, spec):
+    """``<prefix>_workspace_floats`` of a spec: the floats of scratch the
+    wrapper allocates for an epoch or step call (prefix 'megastep' for a
+    MegaSpec, 'deep' for a DeepSpec)."""
+    ispec, fspec = (_spec_arrays if prefix == "megastep" else
+                    _deep_arrays)(spec)
+    lib = build()["megastep" if prefix == "megastep" else "megastep_deep"]
+    return getattr(lib, prefix + "_workspace_floats")(ispec, fspec)
 
 
 def _arrays(ints, floats):

@@ -44,10 +44,10 @@ import torch
 import torch.nn.functional as F
 
 from ..layers.conv import pool_backward, pool_windows
-from . import route
+from . import route, stage_plan
 
 __all__ = ["LayerReg", "MegaSpec", "act_of", "spec_from_net",
-           "warp_smem_ok", "flagship_head_smem", "warp_limit_reason",
+           "warp_smem_ok", "flagship_head_smem", "launch_limit_reason",
            "route_reason", "flagship_spec", "flagship_route_reason",
            "fused_decline_reason", "fused_plan", "FusedPlan",
            "MEGA_LAYER_IDX", "kernel_shapes", "kernel_layout",
@@ -153,8 +153,8 @@ def warp_active(spec):
 # 227 KB a block can opt in to. That formula is the route rule's threshold,
 # kept from when the head ran in one block over that scratch; the head's
 # stages now spread over the card and take any head at launch. The warp
-# field stays a launch limit. The same rule runs on the CPU and on a card,
-# so a net takes one route.
+# field and the conv gradient stages' staging stay launch limits. The same
+# rule runs on the CPU and on a card, so a net takes one route.
 
 SMEM_OPT_IN = 227 * 1024      # the most a block can opt in to (sm_90)
 
@@ -173,27 +173,29 @@ def flagship_head_smem(spec):
     return 4 * (2 * spec.batch * spec.n_out + spec.batch)
 
 
-def warp_limit_reason(spec):
+def launch_limit_reason(spec):
     """Why a fused kernel would refuse ``spec`` at launch (None when it
-    takes it): a warp field (active warp) that ``warp_smem_ok`` refuses."""
+    takes it): a warp field (active warp) that ``warp_smem_ok`` refuses,
+    or a conv level whose gradient stages' staging exceeds a block's shared
+    memory (``stage_plan.stage_limit_reason``)."""
     if warp_active(spec) and not warp_smem_ok(spec.hw):
         return (f"the warp field's shared memory: a {spec.img}x{spec.img} "
                 f"image needs {16 * spec.hw:,} bytes, above the "
                 f"{SMEM_OPT_IN:,} a block can hold (csrc/stages.cuh "
                 "warp_smem_ok)")
-    return None
+    return stage_plan.stage_limit_reason(spec)
 
 
 def route_reason(spec, jax_reason, head_bytes, head_src):
-    """Why a family declines ``spec`` (None when it takes it): the warp
-    launch limit, else the route rule, which takes the spec when the JAX
-    package's byte model admits it (``jax_reason`` None) or its head of
-    ``head_bytes`` (the former one-block head's scratch) fits the shared
-    memory a block can opt in to (``head_src`` names the formula). The
-    reason names both rules."""
-    warp = warp_limit_reason(spec)
-    if warp or jax_reason is None or head_bytes <= SMEM_OPT_IN:
-        return warp
+    """Why a family declines ``spec`` (None when it takes it): a launch
+    limit (``launch_limit_reason``), else the route rule, which takes the
+    spec when the JAX package's byte model admits it (``jax_reason``
+    None) or its head of ``head_bytes`` (the former one-block head's
+    scratch) fits the shared memory a block can opt in to (``head_src``
+    names the formula). The reason names both rules."""
+    limit = launch_limit_reason(spec)
+    if limit or jax_reason is None or head_bytes <= SMEM_OPT_IN:
+        return limit
     return (f"the route rule: {jax_reason}, and the head does not fit "
             f"shared memory (BATCH_SZ {spec.batch} x {spec.n_out} outputs "
             f"needs {head_bytes:,} bytes, above the {SMEM_OPT_IN:,} a "

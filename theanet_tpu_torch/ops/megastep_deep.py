@@ -437,8 +437,8 @@ def deep_head_smem(spec):
 
 
 def deep_route_reason(spec):
-    """Why the deep family declines ``spec`` by the route rule or the warp
-    launch limit (``megastep.route_reason``), else None."""
+    """Why the deep family declines ``spec`` by the route rule or a launch
+    limit (``megastep.route_reason``), else None."""
     return route_reason(spec, route.deep_jax_reason(spec),
                         deep_head_smem(spec),
                         "ops/megastep_deep.py deep_head_smem")

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from .megastep import (MegaSpec, kernel_shapes, warp_limit_reason,
+from .megastep import (MegaSpec, kernel_shapes, launch_limit_reason,
                        megastep_grad_step,
                        megastep_grad_step_reference, megastep_update,
                        megastep_update_reference, step_constants)
@@ -67,8 +67,8 @@ def dp_decline_reason(spec, n_data):
     spec) on an ``n_data``-rank mesh, or None (the JAX package's
     ``dp_supported``, with the reason named). The global batch must divide
     across the ranks, and the kernels must take the local spec at launch
-    (the warp stage's shared memory, ``warp_limit_reason``; the head's
-    stages take any shard). The global spec has
+    (the warp stage's and the gradient stages' shared memory,
+    ``launch_limit_reason``; the head's stages take any shard). The global spec has
     passed its family's route rule, and the JAX package re-poses a tiled
     spec untiled on its mesh paths (``_untiled_global``), so nothing is
     tiled here either. The limits are checked on the CPU as on a card, so
@@ -79,7 +79,7 @@ def dp_decline_reason(spec, n_data):
     if spec.batch % n_data:
         return (f"BATCH_SZ {spec.batch} does not divide across the "
                 f"{n_data} data ranks")
-    return warp_limit_reason(local_spec(spec, spec.batch // n_data))
+    return launch_limit_reason(local_spec(spec, spec.batch // n_data))
 
 
 def dp_shard_data(spec, n_data, rank, x, y):
