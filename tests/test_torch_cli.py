@@ -16,10 +16,11 @@ from theanet_tpu.model import NeuralNet as JaxNet
 from theanet_tpu.prms import load_params as jax_load_params
 from theanet_tpu.prms import save_checkpoint as jax_save_checkpoint
 
-from theanet_tpu_torch import train
+from theanet_tpu_torch import tracing, train
 from theanet_tpu_torch.model import NeuralNet as TorchNet
 from theanet_tpu_torch.ops import megastep, megastep_deep
 from theanet_tpu_torch.prms import load_params
+from theanet_tpu_torch.trainer import Trainer
 
 IMG, NC = 12, 4
 
@@ -240,12 +241,60 @@ def test_cli_fused_tail_slice_trains_per_layer_and_resumes(tiny_data, capsys):
     assert resumed.net.get_epoch() == 4
 
 
-@pytest.mark.parametrize("var,value", [("THEANET_STEPWISE", "1"),
-                                       ("THEANET_PROFILE_DIR", "trace")])
+@pytest.mark.parametrize("var,value", [("THEANET_STEPWISE", "1")])
 def test_unported_cli_switches_raise(var, value, tiny_data, monkeypatch):
-    """The JAX CLI's THEANET_STEPWISE=1 and THEANET_PROFILE_DIR are not
-    ported: the port's CLI stops and names the switch instead of training
-    without it."""
+    """The JAX CLI's THEANET_STEPWISE=1 is not ported: the port's CLI stops
+    and names the switch instead of training without it."""
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match=var):
         train.main(["train", "torch_cli_tiny", "tiny.prms"])
+
+
+def test_profile_dir_writes_a_trace_with_the_spans(tiny_data, monkeypatch,
+                                                   tmp_path, capsys):
+    """THEANET_PROFILE_DIR: a Chrome trace of the round that trains epoch 1
+    and its test boundary, holding the port's spans; the spans are off
+    again after it."""
+    monkeypatch.setenv("THEANET_PROFILE_DIR", str(tmp_path / "trace"))
+    train.main(["train", "torch_cli_tiny", "tiny.prms"])
+    files = list((tmp_path / "trace").glob("*.json"))
+    assert [f.name for f in files] == ["tiny_000017_epoch1.json"]
+    text = files[0].read_text()
+    for name in ("trainer.run_epochs", "trainer.evaluate",
+                 "checkpoint.write", "cli.test_boundary"):
+        assert f'"theanet.{name}"' in text, name
+    err = capsys.readouterr().err
+    assert "profiler trace written to " + str(files[0]) in err
+    # the round's spans by self time, and its reads: the cost row, two an
+    # eval window, the checkpoint's 8 tensors
+    table = err.split("span self times of the profiled round")[1]
+    for name in ("trainer.run_epochs", "trainer.evaluate",
+                 "net.snapshot_params", "checkpoint.write",
+                 "cli.test_boundary"):
+        assert "\n  " + name + " " in table, name
+    assert "\n  trainer.evaluate            2 " in table
+    assert "host reads in the profiled round: 13\n" in err
+    assert not tracing.RECORDER.on and tracing.take() == []
+
+
+def test_profile_dir_stops_when_the_round_raises(tiny_data, monkeypatch,
+                                                 tmp_path):
+    """A profiled round that raises leaves the profiler and the spans off
+    and writes no trace."""
+    monkeypatch.setenv("THEANET_PROFILE_DIR", str(tmp_path / "trace"))
+    save = Trainer.save_checkpoint
+    saves = []
+
+    def save_then_fail(self, path):
+        saves.append(path)
+        if len(saves) == 2:         # epoch 1's boundary
+            raise OSError("disk full")
+        return save(self, path)
+
+    monkeypatch.setattr(Trainer, "save_checkpoint", save_then_fail)
+    with pytest.raises(OSError, match="disk full"):
+        train.main(["train", "torch_cli_tiny", "tiny.prms"])
+    assert len(saves) == 2
+    assert not torch._C._autograd._profiler_enabled()
+    assert not tracing.RECORDER.on and tracing.take() == []
+    assert not (tmp_path / "trace").exists()

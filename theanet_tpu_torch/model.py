@@ -23,6 +23,7 @@ from .layers import (AuxConcatLayer, CenteredOutLayer, ColorLayer,
                      HiddenLayer, HingeLayer, InputLayer, MeanLayer,
                      OutputMixin, PoolLayer, SoftAuxLayer, SoftmaxLayer)
 from .optim import apply_updates, init_momentum, learning_rate, weight_cost
+from .tracing import span
 
 __all__ = ["NeuralNet", "get_layers_info", "get_wts_info",
            "get_training_params_info", "params_from_allwts"]
@@ -340,10 +341,15 @@ class NeuralNet:
         """Copy current params (tensors) back into the layers as numpy, so
         get_wts() and get_init_params() reflect training progress. Only the
         trainable tensors write back: a frozen-centers CenteredOut entry
-        carries its constant centers after them (as get_wts does)."""
-        for lyr, lp in zip(self.net_layers, params):
-            lyr.params_init = [p.detach().cpu().numpy().copy()
-                               for p in lp[:len(lyr.params_init)]]
+        carries its constant centers after them (as get_wts does). Returns
+        the number of tensors copied."""
+        n = 0
+        with span("net.snapshot_params"):
+            for lyr, lp in zip(self.net_layers, params):
+                lyr.params_init = [p.detach().cpu().numpy().copy()
+                                   for p in lp[:len(lyr.params_init)]]
+                n += len(lyr.params_init)
+        return n
 
     def get_rate(self):
         return learning_rate(self.tr_prms)

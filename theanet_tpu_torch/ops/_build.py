@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from ..tracing import span
+
 __all__ = ["build", "megastep_launch", "deep_launch",
            "megastep_ring_launch", "deep_ring_launch", "ring_alloc",
            "ring_open", "ring_close", "ring_free", "ring_events_alloc",
@@ -326,16 +328,18 @@ def _entry(prefix, lib, entry, *args, dev):
 def _run(prefix, lib, ispec, fspec, tensors, n_steps, lr, dev, ring=None):
     """An epoch entry: ``<prefix>_epoch``, or with a ring table
     ``<prefix>_ring_epoch``, which returns the number of exchange kernels
-    it launched."""
+    it launched. The C call, which issues the epoch's launches, is the
+    span ``fused.launch``."""
     ws = _workspace(prefix, lib, ispec, fspec, dev)
-    if ring is None:
-        _entry(prefix, lib, "epoch", ispec, fspec, _ptrs(tensors), n_steps,
-               lr, ws.data_ptr(), dev=dev)
-        return 0
     launched = ctypes.c_longlong(0)
-    _entry(prefix, lib, "ring_epoch", ispec, fspec, _ptrs(tensors),
-           n_steps, lr, ws.data_ptr(), ring, ctypes.byref(launched),
-           dev=dev)
+    with span("fused.launch"):
+        if ring is None:
+            _entry(prefix, lib, "epoch", ispec, fspec, _ptrs(tensors),
+                   n_steps, lr, ws.data_ptr(), dev=dev)
+        else:
+            _entry(prefix, lib, "ring_epoch", ispec, fspec, _ptrs(tensors),
+                   n_steps, lr, ws.data_ptr(), ring, ctypes.byref(launched),
+                   dev=dev)
     return launched.value
 
 

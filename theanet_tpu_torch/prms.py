@@ -14,6 +14,8 @@ import pickle
 
 import numpy as np
 
+from .tracing import span
+
 __all__ = ["load_params", "save_checkpoint", "fixdim"]
 
 
@@ -46,7 +48,7 @@ def save_checkpoint(path: str, net_params: dict):
     """Pickle the {layers, training_params, allwts} dict (neuralnet.py:298-301,
     train.py:195-200). The output is loadable by the reference's
     print_pkl_info.py unmodified."""
-    with open(path, "wb") as f:
+    with span("checkpoint.write"), open(path, "wb") as f:
         pickle.dump(net_params, f, -1)
 
 

@@ -19,13 +19,21 @@ Epochs between two test rows run as one ``Trainer.run_epochs`` call with a
 single host sync; a NaN or an ExpLoss divergence inside such a chunk
 rewinds to the chunk start and replays to the failing epoch, so the dump
 shows the at-failure weights.
-The device comes from THEANET_TORCH_DEVICE (default cuda). The JAX CLI's
-THEANET_STEPWISE=1 and THEANET_PROFILE_DIR are not ported: set, they stop
-the run with an error that names them.
+The device comes from THEANET_TORCH_DEVICE (default cuda).
+THEANET_PROFILE_DIR=<dir> profiles the round that trains epoch 1 and its
+test boundary with ``torch.profiler`` (CPU activity, and CUDA activity on
+a card), with the port's spans on (``tracing.py``: ``theanet.*`` ranges
+beside the kernels), and writes the Chrome trace to
+``<dir>/<head>_epoch1.json``, naming the file on stderr beside the
+round's spans by self time and its count of blocking device-to-host
+reads (``Trainer.host_reads``). The JAX CLI's
+THEANET_STEPWISE=1 is not ported: set, it stops the run with an error that
+names it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import sys
@@ -35,6 +43,7 @@ from datetime import datetime
 import numpy as np
 import torch
 
+from . import tracing
 from .data import load_dataset
 from .device import default_device
 from .model import NeuralNet, get_layers_info, get_training_params_info
@@ -73,16 +82,53 @@ class OutputLog:
 
 
 def _refuse_unported_switches():
-    """The JAX CLI's THEANET_STEPWISE=1 (per-batch steps) and
-    THEANET_PROFILE_DIR (a profiler trace of an epoch) are not ported: the
-    run stops and names the switch rather than train without it."""
-    for var, on in (("THEANET_STEPWISE",
-                     os.environ.get("THEANET_STEPWISE") == "1"),
-                    ("THEANET_PROFILE_DIR",
-                     bool(os.environ.get("THEANET_PROFILE_DIR")))):
-        if on:
-            raise NotImplementedError(
-                f"{var} is not ported yet (ROADMAP.md queue 1 item 3)")
+    """The JAX CLI's THEANET_STEPWISE=1 (per-batch steps) is not ported:
+    the run stops and names the switch rather than train without it."""
+    if os.environ.get("THEANET_STEPWISE") == "1":
+        raise NotImplementedError(
+            "THEANET_STEPWISE is not ported yet (ROADMAP.md queue 1 item 3)")
+
+
+@contextlib.contextmanager
+def _profiled(device, trainer, profile_dir, head):
+    """Profile the block with torch.profiler and the port's spans on. If
+    the block ends normally, write the Chrome trace, and print on stderr
+    its path, each span name's calls and self time (host clock, profiler
+    on) and the block's blocking device-to-host reads. Profiler and spans
+    stop however the block ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    reads = trainer.host_reads
+    with profile(activities=acts) as prof:
+        tracing.take()
+        tracing.enable(True)
+        try:
+            yield
+        finally:
+            tracing.enable(False)
+            records = tracing.take()
+    reads = trainer.host_reads - reads
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, head + "_epoch1.json")
+    prof.export_chrome_trace(path)
+    print("profiler trace written to", path, file=sys.stderr)
+    calls, own = {}, {}
+    for (name, *_), ns in zip(records, tracing.self_ns(records)):
+        calls[name] = calls.get(name, 0) + 1
+        own[name] = own.get(name, 0) + ns
+    print("span self times of the profiled round (calls, ms):",
+          file=sys.stderr)
+    for name in sorted(own, key=own.get, reverse=True):
+        print("  {:<24s} {:4d} {:10.3f}".format(name, calls[name],
+                                                own[name] / 1e6),
+              file=sys.stderr)
+    if tracing.RECORDER.dropped:
+        print("  ({} spans dropped)".format(tracing.RECORDER.dropped),
+              file=sys.stderr)
+    print("host reads in the profiled round:", reads, file=sys.stderr)
 
 
 def main(argv=None):
@@ -180,6 +226,7 @@ def _run(argv, dataset_name, layers, tr_prms, allwts, out_file_head, log):
     n_train_imgs = trainer.n_train_batches * batch_sz
     epochs_to_test = tr_prms["EPOCHS_TO_TEST"]
     is_exp_head = layers[-1][0][:3] == "Exp"
+    profile_dir = os.environ.get("THEANET_PROFILE_DIR")
 
     def diverged(min_true_f):
         return is_exp_head and float(min_true_f.min()) < -6
@@ -210,38 +257,44 @@ def _run(argv, dataset_name, layers, tr_prms, allwts, out_file_head, log):
             chunk_end = min((epoch // epochs_to_test + 1) * epochs_to_test,
                             n_epochs - 1)
         chunk_len = chunk_end - epoch + 1
-        t_epoch = time.time()
-        test_row_epoch = net.get_epoch() + chunk_len - 1
-        snap = trainer.snapshot_state()
-        totals, costs2d, minf2d = trainer.run_epochs(chunk_len)
-        dt = time.time() - t_epoch
-        print("epoch{} {} took {:.2f}s ({:,.0f} images/sec)".format(
-            "s" if chunk_len > 1 else "",
-            "{}-{}".format(epoch, epoch + chunk_len - 1) if chunk_len > 1
-            else epoch, dt, n_train_imgs * chunk_len / dt), file=sys.stderr)
-        replayed = False
-        for j in range(chunk_len):
-            if ((np.isnan(totals[j]) or diverged(minf2d[j]))
-                    and j < chunk_len - 1):
-                # replay to the failing epoch for the at-failure dump
+        # epoch 0 holds the first calls' set-up: trace the round after it
+        with (_profiled(device, trainer, profile_dir, out_file_head)
+              if profile_dir and epoch == 1
+              else contextlib.nullcontext()):
+            t_epoch = time.time()
+            test_row_epoch = net.get_epoch() + chunk_len - 1
+            snap = trainer.snapshot_state()
+            totals, costs2d, minf2d = trainer.run_epochs(chunk_len)
+            dt = time.time() - t_epoch
+            print("epoch{} {} took {:.2f}s ({:,.0f} images/sec)".format(
+                "s" if chunk_len > 1 else "",
+                "{}-{}".format(epoch, epoch + chunk_len - 1)
+                if chunk_len > 1 else epoch, dt,
+                n_train_imgs * chunk_len / dt), file=sys.stderr)
+            replayed = False
+            for j in range(chunk_len):
+                if ((np.isnan(totals[j]) or diverged(minf2d[j]))
+                        and j < chunk_len - 1):
+                    # replay to the failing epoch for the at-failure dump
+                    trainer.restore_state(snap)
+                    trainer.run_epochs(j + 1)
+                    replayed = True
+                watchdogs(epoch + j, float(totals[j]), costs2d[j], minf2d[j])
+            if replayed:
+                # only the divergence dump returns here (a NaN raises): train
+                # on from where the chunk had got
                 trainer.restore_state(snap)
-                trainer.run_epochs(j + 1)
-                replayed = True
-            watchdogs(epoch + j, float(totals[j]), costs2d[j], minf2d[j])
-        if replayed:
-            # only the divergence dump returns here (a NaN raises): train
-            # on from where the chunk had got
-            trainer.restore_state(snap)
-            trainer.run_epochs(chunk_len)
-        total_cost = float(totals[-1])
+                trainer.run_epochs(chunk_len)
+            total_cost = float(totals[-1])
 
-        if (epoch + chunk_len - 1) % epochs_to_test == 0:
-            print("{:3d} {:>8.2f}".format(test_row_epoch, total_cost),
-                  end="    ")
-            do_test()
-            if total_cost > 1e6:
-                trainer.sync_net()
-                print(net.get_wts_info(detailed=True))
+            if (epoch + chunk_len - 1) % epochs_to_test == 0:
+                print("{:3d} {:>8.2f}".format(test_row_epoch, total_cost),
+                      end="    ")
+                with tracing.span("cli.test_boundary"):
+                    do_test()
+                if total_cost > 1e6:
+                    trainer.sync_net()
+                    print(net.get_wts_info(detailed=True))
         epoch += chunk_len
 
     test_err, aux_test_err = trainer.evaluate_full("test")

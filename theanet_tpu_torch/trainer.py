@@ -72,6 +72,7 @@ import torch
 from .device import default_device
 from .model import NeuralNet
 from .prms import save_checkpoint
+from .tracing import span
 
 __all__ = ["Trainer", "get_test_indices", "step_generator"]
 
@@ -111,6 +112,9 @@ class Trainer:
         self.net = net
         self.mesh = mesh
         self._predict_keys = set()   # layer sets predict has served
+        # blocking device-to-host reads: cost rows, eval statistics, the
+        # tensors sync_net copies, predict's outputs
+        self.host_reads = 0
         self.device = (mesh.device if mesh is not None
                        else default_device() if device is None
                        else torch.device(device))
@@ -302,29 +306,34 @@ class Trainer:
         if self._mega is None:
             return
         if self._state_src == "mega":
-            self.params = self._from_kernel(self._kp, self.params)
-            self.moms = self._from_kernel(self._km, self.moms)
+            with span("trainer.sync_frame"):
+                self.params = self._from_kernel(self._kp, self.params)
+                self.moms = self._from_kernel(self._km, self.moms)
             self._state_src = "both"
 
     def _mega_dispatch_epoch(self, lr):
         """One fused epoch, no host sync; returns the (nb, 2) cost/minf
         tensor on the device."""
-        if self._state_src == "frame":
-            self._kp = self._to_kernel(self.params)
-            self._km = self._to_kernel(self.moms)
-        spec = self._mega_spec
-        # under a mesh every rank draws the global epoch's words and its
-        # epoch function takes its share
-        bits = self._mega.epoch_noise_bits(
-            self.net.tr_prms["SEED"], self.net.get_epoch(), spec,
-            self.n_train_batches, self.device)
-        # only an aux net's epoch function takes its aux rows
-        aux = ({"aux_steps": self._mega_aux}
-               if getattr(spec, "has_aux", False) else {})
-        self._kp, self._km, cm = self._mega_epoch(
-            self._kp, self._km, self._mega_x, self._mega_y, bits, lr, **aux)
-        self._state_src = "mega"
-        return cm
+        with span("trainer.epoch"):
+            if self._state_src == "frame":
+                with span("trainer.to_kernel"):
+                    self._kp = self._to_kernel(self.params)
+                    self._km = self._to_kernel(self.moms)
+            spec = self._mega_spec
+            # under a mesh every rank draws the global epoch's words and
+            # its epoch function takes its share
+            with span("trainer.noise_bits"):
+                bits = self._mega.epoch_noise_bits(
+                    self.net.tr_prms["SEED"], self.net.get_epoch(), spec,
+                    self.n_train_batches, self.device)
+            # only an aux net's epoch function takes its aux rows
+            aux = ({"aux_steps": self._mega_aux}
+                   if getattr(spec, "has_aux", False) else {})
+            self._kp, self._km, cm = self._mega_epoch(
+                self._kp, self._km, self._mega_x, self._mega_y, bits, lr,
+                **aux)
+            self._state_src = "mega"
+            return cm
 
     # -- per-layer path ----------------------------------------------------
 
@@ -350,33 +359,44 @@ class Trainer:
         min true-class feature), the last two as numpy."""
         lr = self.net.get_rate() if lr is None else lr
         if self._mega is not None:
-            cm = self._mega_dispatch_epoch(lr).cpu().numpy()
+            cm = self._mega_dispatch_epoch(lr)
+            with span("trainer.read_costs"):
+                cm = cm.cpu().numpy()
+            self.host_reads += 1
             return float(cm[:, 0].sum()), cm[:, 0], cm[:, 1]
         nb, epoch = self.n_train_batches, self.net.get_epoch()
-        costs, minf = [], []
-        for ib in range(nb):
-            c, m = self._train_batch(ib, epoch * nb + ib, lr)
-            costs.append(c)
-            minf.append(m)
-        costs = torch.stack(costs).cpu().numpy()  # one host sync per epoch
-        return float(costs.sum()), costs, torch.stack(minf).cpu().numpy()
+        with span("trainer.epoch"):
+            costs, minf = [], []
+            for ib in range(nb):
+                c, m = self._train_batch(ib, epoch * nb + ib, lr)
+                costs.append(c)
+                minf.append(m)
+            with span("trainer.read_costs"):
+                # one host sync per epoch
+                costs = torch.stack(costs).cpu().numpy()
+                minf = torch.stack(minf).cpu().numpy()
+            self.host_reads += 2
+        return float(costs.sum()), costs, minf
 
     def run_epochs(self, k: int):
         """Train ``k`` consecutive epochs, advancing the epoch counter (and
         so the LR schedule) after each. Returns (totals (k,), costs (k, nb),
         min_true_f (k, nb)) as numpy."""
-        if self._mega is None:
-            outs = []
+        with span("trainer.run_epochs"):
+            if self._mega is None:
+                outs = []
+                for _ in range(k):
+                    outs.append(self.run_epoch()[1:])
+                    self.net.inc_epoch_set_rate()
+                costs = np.stack([c for c, _ in outs])
+                return costs.sum(axis=1), costs, np.stack([m for _, m in outs])
+            cms = []
             for _ in range(k):
-                outs.append(self.run_epoch()[1:])
+                cms.append(self._mega_dispatch_epoch(self.net.get_rate()))
                 self.net.inc_epoch_set_rate()
-            costs = np.stack([c for c, _ in outs])
-            return costs.sum(axis=1), costs, np.stack([m for _, m in outs])
-        cms = []
-        for _ in range(k):
-            cms.append(self._mega_dispatch_epoch(self.net.get_rate()))
-            self.net.inc_epoch_set_rate()
-        all_cm = torch.stack(cms).cpu().numpy()   # one host sync
+            with span("trainer.read_costs"):
+                all_cm = torch.stack(cms).cpu().numpy()   # one host sync
+            self.host_reads += 1
         return all_cm[:, :, 0].sum(axis=1), all_cm[:, :, 0], all_cm[:, :, 1]
 
     def predict(self, x, aux=None, get_output_of_layers=()):
@@ -398,31 +418,38 @@ class Trainer:
                                   device=self.device)
         out = self.net.predict(self.params, x, aux=aux,
                                get_output_of_layers=layer_key)
+        self.host_reads += len(out)
         return tuple(o.cpu().numpy() for o in out)
 
     def evaluate(self, which: str, batch_ids, preds_feats: bool = False):
         """(err%, second_stat%) over a window of whole batches, scaled like
         the reference's test_wrapper (train.py:155-161); with preds_feats
         the window's features and predictions are appended."""
-        self._mega_sync_frame()
-        if len(batch_ids) == 0:
-            raise ValueError(
-                "empty eval window: TEST_SAMP_SZ smaller than BATCH_SZ "
-                "yields zero whole batches per rotating window; raise "
-                "TEST_SAMP_SZ to at least one batch")
-        bsz = self.batch_sz
-        idx = torch.as_tensor(
-            np.concatenate([np.arange(b * bsz, (b + 1) * bsz)
-                            for b in batch_ids]), device=self.device)
-        xs, ys, auxs = ((self.d_test_x, self.d_test_y, self.d_test_aux)
-                        if which == "test" else
-                        (self.d_train_x, self.d_train_y, self.d_train_aux))
-        out = self.net.eval_step(self.params, xs[idx], ys[idx],
-                                 aux=None if auxs is None else auxs[idx],
-                                 preds_feats=preds_feats)
-        stats = (100.0 * float(out[0]), 100.0 * float(out[1]))
-        if preds_feats:
-            return stats + (out[2].cpu().numpy(), out[3].cpu().numpy())
+        with span("trainer.evaluate"):
+            self._mega_sync_frame()
+            if len(batch_ids) == 0:
+                raise ValueError(
+                    "empty eval window: TEST_SAMP_SZ smaller than BATCH_SZ "
+                    "yields zero whole batches per rotating window; raise "
+                    "TEST_SAMP_SZ to at least one batch")
+            bsz = self.batch_sz
+            with span("trainer.eval_forward"):
+                idx = torch.as_tensor(
+                    np.concatenate([np.arange(b * bsz, (b + 1) * bsz)
+                                    for b in batch_ids]), device=self.device)
+                xs, ys, auxs = (
+                    (self.d_test_x, self.d_test_y, self.d_test_aux)
+                    if which == "test" else
+                    (self.d_train_x, self.d_train_y, self.d_train_aux))
+                out = self.net.eval_step(
+                    self.params, xs[idx], ys[idx],
+                    aux=None if auxs is None else auxs[idx],
+                    preds_feats=preds_feats)
+            with span("trainer.eval_read"):
+                stats = (100.0 * float(out[0]), 100.0 * float(out[1]))
+                if preds_feats:
+                    stats += (out[2].cpu().numpy(), out[3].cpu().numpy())
+            self.host_reads += len(stats)
         return stats
 
     def evaluate_full(self, which: str):
@@ -439,7 +466,8 @@ class Trainer:
         process wrote."""
         if self.mesh is not None and self.mesh.rank != 0:
             return False
-        save_checkpoint(path, self.checkpoint_dict())
+        with span("trainer.save_checkpoint"):
+            save_checkpoint(path, self.checkpoint_dict())
         return True
 
     def close(self):
@@ -453,17 +481,18 @@ class Trainer:
         """Write the current device params back into the net's layers, so
         get_wts_info() and get_init_params() reflect training."""
         self._mega_sync_frame()
-        self.net.snapshot_params(self.params)
+        self.host_reads += self.net.snapshot_params(self.params)
 
     def snapshot_state(self):
         """Device-side copy of the training state (in whichever layout holds
         the truth) plus the epoch counter, for restore_state."""
-        if self._mega is not None and self._state_src in ("mega", "both"):
-            st = ("mega", [t.clone() for t in self._kp],
-                  [t.clone() for t in self._km])
-        else:
-            st = ("frame", [[p.clone() for p in lp] for lp in self.params],
-                  [[m.clone() for m in lm] for lm in self.moms])
+        with span("trainer.snapshot_state"):
+            if self._mega is not None and self._state_src in ("mega", "both"):
+                st = ("mega", [t.clone() for t in self._kp],
+                      [t.clone() for t in self._km])
+            else:
+                st = ("frame", [[p.clone() for p in lp] for lp in self.params],
+                      [[m.clone() for m in lm] for lm in self.moms])
         return st, self.net.get_epoch()
 
     def restore_state(self, snap):
