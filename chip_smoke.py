@@ -152,7 +152,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      a MeanLayer (mnist_same_mean), conv1 at stride 2 (mnist_stride), conv1
      'full' with its pool at 4 (mnist_full), each over a 600-step epoch of
      synth_hard; the geometries of tests/test_fused_modes.py, an even
-     'same' filter and a MeanLayer after a valid stack, 40 steps each; then
+     'same' filter, a MeanLayer after a valid stack and the gradient
+     stages' wide forms, 40 steps each (the wide ones 3-4); then
      deep_grad_step at 10 a rank and deep_ring_epoch at two emulated ranks
      on mnist_same against their plain versions;
  22. the geometry main path: ``train.main`` on synth_hard with mnist_same
@@ -1593,12 +1594,13 @@ def plan_spec(name, batch):
 # dgrad_plan's (B, Cin, W, M, F) with one row a band and a canvas wider
 # than the block, or a band wider than DG_MAX_THREADS, and the levels just
 # inside and past the shared-memory limit the route rule declines by;
-# wgrad_plan's (B, M, Cin, F, e, cs) with rows wider than the block and at
-# that limit
+# wgrad_plan's (B, M, Cin, F, e, cs) with rows wider than the block, in map
+# groups, and at that limit
 WIDE_DGRAD = ((20, 4, 256, 12, 3), (20, 4, 510, 12, 5), (4, 2, 1030, 2, 3),
               (1, 1, 1100, 1, 5), (4, 1, 172, 64, 5), (4, 1, 173, 64, 5))
 WIDE_WGRAD = ((4, 2, 1, 3, 1028, 1), (20, 4, 64, 5, 172, 1),
-              (20, 4, 64, 5, 174, 1), (3000, 4, 3, 5, 300, 2))
+              (20, 4, 64, 5, 174, 1), (20, 4, 64, 5, 177, 1),
+              (20, 4, 64, 5, 178, 1), (3000, 4, 3, 5, 300, 2))
 
 
 def plan_mirrors():
@@ -3651,10 +3653,13 @@ def phase20(torch, card):
 # ----------------------------------------------------------- phases 21-22
 
 # Phase 21's small cases: the geometries of tests/test_fused_modes.py's
-# CASES, an even 'same' filter, a MeanLayer after a valid stack, and two
+# CASES, an even 'same' filter, a MeanLayer after a valid stack, two
 # wide levels 1 in the input gradient's long forms (a 256-wide input at 12
 # maps: one row a band, the canvas wider than the block; a 1030-wide one:
-# a thread two positions), each (img, [(maps, filter, stride, mode, pool
+# a thread two positions), and the weight gradient's long forms (64 maps
+# over 64 input maps at filter 5: 3216 thread tiles, a thread's tiles one
+# after another; 64 maps over a 200-wide level 0: two map groups, bands of
+# a row), each (img, [(maps, filter, stride, mode, pool
 # or None)], MeanLayer) at
 # BATCH_SZ 4 with L2 and max-norm on the convs, GEOM_LOCKED_STEPS steps of
 # random pixels step-locked (the wide cases GEOM_WIDE_STEPS: their twin's
@@ -3678,9 +3683,13 @@ GEOM_SMALL = {
                 True),
     "wider-l1": (1032, [(2, 3, 1, "valid", None), (2, 3, 1, "valid", 2)],
                  True),
+    "wgrad-passes-l1": (16, [(64, 5, 1, "valid", None),
+                             (64, 5, 1, "valid", 2)], True),
+    "wgrad-groups-l0": (202, [(64, 3, 1, "valid", 2)], True),
 }
 GEOM_LOCKED_STEPS = 40
-GEOM_WIDE_STEPS = {"wide-l1": 4, "wider-l1": 3}
+GEOM_WIDE_STEPS = {"wide-l1": 4, "wider-l1": 3, "wgrad-passes-l1": 4,
+                   "wgrad-groups-l0": 4}
 
 
 def geometry_small(torch, name, dev):

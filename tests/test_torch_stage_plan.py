@@ -5,20 +5,23 @@ orders they run, on the CPU.
 The kernels cannot run here, so these pin what they are handed: for every
 shipped ``params/*.prms``, phase 23's five configurations, chip_smoke.py's
 geometry configurations and the data-parallel and ring per-rank batches
-(B 5 and 10), the conv weight gradient's batch slices and row bands, the
-conv input gradient's row bands and the products' K slices each cover
-their range exactly once, in order; every launch fits shared memory and
-CUDA's grid; conv1 at B 20 gets a block for every SM; the workspace the
-mirror carves holds every plan's partials. The input gradient's plan and
-its threads' staging and position walks are held over a grid of shapes
-the route rule takes, wide levels included, and a net just past the
-stages' shared-memory limit declines by name. Then plain PyTorch models of
-the new orders (``wgrad_sliced``: batch slices and staged bands read at
-the kernel's input offsets; ``dgrad_canvas``: the stride-dilated dz canvas;
-``gemm_ksplit``: K slices added in order) are held to ``jax.grad`` of the
-JAX package's own ConvLayer and HiddenLayer on the same seeded numpy
-inputs, each output within 1e-5 of the larger of 1 and its largest value
-(the bound of the twin tests).
+(B 5 and 10), the conv weight gradient's slices of (sample, band) units
+and its map groups, the conv input gradient's row bands and the products'
+K slices each cover their range exactly once, in order; every launch fits
+shared memory and CUDA's grid; the weight gradient's slices fill the card
+at B 20 in one wave; the workspace the mirror carves holds every plan's
+partials. Both gradients' plans and their threads' staging and position
+walks are held over grids of shapes the route rule takes, wide levels
+included (the weight gradient's admitting every level the batch-slice
+plan before it admitted), and a net just past the stages' shared-memory
+limit declines by name. Then plain PyTorch models of the new orders
+(``wgrad_clustered``: slices of units staged at the kernel's shared-memory
+offsets, their sums added by clusters; ``dgrad_canvas``: the
+stride-dilated dz canvas; ``gemm_ksplit``: K slices added in order) are
+held to ``jax.grad`` of the JAX package's own ConvLayer and HiddenLayer on
+the same seeded numpy inputs, each output within 1e-5 of the larger of 1
+and its largest value (the bound of the twin tests); the weight
+gradient's at every conv level of every configuration here too.
 """
 
 import functools
@@ -84,6 +87,44 @@ def _covers(ranges, n):
     assert pos == n
 
 
+def _wgrad_plan_sound(g, p):
+    """The weight gradient's plan at level ``g``: its units (a sample's
+    band) cover the batch's rows once in order, slices cover the units,
+    map groups the maps, clusters the slices; a round of staged units fits
+    the block's shared memory and holds every tap of its positions; the
+    block's thread tiles cover the group's outputs, each tile's position
+    groups a power of two; the grid fits CUDA's."""
+    B, e = g.B, g.e
+    _covers([(y, min(e, y + p.ny)) for y in range(0, e, p.ny)], e)
+    assert p.nbn == -(-e // p.ny)
+    _covers(p.units(B), B * p.nbn)
+    assert p.nsl * p.nu >= B * p.nbn > (p.nsl - 1) * p.nu
+    assert (p.ngr - 1) * p.mg < g.M <= p.ngr * p.mg
+    assert 1 <= p.cl <= sp.WG_CLUSTER and p.nslp % p.cl == 0
+    assert 0 <= p.nslp - p.nsl < p.cl
+    # one wave: a block an SM at most (each holds an SM's registers)
+    assert p.nslp * p.ngr <= sp.SM_COUNT or p.ngr > sp.SM_COUNT
+    assert 1 <= p.nbs <= p.nu and (p.nbs == 1 or p.nbn == 1)
+    assert p.hb == (p.ny - 1) * g.cs + g.F
+    assert p.sp == (e - 1) * g.cs + g.F
+    # every tap of every staged position lies in the staged rows and columns
+    assert (p.ny - 1) * g.cs + g.F - 1 < p.hb
+    assert (e - 1) * g.cs + g.F - 1 < p.sp
+    unit = sp.wgrad_unit_floats(p.ny, p.mg, e, g.Cin, g.F, g.cs)
+    # the slice's sums and the warps' over the staged rows, in one pass
+    assert p.passes == -(-p.tiles // (p.threads // p.npg))
+    assert p.smem_floats == max(p.nbs * unit, p.threads if p.passes > 1
+                                else p.mg * p.nout + p.threads)
+    assert 4 * p.smem_floats <= sp.SMEM_OPT_IN
+    assert p.tiles == -(-p.mg // sp.WG_TM) * -(-p.nout // sp.WG_TV)
+    assert p.npg & (p.npg - 1) == 0
+    assert p.threads % 32 == 0 and 32 <= p.threads <= sp.WG_MAX_THREADS
+    assert p.tiles * p.npg <= p.threads or (p.npg == 1 and p.passes > 1)
+    assert sp.WG_TM * sp.WG_TV == 32   # the cross-warp sum: a lane an output
+    gx, gy = p.grid()
+    assert gx <= GRID_X and gy <= GRID_YZ
+
+
 @pytest.mark.parametrize("name,batch", CONFIGS)
 def test_plans_cover_once_in_order(name, batch):
     spec = _spec(name, batch)
@@ -92,20 +133,7 @@ def test_plans_cover_once_in_order(name, batch):
     for g in levels:
         p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
         assert g.B == B and p.nout == g.F * g.F * g.Cin + 1
-        _covers(p.slices(B), B)
-        assert p.nsl * p.nb >= B > (p.nsl - 1) * p.nb
-        _covers([(y, min(g.e, y + p.ny)) for y in range(0, g.e, p.ny)],
-                g.e)
-        # every output in one tap group, a warp's opw outputs at most
-        assert p.ntg * sp.WG_WARPS * p.opw >= p.nout
-        assert 1 <= p.opw <= sp.WG_OPW
-        assert p.hb == (p.ny - 1) * g.cs + g.F
-        assert p.sp == (g.e - 1) * g.cs + g.F
-        # every tap of every staged position lies in the staged rows
-        assert (p.ny - 1) * g.cs + g.F - 1 < p.hb
-        assert 4 * p.smem_floats <= sp.SMEM_OPT_IN
-        gx, gy, gz = p.grid(g.M)
-        assert gx <= GRID_X and gy <= GRID_YZ and gz <= GRID_YZ
+        _wgrad_plan_sound(g, p)
     for g in dlevels:
         p = sp.dgrad_plan(B, g.Cin, g.W, g.M, g.F)
         _covers([(i, min(g.W, i + p.rows)) for i in range(0, g.W, p.rows)],
@@ -138,7 +166,14 @@ def test_workspace_holds_every_plan(name, batch):
     levels, _, products, total = _family(spec)
     plans = [sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs) for g in levels]
     parts = [p.part_floats(g.M) for p, g in zip(plans, levels)]
-    ctrs = [p.counters(g.M) for p, g in zip(plans, levels)]
+    ctrs = [p.counters() for p in plans]
+    for p, g in zip(plans, levels):
+        # the clusters' sums where there are several, the slices' past one
+        # pass; a counter a (map group, cluster rank)
+        ncl = p.nslp // p.cl
+        assert p.part_floats(g.M) == ((ncl if ncl > 1 else 0) + (
+            p.nslp if p.passes > 1 else 0)) * g.M * p.nout
+        assert p.counters() == p.ngr * p.cl
     assert sp.stage_floats(levels) == (max(parts, default=0)
                                        + max(ctrs, default=0)
                                        + sp.GEMM_PART_CAP + sp.GEMM_TARGET)
@@ -160,20 +195,16 @@ def test_workspace_holds_every_plan(name, batch):
 @pytest.mark.parametrize("name,batch", CONFIGS)
 def test_staging_copies_each_element_once(name, batch):
     """The staging passes as the kernels' threads walk them: k_wgrad's
-    copies every element of its nbs samples (dz rows e wide, input rows sp
-    wide) exactly once, for a full and a short last pass; dgrad_at's every
-    element of its band's canvas exactly once, for a full and the last
-    band."""
+    copies every element of its round's units (dz rows e wide of the
+    group's maps, input rows sp wide) exactly once, for the first round
+    and the last slice's last round (a short band, fewer units), in the
+    first map group and the last; dgrad_at's every element of its band's
+    canvas exactly once, for a full and the last band."""
     spec = _spec(name, batch)
     levels, dlevels, _, _ = _family(spec)
     for g in levels:
         p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
-        rows_per = p.ny + g.Cin * p.hb
-        for nbt in sorted({1, p.nbs}):
-            got = sp.wgrad_staging(g, p, nbt)
-            want = [(bi, r, c) for bi in range(nbt) for r in range(rows_per)
-                    for c in range(g.e if r < p.ny else p.sp)]
-            assert sorted(got) == want
+        _wgrad_walks_once(g, p)
     for g in dlevels:
         p = sp.dgrad_plan(g.B, g.Cin, g.W, g.M, g.F)
         for band in sorted({0, p.nbands - 1}):
@@ -181,27 +212,55 @@ def test_staging_copies_each_element_once(name, batch):
             assert sorted(got) == list(range(n))
 
 
+def _wgrad_walks_once(g, p):
+    """k_wgrad's staging walk of the first round and of the last slice's
+    last round, in the first and the last map group, copies each element
+    once; each round's positions are summed once by the position groups."""
+    last = p.rounds(g.B, p.nsl - 1, g.e)[-1]
+    for _, _, ny, nbt in {p.rounds(g.B, 0, g.e)[0], last}:
+        hb = (ny - 1) * g.cs + g.F
+        for mgc in sorted({p.mg, g.M - (p.ngr - 1) * p.mg}):
+            got = sp.wgrad_staging(g, p, mgc, nbt, ny)
+            assert sorted(got["dz"]) == [
+                (u, m, y, x) for u in range(nbt) for m in range(mgc)
+                for y in range(ny) for x in range(g.e)]
+            assert sorted(got["in"]) == [
+                (u, c, h, x) for u in range(nbt) for c in range(g.Cin)
+                for h in range(hb) for x in range(p.sp)]
+        pos = [q for qs in sp.wgrad_positions(g.e, ny, nbt, p.npg).values()
+               for q in qs]
+        assert sorted(pos) == [(u, y, x) for u in range(nbt)
+                               for y in range(ny) for x in range(g.e)]
+
+
 @pytest.mark.parametrize("e", [1, 5, 11, 13, 26, 30, 32, 33, 40, 70])
 def test_wgrad_lanes_sum_each_position_once(e):
-    """A k_wgrad warp's lanes take every staged position of a band exactly
-    once, at widths below, at and past a warp (a full band and a short
-    last band)."""
+    """A k_wgrad tile's position groups take every staged position of a
+    round exactly once, at widths below, at and past a warp (a full band
+    and a short last band, one unit and several, any number of groups)."""
     for ny in sorted({e, max(1, e // 3)}):
-        got = [pos for ps in sp.wgrad_positions(e, ny).values() for pos in ps]
-        assert sorted(got) == [(y, x) for y in range(ny) for x in range(e)]
+        for nbt in (1, 3):
+            for npg in (1, 8, 32, 128, 512):
+                got = [q for qs in sp.wgrad_positions(e, ny, nbt, npg)
+                       .values() for q in qs]
+                assert sorted(got) == [(u, y, x) for u in range(nbt)
+                                       for y in range(ny) for x in range(e)]
 
 
 @pytest.mark.parametrize("name", B20_CONV)
 def test_conv_stages_fill_the_card_at_b20(name):
-    """At BATCH_SZ 20 conv1's weight gradient (the level with the fewest
-    maps at mnist_cnn: 4 maps of 10 outputs) gets at least a block an SM;
-    so does the flagship's conv2 input gradient."""
+    """At BATCH_SZ 20 every level's weight gradient spreads over the card
+    in one wave: at most a block an SM (a block holds an SM's registers),
+    and at least half of WG_TARGET slices (or a slice an output row of the
+    batch, where it has fewer rows); the flagship's conv2 input gradient
+    takes at least a block an SM."""
     spec = _spec(name, None)
     assert spec.batch == 20
     levels, dlevels, _, _ = _family(spec)
-    g = levels[-1]
-    p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
-    assert np.prod(p.grid(g.M)) >= sp.SM_COUNT
+    for g in levels:
+        p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+        assert p.nsl >= min(sp.WG_TARGET // 2, g.B * g.e)
+        assert np.prod(p.grid()) <= sp.SM_COUNT
     if isinstance(spec, megastep.MegaSpec):
         g = dlevels[0]
         d = sp.dgrad_plan(g.B, g.Cin, g.W, g.M, g.F)
@@ -214,8 +273,17 @@ def test_flagship_plans_at_mnist_cnn():
     g2, g1 = sp.flagship_levels(spec)
     p1 = sp.wgrad_plan(g1.B, g1.M, g1.Cin, g1.F, g1.e, g1.cs)
     p2 = sp.wgrad_plan(g2.B, g2.M, g2.Cin, g2.F, g2.e, g2.cs)
-    assert (p1.nsl, p1.nb, p1.ntg, p1.opw, p1.ny) == (20, 1, 2, 1, 26)
-    assert (p2.nsl, p2.nb, p2.ntg, p2.opw) == (10, 2, 2, 3)
+    # conv1: 100 bands of 6 rows in 13 clusters, 2 tiles of 128 groups
+    assert (p1.ny, p1.nsl, p1.nslp, p1.cl, p1.mg) == (6, 100, 104, 8, 4)
+    assert (p1.tiles, p1.npg, p1.threads, p1.passes) == (2, 128, 256, 1)
+    # conv2: 80 bands of 3 rows, all 20 maps x 37 outputs a block
+    assert (p2.ny, p2.nsl, p2.nslp, p2.mg, p2.ngr) == (3, 80, 80, 20, 1)
+    assert (p2.tiles, p2.npg, p2.threads, p2.passes) == (25, 8, 224, 1)
+    # batch 256: 86 slices of 3 whole samples, staged together
+    q1 = sp.wgrad_plan(256, 4, 1, 3, 26, 1)
+    q2 = sp.wgrad_plan(256, 20, 4, 3, 11, 1)
+    assert (q1.nu, q1.nbs, q1.nsl, q2.nu, q2.nbs, q2.nsl) == (3, 3, 86, 3,
+                                                              3, 86)
     d = sp.dgrad_plan(20, 4, 13, 20, 3)
     assert (d.nbands, d.rows, d.threads) == (4, 4, 256)
     assert sp.gemm_plan(20, 500, 720)[:2] == (6, 128)    # z3
@@ -226,13 +294,14 @@ def test_flagship_plans_at_mnist_cnn():
 
 
 def test_long_batch_slices_stay_short():
-    """B 3000: conv1's weight gradient cuts the batch into hundreds of
-    slices of a few samples (not 40 blocks of 2 M terms)."""
+    """B 3000: each level's weight gradient takes about WG_TARGET slices
+    in one wave (not thousands of slices, whose sums would cost more than
+    their terms), each a run of whole samples staged several at a time."""
     spec = _spec("mnist_b3000", None)
-    g = sp.flagship_levels(spec)[1]
-    p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
-    assert p.nb * g.e * g.e <= 2 * sp.WG_SLICE_TERMS
-    assert p.nsl >= 300
+    for g in sp.flagship_levels(spec):
+        p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+        assert p.nbn == 1 and p.nbs >= 2 and p.nu == -(-g.B // p.nsl)
+        assert sp.WG_TARGET <= p.nsl <= p.nslp * p.ngr <= sp.SM_COUNT
 
 
 # (B, Cin, W, M, F) of the input gradient's wide forms: one row a band
@@ -310,34 +379,42 @@ WGRAD_GRID = [(B, M, cin, F, e, cs)
               for e in list(range(1, 700, 11)) + [256, 300] for cs in (1, 2)]
 
 
+def _parent_admits(M, cin, F, e, cs):
+    """Whether the weight-gradient plan before this one (a block a tap
+    group, map and slice, with a table of 4 ints a staged row) fit a block
+    at some band: at one output row its table, one dz row and the cin x F
+    input rows under it."""
+    sp_w = (e - 1) * cs + F
+    return 4 * (4 * (1 + cin * F) + e + cin * F * sp_w) <= sp.SMEM_OPT_IN
+
+
 def test_wgrad_plans_over_a_grid():
     """Over a grid of levels the weight gradient's plan covers the batch
-    with its slices and every output with its tap groups (at most WG_OPW a
-    warp); a level it does not admit needs more than a block's shared
-    memory even at one output row a band. The staging walk of a level
-    wider than the block (sp > WG_THREADS: several column chunks) copies
-    each element once."""
+    with its units and slices, the maps with its groups and each group's
+    outputs with its thread tiles (_wgrad_plan_sound); it admits every
+    level the plan before it admitted, and a level it does not admit needs
+    more than a block's shared memory even at one output row of one map a
+    block. The staging walk of a level wider than the block (sp above the
+    block's threads) copies each element once, and sums each position
+    once."""
     n_ok = n_past = 0
     for B, M, cin, F, e, cs in WGRAD_GRID:
         p = sp.wgrad_plan(B, M, cin, F, e, cs)
+        g = sp.ConvGeom(B, M, cin, F, e, e, cs, 0, (e - 1) * cs + F)
         if 4 * p.smem_floats > sp.SMEM_OPT_IN:
-            assert p.ny == 1
+            assert p.ny == 1 and p.mg == 1
+            assert 4 * sp.wgrad_unit_floats(1, 1, e, cin, F, cs) > (
+                sp.SMEM_OPT_IN)
+            assert not _parent_admits(M, cin, F, e, cs)
             n_past += 1
             continue
         n_ok += 1
-        assert (p.nsl - 1) * p.nb < B <= p.nsl * p.nb
-        assert p.ntg * sp.WG_WARPS * p.opw >= p.nout and p.opw <= sp.WG_OPW
-        assert 1 <= p.nbs <= p.nb and 1 <= p.ny <= e
-        assert p.nsl <= GRID_YZ and M <= GRID_YZ
+        _wgrad_plan_sound(g, p)
     assert n_ok > 10000 and n_past > 0   # the grid reaches past the limit
-    g = sp.ConvGeom(3, 2, 2, 3, 300, 300, 1, 0, 302)
+    g = sp.ConvGeom(3, 2, 2, 3, 600, 600, 1, 0, 602)
     p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
-    assert p.sp > sp.WG_THREADS
-    got = sp.wgrad_staging(g, p, p.nbs)
-    rows_per = p.ny + g.Cin * p.hb
-    assert sorted(got) == [(bi, r, c) for bi in range(p.nbs)
-                           for r in range(rows_per)
-                           for c in range(g.e if r < p.ny else p.sp)]
+    assert p.sp > p.threads
+    _wgrad_walks_once(g, p)
 
 
 def _wide_net(cin, maps, filt, side, pool=2):
@@ -355,18 +432,26 @@ def _wide_net(cin, maps, filt, side, pool=2):
 
 
 @pytest.mark.parametrize("cin,maps,filt,side,kind", [
-    (64, 4, 5, 176, None), (64, 4, 5, 178, "weight-gradient"),
+    (64, 4, 5, 176, None), (64, 4, 5, 182, "weight-gradient"),
     (1, 64, 5, 172, None), (1, 64, 5, 173, "input-gradient"),
-], ids=["wgrad-fits", "wgrad-past", "dgrad-fits", "dgrad-past"])
+    (64, 4, 5, 181, None),
+], ids=["wgrad-fits", "wgrad-past", "dgrad-fits", "dgrad-past",
+        "wgrad-fits-in-map-groups"])
 def test_stage_smem_limit_declines_by_name(cin, maps, filt, side, kind):
     """A net whose level 1 stages just inside a block's shared memory at
     one row a band fuses in the deep family; one just past it declines,
-    naming the stage, instead of raising at its first epoch."""
+    naming the stage, instead of raising at its first epoch. The weight
+    gradient's level of side 181 fits only at one map a block, four map
+    groups (the plan before this one, with its row table, declined from
+    side 178 up)."""
     net = _wide_net(cin, maps, filt, side)
     got = megastep.fused_decline_reason(net)
     plan = megastep.fused_plan(net)
     if kind is None:
         assert got is None and plan.epoch_fn is td.deep_epoch, got
+        g = sp.deep_levels(plan.spec)[1]
+        p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+        assert p.ngr == (4 if side == 181 else 1)
         return
     assert plan is None
     assert f"{kind} stage" in got and "opt in to" in got, got
@@ -385,6 +470,7 @@ CONV_CASES = {
     "stride2": (3, 2, 14, 3, 3, 2, "valid", 0),
     "b1": (1, 3, 8, 4, 3, 1, "valid", 0),
     "b302-ragged-slices": (302, 3, 12, 8, 3, 1, "valid", 0),
+    "b305-ragged-slices": (305, 3, 12, 8, 3, 1, "valid", 0),
 }
 
 
@@ -431,42 +517,67 @@ def _close(got, want):
     np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=bound)
 
 
-def wgrad_sliced(dz, x, g, plan=None):
+def wgrad_clustered(dz, x, g, plan=None):
     """A conv level's weight and bias gradients (kernel layout (M, F*F*Cin)
-    and (M,)) as k_wgrad computes them: per batch slice
-    of ``plan`` and band of its output rows, the band's dz and the zero-
-    padded input rows under it staged as the kernel stages them, each
-    output's sum over the band read at the kernel's input offsets;
-    then the slices added in slice order (the last block of each tap
-    group and map adds them). ``dz`` (B, M, c, c), ``x`` (B,
-    Cin, W, W), ``g`` the level's ConvGeom."""
+    and (M,)) as k_wgrad computes them: for each slice of ``plan`` and map
+    group, each staging round's units copied to the kernel's shared-memory
+    offsets (the group's dz rows, the zero-padded input rows under them),
+    every output's taps read at the kernel's offsets from each position's
+    (the bias a tap of input 1); then the slices' sums added in slice
+    order within each cluster of cl slices and the clusters' in cluster
+    order. ``dz`` (B, M, c, c), ``x`` (B, Cin, W, W), ``g`` the level's
+    ConvGeom."""
     p = plan or sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
-    e, cs, F, sp = g.e, g.cs, g.F, p.sp
-    o = torch.arange(p.nout - 1)
-    ci, u, v = o % g.Cin, (o // g.Cin) // F, (o // g.Cin) % F
-    ooff = ci * p.hb * sp + (F - 1 - u) * sp + (F - 1 - v)
-    q = torch.arange(p.ny * e)
-    qoff = (q // e) * cs * sp + (q % e) * cs
-    xp = torch.zeros((g.B, g.Cin, max(g.W + 2 * g.pad, (e - 1) * cs + F + g.pad)
-                      + p.hb, sp + g.W), dtype=x.dtype)
-    xp[:, :, g.pad:g.pad + g.W, g.pad:g.pad + g.W] = x
+    e, cs, F, spw, W = g.e, g.cs, g.F, p.sp, g.W
+    t = torch.arange(p.nout - 1)
+    ci, uv = t % g.Cin, t // g.Cin
+    ooff = ci * p.hb * spw + (F - 1 - uv // F) * spw + (F - 1 - uv % F)
+    dzu, inu = p.mg * p.ny * e, g.Cin * p.hb * spw
     part = torch.zeros((p.nsl, g.M, p.nout), dtype=dz.dtype)
-    for s, (b0, b1) in enumerate(p.slices(g.B)):
-        for b in range(b0, b1):
-            for y0 in range(0, e, p.ny):
-                ny = min(p.ny, e - y0)
-                hb, nq = (ny - 1) * cs + F, ny * e
-                dzs = dz[b, :, y0:y0 + ny, :e].reshape(g.M, nq)
-                ins = torch.zeros((g.Cin, p.hb, sp), dtype=x.dtype)
-                r0 = y0 * cs   # canvas row of padded-input row y0*cs - pad
-                ins[:, :hb] = xp[b, :, r0:r0 + hb, :sp]
-                taps = ins.reshape(-1)[qoff[:nq, None] + ooff[None, :]]
-                part[s, :, :-1] += dzs @ taps
-                part[s, :, -1] += dzs.sum(1)
-    total = part[0].clone()
-    for s in range(1, p.nsl):
-        total = total + part[s]
+    grid = lambda *n: [a.reshape(-1) for a in torch.meshgrid(
+        *[torch.arange(k) for k in n], indexing="ij")]
+    for m0 in range(0, g.M, p.mg):
+        mgc = min(p.mg, g.M - m0)
+        moff = torch.arange(mgc) * p.ny * e
+        for s in range(p.nsl):
+            for b, y0, ny, nbt in p.rounds(g.B, s, e):
+                hb = (ny - 1) * cs + F
+                sdz = torch.zeros(p.nbs * dzu, dtype=dz.dtype)
+                sin = torch.zeros(p.nbs * inu, dtype=x.dtype)
+                u, m, y, xx = grid(nbt, mgc, ny, e)
+                sdz[((u * p.mg + m) * p.ny + y) * e + xx] = dz[
+                    b + u, m0 + m, y0 + y, xx]
+                u, c, h, col = grid(nbt, g.Cin, hb, spw)
+                iy, ix = y0 * cs + h - g.pad, col - g.pad
+                inside = (iy >= 0) & (iy < W) & (ix >= 0) & (ix < W)
+                vals = x[b + u, c, iy.clamp(0, W - 1), ix.clamp(0, W - 1)]
+                sin[((u * g.Cin + c) * p.hb + h) * spw + col] = torch.where(
+                    inside, vals, torch.zeros_like(vals))
+                u, y, xx = grid(nbt, ny, e)
+                pd = u * dzu + y * e + xx
+                pi = u * inu + y * cs * spw + xx * cs
+                dzv = sdz[pd[:, None] + moff[None, :]]          # (P, mgc)
+                xv = sin[pi[:, None] + ooff[None, :]]           # (P, taps)
+                part[s, m0:m0 + mgc, :-1] += dzv.T @ xv
+                part[s, m0:m0 + mgc, -1] += dzv.sum(0)
+    total = None
+    for c0 in range(0, p.nsl, p.cl):
+        csum = torch.zeros_like(part[0])
+        for k in range(c0, min(p.nsl, c0 + p.cl)):
+            csum = csum + part[k]
+        total = csum if total is None else total + csum
     return total[:, :-1], total[:, -1]
+
+
+def _wgrad_plan_at(g, ny):
+    """wgrad_plan at level ``g`` with bands of ``ny`` output rows forced,
+    a slice a band (the form a level too wide for 48 KB takes)."""
+    p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+    nbn = -(-g.e // ny)
+    nsl = g.B * nbn
+    cl = min(sp.WG_CLUSTER, nsl)
+    return p._replace(ny=ny, nbn=nbn, nu=1, nbs=1, nsl=nsl, cl=cl,
+                      nslp=-(-nsl // cl) * cl, hb=(ny - 1) * g.cs + g.F)
 
 
 def dgrad_canvas(dz, w_k, g, plan=None):
@@ -515,9 +626,11 @@ def test_wgrad_slices_match_jax(name):
     dw, db, _ = _jax_conv_grads(x, w, b, dz, g.cs,
                                 CONV_CASES[name][6])
     p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
-    if name == "b302-ragged-slices":
-        assert p.nb > 1 and g.B % p.nb != 0   # the last slice is short
-    got_w, got_b = wgrad_sliced(torch.from_numpy(dz), torch.from_numpy(x),
+    if name == "b302-ragged-slices":   # a padding slice ends the grid
+        assert p.nu > 1 and p.nbs > 1 and p.nslp > p.nsl
+    if name == "b305-ragged-slices":   # the last slice is short
+        assert p.nu > 1 and g.B % p.nu != 0 and p.nbs > 1
+    got_w, got_b = wgrad_clustered(torch.from_numpy(dz), torch.from_numpy(x),
                                    g, p)
     # kernel layout: dw_k[m, (u*F+v)*Cin + c] = dw[m, c, u, v]
     _close(got_w, dw.transpose(0, 2, 3, 1).reshape(g.M, -1))
@@ -527,15 +640,47 @@ def test_wgrad_slices_match_jax(name):
 @pytest.mark.parametrize("ny", [1, 2, 3])
 def test_wgrad_bands_match_jax(ny):
     """A plan with fewer staged rows than the level has (the form a wide
-    level takes to fit 48 KB) gives the same sums."""
+    level takes to fit 48 KB), and one with map groups of one map (a level
+    too wide for all its maps), give the same sums."""
     g, x, w, b, dz = _conv_case("stride2")
     dw, db, _ = _jax_conv_grads(x, w, b, dz, g.cs, "valid")
-    p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
-    p = p._replace(ny=ny, hb=(ny - 1) * g.cs + g.F)
-    got_w, got_b = wgrad_sliced(torch.from_numpy(dz), torch.from_numpy(x),
-                                   g, p)
-    _close(got_w, dw.transpose(0, 2, 3, 1).reshape(g.M, -1))
-    _close(got_b, db)
+    want_w, want_b = dw.transpose(0, 2, 3, 1).reshape(g.M, -1), db
+    p = _wgrad_plan_at(g, ny)
+    for plan in (p, p._replace(mg=1, ngr=g.M)):
+        got_w, got_b = wgrad_clustered(torch.from_numpy(dz),
+                                       torch.from_numpy(x), g, plan)
+        _close(got_w, want_w)
+        _close(got_b, want_b)
+
+
+@functools.lru_cache(maxsize=None)
+def _level_case(g):
+    """Seeded inputs at a configuration's conv level ``g`` and jax.grad's
+    (dw in kernel layout, db) of the JAX ConvLayer there."""
+    mode = {0: "valid", g.F // 2: "same", g.F - 1: "full"}[g.pad]
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((g.B, g.Cin, g.W, g.W)).astype(np.float32)
+    w = (rng.standard_normal((g.M, g.Cin, g.F, g.F)) / g.F).astype(
+        np.float32)
+    b = rng.standard_normal(g.M).astype(np.float32)
+    dz = rng.standard_normal((g.B, g.M, g.c, g.c)).astype(np.float32)
+    dz[:, :, g.e:] = 0.0   # outside the pools' windows: no gradient
+    dz[:, :, :, g.e:] = 0.0
+    dw, db, _ = _jax_conv_grads(x, w, b, dz, g.cs, mode)
+    return x, dz, dw.transpose(0, 2, 3, 1).reshape(g.M, -1), db
+
+
+@pytest.mark.parametrize("name,batch", CONFIGS)
+def test_wgrad_order_matches_jax_at_configs(name, batch):
+    """At every conv level of every configuration here (the plans the
+    kernels run), the weight gradient's order model against jax.grad."""
+    levels, _, _, _ = _family(_spec(name, batch))
+    for g in levels:
+        x, dz, want_w, want_b = _level_case(g)
+        got_w, got_b = wgrad_clustered(torch.from_numpy(dz),
+                                       torch.from_numpy(x), g)
+        _close(got_w, want_w)
+        _close(got_b, want_b)
 
 
 @pytest.mark.parametrize("name", CONV_CASES)

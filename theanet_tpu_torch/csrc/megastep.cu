@@ -33,8 +33,8 @@
 // products on 16x16 tiles that cut K into slices when the tiles alone are
 // too few to fill 132 SMs, with the bias, activation and dropout in the
 // pass that writes the result (stages.cuh gemm); the conv weight gradients
-// over fixed batch slices, a block a (tap group, map, slice) staging its
-// rows in shared memory, the slices added in order (conv_wgrad); the conv2
+// over fixed batch slices, a block a slice staging its rows once for every
+// map and tap, the slices added in order by clusters (conv_wgrad); the conv2
 // input gradient a block a (row band, map, sample) on a zero-padded copy
 // of the sample's dz, with pool1's backward in its epilogue; the softmax
 // head and its backward as grid stages around a loss of one block a sample

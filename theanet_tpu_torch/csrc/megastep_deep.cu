@@ -43,8 +43,8 @@
 // conv side, pooled side, pool, ignore_border, activation, pad, conv
 // stride, slope) drives one conv+pool stage, one pool-backward stage, one
 // weight-gradient stage (stages.cuh conv_wgrad: fixed batch slices, a
-// block a tap group, map and slice staging its rows in shared memory, the
-// slices added in order) and one input-gradient stage (a block a row band,
+// block a slice staging its rows once for every map and tap, the slices
+// added in order by clusters) and one input-gradient stage (a block a row band,
 // input map and sample on the sample's dz dilated by the stride onto a
 // zero canvas) per level (a padded or strided level reads its input
 // directly); the dense stages loop over the pre-hidden stack and then the

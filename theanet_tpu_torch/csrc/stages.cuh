@@ -272,20 +272,33 @@ __device__ __forceinline__ void pdl_wait() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
+// launch_pdl on a grid of clusters of ``cluster`` blocks along x (1: no
+// clusters): a cluster's blocks run at once and share cluster_sync.
 template <typename... KArgs, typename... Args>
 cudaError_t launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block,
-                       size_t smem, cudaStream_t s, Args... args) {
+                       size_t smem, int cluster, cudaStream_t s,
+                       Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = block;
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cluster > 1 ? 2 : 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+}
+
+template <typename... KArgs, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                       size_t smem, cudaStream_t s, Args... args) {
+  return launch_pdl(kernel, grid, block, smem, 1, s, args...);
 }
 
 // launch_pdl with no dynamic shared memory.
@@ -469,17 +482,18 @@ __device__ __forceinline__ bool last_block(unsigned* ctr, unsigned n) {
 }
 
 // p[0] + p[stride] + ... in order from 0.0f, read through L2 (the writes of
-// other blocks of this launch), STAGE_BATCH loads in flight.
+// other blocks of this launch), NB loads in flight.
+template <int NB = STAGE_BATCH>
 __device__ __forceinline__ float sum_slices(const float* p, long long stride,
                                             int n) {
   float s = 0.0f;
-  for (int k0 = 0; k0 < n; k0 += STAGE_BATCH) {
-    float v[STAGE_BATCH];
+  for (int k0 = 0; k0 < n; k0 += NB) {
+    float v[NB];
 #pragma unroll
-    for (int r = 0; r < STAGE_BATCH; ++r)
+    for (int r = 0; r < NB; ++r)
       v[r] = k0 + r < n ? __ldcg(p + (k0 + r) * stride) : 0.0f;
 #pragma unroll
-    for (int r = 0; r < STAGE_BATCH; ++r)
+    for (int r = 0; r < NB; ++r)
       if (k0 + r < n) s += v[r];
   }
   return s;
@@ -571,227 +585,463 @@ struct ConvGeom {
 
 // ---- Weight gradient, in kernel layout: dw[m, (u*F+v)*Cin + ci] =
 // sum_{b, y, x < e} dz[b,m,y,x] * in[b, ci, y*cs+F-1-u-pad, x*cs+F-1-v-pad],
-// and the bias's sum_{b,y,x} dz[b,m,y,x] as output nout-1 of the map.
-// At mnist_cnn's conv1 that is 4 maps x 10 outputs of 13,520 terms each:
-// one block an output leaves most SMs idle, and a long batch (B 3000)
-// leaves each block millions of terms. So the batch is cut into nsl fixed
-// slices of nb samples, one block of WG_WARPS warps a (tap group, map,
-// slice). A block stages nbs samples at a time (a level too wide for that:
-// one sample in bands of ny output rows): their dz rows of its map and the
-// input rows under them, zero-padded (no bounds test in the sum), in
-// shared memory, a warp a row and WG_RB rows' loads in flight; warp w sums
-// its group's outputs w, w + WG_WARPS, ... (opw of them) over the staged
-// samples, lane by lane in (sample, position) order (a lane keeps one
-// column and steps its rows by a constant stride), then by warp_sum. The last block of a (tap
-// group, map) to finish adds the slices' partials in slice order
-// (last_block). Tap groups are as few as fill the card: staging a sample
-// costs the same for 8 outputs as for 32.
-constexpr int WG_WARPS = 8, WG_THREADS = 32 * WG_WARPS;
-constexpr int WG_OPW = 4;                 // outputs a warp, at most
-constexpr int WG_RB = 4;                  // rows a warp stages at a time
-constexpr int WG_TARGET = 3 * SM_COUNT;   // blocks wanted
-constexpr int WG_SLICE_TERMS = 2048;      // (sample, position) terms a slice
+// and the bias's sum_{b,y,x} dz[b,m,y,x] as output nout-1 of the map (a tap
+// whose input is 1). The batch is cut into units, a sample's band of ny
+// output rows (one band of all e rows where a sample fits and the batch
+// alone gives the slices), and the units into nsl slices of nu, about
+// WG_TARGET and at most a block an SM. A block takes one slice and every
+// output of a group of mg maps (all M unless a row of them does not fit
+// shared memory): it stages nbs units at a time, their dz rows of its
+// maps and the input rows under them, once for every map and tap, each
+// element an asynchronous copy (a zero fill off the input; the round's
+// copies all in flight at once). Each thread owns a WG_TM x WG_TV register
+// tile (maps x taps) and sums the staged positions pg, pg + npg, ... (a
+// mixed-radix counter steps them and the copies: no division); a tile's
+// npg position groups add by a butterfly within the warp that halves the
+// outputs a lane keeps at each level, then warp by warp in order, into
+// the slice's sums in shared memory. Slices form clusters of cl blocks:
+// after the cluster's barrier, block r adds the r-th share of its group's
+// outputs from the cluster's blocks' shared memory in slice order; with
+// several clusters, the last block to finish a share (last_block, a
+// counter a map group and share) adds the clusters' sums in cluster order.
+// Exact f32 multiply-adds on the CUDA cores and no atomic sum: one order
+// for given shapes.
+constexpr int WG_TM = 4, WG_TV = 8;   // a thread's tile: maps x taps
+constexpr int WG_MAX_THREADS = 256;   // a block's: it holds an SM's registers
+constexpr int WG_TARGET = 96;         // slices wanted (on the H100 at
+                                      // mnist_cnn's levels, 96 ran faster
+                                      // than 64 and than 132)
+constexpr int WG_CLUSTER = 8;         // blocks a cluster, at most (portable)
 
 struct WgradPlan {
-  int nout, ntg, opw, nsl, nb, nbs, ny, sp, hb, smem_floats;
+  int nout;           // F*F*Cin weights and the bias, a map
+  int mg, ngr;        // maps a block, map groups (the grid's y)
+  int ny, nbn;        // output rows a band, bands a sample
+  int nu, nbs;        // units a slice, units staged at a time
+  int nsl, cl, nslp;  // slices, blocks a cluster, slices padded to clusters
+  int hb, sp;         // staged input rows of a band, (ny-1)*cs + F; columns
+  int tiles, npg;     // thread tiles of the group, position groups a tile
+  int threads, passes;   // tiles a thread takes, one after another
+  int smem_floats;
 };
 
-// floats a staged sample takes in a band of ny output rows: its dz rows
-// (ny x e) and the input rows under them (Cin x hb x sp)
-inline int wgrad_sample_floats(int ny, int e, int Cin, int F, int cs,
-                               int sp) {
-  return ny * e + Cin * ((ny - 1) * cs + F) * sp;
+__host__ __device__ inline long long cdivl(long long a, long long b) {
+  return (a + b - 1) / b;
 }
 
-// the block's fixed shared floats at ny: the row table (4 ints a staged
-// row of a sample)
-inline int wgrad_table_floats(int ny, int Cin, int F, int cs) {
-  return 4 * (ny + Cin * ((ny - 1) * cs + F));
+// floats a unit stages: mg maps' dz rows (ny x e), then the Cin x hb x sp
+// input rows under them
+inline long long wgrad_unit_floats(int ny, int mg, int e, int Cin, int F,
+                                   int cs) {
+  const long long sp = (long long)(e - 1) * cs + F;
+  return (long long)mg * ny * e + (long long)Cin * ((ny - 1) * cs + F) * sp;
 }
 
 inline WgradPlan wgrad_plan(int B, int M, int Cin, int F, int e, int cs) {
   WgradPlan p;
   p.nout = F * F * Cin + 1;
-  const int ntg_min = cdiv(p.nout, WG_WARPS * WG_OPW);
-  const int want = std::max(cdiv(WG_TARGET, M * ntg_min),
-                            cdiv(B * e * e, WG_SLICE_TERMS));
-  p.nsl = std::min(B, want);
-  p.nb = cdiv(B, p.nsl);
-  p.nsl = cdiv(B, p.nb);
-  p.ntg = ntg_min;   // more groups only where the slices leave SMs idle
-  if (p.ntg * M * p.nsl < SM_COUNT)
-    p.ntg = std::min(cdiv(p.nout, WG_WARPS), cdiv(SM_COUNT, M * p.nsl));
-  p.opw = cdiv(p.nout, p.ntg * WG_WARPS);
   p.sp = (e - 1) * cs + F;
-  p.ny = e;   // the tables and one sample must fit
-  while (p.ny > 1 && wgrad_table_floats(p.ny, Cin, F, cs)
-                         + wgrad_sample_floats(p.ny, e, Cin, F, cs, p.sp)
-                     > STAGE_FLOATS)
-    --p.ny;
-  const int fixed = wgrad_table_floats(p.ny, Cin, F, cs);
-  const int per = wgrad_sample_floats(p.ny, e, Cin, F, cs, p.sp);
-  p.nbs = p.ny < e ? 1
-          : std::max(1, std::min(p.nb, (STAGE_FLOATS - fixed) / per));
-  p.hb = (p.ny - 1) * cs + F;
-  p.smem_floats = fixed + p.nbs * per;
+  auto unit = [&](int ny, int mg) {
+    return wgrad_unit_floats(ny, mg, e, Cin, F, cs);
+  };
+  // 48 KB where a row of one map fits it, else what a block can opt in to
+  const long long lim = unit(1, 1) <= STAGE_FLOATS
+                            ? STAGE_FLOATS
+                            : (long long)(SMEM_OPT_IN / sizeof(float));
+  p.ngr = 1;
+  auto fits = [&](int mg) {   // a row's staging; the slice's sums (in
+    return unit(1, mg) <= lim   // global memory past a pass of tiles)
+           && (cdiv(mg, WG_TM) * cdiv(p.nout, WG_TV) > WG_MAX_THREADS
+               || (long long)mg * p.nout + WG_MAX_THREADS <= lim);
+  };
+  while (p.ngr < M && !fits(cdiv(M, p.ngr))) ++p.ngr;
+  p.mg = cdiv(M, p.ngr);
+  p.ngr = cdiv(M, p.mg);
+  const long long want = cdiv(WG_TARGET, p.ngr);
+  int ny = e;
+  while (ny > 1 && unit(ny, p.mg) > lim) --ny;
+  if (B < want)   // bands enough for the slices wanted
+    ny = std::min(ny, cdiv(e, (int)std::min<long long>(e, cdivl(want, B))));
+  p.ny = ny;
+  p.nbn = cdiv(e, ny);
+  const long long units = (long long)B * p.nbn;
+  // one wave: at most SM_COUNT blocks, slices padded to whole clusters
+  const int cap = std::max(1, SM_COUNT / p.ngr);
+  const int nsl_max = cap <= WG_CLUSTER ? cap : cap / WG_CLUSTER * WG_CLUSTER;
+  p.nu = (int)std::max({1LL, (units + want / 2) / want, cdivl(units, nsl_max)});
+  p.nsl = (int)cdivl(units, p.nu);
+  p.nbs = p.nbn > 1 ? 1
+          : (int)std::max(1LL, std::min<long long>(p.nu, lim / unit(ny, p.mg)));
+  p.cl = std::min(WG_CLUSTER, p.nsl);
+  p.nslp = cdiv(p.nsl, p.cl) * p.cl;
+  p.hb = (ny - 1) * cs + F;
+  p.tiles = cdiv(p.mg, WG_TM) * cdiv(p.nout, WG_TV);
+  const int round_pos = p.nbs * ny * e;
+  p.npg = 1;
+  while (2 * p.npg * p.tiles <= WG_MAX_THREADS && p.npg < round_pos)
+    p.npg *= 2;
+  p.threads = std::min(WG_MAX_THREADS, cdiv(p.tiles * p.npg, 32) * 32);
+  p.passes = cdiv(p.tiles, p.threads / p.npg);
+  p.smem_floats = (int)std::max<long long>(
+      p.nbs * unit(ny, p.mg),
+      p.passes > 1 ? p.threads : (long long)p.mg * p.nout + p.threads);
   return p;
 }
 
-// part: nsl x M x nout floats; ctr: M x ntg zeroed counters.
-__global__ void __launch_bounds__(WG_THREADS)
+// A mixed-radix counter, digits d0 < r0, d1 < r1, d2 < r2 and d3, stepped
+// by a fixed stride whose own digits are s: a few adds and selects a step.
+struct Mixed {
+  int d0, d1, d2, d3;
+};
+
+__device__ __forceinline__ Mixed mixed_of(int i, int r0, int r1, int r2) {
+  Mixed d;
+  d.d0 = i % r0;
+  i /= r0;
+  d.d1 = i % r1;
+  i /= r1;
+  d.d2 = i % r2;
+  d.d3 = i / r2;
+  return d;
+}
+
+__device__ __forceinline__ void mixed_step(Mixed& d, const Mixed& s, int r0,
+                                           int r1, int r2) {
+  d.d0 += s.d0;
+  int c = d.d0 >= r0;
+  d.d0 -= c * r0;
+  d.d1 += s.d1 + c;
+  c = d.d1 >= r1;
+  d.d1 -= c * r1;
+  d.d2 += s.d2 + c;
+  c = d.d2 >= r2;
+  d.d2 -= c * r2;
+  d.d3 += s.d3 + c;
+}
+
+// The cluster's barrier in two halves: every thread of its blocks arrives
+// (release: its writes before, shared ones included, are published), and
+// waits for the others (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// A float of block ``rank``'s shared memory at the address of ``p`` in
+// this block's (distributed shared memory; after a cluster barrier).
+__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
+  unsigned a = (unsigned)__cvta_generic_to_shared(p), r;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(r));
+  return v;
+}
+
+// An asynchronous copy of a float from global to shared memory, or of a
+// zero where ``real`` is false (no byte read); cp_wait waits for the
+// thread's copies.
+__device__ __forceinline__ void cp_float(float* dst, const float* src,
+                                         bool real) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(d), "l"(src), "r"(real ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Output o of the group of maps from m0 (o = m*nout + tap) to dw or dbias.
+__device__ __forceinline__ void wgrad_store(float* dw, float* dbias, int m0,
+                                            int nout, int o, float v) {
+  const int m = o / nout, t = o - m * nout;
+  if (t == nout - 1) dbias[m0 + m] = v;
+  else dw[(size_t)(m0 + m) * (nout - 1) + t] = v;
+}
+
+// A thread tile's maps and taps in a unit's staged floats: moff[jm] the
+// map's dz rows, ooff[jv] the tap's input offset from a position's, jb the
+// bias's slot (-1: none). Maps past the group repeat its last (their sums
+// are not stored); taps past nout read offset 0. Tiles take the maps first
+// (tile % ntm), so the tiles of a warp mostly share their taps.
+__device__ __forceinline__ void wgrad_tile(const ConvGeom& g,
+                                           const WgradPlan& p, int tile,
+                                           int mgc, int* moff, int* ooff,
+                                           int& jb) {
+  const int ntm = cdiv(p.mg, WG_TM), tm = tile % ntm, tv = tile / ntm;
+  jb = -1;
+#pragma unroll
+  for (int jm = 0; jm < WG_TM; ++jm)
+    moff[jm] = min(tm * WG_TM + jm, mgc - 1) * p.ny * g.e;
+#pragma unroll
+  for (int jv = 0; jv < WG_TV; ++jv) {
+    const int t = tv * WG_TV + jv, ci = t % g.Cin, uv = t / g.Cin;
+    ooff[jv] = t < p.nout - 1 ? ci * p.hb * p.sp + (g.F - 1 - uv / g.F) * p.sp
+                                    + g.F - 1 - uv % g.F
+                              : 0;
+    if (t == p.nout - 1) jb = jv;
+  }
+}
+
+// A thread's walks of a staging round of ny output rows (k_wgrad): the
+// digits of its dz elements tid and tid + nt (column, row, map, unit) and
+// of the step 2 nt, of its input elements (column, row, channel, unit)
+// likewise, of its first position (column, row, unit) and of the step npg.
+// Two chains of elements a thread: their steps do not wait on each other.
+struct WgradWalk {
+  int ny;
+  Mixed dd, dd1, ds, di, di1, dis, q, qs;
+};
+
+__device__ __forceinline__ WgradWalk wgrad_walk(const ConvGeom& g,
+                                                const WgradPlan& p, int ny,
+                                                int mgc, int pg) {
+  const int tid = threadIdx.x, nt = blockDim.x, hb = (ny - 1) * g.cs + g.F;
+  WgradWalk w;
+  w.ny = ny;
+  w.dd = mixed_of(tid, g.e, ny, mgc);
+  w.dd1 = mixed_of(tid + nt, g.e, ny, mgc);
+  w.ds = mixed_of(2 * nt, g.e, ny, mgc);
+  w.di = mixed_of(tid, p.sp, hb, g.Cin);
+  w.di1 = mixed_of(tid + nt, p.sp, hb, g.Cin);
+  w.dis = mixed_of(2 * nt, p.sp, hb, g.Cin);
+  w.q = mixed_of(pg, g.e, ny, 1 << 30);
+  w.qs = mixed_of(p.npg, g.e, ny, 1 << 30);
+  return w;
+}
+
+// One level of the position groups' butterfly: lane l and lane l ^ o
+// swap halves of the 2H outputs each keeps, the lane with bit o set
+// keeping the upper half; each adds the other's half to its own.
+template <int H>
+__device__ __forceinline__ void wgrad_halve(float* acc, int o, int lane) {
+  const bool up = lane & o;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float send = up ? acc[k] : acc[k + H];
+    const float keep = up ? acc[k + H] : acc[k];
+    acc[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+// part: ncl = nslp / cl cluster sums of M x nout (with more than one
+// cluster), then (with more than one pass) the nslp slices' sums; ctr: ngr
+// x cl zeroed counters.
+__global__ void __launch_bounds__(WG_MAX_THREADS)
 k_wgrad(ConvGeom g, WgradPlan p, const float* __restrict__ dz,
         const float* __restrict__ in, float* __restrict__ part,
         unsigned* __restrict__ ctr, float* __restrict__ dw,
         float* __restrict__ dbias) {
-  pdl_wait();
-  pdl_trigger();
   extern __shared__ float sm[];
-  const int e = g.e, cs = g.cs, F = g.F, sp = p.sp, chan = p.hb * sp;
-  const int nqs = p.ny * e, per = nqs + g.Cin * chan;   // a staged sample:
-  const int rows_per = p.ny + g.Cin * p.hb;   // dz (nqs) then input (Cin x
-  int4* tab = (int4*)sm;                      // hb x sp); tab: its rows
-  float* st = sm + 4 * rows_per;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m = blockIdx.y, sl = blockIdx.z;
-  const int o0 = blockIdx.x * WG_WARPS * p.opw;   // the group's outputs
-  const int o1 = min(p.nout, o0 + WG_WARPS * p.opw);
-  int ooff[WG_OPW];   // output o's tap (u, v) and channel in a sample;
-  float acc[WG_OPW];  // -1: no output; -2: the bias
-#pragma unroll
-  for (int j = 0; j < WG_OPW; ++j) {
-    const int o = o0 + warp + WG_WARPS * j;
-    acc[j] = 0.0f;
-    ooff[j] = -1;
-    if (j < p.opw && o < o1) {
-      const int ci = o % g.Cin, u = (o / g.Cin) / F, v = (o / g.Cin) % F;
-      ooff[j] = o == p.nout - 1 ? -2
-                : nqs + ci * chan + (F - 1 - u) * sp + (F - 1 - v);
-    }
-  }
-  // the staged rows of a sample: its ny dz rows (e wide), then Cin x hb
-  // input rows (sp wide); per row, once a band, its source offset from the
-  // sample's dz or input, its place in the sample and the columns [lo, hi)
-  // that hold data (zeros elsewhere): the copy below costs no division
-  const int cw = min(sp, WG_THREADS), rstep = WG_THREADS / cw;
-  const int cwq = min(e, 32), rpi = 32 / cwq;   // a warp's columns, rows
-  const int lane_y = lane / cwq, lane_x = lane % cwq;
+  constexpr int NV = WG_TM * WG_TV;   // 32: a lane an output of a tile
+  const int e = g.e, cs = g.cs, F = g.F, sp = p.sp, nout = p.nout;
+  const int tid = threadIdx.x, nt = blockDim.x, npg = p.npg;
+  const int lane = tid & 31, seg = min(npg, 32);
+  const int sl = blockIdx.x, m0 = blockIdx.y * p.mg;
+  const int mgc = min(p.mg, g.M - m0);   // the group's maps
+  const int dzu = p.mg * p.ny * e, inu = g.Cin * p.hb * sp;   // a unit's
+  float* sin = sm + p.nbs * dzu;          // staged dz, then its input rows
+  const long long MN = (long long)g.M * nout, u0 = (long long)sl * p.nu;
+  const int ncl = p.nslp / p.cl;
+  const size_t go = (size_t)m0 * nout;
+  float* csum = part + go;                // the clusters' sums
+  float* bp = p.passes > 1                // the slice's sums (mgc x nout):
+                  ? part + (ncl > 1 ? ncl : 0) * MN + sl * MN + go
+                  : sm;                   // in global memory, or over the
+  float* red = sm + p.mg * nout;          // staged rows; the warps' sums
+  const long long units = (long long)g.B * p.nbn;
+  const long long u1 = min(units, u0 + p.nu);   // below u0: a padding slice
   const size_t dzs = (size_t)g.M * g.c * g.c;   // dz floats a sample
-  const int b1 = min(g.B, (sl + 1) * p.nb);
-  for (int b0 = sl * p.nb; b0 < b1; b0 += p.nbs) {
-    const int nbt = min(p.nbs, b1 - b0), nrows = nbt * rows_per;
-    for (int y0 = 0; y0 < e; y0 += p.ny) {
+  const int pg = tid & (npg - 1), ntm = cdiv(p.mg, WG_TM);
+  const int per_pass = nt / npg;
+  int tile = tid / npg, moff[WG_TM], ooff[WG_TV], jb;
+  wgrad_tile(g, p, tile, mgc, moff, ooff, jb);   // before the wait: they
+  WgradWalk wk = wgrad_walk(                      // read no memory
+      g, p, min(p.ny, e - (int)(u0 % p.nbn) * p.ny), mgc, pg);
+  pdl_wait();
+  for (int pass = 0; pass < p.passes; ++pass) {
+    if (pass) {
+      tile += per_pass;
+      wgrad_tile(g, p, tile, mgc, moff, ooff, jb);
+    }
+    const int tm = tile % ntm, tv = tile / ntm;
+    float acc[NV];   // acc[jm * WG_TV + jv]
+#pragma unroll
+    for (int k = 0; k < NV; ++k) acc[k] = 0.0f;
+    for (long long u = u0; u < u1; u += p.nbs) {
+      const int nbt = (int)min((long long)p.nbs, u1 - u);
+      const int b = (int)(u / p.nbn), y0 = (int)(u % p.nbn) * p.ny;
       const int ny = min(p.ny, e - y0), hb = (ny - 1) * cs + F;
-      __syncthreads();   // the previous samples are summed
-      for (int r = tid; r < rows_per; r += WG_THREADS) {
-        int4 row = make_int4(0, 0, 0, 0);
-        if (r < p.ny) {   // dz row y0 + r of map m
-          row.y = r * e;
-          if (r < ny) {
-            row.x = (m * g.c + y0 + r) * g.c;
-            row.w = e;
-          }
-        } else {          // input row iy of channel ci, from column -pad
-          const int i = r - p.ny, ci = i / p.hb, h = i % p.hb;
-          const int iy = y0 * cs + h - g.pad;
-          row.y = nqs + ci * chan + h * sp;
-          if (h < hb && iy >= 0 && iy < g.W) {
-            row.x = ci * g.sc + iy * g.W - g.pad;
-            row.z = g.pad;
-            row.w = min(sp, g.W + g.pad);
-          }
-        }
-        tab[r] = row;
+      __syncthreads();   // the staged rows before are summed
+      // dz digits (column, row, map, unit); input (column, row, channel,
+      // unit): consecutive threads take consecutive columns of a row, each
+      // element an asynchronous copy (all of the round's in flight at once;
+      // a padding element a zero fill)
+      const int ndz = nbt * mgc * ny * e, nin = nbt * g.Cin * hb * sp;
+      const float* dzb = dz + b * dzs + (size_t)m0 * g.c * g.c + y0 * g.c;
+      const float* inb = in + (size_t)b * g.sb;
+      if (ny != wk.ny) wk = wgrad_walk(g, p, ny, mgc, pg);
+      auto dz_copy = [&](const Mixed& d) {
+        cp_float(sm + ((d.d3 * p.mg + d.d2) * p.ny + d.d1) * e + d.d0,
+                 dzb + d.d3 * dzs + (size_t)d.d2 * g.c * g.c + d.d1 * g.c
+                     + d.d0,
+                 true);
+      };
+      auto in_copy = [&](const Mixed& d) {
+        const int iy = y0 * cs + d.d1 - g.pad, ix = d.d0 - g.pad;
+        const bool inside = iy >= 0 && iy < g.W && ix >= 0 && ix < g.W;
+        cp_float(sin + ((d.d3 * g.Cin + d.d2) * p.hb + d.d1) * sp + d.d0,
+                 inb + (inside ? (size_t)d.d3 * g.sb + (size_t)d.d2 * g.sc
+                                     + iy * g.W + ix
+                               : 0),
+                 inside);
+      };
+      Mixed d0 = wk.dd, d1 = wk.dd1;
+#pragma unroll 2
+      for (int i = tid; i < ndz; i += 2 * nt) {
+        dz_copy(d0);
+        if (i + nt < ndz) dz_copy(d1);
+        mixed_step(d0, wk.ds, e, ny, mgc);
+        mixed_step(d1, wk.ds, e, ny, mgc);
       }
-      __syncthreads();
-      for (int c0 = 0; c0 < sp && tid < rstep * cw; c0 += cw) {
-        // a column a thread, WG_RB rows at a time
-        const int col = c0 + tid % cw, r0 = tid / cw;
-        int bi = r0 / rows_per, rr = r0 - bi * rows_per;   // row r0
-        for (int r = r0; r < nrows; ) {
-          float v[WG_RB];
-          int at[WG_RB];
-#pragma unroll
-          for (int k = 0; k < WG_RB; ++k) {
-            at[k] = -1;
-            v[k] = 0.0f;
-            if (r < nrows) {
-              const int4 row = tab[rr];
-              const bool isdz = rr < p.ny;
-              if (col < (isdz ? e : sp)) {
-                at[k] = bi * per + row.y + col;
-                if (col >= row.z && col < row.w)
-                  v[k] = isdz ? dz[(b0 + bi) * dzs + row.x + col]
-                              : in[(size_t)(b0 + bi) * g.sb + row.x + col];
-              }
-            }
-            r += rstep;   // the next row: (bi, rr) without a division
-            rr += rstep;
-            while (rr >= rows_per) { rr -= rows_per; ++bi; }
-          }
-#pragma unroll
-          for (int k = 0; k < WG_RB; ++k)
-            if (at[k] >= 0) st[at[k]] = v[k];
-        }
+      d0 = wk.di;
+      d1 = wk.di1;
+#pragma unroll 2
+      for (int i = tid; i < nin; i += 2 * nt) {
+        in_copy(d0);
+        if (i + nt < nin) in_copy(d1);
+        mixed_step(d0, wk.dis, sp, hb, g.Cin);
+        mixed_step(d1, wk.dis, sp, hb, g.Cin);
       }
+      cp_wait();
       __syncthreads();
-      // lane l takes row l / cwq and column x0 + l % cwq of every group
-      // of rpi rows: its positions then step by constant strides
-      for (int x0 = 0; x0 < e && lane < rpi * cwq; x0 += cwq) {
-        const int x = x0 + lane_x;
-        if (x >= e) break;
-        for (int bi = 0; bi < nbt; ++bi) {
-          const float* smp = st + bi * per;
-#pragma unroll 4
-          for (int y = lane_y, q = lane_y * e + x,
-                   qo = lane_y * cs * sp + x * cs;
-               y < ny; y += rpi, q += rpi * e, qo += rpi * cs * sp) {
-            const float d = smp[q];
+      if (tile < p.tiles) {   // positions (column, row, unit) pg, pg + npg,
+        const int npos = nbt * ny * e;   // two a step: their loads together
+        Mixed q = wk.q;
+        for (int i = pg; i < npos; i += 2 * npg) {
+          const int pd0 = q.d2 * dzu + q.d1 * e + q.d0;
+          const int pi0 = q.d2 * inu + q.d1 * cs * sp + q.d0 * cs;
+          mixed_step(q, wk.qs, e, ny, 1 << 30);
+          const bool two = i + npg < npos;
+          const int pd1 = two ? q.d2 * dzu + q.d1 * e + q.d0 : pd0;
+          const int pi1 = two ? q.d2 * inu + q.d1 * cs * sp + q.d0 * cs : pi0;
+          mixed_step(q, wk.qs, e, ny, 1 << 30);
+          float dv0[WG_TM], dv1[WG_TM], xv0[WG_TV], xv1[WG_TV];
 #pragma unroll
-            for (int j = 0; j < WG_OPW; ++j) {
-              if (ooff[j] == -2) acc[j] += d;
-              else if (ooff[j] >= 0) acc[j] += d * smp[qo + ooff[j]];
-            }
+          for (int jm = 0; jm < WG_TM; ++jm) {
+            dv0[jm] = sm[pd0 + moff[jm]];
+            dv1[jm] = sm[pd1 + moff[jm]];
           }
+#pragma unroll
+          for (int jv = 0; jv < WG_TV; ++jv) {
+            xv0[jv] = jv == jb ? 1.0f : sin[pi0 + ooff[jv]];
+            xv1[jv] = jv == jb ? 1.0f : sin[pi1 + ooff[jv]];
+          }
+#pragma unroll
+          for (int jm = 0; jm < WG_TM; ++jm)
+#pragma unroll
+            for (int jv = 0; jv < WG_TV; ++jv)
+              acc[jm * WG_TV + jv] += dv0[jm] * xv0[jv];
+          if (two)
+#pragma unroll
+            for (int jm = 0; jm < WG_TM; ++jm)
+#pragma unroll
+              for (int jv = 0; jv < WG_TV; ++jv)
+                acc[jm * WG_TV + jv] += dv1[jm] * xv1[jv];
         }
       }
     }
-  }
-  const size_t M_nout = (size_t)g.M * p.nout;
+    // the tile's position groups: a butterfly within the warp that halves
+    // the outputs a lane keeps at each level (lane l of a group of seg then
+    // holds outputs (l % seg) * NV / seg, ...), then warp by warp in order
+    if (seg > 1) wgrad_halve<16>(acc, seg >> 1, lane);
+    if (seg > 2) wgrad_halve<8>(acc, seg >> 2, lane);
+    if (seg > 4) wgrad_halve<4>(acc, seg >> 3, lane);
+    if (seg > 8) wgrad_halve<2>(acc, seg >> 4, lane);
+    if (seg > 16) wgrad_halve<1>(acc, seg >> 5, lane);
+    __syncthreads();   // the staged rows are summed: reuse them
+    const bool live = tile < p.tiles;
+    if (npg <= 32) {
+      const int nk = NV / seg, k0 = pg * nk;
 #pragma unroll
-  for (int j = 0; j < WG_OPW; ++j) {
-    const float v = warp_sum(acc[j]);
-    if (lane == 0 && ooff[j] != -1)
-      part[sl * M_nout + (size_t)m * p.nout + o0 + warp + WG_WARPS * j] = v;
+      for (int k = 0; k < NV; ++k) {
+        const int m = tm * WG_TM + (k0 + k) / WG_TV;
+        const int t = tv * WG_TV + (k0 + k) % WG_TV;
+        if (live && k < nk && m < mgc && t < nout) bp[m * nout + t] = acc[k];
+      }
+    } else {   // one pass
+      red[tid] = acc[0];   // lane l: output l of its warp's sum
+      __syncthreads();
+      const int m = tm * WG_TM + pg / WG_TV, t = tv * WG_TV + pg % WG_TV;
+      if (live && pg < 32 && m < mgc && t < nout) {
+        float s = 0.0f;
+        for (int w = 0; w < npg / 32; ++w) s += red[tid + 32 * w];
+        bp[m * nout + t] = s;
+      }
+    }
   }
-  if (!last_block(ctr + m * p.ntg + blockIdx.x, p.nsl)) return;
-  for (int o = o0 + tid; o < o1; o += WG_THREADS) {
-    const float s = sum_slices(part + (size_t)m * p.nout + o, M_nout, p.nsl);
-    if (o == p.nout - 1) dbias[m] = s;
-    else dw[m * (p.nout - 1) + o] = s;
+  // the cluster's slices: block r adds the r-th share of the outputs from
+  // each block's shared memory in slice order; then the clusters
+  cluster_arrive();
+  cluster_wait();
+  const int r = sl % p.cl, c = sl / p.cl;
+  const int ng = mgc * nout, share = cdiv(ng, p.cl);
+  const int o0 = r * share, o1 = min(ng, o0 + share);
+  const int kn = min(p.cl, p.nsl - c * p.cl);   // the cluster's slices
+  for (int o = o0 + tid; o < o1; o += nt) {
+    float v[WG_CLUSTER];
+#pragma unroll
+    for (int k = 0; k < WG_CLUSTER; ++k)
+      v[k] = k >= kn          ? 0.0f
+             : p.passes == 1 ? ld_cluster(bp + o, k)
+                             : __ldcg(bp + (k - r) * MN + o);
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < WG_CLUSTER; ++k)
+      if (k < kn) s += v[k];
+    if (ncl == 1) wgrad_store(dw, dbias, m0, nout, o, s);
+    else csum[c * MN + o] = s;
   }
+  // the block's reads of the others' shared memory are done (they exit
+  // only once every block of the cluster has arrived here)
+  cluster_arrive();
+  if (ncl > 1 && last_block(ctr + blockIdx.y * p.cl + r, ncl)) {
+    for (int o = o0 + tid; o < o1; o += nt)
+      wgrad_store(dw, dbias, m0, nout, o, sum_slices<16>(csum + o, MN, ncl));
+  }
+  cluster_wait();
+  // the next stage starts only now: started early, its blocks sat on the
+  // SMs this grid left free and ran slower (on the H100, the conv2 input
+  // gradient after this stage at mnist_cnn: 11.2 against 6.9 us a step)
+  pdl_trigger();
 }
 
 // The level's weight and bias gradients, started by programmatic dependent
-// launch; ``part`` holds wgrad_plan's nsl * M * nout floats, ``ctr`` M *
-// ntg zeroed counters.
+// launch on clusters of wgrad_plan's cl slices; ``part`` holds
+// wgrad_part_floats, ``ctr`` wgrad_counters zeroed counters.
 inline int conv_wgrad(cudaStream_t s, const ConvGeom& g, const float* dz,
                       const float* in, float* part, unsigned* ctr, float* dw,
                       float* dbias) {
   const WgradPlan p = wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
   const size_t smem = sizeof(float) * p.smem_floats;
   if (!smem_opt_in(k_wgrad, smem)) return ERR_STAGE_SMEM;
-  CHECK(launch_pdl(k_wgrad, dim3(p.ntg, g.M, p.nsl), dim3(WG_THREADS), smem,
+  CHECK(launch_pdl(k_wgrad, dim3(p.nslp, p.ngr), dim3(p.threads), smem, p.cl,
                    s, g, p, dz, in, part, ctr, dw, dbias));
   return 0;
 }
 
-// Floats of a level's weight-gradient slices, and its counters.
+// Floats of a level's weight-gradient slice and cluster sums, and its
+// counters.
 inline long long wgrad_part_floats(const ConvGeom& g) {
   const WgradPlan p = wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
-  return (long long)p.nsl * g.M * p.nout;
+  const long long ncl = p.nslp / p.cl;
+  return ((ncl > 1 ? ncl : 0) + (p.passes > 1 ? p.nslp : 0)) * g.M * p.nout;
 }
 inline long long wgrad_counters(const ConvGeom& g) {
-  return (long long)g.M * wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs).ntg;
+  const WgradPlan p = wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
+  return (long long)p.ngr * p.cl;
 }
 
 // ---- Input gradient: din[b, ci, i, j] = sum over m, u, v (in that order)
@@ -1040,15 +1290,17 @@ extern "C" {
 
 // The launch plans above at the given shapes, for the check of their
 // mirror in theanet_tpu_torch/ops/stage_plan.py on the card: wgrad_plan's
-// (nout, ntg, nsl, nb, ny, sp, hb, smem_floats), dgrad_plan's (rows,
+// 17 fields in order, dgrad_plan's (rows,
 // nbands, dp, threads, smem_floats), gemm_plan's (nks, kslice,
 // part_floats).
 void stage_wgrad_plan(int B, int M, int Cin, int F, int e, int cs,
                       long long* out) {
   const WgradPlan p = wgrad_plan(B, M, Cin, F, e, cs);
-  const long long v[] = {p.nout, p.ntg, p.opw, p.nsl, p.nb, p.nbs, p.ny,
-                         p.sp, p.hb, p.smem_floats};
-  for (int k = 0; k < 10; ++k) out[k] = v[k];
+  const long long v[] = {p.nout, p.mg,  p.ngr, p.ny,    p.nbn,  p.nu,
+                         p.nbs,  p.nsl, p.cl,  p.nslp,  p.hb,   p.sp,
+                         p.tiles, p.npg, p.threads, p.passes,
+                         p.smem_floats};
+  for (int k = 0; k < 17; ++k) out[k] = v[k];
 }
 
 void stage_dgrad_plan(int B, int Cin, int W, int M, int F, long long* out) {

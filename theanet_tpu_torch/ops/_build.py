@@ -205,7 +205,7 @@ def _bind(name, lib):
 # the integers each writes (ops/stage_plan.py's plan fields, in order)
 STAGE_PLANS = {"stage_wgrad_plan": 6, "stage_dgrad_plan": 5,
                "stage_gemm_plan": 3}
-STAGE_PLAN_WIDTH = {"stage_wgrad_plan": 10, "stage_dgrad_plan": 5,
+STAGE_PLAN_WIDTH = {"stage_wgrad_plan": 17, "stage_dgrad_plan": 5,
                     "stage_gemm_plan": 3}
 
 

@@ -7,10 +7,12 @@ line (``chip_smoke.py`` holds each mirror to the C's ``stage_*_plan`` and
 ``*_workspace_floats`` on the card; tests/test_torch_stage_plan.py pins
 them on the CPU):
 
-  * ``wgrad_plan``: a conv level's weight gradient over ``nsl`` batch
-    slices of ``nb`` samples, a block a (tap group of WG_WARPS outputs,
-    map, slice) staging bands of ``ny`` output rows; the slices' partials
-    added in slice order;
+  * ``wgrad_plan``: a conv level's weight gradient over ``nsl`` slices of
+    ``nu`` units (a sample's band of ``ny`` output rows), a block a (slice,
+    group of ``mg`` maps) staging its units once for every map and tap,
+    each thread a WG_TM x WG_TV tile of outputs; the slices' partials added
+    in slice order by clusters of ``cl`` blocks, then the clusters' in
+    cluster order;
   * ``dgrad_plan``: a conv level's input gradient, a block a (band of
     ``rows`` input rows, input map, sample) on a zero canvas of side ``dp``
     holding the sample's dz dilated by the stride;
@@ -44,11 +46,10 @@ GK = 64                         # K a shared-memory round of a product tile
 GEMM_KMIN = 128                 # the shortest slice of K
 GEMM_TARGET = 1024              # blocks wanted: ~8 an SM
 GEMM_PART_CAP = 1 << 18         # partial floats: the workspace region
-WG_WARPS = 8                    # warps a weight-gradient block
-WG_THREADS = 32 * WG_WARPS
-WG_OPW = 4                      # outputs a warp, at most
-WG_TARGET = 3 * SM_COUNT        # blocks wanted
-WG_SLICE_TERMS = 2048           # (sample, position) terms a slice
+WG_TM, WG_TV = 4, 8             # a weight-gradient thread's tile: maps x taps
+WG_MAX_THREADS = 256
+WG_TARGET = 96                  # slices wanted (a map group's share)
+WG_CLUSTER = 8                  # blocks a cluster, at most
 DG_TARGET = 2 * SM_COUNT
 DG_MIN_THREADS, DG_MAX_THREADS = 256, 1024
 # the fused libraries' other fixed regions (stages.cuh, megastep.cu)
@@ -77,29 +78,57 @@ class ConvGeom(NamedTuple):
 
 class WgradPlan(NamedTuple):
     nout: int          # F*F*Cin weights and the bias, a map
-    ntg: int           # tap groups of WG_WARPS * opw outputs
-    opw: int           # outputs a warp
-    nsl: int           # batch slices
-    nb: int            # samples a slice (the last may hold fewer)
-    nbs: int           # samples staged at a time
-    ny: int            # output rows a staged band
+    mg: int            # maps a block
+    ngr: int           # map groups (the grid's y)
+    ny: int            # output rows a band
+    nbn: int           # bands a sample
+    nu: int            # units (a sample's band) a slice
+    nbs: int           # units staged at a time
+    nsl: int           # slices
+    cl: int            # blocks a cluster
+    nslp: int          # slices padded to whole clusters (the grid's x)
+    hb: int            # staged input rows of a band, (ny-1)*cs + F
     sp: int            # staged input columns, (e-1)*cs + F
-    hb: int            # staged input rows of a band
+    tiles: int         # thread tiles of a map group
+    npg: int           # position groups a tile
+    threads: int
+    passes: int        # tiles a thread takes, one after another
     smem_floats: int
 
-    def grid(self, M):
-        return (self.ntg, M, self.nsl)
+    def grid(self):
+        return (self.nslp, self.ngr)
+
+    def n_clusters(self):
+        return self.nslp // self.cl
 
     def part_floats(self, M):
-        return self.nsl * M * self.nout
+        """The clusters' sums (with several clusters), then the slices'
+        (with several passes; else they stay in shared memory)."""
+        ncl = self.n_clusters()
+        return ((ncl if ncl > 1 else 0) + (self.nslp if self.passes > 1
+                                           else 0)) * M * self.nout
 
-    def counters(self, M):
-        return M * self.ntg
+    def counters(self):
+        """A counter a (map group, cluster rank)."""
+        return self.ngr * self.cl
 
-    def slices(self, B):
-        """[(first sample, end)] of each slice, in order."""
-        return [(s * self.nb, min(B, (s + 1) * self.nb))
+    def units(self, B):
+        """[(first unit, end)] of each slice, in order; unit u is band u %
+        nbn of sample u // nbn."""
+        n = B * self.nbn
+        return [(s * self.nu, min(n, (s + 1) * self.nu))
                 for s in range(self.nsl)]
+
+    def rounds(self, B, s, e):
+        """The staging rounds of slice ``s``: [(sample, first row, rows,
+        units)], a round's units whole samples when it holds several."""
+        u0, u1 = self.units(B)[s]
+        out = []
+        for u in range(u0, u1, self.nbs):
+            y0 = (u % self.nbn) * self.ny
+            out.append((u // self.nbn, y0, min(self.ny, e - y0),
+                        min(self.nbs, u1 - u)))
+        return out
 
 
 class DgradPlan(NamedTuple):
@@ -124,38 +153,57 @@ class GemmPlan(NamedTuple):
                 for s in range(self.nks)]
 
 
-def _wgrad_sample_floats(ny, e, cin, f, cs, sp):
-    return ny * e + cin * ((ny - 1) * cs + f) * sp
-
-
-def _wgrad_table_floats(ny, cin, f, cs):
-    return 4 * (ny + cin * ((ny - 1) * cs + f))
+def wgrad_unit_floats(ny, mg, e, cin, f, cs):
+    """Floats a unit stages: mg maps' dz rows (ny x e), then the cin x hb x
+    sp input rows under them."""
+    return mg * ny * e + cin * ((ny - 1) * cs + f) * ((e - 1) * cs + f)
 
 
 def wgrad_plan(B, M, Cin, F, e, cs):
     """stages.cuh wgrad_plan."""
     nout = F * F * Cin + 1
-    ntg_min = cdiv(nout, WG_WARPS * WG_OPW)
-    want = max(cdiv(WG_TARGET, M * ntg_min), cdiv(B * e * e, WG_SLICE_TERMS))
-    nsl = min(B, want)
-    nb = cdiv(B, nsl)
-    nsl = cdiv(B, nb)
-    ntg = ntg_min
-    if ntg * M * nsl < SM_COUNT:
-        ntg = min(cdiv(nout, WG_WARPS), cdiv(SM_COUNT, M * nsl))
-    opw = cdiv(nout, ntg * WG_WARPS)
     sp = (e - 1) * cs + F
+
+    def unit(ny, mg):
+        return wgrad_unit_floats(ny, mg, e, Cin, F, cs)
+
+    lim = STAGE_FLOATS if unit(1, 1) <= STAGE_FLOATS else SMEM_OPT_IN // 4
+
+    def fits(mg):   # a row's staging; the slice's sums (in global memory
+        return unit(1, mg) <= lim and (   # past a pass of tiles)
+            cdiv(mg, WG_TM) * cdiv(nout, WG_TV) > WG_MAX_THREADS
+            or mg * nout + WG_MAX_THREADS <= lim)
+
+    ngr = 1
+    while ngr < M and not fits(cdiv(M, ngr)):
+        ngr += 1
+    mg = cdiv(M, ngr)
+    ngr = cdiv(M, mg)
+    want = cdiv(WG_TARGET, ngr)
     ny = e
-    while ny > 1 and (_wgrad_table_floats(ny, Cin, F, cs)
-                      + _wgrad_sample_floats(ny, e, Cin, F, cs, sp)
-                      > STAGE_FLOATS):
+    while ny > 1 and unit(ny, mg) > lim:
         ny -= 1
-    fixed = _wgrad_table_floats(ny, Cin, F, cs)
-    per = _wgrad_sample_floats(ny, e, Cin, F, cs, sp)
-    nbs = 1 if ny < e else max(1, min(nb, (STAGE_FLOATS - fixed) // per))
-    hb = (ny - 1) * cs + F
-    return WgradPlan(nout, ntg, opw, nsl, nb, nbs, ny, sp, hb,
-                     fixed + nbs * per)
+    if B < want:
+        ny = min(ny, cdiv(e, min(e, cdiv(want, B))))
+    nbn = cdiv(e, ny)
+    units = B * nbn
+    # one wave: at most SM_COUNT blocks, slices padded to whole clusters
+    cap = max(1, SM_COUNT // ngr)
+    nsl_max = cap if cap <= WG_CLUSTER else cap // WG_CLUSTER * WG_CLUSTER
+    nu = max(1, (units + want // 2) // want, cdiv(units, nsl_max))
+    nsl = cdiv(units, nu)
+    nbs = 1 if nbn > 1 else max(1, min(nu, lim // unit(ny, mg)))
+    cl = min(WG_CLUSTER, nsl)
+    tiles = cdiv(mg, WG_TM) * cdiv(nout, WG_TV)
+    npg = 1
+    while 2 * npg * tiles <= WG_MAX_THREADS and npg < nbs * ny * e:
+        npg *= 2
+    threads = min(WG_MAX_THREADS, cdiv(tiles * npg, 32) * 32)
+    passes = cdiv(tiles, threads // npg)
+    sums = threads if passes > 1 else mg * nout + threads
+    return WgradPlan(nout, mg, ngr, ny, nbn, nu, nbs, nsl, cl,
+                     cdiv(nsl, cl) * cl, (ny - 1) * cs + F, sp, tiles, npg,
+                     threads, passes, max(nbs * unit(ny, mg), sums))
 
 
 def _dgrad_band_floats(rows, M, F, dp):
@@ -251,13 +299,13 @@ def deep_products(spec):
 
 def stage_floats(levels):
     """The workspace floats of the stages' regions: the weight gradients'
-    slices and counters, one region each as large as the largest level's
+    sums and counters, one region each as large as the largest level's
     (the levels run one after another); then the products' partials and
     tile counters (a counter is a 32-bit word)."""
     plans = [(wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs), g.M)
              for g in levels]
     return (max([p.part_floats(M) for p, M in plans], default=0)
-            + max([p.counters(M) for p, M in plans], default=0)
+            + max([p.counters() for p, _ in plans], default=0)
             + GEMM_PART_CAP + GEMM_TARGET)
 
 
@@ -303,54 +351,65 @@ def deep_workspace_floats(spec):
 
 # -------------------------------------------------- the staging, thread by thread
 
-WG_RB = 4                       # rows a thread stages at a time (k_wgrad)
 DG_RB = 4                       # canvas rows a thread stages at a time
 
 
-def wgrad_staging(g, p, nbt):
+def _mixed(i, r0, r1, r2):
+    """stages.cuh mixed_of: the digits (d0 < r0, d1 < r1, d2 < r2, d3)."""
+    i, d0 = divmod(i, r0)
+    i, d1 = divmod(i, r1)
+    d3, d2 = divmod(i, r2)
+    return [d0, d1, d2, d3]
+
+
+def _mixed_step(d, s, r0, r1, r2):
+    """stages.cuh mixed_step: one carry a digit at most."""
+    d = [a + b for a, b in zip(d, s)]
+    for k, r in enumerate((r0, r1, r2)):
+        if d[k] >= r:
+            assert d[k] < 2 * r
+            d[k] -= r
+            d[k + 1] += 1
+    return d
+
+
+def wgrad_staging(g, p, mgc, nbt, ny):
     """The elements a k_wgrad block copies into shared memory in one
-    staging pass of ``nbt`` samples, as its threads walk them (a column a
-    thread, its rows every rstep, the row decoded once and then stepped):
-    [(sample, staged row, column)], a sample's rows its ny dz rows (e wide)
-    then Cin x hb input rows (sp wide)."""
-    rows_per = p.ny + g.Cin * p.hb
-    cw = min(p.sp, WG_THREADS)
-    rstep, nrows, out = WG_THREADS // cw, nbt * rows_per, []
-    for c0 in range(0, p.sp, cw):
-        for tid in range(rstep * cw):
-            col, r0 = c0 + tid % cw, tid // cw
-            bi, rr = divmod(r0, rows_per)
-            r = r0
-            while r < nrows:
-                for _ in range(WG_RB):
-                    if r < nrows and col < (g.e if rr < p.ny else p.sp):
-                        out.append((bi, rr, col))
-                    r += rstep
-                    rr += rstep
-                    while rr >= rows_per:
-                        rr -= rows_per
-                        bi += 1
+    staging round of ``nbt`` units of ``ny`` output rows for ``mgc`` maps,
+    as its threads walk them: each thread two chains of elements, from tid
+    and tid + blockDim.x, each stepped 2 blockDim.x by a mixed-radix
+    counter of (column, row, map or channel, unit): {'dz': [(unit, map,
+    row, column)], 'in': [(unit, channel, row, column)]}."""
+    nt, hb = p.threads, (ny - 1) * g.cs + g.F
+    lists = {"dz": (nbt * mgc * ny * g.e, (g.e, ny, mgc)),
+             "in": (nbt * g.Cin * hb * p.sp, (p.sp, hb, g.Cin))}
+    out = {"dz": [], "in": []}
+    for name, (n, radix) in lists.items():
+        for tid in range(nt):
+            d0, d1 = _mixed(tid, *radix), _mixed(tid + nt, *radix)
+            step = _mixed(2 * nt, *radix)
+            for i in range(tid, n, 2 * nt):
+                out[name].append(tuple(reversed(d0)))
+                if i + nt < n:
+                    out[name].append(tuple(reversed(d1)))
+                d0 = _mixed_step(d0, step, *radix)
+                d1 = _mixed_step(d1, step, *radix)
     return out
 
 
-def wgrad_positions(e, ny):
-    """The staged positions (y, x) of a band of ``ny`` output rows, e wide,
-    each lane of a k_wgrad warp sums, as the kernel walks them (a lane
-    keeps a column of each chunk of min(e, 32) columns and steps its rows
-    by 32 // min(e, 32)): {lane: [(y, x)]}."""
-    cwq = min(e, 32)
-    rpi = 32 // cwq
+def wgrad_positions(e, ny, nbt, npg):
+    """The staged positions (unit, y, x) of a round of ``nbt`` units of
+    ``ny`` rows, e wide, each position group of a k_wgrad tile sums, as
+    the kernel walks them (group pg takes pg, pg + npg, ..., two a step, by
+    a mixed-radix counter): {pg: [(unit, y, x)]}."""
     out = {}
-    for lane in range(32):
-        ly, lx = divmod(lane, cwq)
-        if lane >= rpi * cwq:
-            continue
-        for x0 in range(0, e, cwq):
-            x = x0 + lx
-            if x >= e:
-                break
-            out.setdefault(lane, []).extend(
-                (y, x) for y in range(ly, ny, rpi))
+    big = 1 << 30
+    qs = _mixed(npg, e, ny, big)
+    for pg in range(npg):
+        q = _mixed(pg, e, ny, big)
+        for _ in range(pg, nbt * ny * e, npg):
+            out.setdefault(pg, []).append((q[2], q[1], q[0]))
+            q = _mixed_step(q, qs, e, ny, big)
     return out
 
 
@@ -394,8 +453,8 @@ def dgrad_positions(g, p, band):
 def stage_limit_reason(spec):
     """Why the gradient stages cannot launch at ``spec`` (a MegaSpec, a
     DeepSpec or an MlpSpec), else None: a conv level whose weight- or
-    input-gradient staging needs more shared memory, at one row a band,
-    than a block can opt in to (csrc/stages.cuh conv_wgrad and the dgrad
+    input-gradient staging needs more shared memory, at one row a band (and
+    for the weight gradient one map a block), than a block can opt in to (csrc/stages.cuh conv_wgrad and the dgrad
     launches return ERR_STAGE_SMEM)."""
     from .megastep import MegaSpec
 
