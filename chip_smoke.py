@@ -184,6 +184,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      .conv_layout_probe) on the card, us/step for every variant at one
      launch an epoch and one a step, beside the card's name and power
      limit.
+ 25. one column of Ciresan et al.'s multi-column DNN for GTSRB
+     (params/gtsrb_mcdnn.prms: 3x48x48-100C7-MP2-150C4-MP2-250C4-MP2-
+     300N-43N, BATCH_SZ 20) at its published widths on signs48: the route
+     (the deep family, no decline, no stage limit), the deep kernel
+     against its twin step-locked over GTSRB_LOCKED_STEPS steps from the
+     initial weights and random momenta (phase 19's rule: each state
+     tensor within 1e-5 of max(1, its largest value)); an epoch of kernel
+     and twin timed, its stages profiled; ``train.main`` on signs48 with
+     the .prms (GTSRB_EPOCHS epochs, SEED pinned), one deep kernel launch
+     an epoch and no other, the loss falling.
 
 The last three lines are the kernels JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The script imports nothing of
@@ -237,7 +247,7 @@ FREE_TOTAL_RTOL = 5e-3
 # different random bits give mid-curve and fails a net that did not learn.
 MAIN_SEED = 9876
 MAIN_TEST_ERR_MAX = 40.0
-ALL_PHASES = tuple(range(1, 25))
+ALL_PHASES = tuple(range(1, 26))
 
 
 def banner(n, title):
@@ -1581,6 +1591,8 @@ def plan_spec(name, batch):
 
     if name in HEAD_CONFIGS:
         layers, tr = head_config(name)
+    elif name == GTSRB:
+        layers, tr = gtsrb_config()
     else:
         layers, tr, _ = dp_config(name)
     if batch is not None:
@@ -3869,7 +3881,9 @@ HEAD_SHAPES = {   # BATCH_SZ, classes
 # configurations and the geometry configurations.
 SHIPPED_PRMS = ("mnist_cnn", "galaxy_rbf", "logit_centered", "synth_quick",
                 "flat_mlp", "synth_aux")
-PLAN_CONFIGS = ([(n, None) for n in SHIPPED_PRMS]
+# phase 25's configuration: params/gtsrb_mcdnn.prms on signs48's 3 x 48 x 48
+GTSRB = "gtsrb_mcdnn"
+PLAN_CONFIGS = ([(n, None) for n in SHIPPED_PRMS] + [(GTSRB, None)]
                 + [(n, b) for n in ("mnist_cnn", "galaxy_rbf", "flat_mlp")
                    for b in (5, 10)]
                 + [("synth_aux", 10), ("mnist_same", 10)]
@@ -4043,6 +4057,97 @@ def phase23(torch, dev, card):
     megastep.megastep_epoch.launches = saved   # timing launches do not count
     results["crossover"] = crossover
     return launches, results, dp_res
+
+
+def gtsrb_config():
+    """(layers, training params) of params/gtsrb_mcdnn.prms on signs48's
+    3 x 48 x 48 images, SEED MAIN_SEED."""
+    from theanet_tpu_torch.prms import load_params
+
+    layers, tr, _ = load_params(os.path.join(REPO, "params", GTSRB + ".prms"))
+    layers[0][1].update(img_sz=48, num_maps=3)
+    tr["SEED"] = MAIN_SEED
+    return layers, tr
+
+
+# Phase 25: the GTSRB column at its published widths. Its conv levels
+# (Cin 3 -> 100 maps at 7x7, 100 -> 150 and 150 -> 250 at 4x4) are the
+# widest any phase runs through csrc/megastep_deep.cu and csrc/stages.cuh.
+# GTSRB_LOCKED_STEPS steps step-locked, an epoch of GTSRB_TIMED_STEPS steps
+# timed (the twin sums each conv tap by tap: 0.15 s a step on the card),
+# and the CLI's main path for GTSRB_EPOCHS epochs on the whole signs48
+# set (39,209 training images, 1960 steps an epoch).
+GTSRB_LOCKED_STEPS = 24
+GTSRB_TIMED_STEPS = 60
+GTSRB_EPOCHS = 3
+
+
+def gtsrb_text(epochs=GTSRB_EPOCHS):
+    """params/gtsrb_mcdnn.prms with SEED MAIN_SEED and NUM_EPOCHS
+    ``epochs``."""
+    import ast
+
+    with open(os.path.join(REPO, "params", GTSRB + ".prms")) as f:
+        prms = ast.literal_eval(f.read())
+    tr = dict(prms["training_params"], SEED=MAIN_SEED, NUM_EPOCHS=epochs)
+    return repr({"layers": prms["layers"], "training_params": tr}) + "\n"
+
+
+def phase25(torch, dev, card):
+    """The GTSRB column (params/gtsrb_mcdnn.prms) at its published widths:
+    its route, the deep kernel against its twin step-locked, an epoch of
+    each timed and profiled, then train.main on signs48. Returns
+    ({kernel: launches in the main path}, largest |d| of the state,
+    time_config's times)."""
+    import types
+
+    from theanet_tpu_torch import train
+    from theanet_tpu_torch.data import signs48
+    from theanet_tpu_torch.ops import megastep
+    from theanet_tpu_torch.ops import megastep_deep as deep
+    from theanet_tpu_torch.ops import stage_plan
+
+    layers, tr = gtsrb_config()
+    net, plan = build_net(layers, tr)
+    spec = plan.spec
+    assert plan.epoch_fn is deep.deep_epoch, plan.epoch_fn
+    assert megastep.fused_decline_reason(net) is None
+    assert stage_plan.stage_limit_reason(spec) is None
+    assert (spec.batch, spec.img, spec.in_ch, spec.maps, spec.filts,
+            spec.n_flat, spec.n_hid, spec.n_out) == (
+        20, 48, 3, (100, 150, 250), (7, 4, 4), 2250, 300, 43), spec
+    n_state = sum(t.numel() for t in initial_state(plan, net, dev))
+    print(f"  {GTSRB}: deep family, no decline, no stage limit; conv levels "
+          f"(maps, filter) {list(zip(spec.maps, spec.filts))}, flatten "
+          f"{spec.n_flat}, {n_state:,} state floats; route-rule head "
+          f"threshold {head_bytes(plan):,} bytes", flush=True)
+    assert n_state == 1543443, n_state
+    data = types.SimpleNamespace(**dict(zip(
+        ("training_x", "training_y"), signs48.make_dataset(
+            n_train=20 * GTSRB_TIMED_STEPS, n_test=20, seed=MAIN_SEED)[:2])))
+    x, y = step_rows(torch, data, 3, 20, dev)
+    saved = deep.deep_epoch.launches
+    err = family_locked(torch, GTSRB, net, plan, x[:GTSRB_LOCKED_STEPS],
+                        y[:GTSRB_LOCKED_STEPS], None, dev)
+    times = time_config(torch, GTSRB, dev, card, (net, plan, x, y))
+    deep.deep_epoch.launches = saved   # the checks do not count
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.time()
+            rows = counted_cli(train, "signs48", GTSRB, gtsrb_text(),
+                               GTSRB_EPOCHS)
+        finally:
+            os.chdir(cwd)
+    costs = [r[1] for r in rows[:-1]]
+    print(f"  train.main signs48 {GTSRB}.prms ({GTSRB_EPOCHS} epochs, SEED "
+          f"{MAIN_SEED}): test rows {rows}; {GTSRB_EPOCHS} deep_epoch "
+          f"launches, no other kernel [{time.time() - t0:.1f} s]", flush=True)
+    assert len(costs) == GTSRB_EPOCHS, rows
+    assert costs[-1] < costs[0], costs
+    return {"deep_epoch": GTSRB_EPOCHS}, err, times
 
 
 # Phase 24: the probe kernels of csrc/probes.cu against their plain
@@ -4351,6 +4456,10 @@ def main(argv=None):
                "tools on the card, one launch an epoch and one a step")
         probe_launches, probe_err, probe_t, probe_tools = phase24(
             torch, dev, card)
+    if 25 in phases:
+        banner(25, "the GTSRB column at its published widths: deep kernel "
+               "vs twin step-locked, an epoch timed; train.main on signs48")
+        gtsrb_launches, gtsrb_err, gtsrb_times = phase25(torch, dev, card)
     if phases != set(ALL_PHASES):
         print("chip_smoke: a subset of phases ran; no result", flush=True)
         return 3
@@ -4429,6 +4538,11 @@ def main(argv=None):
     kernels[-1]["configs"] = {
         name: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2][0],
                "bound_by": t[2][1]} for name, t in geom_times.items()}
+    kernels.append(entry("deep_epoch_gtsrb",
+                         "theanet_tpu_torch/csrc/megastep_deep.cu",
+                         "theanet_tpu/ops/megastep_deep.py:1527",
+                         gtsrb_launches["deep_epoch"], gtsrb_err,
+                         gtsrb_times))
     kernels[0]["epoch_step_locked_max_abs_err"] = epoch_err
     # phase 23's configurations under the three epoch entries, with the
     # launches of the BATCH_SZ 3000 CLI run (its own main path)

@@ -114,14 +114,17 @@ SHIPPED = {"mnist_cnn": ("synth_hard", "megastep_epoch"),
            "logit_centered": ("synth", "deep_epoch"),
            "synth_quick": ("synth", "deep_epoch"),
            "flat_mlp": ("synth_hard", "mlp_epoch"),
-           "synth_aux": ("synth_aux", "deep_epoch")}
+           "synth_aux": ("synth_aux", "deep_epoch"),
+           "gtsrb_mcdnn": ("signs48", "deep_epoch")}
 
 
 def shipped_layers(name):
     layers, tr, _ = load_params(os.path.join(REPO, "params", name + ".prms"))
     data = importlib.import_module("theanet_tpu_torch.data."
                                    + SHIPPED[name][0])
-    shape = fixdim(data.training_x[:1]).shape
+    # signs48 declares its shape (its arrays, 1.4 GB, are drawn on access)
+    shape = ((1, data.CHANNELS, data.IMG_SZ, data.IMG_SZ)
+             if hasattr(data, "IMG_SZ") else fixdim(data.training_x[:1]).shape)
     layers[0][1]["img_sz"] = shape[3]
     if "num_maps" not in layers[0][1] and shape[1] != 1:
         layers[0][1]["num_maps"] = shape[1]

@@ -328,6 +328,7 @@ PRMS = {   # params/<name>.prms: (its dataset, the family it fuses in)
     "synth_quick": ("synth", "deep_epoch"),
     "flat_mlp": ("synth_hard", "mlp_epoch"),
     "synth_aux": ("synth_aux", "deep_epoch"),
+    "gtsrb_mcdnn": ("signs48", "deep_epoch"),
 }
 
 
@@ -346,10 +347,12 @@ def test_shipped_prms_keep_their_family(name):
     data_name, fn = PRMS[name]
     layers, tr, _ = load_params(os.path.join(REPO, "params", name + ".prms"))
     data = load_dataset(data_name)
-    xs = fixdim(data.training_x)
-    layers[0][1]["img_sz"] = xs.shape[-1]
-    if "num_maps" not in layers[0][1] and xs.shape[1] != 1:
-        layers[0][1]["num_maps"] = xs.shape[1]
+    # signs48 declares its shape (its arrays, 1.4 GB, are drawn on access)
+    shape = ((1, data.CHANNELS, data.IMG_SZ, data.IMG_SZ)
+             if hasattr(data, "IMG_SZ") else fixdim(data.training_x).shape)
+    layers[0][1]["img_sz"] = shape[-1]
+    if "num_maps" not in layers[0][1] and shape[1] != 1:
+        layers[0][1]["num_maps"] = shape[1]
     net = TorchNet(layers, tr)
     aux = hasattr(data, "training_aux")
     assert megastep.fused_decline_reason(net, aux) is None

@@ -116,6 +116,26 @@ CASES = {
         ["ElasticLayer", dict(img_sz=10, **dict(ELASTIC, nearest=True))],
         ["HiddenLayer", {"n_out": 12, "pdrop": 0.5, "reg": R2}],
         ["HingeLayer", {"n_out": 4, "reg": R1}]],
+    # the GTSRB column (params/gtsrb_mcdnn.prms) at maps 4/6/8 and hidden
+    # 16: an affine-only warp of an RGB input with no ColorLayer, 7x7 then
+    # 4x4 valid convs, three pooled levels, no regularisation; 34 -> 28 ->
+    # 14 -> 11 -> 6 -> 3 -> 2
+    "gtsrb-column": [
+        ["ElasticLayer", {"img_sz": 34, "num_maps": 3, "translation": 4.8,
+                          "zoom": 1.1, "magnitude": 0, "pflip": 0,
+                          "angle": 5, "nearest": True,
+                          "invert_image": False}],
+        ["ConvLayer", {"num_maps": 4, "filter_sz": 7, "stride": 1,
+                       "actvn": "relu01"}],
+        ["PoolLayer", {"pool_sz": 2}],
+        ["ConvLayer", {"num_maps": 6, "filter_sz": 4, "stride": 1,
+                       "actvn": "relu01"}],
+        ["PoolLayer", {"pool_sz": 2}],
+        ["ConvLayer", {"num_maps": 8, "filter_sz": 4, "stride": 1,
+                       "actvn": "relu01"}],
+        ["PoolLayer", {"pool_sz": 2}],
+        ["HiddenLayer", {"n_out": 16, "actvn": "relu01", "pdrop": 0}],
+        ["SoftmaxLayer", {"n_out": 43, "loss": "nll"}]],
 }
 
 

@@ -453,8 +453,21 @@ class Trainer:
         return stats
 
     def evaluate_full(self, which: str):
+        """(err%, second_stat%) over every whole batch of the set, in eval
+        forwards of the test boundary's TEST_SAMP_SZ // BATCH_SZ batches
+        (the whole set where TEST_SAMP_SZ is unset), a window every
+        boundary has already run: a wide net's whole training set need not
+        fit the device in one forward. The windows' statistics are
+        averaged by their sizes."""
         n = self.n_test_batches if which == "test" else self.n_train_batches
-        return self.evaluate(which, list(range(n)))
+        step = self.net.tr_prms.get("TEST_SAMP_SZ", 0) // self.batch_sz or n
+        err = second = 0.0
+        for b in range(0, max(n, 1), max(step, 1)):
+            ids = list(range(b, min(n, b + step)))
+            e, s2 = self.evaluate(which, ids)
+            err += e * len(ids) / n
+            second += s2 * len(ids) / n
+        return err, second
 
     def checkpoint_dict(self):
         self.sync_net()
