@@ -187,11 +187,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
  25. one column of Ciresan et al.'s multi-column DNN for GTSRB
      (params/gtsrb_mcdnn.prms: 3x48x48-100C7-MP2-150C4-MP2-250C4-MP2-
      300N-43N, BATCH_SZ 20) at its published widths on signs48: the route
-     (the deep family, no decline, no stage limit), the deep kernel
+     (the deep family, no decline, no stage limit), the two input-
+     gradient paths at the column's levels 2 and 3 on the same dz and
+     weights (k_conv_dgrad_tiled's din equal to k_conv_dgrad's, bit for
+     bit; each timed beside the bound), the deep kernel
      against its twin step-locked over GTSRB_LOCKED_STEPS steps from the
      initial weights and random momenta (phase 19's rule: each state
      tensor within 1e-5 of max(1, its largest value)); an epoch of kernel
-     and twin timed, its stages profiled; ``train.main`` on signs48 with
+     and twin timed, its stages profiled, the tiled launches counted (2 a
+     step), the three stage kinds in us/step beside their bounds;
+     ``train.main`` on signs48 with
      the .prms (GTSRB_EPOCHS epochs, SEED pinned), one deep kernel launch
      an epoch and no other, the loss falling.
 
@@ -1445,7 +1450,8 @@ def phase9(torch, data, dev, card):
 # yardstick timed outside the path, TF32 off; the port never calls it).
 STAGE_KINDS = {
     "conv weight gradient": (("k_wgrad",), "torch.nn.grad.conv2d_weight"),
-    "conv input gradient": (("k_conv2_dgrad_pool1_bwd", "k_conv_dgrad"),
+    "conv input gradient": (("k_conv2_dgrad_pool1_bwd", "k_conv_dgrad",
+                             "k_conv_dgrad_tiled"),
                             "torch.nn.grad.conv2d_input"),
     "dense products": (("k_gemm_sk",), "torch.matmul"),
 }
@@ -1610,6 +1616,10 @@ def plan_spec(name, batch):
 # groups, and at that limit
 WIDE_DGRAD = ((20, 4, 256, 12, 3), (20, 4, 510, 12, 5), (4, 2, 1030, 2, 3),
               (1, 1, 1100, 1, 5), (4, 1, 172, 64, 5), (4, 1, 173, 64, 5))
+WIDE_DGRAD_TILE = ((20, 100, 21, 150, 4), (20, 150, 9, 250, 4),
+                   (256, 150, 9, 250, 4), (3000, 64, 20, 64, 3),
+                   (20, 64, 173, 64, 5), (4, 256, 1100, 256, 7),
+                   (1, 32, 1, 1, 2), (20, 31, 21, 150, 4))
 WIDE_WGRAD = ((4, 2, 1, 3, 1028, 1), (20, 4, 64, 5, 172, 1),
               (20, 4, 64, 5, 174, 1), (20, 4, 64, 5, 177, 1),
               (20, 4, 64, 5, 178, 1), (3000, 4, 3, 5, 300, 2))
@@ -1646,6 +1656,10 @@ def plan_mirrors():
             want.append(tuple(sp.dgrad_plan(g.B, g.Cin, g.W, g.M, g.F)))
             got.append(_build.stage_plan_c("stage_dgrad_plan", g.B, g.Cin,
                                            g.W, g.M, g.F, lib=lib))
+            want.append(tuple(sp.dgrad_tile_plan(g.B, g.Cin, g.W, g.M,
+                                                 g.F)))
+            got.append(_build.stage_plan_c("stage_dgrad_tile_plan", g.B,
+                                           g.Cin, g.W, g.M, g.F, lib=lib))
         for _, M, N, K in products:
             want.append(tuple(sp.gemm_plan(M, N, K)))
             got.append(_build.stage_plan_c("stage_gemm_plan", M, N, K,
@@ -1662,10 +1676,16 @@ def plan_mirrors():
         want = tuple(sp.wgrad_plan(*shape))
         got = _build.stage_plan_c("stage_wgrad_plan", *shape)
         assert want == got, (shape, want, got)
+    for shape in WIDE_DGRAD_TILE:
+        want = tuple(sp.dgrad_tile_plan(*shape))
+        got = _build.stage_plan_c("stage_dgrad_tile_plan", *shape,
+                                  lib="megastep_deep")
+        assert want == got, (shape, want, got)
+    n_wide = len(WIDE_DGRAD) + len(WIDE_WGRAD) + len(WIDE_DGRAD_TILE)
     print(f"  plan mirrors: {n_plans} stage plans of {len(PLAN_CONFIGS)} "
-          f"configurations and {len(WIDE_DGRAD) + len(WIDE_WGRAD)} of wide "
-          "levels equal to csrc/stages.cuh's, and each mirrored workspace "
-          "equal to its library's *_workspace_floats", flush=True)
+          f"configurations and {n_wide} of wide levels equal to "
+          "csrc/stages.cuh's, and each mirrored workspace equal to its "
+          "library's *_workspace_floats", flush=True)
 
 
 # ----------------------------------------------------------- phases 10-12
@@ -1911,12 +1931,17 @@ def phase12(torch, card):
         finally:
             os.chdir(cwd)
     steps = 12000 // 20
+    # the final full-set row's forwards: windows of the boundary's
+    # TEST_SAMP_SZ // BATCH_SZ batches over the 600 training and the 100
+    # test batches (Trainer.evaluate_full)
+    win = tr.get("TEST_SAMP_SZ", 0) // tr["BATCH_SZ"]
+    n_final = -(-steps // win) + -(-(2000 // 20) // win) if win else 2
     for out, counts, epochs in ((fresh, c1, SLICE_EPOCHS), (resumed, c2, 1)):
         assert "Device : cuda" in out
         assert "Epoch   Cost  Tr_Error Tr_P(MLE)    Te_Error Te_P(MLE)" in out
         # an eval window is one forward of the whole window: 2 per test
-        # row (test and train windows) and 2 for the final full-set row
-        n_eval = 2 * epochs + 2
+        # row (test and train windows), then the final row's
+        n_eval = 2 * epochs + n_final
         want = {"megastep_epoch": 0, "deep_epoch": 0, "mlp_epoch": 0,
                 "elastic_resample": epochs * steps,
                 "tail_forward": epochs * steps + n_eval,
@@ -4093,6 +4118,55 @@ def gtsrb_text(epochs=GTSRB_EPOCHS):
     return repr({"layers": prms["layers"], "training_params": tr}) + "\n"
 
 
+def dgrad_paths(torch, spec, dev, card):
+    """At each input-gradient level of ``spec`` whose plan takes the tiled
+    path, both paths on the same seeded dz and weights: the tiled din
+    equal to the band path's bit for bit (torch.equal; both written over
+    NaNs), then each path's us a launch by CUDA events beside the level's
+    bound (its valid taps at the f32 rate, or its bytes)."""
+    from theanet_tpu_torch.ops import _build
+    from theanet_tpu_torch.ops import stage_plan as sp
+
+    gen = torch.Generator(device=dev).manual_seed(MAIN_SEED)
+    total = {0: 0.0, 1: 0.0}
+    flops = n_bytes = 0
+    for g in sp.dgrad_tiled_levels(spec):
+        w = torch.randn((g.M, g.F * g.F * g.Cin), device=dev,
+                        generator=gen) / (g.F * g.M ** 0.5)
+        dz = torch.randn((g.B, g.M, g.c, g.c), device=dev, generator=gen)
+        dz[:, :, g.e:] = 0.0
+        dz[:, :, :, g.e:] = 0.0
+        din = {}
+        for path in (0, 1):
+            din[path] = torch.full((g.B, g.Cin, g.W, g.W), float("nan"),
+                                   device=dev)
+            _build.deep_conv_dgrad_launch(g, path, w, dz, din[path])
+        torch.cuda.synchronize()
+        assert torch.equal(din[0], din[1]), max_abs(din[0], din[1])
+        us = {path: 1e3 * timed(torch, lambda p=path: _build
+                                .deep_conv_dgrad_launch(g, p, w, dz,
+                                                        din[p]), 20)
+              for path in (0, 1)}
+        lf = 2 * g.B * g.M * g.e * g.e * g.F * g.F * g.Cin
+        lb = 4 * (g.B * g.M * g.c * g.c + g.M * g.F * g.F * g.Cin
+                  + g.B * g.Cin * g.W * g.W)
+        b_ms, by = bound(lb, lf)
+        flops, n_bytes = flops + lf, n_bytes + lb
+        for path in (0, 1):
+            total[path] += us[path]
+        p = sp.dgrad_tile_plan(g.B, g.Cin, g.W, g.M, g.F)
+        print(f"  dgrad {g.Cin} -> {g.M} maps at {g.W}x{g.W}, F {g.F}, B "
+              f"{g.B}: tiled din == band din (torch.equal); band "
+              f"{us[0]:.1f} us, tiled {us[1]:.1f} us (grid {p.grid(g.B)} "
+              f"x {p.threads}, chunks of {p.km}), bound {b_ms * 1e3:.1f} us "
+              f"({by}); tiled at {100 * b_ms * 1e3 / us[1]:.1f}% of it",
+              flush=True)
+    b_ms, by = bound(n_bytes, flops)
+    print(f"  the input-gradient stage a step on {card}: band "
+          f"{total[0] / 1e3:.4f} ms, tiled {total[1] / 1e3:.4f} ms, bound "
+          f"{b_ms * 1e3:.1f} us ({by})", flush=True)
+
+
 def phase25(torch, dev, card):
     """The GTSRB column (params/gtsrb_mcdnn.prms) at its published widths:
     its route, the deep kernel against its twin step-locked, an epoch of
@@ -4127,9 +4201,18 @@ def phase25(torch, dev, card):
             n_train=20 * GTSRB_TIMED_STEPS, n_test=20, seed=MAIN_SEED)[:2])))
     x, y = step_rows(torch, data, 3, 20, dev)
     saved = deep.deep_epoch.launches
+    dgrad_paths(torch, spec, dev, card)
     err = family_locked(torch, GTSRB, net, plan, x[:GTSRB_LOCKED_STEPS],
                         y[:GTSRB_LOCKED_STEPS], None, dev)
+    tiled = deep.deep_epoch.dgrad_tiled_launches
     times = time_config(torch, GTSRB, dev, card, (net, plan, x, y))
+    tiled = deep.deep_epoch.dgrad_tiled_launches - tiled
+    n_levels = len(stage_plan.dgrad_tiled_levels(spec))
+    # time_config: 2 warm-ups, 6 timed calls, 2 profiled (one a warm-up)
+    assert n_levels == 2 and tiled == 10 * x.shape[0] * n_levels, tiled
+    print(f"  deep_epoch.dgrad_tiled_launches over time_config's 10 epochs "
+          f"of {x.shape[0]} steps: {tiled} ({n_levels} a step)", flush=True)
+    stage_lines(torch, GTSRB, dev, card)
     deep.deep_epoch.launches = saved   # the checks do not count
 
     cwd = os.getcwd()

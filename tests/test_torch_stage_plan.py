@@ -22,6 +22,13 @@ held to ``jax.grad`` of the JAX package's own ConvLayer and HiddenLayer on
 the same seeded numpy inputs, each output within 1e-5 of the larger of 1
 and its largest value (the bound of the twin tests); the weight
 gradient's at every conv level of every configuration here too.
+The deep family's tiled input gradient (``dgrad_tile_plan``, a wide
+level's register-tiled implicit GEMM) has its own: its walk over a grid of
+levels (each output summed by one thread, every shared read staged
+first), which levels take it (the GTSRB column's two; no level of any
+other configuration), its launch counter, and its order model
+``dgrad_tiled`` against ``jax.grad`` at every conv case and at the
+column's levels.
 """
 
 import functools
@@ -373,6 +380,144 @@ def test_dgrad_plans_over_a_grid():
     assert n_ok > 10000 and n_past > 0   # the grid reaches past the limit
 
 
+# (B, Cin, W, M, F) of the tiled input gradient's walk: batches 1 to 3000,
+# input maps 1 to 256, maps 1 to 256, widths 1 to 1100, filters 2 to 7
+DGRAD_TILE_GRID = [(B, cin, W, M, F)
+                   for B in (1, 20, 3000) for cin in (1, 32, 100, 150, 256)
+                   for W in (1, 2, 5, 9, 21, 48, 100, 333, 1100)
+                   for M in (1, 7, 150, 256) for F in range(2, 8)]
+
+
+def _tile_walk_sound(g, p):
+    """The tiled plan ``p`` at level ``g``: a legal grid and block; the
+    threads' (group, row, column tile) places distinct, so with the tiles
+    and bands every output (input map, row, column) is summed by exactly
+    one thread; in the first and the last chunk every weight and canvas
+    element of the buffer is copied exactly once by the staging walk, and
+    every shared read of the sums lies inside what was copied; the four
+    buffers within what a block can opt in to."""
+    F, FF, hb = g.F, g.F * g.F, p.rows + g.F - 1
+    assert p.tiled == 1 and p.cit == sp.DT_TCI * p.g
+    assert 1 <= p.g <= sp.DT_MAX_G and p.cit <= 32
+    assert (p.nct - 1) * p.cit < g.Cin <= p.nct * p.cit
+    assert (p.nbands - 1) * p.rows < g.W <= p.nbands * p.rows
+    assert (p.nj - 1) * sp.DT_TJ < g.W <= p.nj * sp.DT_TJ
+    assert p.dpp == p.nj * sp.DT_TJ + F - 1 >= g.W + F - 1
+    assert (p.nch - 1) * p.km < g.M <= p.nch * p.km <= g.M + p.km - 1
+    assert p.threads % 32 == 0 and p.threads <= sp.DT_MAX_THREADS
+    assert p.g * p.rows * p.nj <= p.threads < p.g * p.rows * p.nj + 32
+    assert p.smem_floats == 2 * p.km * (FF * p.cit + hb * p.dpp)
+    assert 4 * p.smem_floats <= sp.SMEM_OPT_IN
+    gx, gy, gz = p.grid(g.B)
+    assert gx <= GRID_X and gy <= GRID_YZ and gz <= GRID_YZ
+    pos = sp.dgrad_tile_positions(g, p)
+    assert len(set(pos.values())) == len(pos) == p.g * p.rows * p.nj
+    assert {q for q in pos.values()} == {
+        (a, r, j) for a in range(p.g) for r in range(p.rows)
+        for j in range(p.nj)}
+    groups, rows, tiles = (np.array(v) for v in zip(*pos.values()))
+    for ch in sorted({0, p.nch - 1}):
+        kmc = min(p.km, g.M - ch * p.km)
+        ws, cv = sp.dgrad_tile_staging(g, p, ch)
+        assert (ws[:, 0] < p.threads).all() and (cv[:, 0] < p.threads).all()
+        for got, n in ((ws[:, 1], kmc * FF * p.cit),
+                       (cv[:, 1], kmc * hb * p.dpp)):
+            assert len(got) == n
+            assert (np.bincount(got, minlength=n) == 1).all()
+        # the largest reads: the chunk's last map, last tap, last column
+        w_hi = ((kmc - 1) * FF * p.cit + (FF - 1) * p.cit
+                + groups.max() * sp.DT_TCI + sp.DT_TCI - 1)
+        c_hi = (((kmc - 1) * hb + rows.max() + F - 1) * p.dpp
+                + tiles.max() * sp.DT_TJ + sp.DT_TJ + F - 2)
+        assert w_hi < kmc * FF * p.cit and c_hi < kmc * hb * p.dpp
+
+
+def test_dgrad_tile_walks_over_a_grid():
+    """Over a grid of levels (batches 1 to 3000, 1 to 256 input maps and
+    maps, widths 1 to 1100, filters 2 to 7) the tiled input gradient's
+    plan, whichever path the level takes, sums every output once and
+    reads only what its staging wrote, inside a block's shared memory
+    (_tile_walk_sound); the plan takes the tiled path exactly at Cin >=
+    DT_MIN_CIN, and fills the card wherever a grid of tiles can."""
+    n_tiled = 0
+    for B, cin, W, M, F in DGRAD_TILE_GRID:
+        g = sp.ConvGeom(B, M, cin, F, W, W, 1, F - 1, W)
+        p = sp.dgrad_tile_shape(B, cin, W, M, F)
+        _tile_walk_sound(g, p)
+        most = B * -(-cin // sp.DT_TCI) * W   # a tile a group and row
+        if most >= sp.SM_COUNT:
+            assert p.nbands * p.nct * B >= sp.SM_COUNT
+        q = sp.dgrad_tile_plan(B, cin, W, M, F)
+        assert q == (p if cin >= sp.DT_MIN_CIN else
+                     sp.DgradTilePlan(*[0] * 12))
+        n_tiled += q.tiled
+    assert n_tiled == len(DGRAD_TILE_GRID) * 4 // 5   # Cin 32 and up
+
+
+COLUMN_LEVELS = {"level2": (100, 21, 150, 4), "level3": (150, 9, 250, 4)}
+
+
+def test_dgrad_paths_by_shape():
+    """The GTSRB column's two input-gradient levels take the tiled path at
+    every batch the configurations run, filling the card at B 20; every
+    input-gradient level of every other configuration here (mnist_cnn,
+    galaxy_rbf, synth_aux, flat_mlp, the geometry, head and per-rank
+    configurations) keeps the band path; a tiled launch a wide level a
+    step."""
+    col = _spec(chip_smoke.GTSRB, None)
+    tiled = sp.dgrad_tiled_levels(col)
+    assert [(g.Cin, g.W, g.M, g.F) for g in tiled] == list(
+        COLUMN_LEVELS.values())
+    assert tiled == sp.deep_levels(col)[1:]
+    for g in tiled:
+        p = sp.dgrad_tile_plan(g.B, g.Cin, g.W, g.M, g.F)
+        assert g.B == 20 and np.prod(p.grid(g.B)) >= sp.SM_COUNT
+    for cin, W, M, F in COLUMN_LEVELS.values():
+        for B in (1, 2, 5, 10, 20, 256, 3000):
+            assert sp.dgrad_tile_plan(B, cin, W, M, F).tiled
+    names = {n for n, _ in CONFIGS} - {chip_smoke.GTSRB}
+    assert {"mnist_cnn", "galaxy_rbf", "synth_aux", "flat_mlp"} <= names
+    assert set(chip_smoke.GEOM_CONFIGS) <= names
+    for name, batch in CONFIGS:
+        if name == chip_smoke.GTSRB:
+            continue
+        spec = _spec(name, batch)
+        _, dlevels, _, _ = _family(spec)
+        assert sp.dgrad_tiled_levels(spec) == []
+        for g in dlevels:
+            assert sp.dgrad_tile_plan(g.B, g.Cin, g.W, g.M, g.F).tiled == 0
+
+
+@pytest.mark.parametrize("name,steps", [(chip_smoke.GTSRB, 7),
+                                        ("galaxy_rbf", 5)])
+def test_tiled_launch_counter_follows_the_mirror(monkeypatch, name, steps):
+    """deep_epoch.dgrad_tiled_launches adds what the C loop counted over a
+    call: with the C call and its counter stood in for by the mirror (a
+    tiled launch each dgrad_tiled_levels level a step), steps x 2 at the
+    column and 0 at galaxy_rbf, over two calls."""
+    import types
+
+    from theanet_tpu_torch.ops import _build
+
+    spec = _spec(name, None)
+    issued = [0]
+
+    def fake_launch(_name, kparams, kmoms, x_steps, *_args):
+        issued[0] += x_steps.shape[0] * len(sp.dgrad_tiled_levels(_args[-2]))
+        return kparams, kmoms, None
+
+    monkeypatch.setattr(td, "launch_deep", fake_launch)
+    monkeypatch.setattr(_build, "dgrad_tiled_launched", lambda: issued[0])
+    monkeypatch.setattr(td.deep_epoch, "launches", 0)
+    monkeypatch.setattr(td.deep_epoch, "dgrad_tiled_launches", 0)
+    x = types.SimpleNamespace(device=torch.device("cuda"), shape=(steps,))
+    for _ in range(2):
+        td.deep_epoch([], [], x, None, None, 0.1, spec, None)
+    want = 2 * steps * (2 if name == chip_smoke.GTSRB else 0)
+    assert td.deep_epoch.dgrad_tiled_launches == want
+    assert td.deep_epoch.launches == 2
+
+
 WGRAD_GRID = [(B, M, cin, F, e, cs)
               for B in (1, 5, 20, 3000) for M in (1, 4, 20, 64)
               for cin in (1, 3, 20, 64) for F in (2, 3, 5)
@@ -455,6 +600,24 @@ def test_stage_smem_limit_declines_by_name(cin, maps, filt, side, kind):
         return
     assert plan is None
     assert f"{kind} stage" in got and "opt in to" in got, got
+
+
+def test_wide_input_maps_fuse_through_the_tiled_path():
+    """A level of 64 input maps whose band path would stage more than a
+    block can opt in to (dgrad-past's 173 px input and 64 maps of filter
+    5) takes the tiled path, which always fits: the net fuses in the deep
+    family, and stage_limit_reason judges the level by its tiled plan."""
+    net = _wide_net(64, 64, 5, 173)
+    plan = megastep.fused_plan(net)
+    assert megastep.fused_decline_reason(net) is None
+    assert plan.epoch_fn is td.deep_epoch
+    g = sp.deep_levels(plan.spec)[1]
+    band = sp.dgrad_plan(g.B, g.Cin, g.W, g.M, g.F)
+    tile = sp.dgrad_tile_plan(g.B, g.Cin, g.W, g.M, g.F)
+    assert 4 * band.smem_floats > sp.SMEM_OPT_IN
+    assert tile.tiled and 4 * tile.smem_floats <= sp.SMEM_OPT_IN
+    assert sp.stage_limit_reason(plan.spec) is None
+    assert sp.dgrad_tiled_levels(plan.spec) == [g]
 
 
 # ---------------------------------------------------- the orders against JAX
@@ -692,6 +855,100 @@ def test_dgrad_canvas_matches_jax(name):
     _close(dgrad_canvas(torch.from_numpy(dz), w_k, g, p), dx)
     one_band = p._replace(rows=g.W, nbands=1)
     _close(dgrad_canvas(torch.from_numpy(dz), w_k, g, one_band), dx)
+
+
+def dgrad_tiled(dz, w_k, g, plan):
+    """A conv level's input gradient (B, Cin, W, W) as k_conv_dgrad_tiled
+    computes it: for every block (band, tile of cit input maps, sample)
+    and every chunk of km maps, the chunk's weights (a row of cit a (map,
+    tap), zero past Cin) and canvas rows (rows + F - 1 of the band, dpp
+    wide: dz dilated by the stride at F-1-pad, zero elsewhere) copied to
+    the kernel's shared-memory offsets; each thread's DT_TCI x DT_TJ sums
+    (dgrad_tile_positions) read there, map by map in chunk order, tap by
+    tap (u, v); the outputs inside the level stored."""
+    p, F, B = plan, g.F, g.B
+    FF, hb, cit, tci, tj = g.F * g.F, p.rows + F - 1, p.cit, sp.DT_TCI, \
+        sp.DT_TJ
+    off = F - 1 - g.pad
+    canvas = torch.zeros((B, g.M, p.nbands * p.rows + F - 1, p.dpp),
+                         dtype=dz.dtype)
+    ys = torch.arange(g.e) * g.cs + off
+    canvas[:, :, ys[:, None], ys[None, :]] = dz[:, :, :g.e, :g.e]
+    wpad = torch.zeros((g.M * FF, p.nct * cit), dtype=w_k.dtype)
+    wpad[:, :g.Cin] = w_k.reshape(g.M * FF, g.Cin)
+    grp, row, til = (torch.tensor(v) for v in zip(
+        *sp.dgrad_tile_positions(g, p).values()))
+    c, q = torch.arange(tci), torch.arange(tj)
+    acc = torch.zeros((B, p.nbands, p.nct, len(grp), tci, tj),
+                      dtype=dz.dtype)
+    for ch in range(p.nch):
+        m0 = ch * p.km
+        kmc = min(p.km, g.M - m0)
+        # every block's staged buffers: (tiles, kmc*FF*cit) and (B, bands,
+        # kmc*hb*dpp), at the offsets dgrad_tile_staging walks
+        ws = wpad[m0 * FF:(m0 + kmc) * FF].reshape(kmc * FF, p.nct, cit)
+        ws = ws.permute(1, 0, 2).reshape(p.nct, -1)
+        cv = torch.stack([canvas[:, m0:m0 + kmc, b0 * p.rows:
+                                 b0 * p.rows + hb].reshape(B, -1)
+                          for b0 in range(p.nbands)], 1)
+        for mk in range(kmc):
+            for u in range(F):
+                for v in range(F):
+                    wi = (mk * FF * cit + (u * F + v) * cit
+                          + grp[:, None] * tci + c[None, :])
+                    ci = ((mk * hb + row[:, None] + u) * p.dpp
+                          + til[:, None] * tj + q[None, :] + v)
+                    acc = acc + (ws[:, wi][None, None, :, :, :, None]
+                                 * cv[:, :, ci][:, :, None, :, None, :])
+    # (B, band, tile, thread, c, q) -> din[b, ci, i, j]
+    full = torch.zeros((B, p.nct * cit, p.nbands * p.rows, p.nj * tj),
+                       dtype=dz.dtype)
+    for k in range(len(grp)):
+        for b0 in range(p.nbands):
+            i = b0 * p.rows + int(row[k])
+            cis = (torch.arange(p.nct)[:, None] * cit + int(grp[k]) * tci
+                   + c[None, :]).reshape(-1)
+            js = int(til[k]) * tj + q
+            full[:, cis[:, None], i, js[None, :]] = acc[:, b0, :, k].reshape(
+                B, -1, tj)
+    return full[:, :g.Cin, :g.W, :g.W]
+
+
+@pytest.mark.parametrize("name", CONV_CASES)
+def test_dgrad_tiled_matches_jax(name):
+    """The tiled path's order model against jax.grad at every conv case
+    (their few input maps take the band path; the tile shape is held here
+    all the same: input maps past Cin, rows past the last band and columns
+    past the last tile are zeros that no output keeps)."""
+    g, x, w, b, dz = _conv_case(name, seed=1)
+    _, _, dx = _jax_conv_grads(x, w, b, dz, g.cs, CONV_CASES[name][6])
+    w_k = torch.from_numpy(w.transpose(0, 2, 3, 1).reshape(g.M, -1).copy())
+    p = sp.dgrad_tile_shape(g.B, g.Cin, g.W, g.M, g.F)
+    _close(dgrad_tiled(torch.from_numpy(dz), w_k, g, p), dx)
+    # a chunk of one map and a band of one row
+    one = p._replace(km=1, nch=g.M, rows=1, nbands=g.W,
+                     threads=-(-p.g * p.nj // 32) * 32)
+    _close(dgrad_tiled(torch.from_numpy(dz), w_k, g, one), dx)
+
+
+@pytest.mark.parametrize("level", COLUMN_LEVELS)
+def test_dgrad_tiled_matches_jax_at_the_column(level):
+    """The tiled path at the GTSRB column's two input-gradient levels at B
+    2 (the plan there: several bands and tiles, chunks of 16 maps, the
+    last short at level 2) against jax.grad of the JAX ConvLayer."""
+    cin, W, M, F = COLUMN_LEVELS[level]
+    g = _geom(2, cin, W, M, F, 1, "valid", 0)
+    p = sp.dgrad_tile_plan(g.B, g.Cin, g.W, g.M, g.F)
+    assert p.tiled and p.nch > 1 and p.nbands > 1 and p.nct > 1
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((g.B, cin, W, W)).astype(np.float32)
+    w = (rng.standard_normal((M, cin, F, F)) / (F * np.sqrt(M))).astype(
+        np.float32)
+    b = rng.standard_normal(M).astype(np.float32)
+    dz = rng.standard_normal((g.B, M, g.c, g.c)).astype(np.float32)
+    _, _, dx = _jax_conv_grads(x, w, b, dz, 1, "valid")
+    w_k = torch.from_numpy(w.transpose(0, 2, 3, 1).reshape(M, -1).copy())
+    _close(dgrad_tiled(torch.from_numpy(dz), w_k, g, p), dx)
 
 
 # (B, K in, N out): K cut into several slices, the last short; B 1

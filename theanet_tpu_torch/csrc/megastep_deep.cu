@@ -46,14 +46,16 @@
 // block a slice staging its rows once for every map and tap, the slices
 // added in order by clusters) and one input-gradient stage (a block a row band,
 // input map and sample on the sample's dz dilated by the stride onto a
-// zero canvas) per level (a padded or strided level reads its input
-// directly); the dense stages loop over the pre-hidden stack and then the
-// final hidden, each product on stages.cuh gemm (16x16 tiles, K cut into
-// slices added in order when the tiles are too few for the card; the bias,
-// activation and dropout ride in the pass that writes the product); a head
-// stage of one block a sample the softmax-kind, LOGIT or RBF loss down to
-// dL/dscores, a grid stage the cost, the scores bias's gradient and
-// (learned RBF centers) dcenters, each in one fixed order with no atomics;
+// zero canvas; at a level of many input maps a register-tiled implicit
+// GEMM on the same canvas, k_conv_dgrad_tiled) per level (a padded or
+// strided level reads its input directly); the dense stages loop over the
+// pre-hidden stack and then the final hidden, each product on stages.cuh
+// gemm (16x16 tiles, K cut into slices added in order when the tiles are
+// too few for the card; the bias, activation and dropout ride in the pass
+// that writes the product); a head stage of one block a sample the
+// softmax-kind, LOGIT or RBF loss down to dL/dscores, a grid stage the
+// cost, the scores bias's gradient and (learned RBF centers) dcenters,
+// each in one fixed order with no atomics;
 // the aux encoder is one single-block stage forward (k_aux_fwd) and one
 // backward (k_aux_bwd, SoftAux only): its widths are a few units; the
 // weight cost is a two-pass grid reduction; one update launch covers every
@@ -74,6 +76,8 @@
 // nets at zero levels), is the epoch loop with the exchange of
 // csrc/ring.cuh between grad_stages and update_stages: one C call an epoch
 // a rank; learned RBF centers are one more tensor of the exchanged set.
+
+#include <atomic>
 
 #include "stages.cuh"
 #include "ring.cuh"
@@ -116,6 +120,8 @@ constexpr int LOSS_NLL = 0, LOSS_NLLSQ = 1, LOSS_NLLT = 2, LOSS_HINGE = 3,
               LOSS_EXP = 4;
 constexpr int KIND_ROWS = 0, KIND_COLS = 1, KIND_BIAS = 2;
 constexpr float LOGIT_EPS = 0.001f;
+// deep_conv_dgrad asked for the tiled path at a level whose plan has none
+constexpr int ERR_NOT_TILED = -6;
 
 // A conv level: input side s, conv side c, pooled side p; conv output
 // (y, x) reads input row y*cs + f-1-u - pad for tap u (zeros off the
@@ -326,6 +332,210 @@ __global__ void k_conv_dgrad(ConvGeom g, DgradPlan p,
                       + (size_t)blockIdx.x * p.rows) * g.W;
   for (int t = threadIdx.x; t < n; t += blockDim.x)
     out[t] = dgrad_sum(g, p, t);
+}
+
+// The input gradient of a wide level (stages.cuh dgrad_tile_plan) as a
+// register-tiled FP32 implicit GEMM: din[b, ci, i, j] = sum over (m, u,
+// v), in that order, of w[m, (u*F+v)*Cin + ci] * dzd[b, m, i+u, j+v] on
+// the band path's zero canvas dzd.
+//
+// It replaces no TPU kernel of its own: it is a stage of the backward of
+// theanet_tpu/ops/megastep_deep.py::_kernel_deep, as k_conv_dgrad is, and
+// the level's plan picks one of the two.
+//
+// What bounds it on the card: operations. At the GTSRB column's levels 2
+// and 3 at batch 20 (100 -> 150 maps at 21 x 21, 150 -> 250 at 9 x 9,
+// filter 4) a step's valid input gradient is 3.98 GFLOP, 59 us at 67
+// TFLOP/s in f32 (6.18 GFLOP on the canvas, taps on its zero border
+// included), against about 12 MB of dz, weights and din (4 us at 3.35
+// TB/s).
+//
+// What the design does about it: k_conv_dgrad, a block a (row band, input
+// map, sample), stages its sample's dz of every map once for each input
+// map (about 700 and 2,400 copies of each dz float at the column's two
+// levels, 4.5 GB a step from L2) and sums on one or two warps a block.
+// Here a block takes a tile of cit input maps and a band of rows of one
+// sample, and stages each chunk of km maps' canvas rows once for the whole
+// tile, with the chunk's weights of its input maps (both by cp.async, the
+// next chunk's copies in flight while the block sums the current one).
+// Each thread keeps a DT_TCI x DT_TJ tile of sums in registers: a row of
+// DT_TJ + F - 1 canvas values serves its F taps along j for DT_TCI input
+// maps, and a float4 of weights its DT_TJ positions. Each output's sum
+// stays in one thread, one FMA a tap in the order m, u, v (the band
+// path's contracted multiply-add), so the two paths give the same bits.
+// FP32 on the CUDA cores: no TF32. Levels of few input maps keep the band
+// path, whose one wide launch of short sums is their latency floor
+// (stages.cuh, above dgrad_tile_plan). On an H100 SXM (700 W) the
+// column's two levels take about 165 and 146 us a launch at batch 20 (the
+// band path 2,880 and 2,130): the sums alone 147 and 96, the rest the
+// staging at level 3; the sums are held by the shared-memory reads a
+// 4 x 3 tile needs for each FMA.
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Chunk ``ch``'s copies into buffer ``buf`` (stages.cuh layout: the two
+// weight buffers, then the two canvas buffers): the weights a row of cit
+// floats (m, u, v), a thread's column ci fixed, rows every threads / cit;
+// the canvas a (row, column) place of the band every threads places, each
+// place for every map of the chunk (its source and whether it lies on the
+// stride lattice worked out once a place, not once a copy). Zero fills
+// past Cin, off the canvas and off the stride lattice.
+__device__ __forceinline__ void dgrad_tile_stage(
+    const ConvGeom& g, const DgradTilePlan& p, const float* __restrict__ w,
+    const float* __restrict__ dz, int ch, int buf, int b, int ci0, int i0) {
+  extern __shared__ float sm[];
+  const int F = g.F, FF = F * F, cit = p.cit, hb = p.rows + F - 1;
+  const int tid = threadIdx.x, nt = blockDim.x, dpp = p.dpp;
+  const int m0 = ch * p.km, kmc = min(p.km, g.M - m0);
+  float* ws = sm + buf * p.km * FF * cit;
+  float* cv = sm + 2 * p.km * FF * cit + buf * p.km * hb * dpp;
+  const int rs = nt / cit, cl = tid % cit;
+  const bool ciok = ci0 + cl < g.Cin;
+  const float* wsrc = w + (size_t)m0 * FF * g.Cin + ci0 + (ciok ? cl : 0);
+  if (tid < rs * cit) {
+    const float* src = wsrc + (size_t)(tid / cit) * g.Cin;
+    const size_t sstep = (size_t)rs * g.Cin;
+    float* dst = ws + tid;   // row tid / cit, column cl
+    for (int row = tid / cit; row < kmc * FF;
+         row += rs, src += sstep, dst += rs * cit)
+      cp_float(dst, src, ciok);
+  }
+  const int off = F - 1 - g.pad, cs = g.cs, cc = g.c * g.c;
+  const float* dzb = dz + ((size_t)b * g.M + m0) * cc;
+  for (int q = tid; q < hb * dpp; q += nt) {
+    const int h = q / dpp, col = q - h * dpp;
+    const int X = col - off, Y = i0 + h - off;   // x * cs, y * cs
+    const int x = cs == 1 ? X : X / cs, y = cs == 1 ? Y : Y / cs;
+    const bool ok = X >= 0 && Y >= 0 && x < g.e && y < g.e
+                    && (cs == 1 || (X % cs == 0 && Y % cs == 0));
+    const float* src = ok ? dzb + (size_t)y * g.c + x : dz;
+    const int step = ok ? cc : 0;
+    float* dst = cv + h * dpp + col;
+    for (int mk = 0; mk < kmc; ++mk, dst += hb * dpp, src += step)
+      cp_float(dst, src, ok);
+  }
+}
+
+template <int F>
+__global__ void __launch_bounds__(DT_MAX_THREADS)
+k_conv_dgrad_tiled(ConvGeom g, DgradTilePlan p, const float* __restrict__ w,
+                   const float* __restrict__ dz, float* __restrict__ din) {
+  pdl_wait();   // started by programmatic dependent launch
+  pdl_trigger();
+  extern __shared__ float sm[];
+  constexpr int FF = F * F, ND = DT_TJ + F - 1;
+  const int b = blockIdx.z, ci0 = blockIdx.y * p.cit;
+  const int i0 = blockIdx.x * p.rows, hb = p.rows + F - 1, dpp = p.dpp;
+  const int P = p.rows * p.nj, t = threadIdx.x;
+  const bool active = t < p.g * P;
+  const int gi = t / P, pos = t % P, r = pos / p.nj, jt = pos % p.nj;
+  float acc[DT_TCI][DT_TJ];
+#pragma unroll
+  for (int c = 0; c < DT_TCI; ++c)
+#pragma unroll
+    for (int q = 0; q < DT_TJ; ++q) acc[c][q] = 0.0f;
+  dgrad_tile_stage(g, p, w, dz, 0, 0, b, ci0, i0);
+  cp_commit();
+  for (int ch = 0; ch < p.nch; ++ch) {
+    if (ch + 1 < p.nch) {
+      dgrad_tile_stage(g, p, w, dz, ch + 1, (ch + 1) & 1, b, ci0, i0);
+      cp_commit();
+      cp_wait_group<1>();
+    } else {
+      cp_wait_group<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int kmc = min(p.km, g.M - ch * p.km);
+      const float* wp = sm + (ch & 1) * p.km * FF * p.cit + gi * DT_TCI;
+      const float* cp = sm + 2 * p.km * FF * p.cit
+                        + ((ch & 1) * p.km * hb + r) * dpp + jt * DT_TJ;
+      for (int mk = 0; mk < kmc; ++mk, wp += FF * p.cit, cp += hb * dpp) {
+#pragma unroll
+        for (int u = 0; u < F; ++u) {
+          float d[ND];
+#pragma unroll
+          for (int k = 0; k < ND; ++k) d[k] = cp[u * dpp + k];
+#pragma unroll
+          for (int v = 0; v < F; ++v) {
+            const float4 wv =
+                *reinterpret_cast<const float4*>(wp + (u * F + v) * p.cit);
+            const float wc[DT_TCI] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+            for (int c = 0; c < DT_TCI; ++c)
+#pragma unroll
+              for (int q = 0; q < DT_TJ; ++q)
+                acc[c][q] = fmaf(wc[c], d[q + v], acc[c][q]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the buffer is restaged by the chunk after next
+  }
+  const int i = i0 + r;
+  if (!active || i >= g.W) return;
+#pragma unroll
+  for (int c = 0; c < DT_TCI; ++c) {
+    const int ci = ci0 + gi * DT_TCI + c;
+    if (ci >= g.Cin) break;
+    float* out = din + (((size_t)b * g.Cin + ci) * g.W + i) * g.W;
+#pragma unroll
+    for (int q = 0; q < DT_TJ; ++q) {
+      const int j = jt * DT_TJ + q;
+      if (j < g.W) out[j] = acc[c][q];
+    }
+  }
+}
+
+// A level's input gradient on the tiled path (its plan's tiled set).
+template <int F>
+int conv_dgrad_tiled_f(cudaStream_t s, const ConvGeom& g,
+                       const DgradTilePlan& p, const float* w,
+                       const float* dz, float* din) {
+  const size_t smem = sizeof(float) * p.smem_floats;
+  if (!smem_opt_in(k_conv_dgrad_tiled<F>, smem)) return ERR_STAGE_SMEM;
+  CHECK(launch_pdl(k_conv_dgrad_tiled<F>, dim3(p.nbands, p.nct, g.B),
+                   dim3(p.threads), smem, s, g, p, w, dz, din));
+  return 0;
+}
+
+// Tiled launches issued since the library was loaded (the epoch wrappers
+// read the count around each call: deep_dgrad_tiled_launches).
+std::atomic<long long> dgrad_tiled_launched{0};
+
+// A conv level's input gradient on the path its plan selects: the band
+// path (k_conv_dgrad) or, at a wide level, the tiled one; ``tiled``
+// forces the path (0 band, 1 tiled; -1 the plan's choice). 0, or a
+// negative code or CUDA error.
+int conv_dgrad(cudaStream_t s, const ConvGeom& g, const float* w,
+               const float* dz, float* din, int tiled = -1) {
+  const DgradTilePlan tp =
+      tiled == 0 ? DgradTilePlan{} : dgrad_tile_plan(g.B, g.Cin, g.W, g.M, g.F);
+  if (tiled == 1 && !tp.tiled) return ERR_NOT_TILED;
+  if (tp.tiled) {
+    int rc;
+    switch (g.F) {
+      case 2: rc = conv_dgrad_tiled_f<2>(s, g, tp, w, dz, din); break;
+      case 3: rc = conv_dgrad_tiled_f<3>(s, g, tp, w, dz, din); break;
+      case 4: rc = conv_dgrad_tiled_f<4>(s, g, tp, w, dz, din); break;
+      case 5: rc = conv_dgrad_tiled_f<5>(s, g, tp, w, dz, din); break;
+      case 6: rc = conv_dgrad_tiled_f<6>(s, g, tp, w, dz, din); break;
+      default: rc = conv_dgrad_tiled_f<7>(s, g, tp, w, dz, din); break;
+    }
+    if (rc == 0) ++dgrad_tiled_launched;
+    return rc;
+  }
+  const DgradPlan dg = dgrad_plan(g.B, g.Cin, g.W, g.M, g.F);
+  const size_t dsm = sizeof(float) * dg.smem_floats;
+  if (!smem_opt_in(k_conv_dgrad, dsm)) return ERR_STAGE_SMEM;
+  CHECK(launch_pdl(k_conv_dgrad, dim3(dg.nbands, g.Cin, g.B),
+                   dim3(dg.threads), dsm, s, g, dg, w, dz, din));
+  return 0;
 }
 
 // The MeanLayer flatten: f[b, m] = sum over the last level's pn x pn
@@ -1065,12 +1275,8 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
                     grad[2 * k], grad[2 * k + 1]);
     if (rc != 0) return rc;
     if (k) {
-      const DgradPlan dg = dgrad_plan(B, L.cin, L.s, L.m, L.f);
-      const size_t dsm = sizeof(float) * dg.smem_floats;
-      if (!smem_opt_in(k_conv_dgrad, dsm)) return ERR_STAGE_SMEM;
-      CHECK(launch_pdl(k_conv_dgrad, dim3(dg.nbands, L.cin, B),
-                       dim3(dg.threads), dsm, s, g, dg, prm[2 * k], w.dz[k],
-                       w.dp[k - 1]));
+      rc = conv_dgrad(s, g, prm[2 * k], w.dz[k], w.dp[k - 1]);
+      if (rc != 0) return rc;
     }
   }
   return 0;
@@ -1195,7 +1401,26 @@ const char* deep_error_string(int code) {
   if (code == -3) return "more conv levels, hidden layers or state tensors than the kernel's tables hold";
   if (code == -4) return "the net's aux layer has no aux rows (or AuxConcat no encoder weights)";
   if (code == ERR_STAGE_SMEM) return stage_smem_error;
+  if (code == ERR_NOT_TILED)
+    return "the level's input gradient takes the band path: no tiles";
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// The tiled input-gradient launches the library has issued (every entry,
+// every thread), for the wrappers' counter.
+long long deep_dgrad_tiled_launches() { return dgrad_tiled_launched.load(); }
+
+// One conv level's input gradient alone, for the card's checks: ``geom``
+// the level's (B, M, Cin, F, c, e, cs, pad, W), ``w`` its kernel-layout
+// weights (M, F*F*Cin), ``dz`` (B, M, c, c), ``din`` (B, Cin, W, W);
+// ``tiled`` 0 the band path, 1 the tiled one (an error where the level's
+// plan has no tiles), -1 the path the epoch takes.
+int deep_conv_dgrad(const int* geom, int tiled, const float* w,
+                    const float* dz, float* din, int device, void* stream_) {
+  CHECK(cudaSetDevice(device));
+  const ConvGeom g = {geom[0], geom[1], geom[2], geom[3], geom[4], geom[5],
+                      geom[6], geom[7], geom[8], 0, 0};
+  return conv_dgrad((cudaStream_t)stream_, g, w, dz, din, tiled);
 }
 
 // One epoch: n_steps steps on ``stream`` of ``device``; parameters and

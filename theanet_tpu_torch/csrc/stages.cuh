@@ -1174,6 +1174,105 @@ __device__ __forceinline__ float dgrad_sum(const ConvGeom& g,
   }
 }
 
+// ---- The input gradient at wide levels (megastep_deep.cu
+// k_conv_dgrad_tiled): the same sums as a register-tiled implicit GEMM,
+// rows the input maps, columns a sample's positions, depth (m, u, v). A
+// block takes a tile of cit = DT_TCI * g input maps and a band of ``rows``
+// input rows of one sample; each thread a DT_TCI x DT_TJ register tile
+// (input maps x neighbouring positions of one row). The depth runs in
+// chunks of km maps, double-buffered: each chunk's weights of the tile's
+// maps and its canvas rows (the band's rows + F - 1, dpp = nj * DT_TJ +
+// F - 1 columns wide: the last tile of a row reads past the canvas into
+// zeros) are staged once for the whole tile. Each output's sum stays in
+// one thread in the order m, u, v, so it equals the band path's.
+//
+// Which path a level takes: the band path (dgrad_plan) keeps levels of
+// few input maps, where a tile of input maps would sit mostly empty and
+// one wide launch of short sums is the latency floor (mnist_cnn's conv2,
+// Cin 4; galaxy_rbf's level 2, Cin 8; the geometry and aux configs, at
+// most 20); the tiled path takes Cin >= DT_MIN_CIN (the GTSRB column's
+// levels 2 and 3, Cin 100 and 150), for filters 2 to DT_FMAX (compiled
+// per F) and rows of at most DT_MAX_THREADS tiles. Among tile shapes (g,
+// rows) the plan takes the one whose grid fills the card, then the least
+// estimated time: the busiest SM's warps (at least DT_MIN_WARPS, below
+// which a warp's latency and not the SM's issue rate sets the pace) times
+// a thread's instructions a map (its FMAs and shared loads, and
+// DT_STAGE_COST a staged float shared by the block's threads), then the
+// fewer blocks.
+constexpr int DT_TCI = 4, DT_TJ = 3;
+constexpr int DT_MIN_CIN = 32, DT_FMIN = 2, DT_FMAX = 7;
+constexpr int DT_MAX_G = 8, DT_MAX_THREADS = 512, DT_MAX_KM = 16;
+constexpr int DT_MIN_WARPS = 4, DT_STAGE_COST = 4;
+
+struct DgradTilePlan {
+  int tiled, g, cit, nct, rows, nbands, nj, dpp, km, nch, threads,
+      smem_floats;
+};
+
+// Floats a map of a chunk stages: its weights of the tile's input maps,
+// then its canvas rows.
+inline int dgrad_tile_map_floats(int g, int rows, int F, int dpp) {
+  return F * F * DT_TCI * g + (rows + F - 1) * dpp;
+}
+
+// The tile shape at a level, whichever path it takes (tiled 0 where no
+// band of one row fits a block).
+inline DgradTilePlan dgrad_tile_shape(int B, int Cin, int W, int M, int F) {
+  DgradTilePlan p = {};
+  p.nj = cdiv(W, DT_TJ);
+  p.dpp = p.nj * DT_TJ + F - 1;
+  const long long comp =
+      (long long)F * (DT_TCI * DT_TJ * F + DT_TJ + 2 * F - 1);
+  long long bnum = 0, bden = 1, bnb = 0;
+  bool bfill = false;
+  for (int g = 1; g <= DT_MAX_G; ++g) {
+    const int nct = cdiv(Cin, DT_TCI * g);
+    for (int r = 1; r <= W && g * r * p.nj <= DT_MAX_THREADS; ++r) {
+      const int sm = dgrad_tile_map_floats(g, r, F, p.dpp);
+      if (8LL * sm > (long long)SMEM_OPT_IN) break;
+      const int threads = cdiv(g * r * p.nj, 32) * 32;
+      const long long nb = (long long)B * nct * cdiv(W, r);
+      const long long busiest = (nb + SM_COUNT - 1) / SM_COUNT * (threads / 32);
+      const long long num = std::max<long long>(busiest, DT_MIN_WARPS)
+                            * (comp * threads + DT_STAGE_COST * sm);
+      const bool fill = nb >= SM_COUNT;
+      bool better;
+      if (!p.tiled) better = true;
+      else if (fill != bfill) better = fill;
+      else if (num * bden != bnum * threads)
+        better = num * bden < bnum * threads;
+      else better = nb < bnb;
+      if (better) {
+        p.tiled = 1;
+        p.g = g;
+        p.rows = r;
+        bnum = num;
+        bden = threads;
+        bnb = nb;
+        bfill = fill;
+      }
+    }
+  }
+  if (!p.tiled) return p;
+  const int sm = dgrad_tile_map_floats(p.g, p.rows, F, p.dpp);
+  p.cit = DT_TCI * p.g;
+  p.nct = cdiv(Cin, p.cit);
+  p.nbands = cdiv(W, p.rows);
+  p.km = std::min(std::min(M, DT_MAX_KM), std::max(1, STAGE_FLOATS / (2 * sm)));
+  p.nch = cdiv(M, p.km);
+  p.threads = cdiv(p.g * p.rows * p.nj, 32) * 32;
+  p.smem_floats = 2 * p.km * sm;
+  return p;
+}
+
+// The tiled path's plan at a level, or tiled 0 (every field 0) where the
+// level takes the band path.
+inline DgradTilePlan dgrad_tile_plan(int B, int Cin, int W, int M, int F) {
+  if (Cin < DT_MIN_CIN || F < DT_FMIN || F > DT_FMAX) return DgradTilePlan{};
+  const DgradTilePlan p = dgrad_tile_shape(B, Cin, W, M, F);
+  return p.tiled ? p : DgradTilePlan{};
+}
+
 // Room for every state tensor of a fused net: 2 per conv level, 2 per
 // dense layer and the learned centers.
 constexpr int MAX_TENSORS = 40;
@@ -1291,8 +1390,8 @@ extern "C" {
 // The launch plans above at the given shapes, for the check of their
 // mirror in theanet_tpu_torch/ops/stage_plan.py on the card: wgrad_plan's
 // 17 fields in order, dgrad_plan's (rows,
-// nbands, dp, threads, smem_floats), gemm_plan's (nks, kslice,
-// part_floats).
+// nbands, dp, threads, smem_floats), dgrad_tile_plan's 12, gemm_plan's
+// (nks, kslice, part_floats).
 void stage_wgrad_plan(int B, int M, int Cin, int F, int e, int cs,
                       long long* out) {
   const WgradPlan p = wgrad_plan(B, M, Cin, F, e, cs);
@@ -1307,6 +1406,15 @@ void stage_dgrad_plan(int B, int Cin, int W, int M, int F, long long* out) {
   const DgradPlan p = dgrad_plan(B, Cin, W, M, F);
   const long long v[] = {p.rows, p.nbands, p.dp, p.threads, p.smem_floats};
   for (int k = 0; k < 5; ++k) out[k] = v[k];
+}
+
+void stage_dgrad_tile_plan(int B, int Cin, int W, int M, int F,
+                           long long* out) {
+  const DgradTilePlan p = dgrad_tile_plan(B, Cin, W, M, F);
+  const long long v[] = {p.tiled, p.g,  p.cit, p.nct,     p.rows,
+                         p.nbands, p.nj, p.dpp, p.km,      p.nch,
+                         p.threads, p.smem_floats};
+  for (int k = 0; k < 12; ++k) out[k] = v[k];
 }
 
 void stage_gemm_plan(int M, int N, int K, long long* out) {

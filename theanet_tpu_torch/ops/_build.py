@@ -37,6 +37,7 @@ __all__ = ["build", "megastep_launch", "deep_launch",
            "ring_events_open", "ring_events_free", "ring_exchange_launch",
            "megastep_grad_launch", "deep_grad_launch",
            "megastep_update_launch", "deep_update_launch",
+           "dgrad_tiled_launched", "deep_conv_dgrad_launch",
            "elastic_resample_launch", "fused_mlp_forward_launch",
            "fused_mlp_backward_launch", "conv3x3_forward_launch",
            "conv3x3_backward_launch", "floor_probe_launch",
@@ -198,15 +199,22 @@ def _bind(name, lib):
     for fn, n_int in STAGE_PLANS.items():
         getattr(lib, fn).argtypes = [ctypes.c_int] * n_int + [ll]
         getattr(lib, fn).restype = None
+    if prefix == "deep":
+        lib.deep_dgrad_tiled_launches.argtypes = []
+        lib.deep_dgrad_tiled_launches.restype = ctypes.c_longlong
+        lib.deep_conv_dgrad.argtypes = ([ip, ctypes.c_int]
+                                        + [ctypes.c_void_p] * 3
+                                        + [ctypes.c_int, ctypes.c_void_p])
+        lib.deep_conv_dgrad.restype = ctypes.c_int
     return lib
 
 
 # stages.cuh's plan exports (both fused libraries): integer arguments, and
 # the integers each writes (ops/stage_plan.py's plan fields, in order)
 STAGE_PLANS = {"stage_wgrad_plan": 6, "stage_dgrad_plan": 5,
-               "stage_gemm_plan": 3}
+               "stage_dgrad_tile_plan": 5, "stage_gemm_plan": 3}
 STAGE_PLAN_WIDTH = {"stage_wgrad_plan": 17, "stage_dgrad_plan": 5,
-                    "stage_gemm_plan": 3}
+                    "stage_dgrad_tile_plan": 12, "stage_gemm_plan": 3}
 
 
 def stage_plan_c(fn, *args, lib="megastep"):
@@ -477,6 +485,25 @@ def ring_exchange_launch(lib_name, ring, n_grads, step, phase, out, cm):
         torch.cuda.current_stream(dev).cuda_stream)
     _ring_check(lib_name, rc, "ring_exchange")
     return launched.value
+
+
+def dgrad_tiled_launched():
+    """The tiled input-gradient launches (k_conv_dgrad_tiled) the deep
+    library has issued in this process, from every entry."""
+    return build()["megastep_deep"].deep_dgrad_tiled_launches()
+
+
+def deep_conv_dgrad_launch(g, tiled, w, dz, din):
+    """One deep conv level's input gradient alone on the current stream:
+    ``g`` its stage_plan.ConvGeom, ``w`` its kernel-layout weights (M,
+    F*F*Cin), ``dz`` (B, M, c, c), ``din`` (B, Cin, W, W), all contiguous
+    f32 on one card; ``tiled`` 0 the band path (k_conv_dgrad), 1 the tiled
+    one (an error where the level's plan has no tiles), -1 the path an
+    epoch takes."""
+    geom = (ctypes.c_int * 9)(g.B, g.M, g.Cin, g.F, g.c, g.e, g.cs, g.pad,
+                              g.W)
+    _entry("deep", build()["megastep_deep"], "conv_dgrad", geom, tiled,
+           w.data_ptr(), dz.data_ptr(), din.data_ptr(), dev=din.device)
 
 
 def megastep_grad_launch(spec, x, y, words, gh, gw, params, grads, cm):

@@ -16,6 +16,11 @@ them on the CPU):
   * ``dgrad_plan``: a conv level's input gradient, a block a (band of
     ``rows`` input rows, input map, sample) on a zero canvas of side ``dp``
     holding the sample's dz dilated by the stride;
+  * ``dgrad_tile_plan``: the input gradient of a deep level of many input
+    maps as a register-tiled implicit GEMM on the same canvas, a block a
+    (band, tile of ``cit`` input maps, sample), the maps' depth in chunks
+    of ``km`` staged once for the tile; ``tiled`` 0 where the level keeps
+    the band path;
   * ``gemm_plan``: a dense product (M, N, K) on 16x16 tiles, K cut into
     ``nks`` slices of ``kslice`` when the tiles are too few for the card,
     the slices added in order.
@@ -31,8 +36,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-__all__ = ["WgradPlan", "DgradPlan", "GemmPlan", "ConvGeom", "wgrad_plan",
-           "dgrad_plan", "gemm_plan", "flagship_levels", "deep_levels",
+__all__ = ["WgradPlan", "DgradPlan", "DgradTilePlan", "GemmPlan", "ConvGeom",
+           "wgrad_plan", "dgrad_plan", "dgrad_tile_shape", "dgrad_tile_plan",
+           "dgrad_tiled_levels", "dgrad_tile_staging",
+           "dgrad_tile_positions", "gemm_plan", "flagship_levels",
+           "deep_levels",
            "flagship_products", "deep_products", "megastep_workspace_floats",
            "deep_workspace_floats", "stage_floats", "wgrad_staging",
            "wgrad_positions", "dgrad_staging", "dgrad_positions",
@@ -52,6 +60,10 @@ WG_TARGET = 96                  # slices wanted (a map group's share)
 WG_CLUSTER = 8                  # blocks a cluster, at most
 DG_TARGET = 2 * SM_COUNT
 DG_MIN_THREADS, DG_MAX_THREADS = 256, 1024
+DT_TCI, DT_TJ = 4, 3            # a tiled thread's sums: input maps x columns
+DT_MIN_CIN, DT_FMIN, DT_FMAX = 32, 2, 7
+DT_MAX_G, DT_MAX_THREADS, DT_MAX_KM = 8, 512, 16
+DT_MIN_WARPS, DT_STAGE_COST = 4, 4
 # the fused libraries' other fixed regions (stages.cuh, megastep.cu)
 WCOST_BLOCKS = 128
 HEAD_KS, HEAD_KB = 64, 256
@@ -142,6 +154,24 @@ class DgradPlan(NamedTuple):
         return (self.nbands, Cin, B)
 
 
+class DgradTilePlan(NamedTuple):
+    tiled: int         # 1: the level takes the tiled path
+    g: int             # DT_TCI-map groups a block
+    cit: int           # input maps a tile, DT_TCI * g
+    nct: int           # tiles of input maps
+    rows: int          # input rows a band
+    nbands: int
+    nj: int            # DT_TJ-column tiles a row
+    dpp: int           # staged canvas columns, nj * DT_TJ + F - 1
+    km: int            # maps a chunk
+    nch: int           # chunks
+    threads: int
+    smem_floats: int
+
+    def grid(self, B):
+        return (self.nbands, self.nct, B)
+
+
 class GemmPlan(NamedTuple):
     nks: int
     kslice: int
@@ -223,6 +253,61 @@ def dgrad_plan(B, Cin, W, M, F):
                      _dgrad_band_floats(rows, M, F, dp))
 
 
+def _tile_map_floats(g, rows, F, dpp):
+    return F * F * DT_TCI * g + (rows + F - 1) * dpp
+
+
+def dgrad_tile_shape(B, Cin, W, M, F):
+    """stages.cuh dgrad_tile_shape: the tiled plan at a level, whichever
+    path the level takes (tiled 0 where no band of one row fits a
+    block)."""
+    nj = cdiv(W, DT_TJ)
+    dpp = nj * DT_TJ + F - 1
+    comp = F * (DT_TCI * DT_TJ * F + DT_TJ + 2 * F - 1)
+    best = None   # (g, rows, num, den, nb, fill)
+    for g in range(1, DT_MAX_G + 1):
+        nct = cdiv(Cin, DT_TCI * g)
+        r = 1
+        while r <= W and g * r * nj <= DT_MAX_THREADS:
+            sm = _tile_map_floats(g, r, F, dpp)
+            if 8 * sm > SMEM_OPT_IN:
+                break
+            threads = cdiv(g * r * nj, 32) * 32
+            nb = B * nct * cdiv(W, r)
+            busiest = cdiv(nb, SM_COUNT) * (threads // 32)
+            num = max(busiest, DT_MIN_WARPS) * (comp * threads
+                                                + DT_STAGE_COST * sm)
+            fill = nb >= SM_COUNT
+            if best is None:
+                better = True
+            elif fill != best[5]:
+                better = fill
+            elif num * best[3] != best[2] * threads:
+                better = num * best[3] < best[2] * threads
+            else:
+                better = nb < best[4]
+            if better:
+                best = (g, r, num, threads, nb, fill)
+            r += 1
+    if best is None:
+        return DgradTilePlan(*[0] * 12)
+    g, rows = best[:2]
+    sm = _tile_map_floats(g, rows, F, dpp)
+    km = min(M, DT_MAX_KM, max(1, STAGE_FLOATS // (2 * sm)))
+    return DgradTilePlan(1, g, DT_TCI * g, cdiv(Cin, DT_TCI * g), rows,
+                         cdiv(W, rows), nj, dpp, km, cdiv(M, km),
+                         cdiv(g * rows * nj, 32) * 32, 2 * km * sm)
+
+
+def dgrad_tile_plan(B, Cin, W, M, F):
+    """stages.cuh dgrad_tile_plan: the tiled plan where the level takes
+    the tiled path (Cin >= DT_MIN_CIN, filter DT_FMIN to DT_FMAX, a band of
+    one row fits), else every field 0 (the band path, dgrad_plan)."""
+    if Cin < DT_MIN_CIN or not DT_FMIN <= F <= DT_FMAX:
+        return DgradTilePlan(*[0] * 12)
+    return dgrad_tile_shape(B, Cin, W, M, F)
+
+
 def gemm_plan(M, N, K):
     """stages.cuh gemm_plan."""
     tiles = cdiv(M, TILE) * cdiv(N, TILE)
@@ -265,6 +350,18 @@ def deep_levels(spec):
                             e, cs, pad, side))
         cin = spec.maps[k]
     return out
+
+
+def dgrad_tiled_levels(spec):
+    """The deep step's input-gradient levels (ConvGeom, every level after
+    the first) whose plan takes the tiled path: k_conv_dgrad_tiled
+    launches a step (the flagship's conv2 keeps the band path)."""
+    from .megastep import MegaSpec
+
+    if isinstance(spec, MegaSpec):
+        return []
+    return [g for g in deep_levels(spec)[1:]
+            if dgrad_tile_plan(g.B, g.Cin, g.W, g.M, g.F).tiled]
 
 
 def flagship_products(spec):
@@ -450,12 +547,51 @@ def dgrad_positions(g, p, band):
             for t in range(min(p.threads, n))}
 
 
+def dgrad_tile_staging(g, p, ch):
+    """The copies the threads of a k_conv_dgrad_tiled block make in chunk
+    ``ch`` (dgrad_tile_stage), each thread's walk in order: two arrays of
+    (thread, shared-memory offset) rows, the weights' from the chunk's
+    weight buffer and the canvas's from its canvas buffer. Weights: a row
+    of cit floats a (map, tap), the thread's column fixed, rows every
+    threads // cit; canvas: the band's (row, column) places every threads
+    places, each for every map of the chunk in turn."""
+    import numpy as np
+
+    nt, cit, hb = p.threads, p.cit, p.rows + g.F - 1
+    kmc = min(p.km, g.M - ch * p.km)
+    rs = nt // cit
+    tid = np.arange(rs * cit)[:, None]
+    rows = tid // cit + rs * np.arange(cdiv(kmc * g.F * g.F, rs))[None, :]
+    keep = rows < kmc * g.F * g.F
+    ws = np.stack([np.broadcast_to(tid, rows.shape)[keep],
+                   (rows * cit + tid % cit)[keep]], 1)
+    tid = np.arange(nt)[:, None, None]
+    place = tid + nt * np.arange(cdiv(hb * p.dpp, nt))[None, :, None]
+    off = place + hb * p.dpp * np.arange(kmc)[None, None, :]
+    keep = np.broadcast_to(place < hb * p.dpp, off.shape)
+    cv = np.stack([np.broadcast_to(tid, off.shape)[keep], off[keep]], 1)
+    return ws, cv
+
+
+def dgrad_tile_positions(g, p):
+    """Each k_conv_dgrad_tiled thread's place in its block: {thread:
+    (group, band row, column tile)}. Thread t sums the outputs (input map
+    ci0 + group*DT_TCI + c, row i0 + band row, column tile*DT_TJ + q), c <
+    DT_TCI, q < DT_TJ, reading for map mk of a chunk the weights at mk*F*F
+    *cit + (u*F + v)*cit + group*DT_TCI + c and the canvas at (mk*hb +
+    band row + u)*dpp + tile*DT_TJ + k, k < DT_TJ + F - 1."""
+    P = p.rows * p.nj
+    return {t: (t // P, t % P // p.nj, t % P % p.nj)
+            for t in range(p.g * P)}
+
+
 def stage_limit_reason(spec):
     """Why the gradient stages cannot launch at ``spec`` (a MegaSpec, a
     DeepSpec or an MlpSpec), else None: a conv level whose weight- or
     input-gradient staging needs more shared memory, at one row a band (and
     for the weight gradient one map a block), than a block can opt in to (csrc/stages.cuh conv_wgrad and the dgrad
-    launches return ERR_STAGE_SMEM)."""
+    launches return ERR_STAGE_SMEM). Each input-gradient level is judged
+    by the path its plan selects; a tiled plan always fits."""
     from .megastep import MegaSpec
 
     if isinstance(spec, MegaSpec):
@@ -464,10 +600,16 @@ def stage_limit_reason(spec):
     else:
         levels = deep_levels(spec)
         dlevels = levels[1:]
+
+    def dgrad(g):   # the plan of the path the level takes
+        p = dgrad_tile_plan(g.B, g.Cin, g.W, g.M, g.F)
+        if p.tiled and not isinstance(spec, MegaSpec):
+            return p
+        return dgrad_plan(g.B, g.Cin, g.W, g.M, g.F)
+
     need = [("weight", k, wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs))
             for k, g in enumerate(levels)]
-    need += [("input", k, dgrad_plan(g.B, g.Cin, g.W, g.M, g.F))
-             for k, g in enumerate(dlevels)]
+    need += [("input", k, dgrad(g)) for k, g in enumerate(dlevels)]
     for kind, k, p in need:
         if 4 * p.smem_floats > SMEM_OPT_IN:
             g = (dlevels if kind == "input" else levels)[k]

@@ -25,8 +25,9 @@ test boundary with ``torch.profiler`` (CPU activity, and CUDA activity on
 a card), with the port's spans on (``tracing.py``: ``theanet.*`` ranges
 beside the kernels), and writes the Chrome trace to
 ``<dir>/<head>_epoch1.json``, naming the file on stderr beside the
-round's spans by self time and its count of blocking device-to-host
-reads (``Trainer.host_reads``). The JAX CLI's
+round's spans by self time, its count of blocking device-to-host
+reads (``Trainer.host_reads``) and the deep family's tiled input-gradient
+launches in the round (``deep_epoch.dgrad_tiled_launches``). The JAX CLI's
 THEANET_STEPWISE=1 is not ported: set, it stops the run with an error that
 names it.
 """
@@ -94,14 +95,18 @@ def _profiled(device, trainer, profile_dir, head):
     """Profile the block with torch.profiler and the port's spans on. If
     the block ends normally, write the Chrome trace, and print on stderr
     its path, each span name's calls and self time (host clock, profiler
-    on) and the block's blocking device-to-host reads. Profiler and spans
-    stop however the block ends."""
+    on), the block's blocking device-to-host reads and the deep family's
+    tiled input-gradient launches. Profiler and spans stop however the
+    block ends."""
     from torch.profiler import ProfilerActivity, profile
+
+    from .ops.megastep_deep import deep_epoch
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     reads = trainer.host_reads
+    tiled = deep_epoch.dgrad_tiled_launches
     with profile(activities=acts) as prof:
         tracing.take()
         tracing.enable(True)
@@ -111,6 +116,7 @@ def _profiled(device, trainer, profile_dir, head):
             tracing.enable(False)
             records = tracing.take()
     reads = trainer.host_reads - reads
+    tiled = deep_epoch.dgrad_tiled_launches - tiled
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, head + "_epoch1.json")
     prof.export_chrome_trace(path)
@@ -129,6 +135,8 @@ def _profiled(device, trainer, profile_dir, head):
         print("  ({} spans dropped)".format(tracing.RECORDER.dropped),
               file=sys.stderr)
     print("host reads in the profiled round:", reads, file=sys.stderr)
+    print("tiled input-gradient launches in the profiled round:", tiled,
+          file=sys.stderr)
 
 
 def main(argv=None):
