@@ -199,7 +199,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      ``train.main`` on signs48 with
      the .prms (GTSRB_EPOCHS epochs, SEED pinned), one deep kernel launch
      an epoch and no other, the loss falling.
+ 26. (with ``--parent DIR``, an unpacked archive of the parent commit)
+     the flagship library against the parent's, built from DIR's
+     csrc/megastep.cu: from the same state, momenta and noise words, one
+     mnist_cnn epoch of synth_hard at BATCH_SZ 20 and at 256, phase 23's
+     flagship heads and batches and phase 2's 3-channel-nearest and
+     smooth-acts-bilinear variants, every state tensor and cost row equal
+     (torch.equal); where a bilinear warp's bits differ, each library's
+     augmented image against the twin's ``augment``, this checkout's
+     equal to it.
 
+Without ``--parent`` phases 1-25 run; with it, phase 26 too.
 The last three lines are the kernels JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. The script imports nothing of
 JAX.
@@ -253,6 +263,7 @@ FREE_TOTAL_RTOL = 5e-3
 MAIN_SEED = 9876
 MAIN_TEST_ERR_MAX = 40.0
 ALL_PHASES = tuple(range(1, 26))
+PARENT_PHASE = 26
 
 
 def banner(n, title):
@@ -4244,6 +4255,165 @@ SECTION_RTOL = 1e-5
 PROBE_RTOL = 1e-6
 
 
+# phase 26: a change meant to keep the flagship's arithmetic (a stage moved
+# into csrc/stages.cuh, a workspace layout changed) must give the parent
+# commit's bits. The small cases train PARENT_STEPS steps.
+PARENT_STEPS = 40
+
+
+def parent_library(parent):
+    """The flagship library of the checkout at ``parent`` (its
+    csrc/megastep.cu and headers), built by nvcc with _build's flags into a
+    temporary directory and bound as _build binds its own."""
+    import ctypes
+
+    from theanet_tpu_torch.ops import _build
+
+    src = os.path.join(parent, "theanet_tpu_torch", "csrc", "megastep.cu")
+    so = os.path.join(tempfile.mkdtemp(), "megastep_parent.so")
+    t0 = time.time()
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+                   check=True, timeout=900)
+    print(f"  built {src} in {time.time() - t0:.1f} s", flush=True)
+    return _build._bind("megastep", ctypes.CDLL(so))
+
+
+@contextlib.contextmanager
+def flagship_library(lib):
+    """The flagship wrappers on ``lib`` in place of the checkout's
+    library."""
+    from theanet_tpu_torch.ops import _build
+
+    own = _build.build()["megastep"]
+    _build._libs["megastep"] = lib
+    try:
+        yield
+    finally:
+        _build._libs["megastep"] = own
+
+
+def kernel_augment(torch, megastep, spec, x, y, words, params, dev):
+    """One step's augmented image (B, HW) by the current flagship library:
+    megastep_grad_step's workspace after the call (csrc/megastep.cu carve:
+    the warp's 2 HW floats, then the image). One channel, where the image
+    is laid out the same sample-major or channel-major."""
+    from theanet_tpu_torch.ops import _build
+
+    assert spec.in_ch == 1, spec.in_ch
+    ispec, fspec = _build._spec_arrays(spec)
+    lib = _build.build()["megastep"]
+    ws = _build._workspace("megastep", lib, ispec, fspec, dev)
+    grads = torch.empty(sum(r * c for r, c in megastep.kernel_shapes(spec)),
+                        device=dev)
+    cm = torch.empty(2, device=dev)
+    gh, gw = megastep.smoothing_factors(spec, dev)
+    _build._entry("megastep", lib, "grad_step", ispec, fspec,
+                  _build._ptrs([x, y, *words, gh, gw, *params, grads, cm]),
+                  ws.data_ptr(), dev=dev)
+    torch.cuda.synchronize()
+    hw = spec.hw
+    return ws[2 * hw:(2 + spec.batch) * hw].view(spec.batch, hw).clone()
+
+
+def parent_cases(torch, data, dev):
+    """{name: (spec, params, moms, x, y, bits)} of phase 26: mnist_cnn on
+    synth_hard at BATCH_SZ 20 and 256 (one epoch each), phase 23's
+    flagship configurations (HEAD_LOCKED_STEPS steps) and two of phase 2's
+    variants (PARENT_STEPS steps); random momenta throughout."""
+    from theanet_tpu_torch.data import synth_hard
+    from theanet_tpu_torch.ops import megastep
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def moms(p):
+        return [0.01 * torch.randn(t.shape, generator=gen, device=dev)
+                for t in p]
+
+    cases = {}
+    _, spec = load_flagship(torch)
+    kp, _, x, y, bits = epoch_inputs(torch, megastep, spec, data, dev)
+    cases["mnist_cnn_b20"] = (spec, kp, moms(kp), x, y, bits)
+    spec = spec._replace(batch=256)
+    x, y = step_rows(torch, synth_hard, 1, 256, dev)
+    bits = megastep.epoch_noise_bits(3, 0, spec, x.shape[0], dev)
+    cases["mnist_cnn_b256"] = (spec, kp, moms(kp), x, y, bits)
+    for name in HEAD_CONFIGS:
+        net, plan = build_net(*head_config(name))
+        if plan.epoch_fn is not megastep.megastep_epoch:
+            continue
+        p = initial_state(plan, net, dev)
+        x, y = head_rows(torch, plan.spec.batch, HEAD_LOCKED_STEPS, dev)
+        bits = megastep.epoch_noise_bits(3, 0, plan.spec, x.shape[0], dev)
+        cases[name] = (plan.spec, p, moms(p), x, y, bits)
+    for name in ("3-channel-nearest", "smooth-acts-bilinear"):
+        spec = variant_spec(megastep, SPEC_VARIANTS[name])
+        p = [0.3 * torch.randn(s, generator=gen, device=dev)
+             for s in megastep.kernel_shapes(spec)]
+        x = torch.rand((PARENT_STEPS, spec.in_ch * spec.batch, spec.hw),
+                       generator=gen, device=dev)
+        y = torch.randint(0, spec.n_out, (PARENT_STEPS, spec.batch),
+                          generator=gen, device=dev, dtype=torch.int32)
+        bits = megastep.epoch_noise_bits(9, 0, spec, PARENT_STEPS, dev)
+        cases[name] = (spec, p, moms(p), x, y, bits)
+    return cases
+
+
+def augment_against_twin(torch, megastep, parent_lib, spec, p, x, y, bits,
+                         dev):
+    """Each step's augmented image by this checkout's library and the
+    parent's against the twin's ``augment``: (steps equal to the twin,
+    largest |d| of the parent's from the twin)."""
+    gh, gw = megastep.smoothing_factors(spec, dev)
+    n_equal, d_parent = 0, 0.0
+    for s in range(x.shape[0]):
+        words = (bits[0][s, 0], bits[1][s], bits[2][s], bits[3][s])
+        twin = megastep.augment(spec, x[s], *words[:3], gh, gw)
+        own = kernel_augment(torch, megastep, spec, x[s], y[s], words, p,
+                             dev)
+        with flagship_library(parent_lib):
+            par = kernel_augment(torch, megastep, spec, x[s], y[s], words,
+                                 p, dev)
+        n_equal += bool(torch.equal(own, twin))
+        d_parent = max(d_parent, max_abs(par, twin))
+    return n_equal, d_parent
+
+
+def phase26(torch, data, dev, parent):
+    """The flagship library against the parent commit's (``parent``: an
+    unpacked archive of it) on parent_cases, every state tensor and cost
+    row by torch.equal. A bilinear case whose bits differ passes only when
+    this checkout's augmented image equals the twin's at every step (the
+    parent's may differ: nvcc may contract its bilinear sum into FMAs)."""
+    from theanet_tpu_torch.ops import megastep
+
+    parent_lib = parent_library(parent)
+    saved = megastep.megastep_epoch.launches
+    for name, (spec, p, m, x, y, bits) in parent_cases(torch, data,
+                                                       dev).items():
+        got = megastep.megastep_epoch(p, m, x, y, bits, 0.1, spec)
+        with flagship_library(parent_lib):
+            ref = megastep.megastep_epoch(p, m, x, y, bits, 0.1, spec)
+        torch.cuda.synchronize()
+        pairs = list(zip(got[0] + got[1] + [got[2]],
+                         ref[0] + ref[1] + [ref[2]]))
+        unequal = sum(not torch.equal(a, b) for a, b in pairs)
+        d = max(max_abs(a, b) for a, b in pairs)
+        print(f"  {name} (B {spec.batch}, {x.shape[0]} steps): "
+              f"{len(pairs) - unequal} of {len(pairs)} state tensors and "
+              f"cost rows equal to the parent's; max|d| {d:.3e}",
+              flush=True)
+        if not unequal:
+            continue
+        assert not spec.nearest and megastep.warp_active(spec), name
+        n_equal, d_parent = augment_against_twin(
+            torch, megastep, parent_lib, spec, p, x, y, bits, dev)
+        print(f"    augmented images: this checkout's equal to the twin's "
+              f"at {n_equal} of {x.shape[0]} steps; the parent's max|d| "
+              f"from the twin {d_parent:.3e}", flush=True)
+        assert n_equal == x.shape[0], (name, n_equal)
+    megastep.megastep_epoch.launches = saved   # the checks do not count
+
+
 def probe_checks(torch, dev):
     """Each probe kernel against its plain version, in every variant and
     launch mode. Returns {kernel: largest absolute |d|}."""
@@ -4372,9 +4542,18 @@ def phase24(torch, dev, card):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)))
+    ap.add_argument("--phases", default=None)
+    ap.add_argument("--parent", default=None,
+                    help="an unpacked archive of the parent commit, for "
+                         "phase 26")
     args = ap.parse_args(argv)
-    phases = {int(p) for p in args.phases.split(",")}
+    every = ALL_PHASES + ((PARENT_PHASE,) if args.parent else ())
+    phases = {int(p) for p in (args.phases.split(",") if args.phases
+                               else every)}
+    if PARENT_PHASE in phases and not args.parent:
+        print(f"chip_smoke: phase {PARENT_PHASE} needs --parent",
+              file=sys.stderr)
+        return 2
 
     import torch
 
@@ -4543,7 +4722,11 @@ def main(argv=None):
         banner(25, "the GTSRB column at its published widths: deep kernel "
                "vs twin step-locked, an epoch timed; train.main on signs48")
         gtsrb_launches, gtsrb_err, gtsrb_times = phase25(torch, dev, card)
-    if phases != set(ALL_PHASES):
+    if PARENT_PHASE in phases:
+        banner(PARENT_PHASE, "the flagship library against the parent "
+               "commit's, bit for bit")
+        phase26(torch, data, dev, args.parent)
+    if not set(ALL_PHASES) <= phases:
         print("chip_smoke: a subset of phases ran; no result", flush=True)
         return 3
 

@@ -28,8 +28,10 @@
 // What the design does about it: one C call per epoch loops the steps on
 // the caller's stream and launches a few small stage kernels per step (fewer
 // when the config has no warp, weight cost or max-norm), each sized to the
-// card rather than to the data: the forward convs a thread per pooled
-// output (their sum order decides which pool windows tie); the dense
+// card rather than to the data: the augmentation, each conv level's
+// forward (a thread per pooled output; the sum order decides which pool
+// windows tie) and pool2's backward on the level-general stages both
+// families run (stages.cuh k_augment, k_conv_pool, k_pool_bwd); the dense
 // products on 16x16 tiles that cut K into slices when the tiles alone are
 // too few to fill 132 SMs, with the bias, activation and dropout in the
 // pass that writes the result (stages.cuh gemm); the conv weight gradients
@@ -81,141 +83,35 @@ enum {
   P_MOMS = P_PARAMS + 8, P_CM = P_MOMS + 8, N_PTRS
 };
 
+// The flagship's shapes, with its two conv levels (stages.cuh ConvGeom:
+// valid, stride 1): conv1 reads the augmented image (B, C0, H, H), conv2
+// the pooled conv1 output (B, M1, P1, P1).
 struct Dims {
-  int B, C0, H, HW, F1, F2, M1, M2, NH, NC, pool1, pool2;
-  int c1, P1, e1, c2, P2, e2, NF;  // e: extent of positions inside windows
-  int act1, act2, acth;
-  float slope1, slope2, slopeh, pdrop;
+  int B, C0, H, HW, NH, NC, NF;   // NF: the flatten, M2 * P2 * P2
+  int acth;
+  float slopeh, pdrop;
+  ConvGeom l1, l2;
 };
 
 Dims make_dims(const int* is, const float* fs) {
   Dims d;
   d.B = is[I_B]; d.C0 = is[I_C0]; d.H = is[I_H]; d.HW = d.H * d.H;
-  d.F1 = is[I_F1]; d.F2 = is[I_F2]; d.M1 = is[I_M1]; d.M2 = is[I_M2];
   d.NH = is[I_NH]; d.NC = is[I_NC];
-  d.pool1 = is[I_POOL1]; d.pool2 = is[I_POOL2];
-  d.c1 = d.H - d.F1 + 1;
-  d.P1 = is[I_IB1] ? d.c1 / d.pool1 : (d.c1 + d.pool1 - 1) / d.pool1;
-  d.e1 = is[I_IB1] ? d.P1 * d.pool1 : d.c1;
-  d.c2 = d.P1 - d.F2 + 1;
-  d.P2 = is[I_IB2] ? d.c2 / d.pool2 : (d.c2 + d.pool2 - 1) / d.pool2;
-  d.e2 = is[I_IB2] ? d.P2 * d.pool2 : d.c2;
-  d.NF = d.M2 * d.P2 * d.P2;
-  d.act1 = is[I_ACT1]; d.act2 = is[I_ACT2]; d.acth = is[I_ACTH];
-  d.slope1 = fs[F_SLOPE1]; d.slope2 = fs[F_SLOPE2]; d.slopeh = fs[F_SLOPEH];
+  auto level = [&](int cin, int W, int f, int m, int pool, int ib, int act,
+                   float slope) {
+    const int c = W - f + 1;
+    return conv_level(d.B, cin, m, f, W, c, ib ? c / pool : cdiv(c, pool),
+                      pool, ib, 0, 1, act, slope);
+  };
+  d.l1 = level(d.C0, d.H, is[I_F1], is[I_M1], is[I_POOL1], is[I_IB1],
+               is[I_ACT1], fs[F_SLOPE1]);
+  d.l2 = level(d.l1.M, d.l1.p, is[I_F2], is[I_M2], is[I_POOL2], is[I_IB2],
+               is[I_ACT2], fs[F_SLOPE2]);
+  d.NF = d.l2.M * d.l2.p * d.l2.p;
+  d.acth = is[I_ACTH];
+  d.slopeh = fs[F_SLOPEH];
   d.pdrop = fs[F_PDROP];
   return d;
-}
-
-// Invert -> resample at the shared warp -> pflip, one thread per pixel of
-// every channel-major row (c*B + b).
-__global__ void k_augment(Dims d, int warp, int nearest, int invert,
-                          float pflip, const float* __restrict__ x,
-                          const float* __restrict__ tyx,
-                          const int* __restrict__ pb, float* __restrict__ a) {
-  const int HW = d.HW, H = d.H;
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= d.C0 * d.B * HW) return;
-  const float* row = x + (idx / HW) * HW;
-  int p = idx % HW;
-  float v;
-  if (!warp) {
-    v = row[p];
-    if (invert) v = 1.0f - v;
-  } else if (nearest) {
-    int vy = (int)floorf(tyx[p] + 0.5f);
-    int vx = (int)floorf(tyx[HW + p] + 0.5f);
-    v = row[vy * H + vx];
-    if (invert) v = 1.0f - v;
-  } else {
-    float ty = tyx[p], tx = tyx[HW + p];
-    int top = (int)ty, left = (int)tx;
-    float fy = ty - (float)top, fx = tx - (float)left;
-    int i00 = top * H + left;
-    float x00 = row[i00], x01 = row[i00 + 1];
-    float x10 = row[i00 + H], x11 = row[i00 + H + 1];
-    if (invert) {
-      x00 = 1.0f - x00; x01 = 1.0f - x01;
-      x10 = 1.0f - x10; x11 = 1.0f - x11;
-    }
-    v = x00 * ((1.0f - fy) * (1.0f - fx)) + x01 * ((1.0f - fy) * fx)
-        + x10 * (fy * (1.0f - fx)) + x11 * (fy * fx);
-  }
-  if (pflip > 0.0f && u01(pb[idx]) < pflip) v = 1.0f - v;
-  a[idx] = v;
-}
-
-// conv1 (true convolution, valid) + act + max-pool, one thread per pooled
-// output; writes the pre-activations z1 of its window and the pooled max.
-// The conv sums taps in the twin's order with separately rounded multiplies
-// and adds (no FMA): the pool's gradient goes to every exact tie, and which
-// outputs tie depends on the order of the sum.
-__global__ void k_conv1_pool(Dims d, const float* __restrict__ a,
-                             const float* __restrict__ w1,
-                             const float* __restrict__ b1,
-                             float* __restrict__ z1, float* __restrict__ p1) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= d.B * d.M1 * d.P1 * d.P1) return;
-  const int F = d.F1, C0 = d.C0, H = d.H;
-  int j = idx % d.P1, i = (idx / d.P1) % d.P1;
-  int m = (idx / (d.P1 * d.P1)) % d.M1, b = idx / (d.P1 * d.P1 * d.M1);
-  const float* wm = w1 + m * F * F * C0;
-  float best = -INFINITY;
-  for (int dy = 0; dy < d.pool1; ++dy) {
-    int y = i * d.pool1 + dy;
-    if (y >= d.c1) break;
-    for (int dx = 0; dx < d.pool1; ++dx) {
-      int xx = j * d.pool1 + dx;
-      if (xx >= d.c1) break;
-      float acc = 0.0f;   // tap order and rounding shared with the twin
-      for (int u = 0; u < F; ++u)
-        for (int v = 0; v < F; ++v)
-          for (int c = 0; c < C0; ++c)
-            acc = __fadd_rn(acc, __fmul_rn(
-                wm[(u * F + v) * C0 + c],
-                a[(c * d.B + b) * d.HW + (y + F - 1 - u) * H
-                  + (xx + F - 1 - v)]));
-      float z = acc + b1[m];
-      z1[((b * d.M1 + m) * d.c1 + y) * d.c1 + xx] = z;
-      best = fmaxf(best, act_fn(z, d.act1, d.slope1));
-    }
-  }
-  p1[idx] = best;
-}
-
-// conv2 + act + max-pool, one thread per pooled output; the pooled value
-// lands in the flattened dense input f[b, m2*P2*P2 + i*P2 + j].
-__global__ void k_conv2_pool(Dims d, const float* __restrict__ p1,
-                             const float* __restrict__ w2,
-                             const float* __restrict__ b2,
-                             float* __restrict__ z2, float* __restrict__ f) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= d.B * d.M2 * d.P2 * d.P2) return;
-  const int F = d.F2, M1 = d.M1, P1 = d.P1;
-  int j = idx % d.P2, i = (idx / d.P2) % d.P2;
-  int m = (idx / (d.P2 * d.P2)) % d.M2, b = idx / (d.P2 * d.P2 * d.M2);
-  const float* wm = w2 + m * F * F * M1;
-  float best = -INFINITY;
-  for (int dy = 0; dy < d.pool2; ++dy) {
-    int y = i * d.pool2 + dy;
-    if (y >= d.c2) break;
-    for (int dx = 0; dx < d.pool2; ++dx) {
-      int xx = j * d.pool2 + dx;
-      if (xx >= d.c2) break;
-      float acc = 0.0f;   // tap order and rounding shared with the twin
-      for (int u = 0; u < F; ++u)
-        for (int v = 0; v < F; ++v)
-          for (int c = 0; c < M1; ++c)
-            acc = __fadd_rn(acc, __fmul_rn(
-                wm[(u * F + v) * M1 + c],
-                p1[((b * M1 + c) * P1 + y + F - 1 - u) * P1
-                   + (xx + F - 1 - v)]));
-      float z = acc + b2[m];
-      z2[((b * d.M2 + m) * d.c2 + y) * d.c2 + xx] = z;
-      best = fmaxf(best, act_fn(z, d.act2, d.slope2));
-    }
-  }
-  f[idx] = best;  // idx == b*NF + m*P2*P2 + i*P2 + j
 }
 
 // The dense tail's head, in stages that each spread over the card (no
@@ -379,52 +275,34 @@ k_head_finish(Dims d, int sw, const float* __restrict__ tl,
   gwo[e] = s;
 }
 
-// pool2 backward + act2': one thread per conv2 output position.
-__global__ void k_pool2_bwd(Dims d, const float* __restrict__ z2,
-                            const float* __restrict__ f,
-                            const float* __restrict__ df,
-                            float* __restrict__ dz2) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= d.B * d.M2 * d.c2 * d.c2) return;
-  int x = idx % d.c2, y = (idx / d.c2) % d.c2;
-  int m = (idx / (d.c2 * d.c2)) % d.M2, b = idx / (d.c2 * d.c2 * d.M2);
-  float g = 0.0f;
-  if (y < d.e2 && x < d.e2) {
-    float z = z2[idx];
-    int o = b * d.NF + m * d.P2 * d.P2 + (y / d.pool2) * d.P2 + x / d.pool2;
-    if (act_fn(z, d.act2, d.slope2) == f[o])
-      g = df[o] * dact_fn(z, d.act2, d.slope2);
-  }
-  dz2[idx] = g;
-}
-
 // conv2 input gradient (stages.cuh dgrad_stage / dgrad_sum: a block a row
 // band of pooled1 rows, map m1 and sample, the taps on a zero-padded copy
 // of the sample's dz2) + pool1 backward + act1': a thread a pooled1
 // position; it writes dz1 to every member of its window equal to the
 // window's max.
-__global__ void k_conv2_dgrad_pool1_bwd(Dims d, ConvGeom g, DgradPlan p,
+__global__ void k_conv2_dgrad_pool1_bwd(Dims d, DgradPlan p,
                                         const float* __restrict__ w2,
                                         const float* __restrict__ dz2,
                                         const float* __restrict__ z1,
                                         const float* __restrict__ p1,
                                         float* __restrict__ dz1) {
-  const int n = dgrad_stage(g, p, w2, dz2);
-  const int m1 = blockIdx.y, b = blockIdx.z, M1 = d.M1;
+  const ConvGeom& L = d.l1;
+  const int n = dgrad_stage(d.l2, p, w2, dz2);
+  const int m1 = blockIdx.y, b = blockIdx.z;
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const float dp = dgrad_sum(g, p, t);
-    const int i = blockIdx.x * p.rows + t / d.P1, j = t % d.P1;
-    const float mx = p1[((b * M1 + m1) * d.P1 + i) * d.P1 + j];
-    for (int dy = 0; dy < d.pool1; ++dy) {
-      int y = i * d.pool1 + dy;
-      if (y >= d.c1) break;
-      for (int dx = 0; dx < d.pool1; ++dx) {
-        int x = j * d.pool1 + dx;
-        if (x >= d.c1) break;
-        int zi = ((b * M1 + m1) * d.c1 + y) * d.c1 + x;
+    const float dp = dgrad_sum(d.l2, p, t);
+    const int i = blockIdx.x * p.rows + t / L.p, j = t % L.p;
+    const float mx = p1[((b * L.M + m1) * L.p + i) * L.p + j];
+    for (int dy = 0; dy < L.pool; ++dy) {
+      int y = i * L.pool + dy;
+      if (y >= L.c) break;
+      for (int dx = 0; dx < L.pool; ++dx) {
+        int x = j * L.pool + dx;
+        if (x >= L.c) break;
+        int zi = ((b * L.M + m1) * L.c + y) * L.c + x;
         float z = z1[zi];
-        dz1[zi] = act_fn(z, d.act1, d.slope1) == mx
-                      ? dp * dact_fn(z, d.act1, d.slope1) : 0.0f;
+        dz1[zi] = act_fn(z, L.act, L.slope) == mx
+                      ? dp * dact_fn(z, L.act, L.slope) : 0.0f;
       }
     }
   }
@@ -447,61 +325,52 @@ struct Workspace {
 int score_slices(const Dims& d) { return cdiv(d.NH, HEAD_KS); }
 int dwo_slices(const Dims& d) { return cdiv(d.B, HEAD_KB); }
 
-// The two conv levels for the gradient stages (stages.cuh ConvGeom): conv2
-// reads pooled1 (B, M1, P1, P1); conv1 the channel-major augmented rows
-// (c*B + b, HW).
-ConvGeom conv2_geom(const Dims& d) {
-  return {d.B, d.M2, d.M1, d.F2, d.c2, d.e2, 1, 0, d.P1,
-          d.M1 * d.P1 * d.P1, d.P1 * d.P1};
-}
-ConvGeom conv1_geom(const Dims& d) {
-  return {d.B, d.M1, d.C0, d.F1, d.c1, d.e1, 1, 0, d.H, d.HW, d.B * d.HW};
+// Element counts of the 8 state tensors, in layout order; the flat
+// gradient buffer holds them back to back.
+void state_sizes(const Dims& d, int sizes[8]) {
+  const ConvGeom &l1 = d.l1, &l2 = d.l2;
+  const int s[8] = {l1.M * l1.F * l1.F * l1.Cin, l1.M,
+                    l2.M * l2.F * l2.F * l2.Cin, l2.M,
+                    d.NF * d.NH, d.NH, d.NH * d.NC, d.NC};
+  for (int k = 0; k < 8; ++k) sizes[k] = s[k];
 }
 
 Workspace carve(const Dims& d, float* base) {
   Workspace w;
   long long o = 0;
   auto take = [&](long long n) { float* p = base ? base + o : nullptr; o += n; return p; };
+  const ConvGeom &l1 = d.l1, &l2 = d.l2;
+  const long long B = d.B;
   w.tyx = take(2LL * d.HW);
-  w.a = take((long long)d.C0 * d.B * d.HW);
-  w.z1 = take((long long)d.B * d.M1 * d.c1 * d.c1);
-  w.p1 = take((long long)d.B * d.M1 * d.P1 * d.P1);
-  w.z2 = take((long long)d.B * d.M2 * d.c2 * d.c2);
-  w.f = take((long long)d.B * d.NF);
-  w.z3 = take((long long)d.B * d.NH);
-  w.h3d = take((long long)d.B * d.NH);
-  w.dz3 = take((long long)d.B * d.NH);
-  w.df = take((long long)d.B * d.NF);
-  w.dz2 = take((long long)d.B * d.M2 * d.c2 * d.c2);
-  w.dz1 = take((long long)d.B * d.M1 * d.c1 * d.c1);
-  long long np = (long long)d.M1 * d.F1 * d.F1 * d.C0 + d.M1
-                 + (long long)d.M2 * d.F2 * d.F2 * d.M1 + d.M2
-                 + (long long)d.NF * d.NH + d.NH + (long long)d.NH * d.NC
-                 + d.NC;
+  w.a = take(B * d.C0 * d.HW);
+  w.z1 = take(B * l1.M * l1.c * l1.c);
+  w.p1 = take(B * l1.M * l1.p * l1.p);
+  w.z2 = take(B * l2.M * l2.c * l2.c);
+  w.f = take(B * d.NF);
+  w.z3 = take(B * d.NH);
+  w.h3d = take(B * d.NH);
+  w.dz3 = take(B * d.NH);
+  w.df = take(B * d.NF);
+  w.dz2 = take(B * l2.M * l2.c * l2.c);
+  w.dz1 = take(B * l1.M * l1.c * l1.c);
+  int sizes[8];
+  state_sizes(d, sizes);
+  long long np = 0;
+  for (int k = 0; k < 8; ++k) np += sizes[k];
   w.grads = take(np);
   w.wcost = take(1);
   w.wpart = take(WCOST_BLOCKS);
   w.sparts = take((long long)score_slices(d) * d.B * d.NC);
-  w.dz4 = take((long long)d.B * d.NC);
+  w.dz4 = take(B * d.NC);
   w.tl = take(d.B);
   const int sw = dwo_slices(d);
   w.wparts = take(sw > 1 ? (long long)sw * d.NH * d.NC : 0);
-  const ConvGeom g2 = conv2_geom(d), g1 = conv1_geom(d);
-  w.wgparts = take(std::max(wgrad_part_floats(g2), wgrad_part_floats(g1)));
+  w.wgparts = take(std::max(wgrad_part_floats(l2), wgrad_part_floats(l1)));
   w.gparts = take(GEMM_PART_CAP);
-  w.nctr = GEMM_TARGET + std::max(wgrad_counters(g2), wgrad_counters(g1));
+  w.nctr = GEMM_TARGET + std::max(wgrad_counters(l2), wgrad_counters(l1));
   w.ctr = (unsigned*)take(w.nctr);
   w.total = o;
   return w;
-}
-
-// Element counts of the 8 state tensors, in layout order; the flat
-// gradient buffer holds them back to back.
-void state_sizes(const Dims& d, int sizes[8]) {
-  const int s[8] = {d.M1 * d.F1 * d.F1 * d.C0, d.M1,
-                    d.M2 * d.F2 * d.F2 * d.M1, d.M2,
-                    d.NF * d.NH, d.NH, d.NH * d.NC, d.NC};
-  for (int k = 0; k < 8; ++k) sizes[k] = s[k];
 }
 
 // One step's slice of the data and noise words.
@@ -516,8 +385,7 @@ struct StepCtx {
   Dims d;
   Workspace w;
   WarpParams wp;
-  int warp, nearest, invert;
-  float pflip;
+  AugParams ag;
   size_t warp_smem;
   const float *gh, *gw;
   float* prm[8];
@@ -540,12 +408,14 @@ int step_setup(const int* is, const float* fs, float* ws, const float* gh,
   wp.translation = fs[F_TRANS]; wp.logzoom = fs[F_LOGZOOM];
   wp.magnitude = fs[F_MAG]; wp.angle_rad = fs[F_ANGLE];
   wp.clip_hi = fs[F_CLIPHI];
-  c->warp = wp.trans || wp.mag || wp.zoom || wp.angle;
-  c->nearest = is[I_NEAREST];
-  c->invert = is[I_INVERT];
-  c->pflip = is[I_PFLIP] ? fs[F_PFLIP] : 0.0f;
+  AugParams& ag = c->ag;
+  ag = AugParams{};   // no ColorLayer
+  ag.warp = wp.trans || wp.mag || wp.zoom || wp.angle;
+  ag.nearest = is[I_NEAREST];
+  ag.invert = is[I_INVERT];
+  ag.pflip = is[I_PFLIP] ? fs[F_PFLIP] : 0.0f;
   c->warp_smem = 4 * sizeof(float) * (size_t)d.HW;
-  if (c->warp && !warp_smem_ok(c->warp_smem)) return -1;
+  if (ag.warp && !warp_smem_ok(c->warp_smem)) return -1;
   int sizes[8];
   state_sizes(d, sizes);
   const float* reg = fs + F_REG0;  // conv1, conv2, hidden, out
@@ -577,19 +447,20 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   float* grad[8];
   for (int k = 0; k < 8; ++k) { grad[k] = grads; grads += sizes[k]; }
   const int T = 256;
-  if (c.warp) {
+  if (c.ag.warp) {
     k_warp<<<1, 256, c.warp_smem, s>>>(d.H, c.wp, in.ub, in.fb, c.gh, c.gw,
                                         w.tyx);
     LAUNCHED();
   }
-  k_augment<<<blocks((long long)d.C0 * d.B * d.HW, T), T, 0, s>>>(
-      d, c.warp, c.nearest, c.invert, c.pflip, in.x, w.tyx, in.pb, w.a);
+  k_augment<<<blocks((long long)d.B * d.C0 * d.HW, T), T, 0, s>>>(
+      d.B, d.C0, d.H, c.ag, in.x, w.tyx, in.fb, in.pb, w.a);
   LAUNCHED();
-  k_conv1_pool<<<blocks((long long)d.B * d.M1 * d.P1 * d.P1, T), T, 0, s>>>(
-      d, w.a, prm[0], prm[1], w.z1, w.p1);
+  const ConvGeom &l1 = d.l1, &l2 = d.l2;
+  k_conv_pool<<<blocks((long long)d.B * l1.M * l1.p * l1.p, T), T, 0, s>>>(
+      l1, w.a, prm[0], prm[1], w.z1, w.p1);
   LAUNCHED();
-  k_conv2_pool<<<blocks((long long)d.B * d.M2 * d.P2 * d.P2, T), T, 0, s>>>(
-      d, w.p1, prm[2], prm[3], w.z2, w.f);
+  k_conv_pool<<<blocks((long long)d.B * l2.M * l2.p * l2.p, T), T, 0, s>>>(
+      l2, w.p1, prm[2], prm[3], w.z2, w.f);   // f[b, (m*P2 + i)*P2 + j]
   LAUNCHED();
   CHECK((gemm<false, false>(s, d.B, d.NH, d.NF, w.f, d.NF, prm[4], d.NH,
                             hidden_out(w.z3, d.NH, prm[5], w.h3d, d.acth,
@@ -618,21 +489,20 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
                            gemm_out(grad[4], d.NH), w.gparts, w.ctr)));
   CHECK((gemm<false, true>(s, d.B, d.NF, d.NH, w.dz3, d.NH, prm[4], d.NH,
                            gemm_out(w.df, d.NF), w.gparts, w.ctr)));
-  k_pool2_bwd<<<blocks((long long)d.B * d.M2 * d.c2 * d.c2, T), T, 0, s>>>(
-      d, w.z2, w.f, w.df, w.dz2);
+  k_pool_bwd<<<blocks((long long)d.B * l2.M * l2.c * l2.c, T), T, 0, s>>>(
+      l2, w.z2, w.f, w.df, w.dz2);
   LAUNCHED();
-  const ConvGeom g2 = conv2_geom(d);
-  int rc = conv_wgrad(s, g2, w.dz2, w.p1, w.wgparts, w.ctr + GEMM_TARGET,
+  int rc = conv_wgrad(s, l2, w.dz2, w.p1, w.wgparts, w.ctr + GEMM_TARGET,
                       grad[2], grad[3]);
   if (rc != 0) return rc;
-  const DgradPlan dg = dgrad_plan(d.B, d.M1, d.P1, d.M2, d.F2);
+  const DgradPlan dg = dgrad_plan(d.B, l1.M, l1.p, l2.M, l2.F);
   const size_t dsm = sizeof(float) * dg.smem_floats;
   if (!smem_opt_in(k_conv2_dgrad_pool1_bwd, dsm)) return ERR_STAGE_SMEM;
-  CHECK(launch_pdl(k_conv2_dgrad_pool1_bwd, dim3(dg.nbands, d.M1, d.B),
-                   dim3(dg.threads), dsm, s, d, g2, dg, prm[2], w.dz2, w.z1,
-                   w.p1, w.dz1));
-  return conv_wgrad(s, conv1_geom(d), w.dz1, w.a, w.wgparts,
-                    w.ctr + GEMM_TARGET, grad[0], grad[1]);
+  CHECK(launch_pdl(k_conv2_dgrad_pool1_bwd, dim3(dg.nbands, l1.M, d.B),
+                   dim3(dg.threads), dsm, s, d, dg, prm[2], w.dz2, w.z1, w.p1,
+                   w.dz1));
+  return conv_wgrad(s, l1, w.dz1, w.a, w.wgparts, w.ctr + GEMM_TARGET,
+                    grad[0], grad[1]);
 }
 
 // L1/L2 gradient, old-accumulator momentum step and max-norm of the 8 state
@@ -668,7 +538,7 @@ int update_stages(const int* is, const float* fs, float* const* prm,
     float mn = reg[(k / 2) * N_REG + R_MAXNORM];
     if (mn == 0.0f || reg[(k / 2) * N_REG + R_RATE] == 0.0f) continue;
     if (k < 4) {
-      int rows = k == 0 ? d.M1 : d.M2;
+      int rows = k == 0 ? d.l1.M : d.l2.M;
       k_maxnorm_rows<<<rows, T, 0, s>>>(prm[k], sizes[k] / rows, mn);
     } else {
       int cols = k == 4 ? d.NH : d.NC;

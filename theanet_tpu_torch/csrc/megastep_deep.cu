@@ -41,14 +41,16 @@
 // parameterised at run time. One C call per epoch loops the steps on the
 // caller's stream; a level table (input maps, maps, filter, input side,
 // conv side, pooled side, pool, ignore_border, activation, pad, conv
-// stride, slope) drives one conv+pool stage, one pool-backward stage, one
-// weight-gradient stage (stages.cuh conv_wgrad: fixed batch slices, a
-// block a slice staging its rows once for every map and tap, the slices
-// added in order by clusters) and one input-gradient stage (a block a row band,
-// input map and sample on the sample's dz dilated by the stride onto a
-// zero canvas; at a level of many input maps a register-tiled implicit
-// GEMM on the same canvas, k_conv_dgrad_tiled) per level (a padded or
-// strided level reads its input directly); the dense stages loop over the
+// stride, slope) drives, per level, the conv+pool and pool-backward
+// stages the flagship runs too (stages.cuh k_conv_pool, k_pool_bwd, after
+// k_augment), one weight-gradient stage (stages.cuh conv_wgrad: fixed
+// batch slices, a block a slice staging its rows once for every map and
+// tap, the slices added in order by clusters) and one input-gradient stage
+// (a block a row band, input map and sample on the sample's dz dilated by
+// the stride onto a zero canvas; at a level of many input maps a
+// register-tiled implicit GEMM on the same canvas, k_conv_dgrad_tiled)
+// per level (a padded or strided level reads its input directly); the
+// dense stages loop over the
 // pre-hidden stack and then the final hidden, each product on stages.cuh
 // gemm (16x16 tiles, K cut into slices added in order when the tiles are
 // too few for the card; the bias, activation and dropout ride in the pass
@@ -123,13 +125,6 @@ constexpr float LOGIT_EPS = 0.001f;
 // deep_conv_dgrad asked for the tiled path at a level whose plan has none
 constexpr int ERR_NOT_TILED = -6;
 
-// A conv level: input side s, conv side c, pooled side p; conv output
-// (y, x) reads input row y*cs + f-1-u - pad for tap u (zeros off the
-// input): pad 0 valid, f/2 'same', f-1 'full'.
-struct Level {
-  int cin, m, f, s, c, p, pool, ib, act, pad, cs, e;  // e: extent inside
-  float slope;                                        // the pool windows
-};
 struct Pre {
   int w, act;
   float slope, pdrop;
@@ -140,7 +135,9 @@ struct Net {
       nstate, NF, loss, nah, nao, auxcat, NT,   // NT: the dense tail's input
       mean;   // a MeanLayer flatten: NF = the last level's maps
   float slopeh, pdrop, junk, boost, logthresh;
-  Level lv[MAX_LEVELS];
+  ConvGeom lv[MAX_LEVELS];   // stages.cuh: level 0 reads the augmented
+                             // image (B, C0, H, H), the others the
+                             // pooled output before them
   Pre pre[MAX_PRE];
   const int* ten;     // N_ITEN ints per state tensor
   const float* reg;   // N_REG floats per state tensor
@@ -161,14 +158,10 @@ int parse(const int* is, const float* fs, Net* n) {
   if (n->nstate > MAX_TENSORS) return -3;
   const int* li = is + N_IHEAD;
   const float* lf = fs + N_FHEAD;
-  for (int k = 0; k < n->nlev; ++k, li += N_ILEV, ++lf) {
-    Level& L = n->lv[k];
-    L.cin = li[L_CIN]; L.m = li[L_M]; L.f = li[L_F]; L.s = li[L_S];
-    L.c = li[L_C]; L.p = li[L_P]; L.pool = li[L_POOL]; L.ib = li[L_IB];
-    L.act = li[L_ACT]; L.pad = li[L_PAD]; L.cs = li[L_CS];
-    L.e = L.ib ? L.p * L.pool : L.c;
-    L.slope = lf[0];
-  }
+  for (int k = 0; k < n->nlev; ++k, li += N_ILEV, ++lf)
+    n->lv[k] = conv_level(n->B, li[L_CIN], li[L_M], li[L_F], li[L_S],
+                          li[L_C], li[L_P], li[L_POOL], li[L_IB], li[L_PAD],
+                          li[L_CS], li[L_ACT], lf[0]);
   for (int j = 0; j < n->npre; ++j, li += N_IPRE, lf += 2) {
     n->pre[j].w = li[H_W]; n->pre[j].act = li[H_ACT];
     n->pre[j].slope = lf[0]; n->pre[j].pdrop = lf[1];
@@ -176,146 +169,13 @@ int parse(const int* is, const float* fs, Net* n) {
   n->ten = li;
   n->reg = lf;
   if (n->nlev) {
-    const Level& L = n->lv[n->nlev - 1];
-    n->NF = n->mean ? L.m : L.m * L.p * L.p;
+    const ConvGeom& L = n->lv[n->nlev - 1];
+    n->NF = n->mean ? L.M : L.M * L.p * L.p;
   } else {
     n->NF = n->C0 * n->HW;
   }
   n->NT = n->NF + (n->auxcat ? n->nao : 0);
   return 0;
-}
-
-struct AugParams {
-  int warp, nearest, invert, color;
-  float pflip, maxval, inv_maxval, logbal, loggam;
-};
-
-// x ** g for x in [0, 1] as exp(g log x), x == 0 giving 0 exactly.
-__device__ __forceinline__ float pow01(float x, float g) {
-  return x > 0.0f ? expf(__fmul_rn(g, logf(fmaxf(x, 1e-30f)))) : 0.0f;
-}
-
-// [Color ->] invert -> resample at the shared warp -> pflip. One thread per
-// output pixel, written sample-major (b, c, p) = the conv input layout and
-// the flat nets' flatten order; the input rows and the pflip and color
-// words are channel-major (r = c*B + b). Products and sums are rounded one
-// by one, as in the twin.
-__global__ void k_augment(int B, int C0, int H, AugParams g,
-                          const float* __restrict__ x,
-                          const float* __restrict__ tyx,
-                          const int* __restrict__ fb,
-                          const int* __restrict__ pb, float* __restrict__ a) {
-  const int HW = H * H;
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * C0 * HW) return;
-  const int p = idx % HW, c = (idx / HW) % C0, b = idx / (HW * C0);
-  const int r = c * B + b;
-  const float* row = x + (size_t)r * HW;
-  float f0 = 1.0f, f1 = 1.0f, f2 = 1.0f;
-  if (g.color) {   // per-row factors from field-word rows 4-6, column r
-    f0 = expf(__fmul_rn(g.logbal, 2.0f * u01(fb[4 * HW + r]) - 1.0f));
-    f1 = expf(__fmul_rn(g.loggam, 2.0f * u01(fb[5 * HW + r]) - 1.0f));
-    f2 = expf(__fmul_rn(g.loggam, 2.0f * u01(fb[6 * HW + r]) - 1.0f));
-  }
-  auto tap = [&](int q) {
-    float v = row[q];
-    if (g.color) {
-      float xm = __fmul_rn(v, g.inv_maxval);
-      xm = fminf(fmaxf(__fmul_rn(xm, f0), 0.0f), 1.0f);
-      xm = pow01(xm, f1);
-      xm = 1.0f - pow01(1.0f - xm, f2);
-      v = __fmul_rn(xm, g.maxval);
-    }
-    return g.invert ? 1.0f - v : v;
-  };
-  float v;
-  if (!g.warp) {
-    v = tap(p);
-  } else if (g.nearest) {
-    int vy = (int)floorf(tyx[p] + 0.5f);
-    int vx = (int)floorf(tyx[HW + p] + 0.5f);
-    v = tap(vy * H + vx);
-  } else {
-    float ty = tyx[p], tx = tyx[HW + p];
-    int top = (int)ty, left = (int)tx;
-    float fy = ty - (float)top, fx = tx - (float)left;
-    int i00 = top * H + left;
-    float gy = 1.0f - fy, gx = 1.0f - fx;
-    v = __fadd_rn(__fadd_rn(__fadd_rn(
-            __fmul_rn(tap(i00), __fmul_rn(gy, gx)),
-            __fmul_rn(tap(i00 + 1), __fmul_rn(gy, fx))),
-            __fmul_rn(tap(i00 + H), __fmul_rn(fy, gx))),
-            __fmul_rn(tap(i00 + H + 1), __fmul_rn(fy, fx)));
-  }
-  if (g.pflip > 0.0f && u01(pb[(size_t)r * HW + p]) < g.pflip) v = 1.0f - v;
-  a[idx] = v;
-}
-
-// One conv level (true convolution at the level's pad and stride) + bias
-// + act + max-pool: one thread per pooled output; writes the
-// pre-activations z of its window and the pooled max. ``in`` (B, Cin, S,
-// S) is addressed as b*sb + c*sc + y*S + x. Taps are summed in the twin's
-// order with separately rounded multiplies and adds (no FMA): the pool's
-// gradient goes to every exact tie, and which outputs tie depends on the
-// order of the sum. A tap off the input adds nothing, which is what the
-// twin's zero product adds.
-__global__ void k_conv_pool(int B, Level L, const float* __restrict__ in,
-                            int sb, int sc, const float* __restrict__ w,
-                            const float* __restrict__ bias,
-                            float* __restrict__ z, float* __restrict__ pout) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * L.m * L.p * L.p) return;
-  const int F = L.f, Cin = L.cin, S = L.s, c = L.c;
-  int j = idx % L.p, i = (idx / L.p) % L.p;
-  int m = (idx / (L.p * L.p)) % L.m, b = idx / (L.p * L.p * L.m);
-  const float* wm = w + m * F * F * Cin;
-  const float* ib = in + (size_t)b * sb;
-  float best = -INFINITY;
-  for (int dy = 0; dy < L.pool; ++dy) {
-    int y = i * L.pool + dy;
-    if (y >= c) break;
-    for (int dx = 0; dx < L.pool; ++dx) {
-      int xx = j * L.pool + dx;
-      if (xx >= c) break;
-      float acc = 0.0f;
-      for (int u = 0; u < F; ++u) {
-        const int iy = y * L.cs + F - 1 - u - L.pad;
-        if (iy < 0 || iy >= S) continue;
-        for (int v = 0; v < F; ++v) {
-          const int ix = xx * L.cs + F - 1 - v - L.pad;
-          if (ix < 0 || ix >= S) continue;
-          for (int ci = 0; ci < Cin; ++ci)
-            acc = __fadd_rn(acc, __fmul_rn(wm[(u * F + v) * Cin + ci],
-                                           ib[ci * sc + iy * S + ix]));
-        }
-      }
-      float zz = acc + bias[m];
-      z[((b * L.m + m) * c + y) * c + xx] = zz;
-      best = fmaxf(best, act_fn(zz, L.act, L.slope));
-    }
-  }
-  pout[idx] = best;
-}
-
-// Pool backward + act': one thread per conv output position; the window's
-// gradient reaches every element equal to its max, positions outside the
-// windows (ignore_border) get none.
-__global__ void k_pool_bwd(int B, Level L, const float* __restrict__ z,
-                           const float* __restrict__ pout,
-                           const float* __restrict__ dp,
-                           float* __restrict__ dz) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * L.m * L.c * L.c) return;
-  int x = idx % L.c, y = (idx / L.c) % L.c;
-  int m = (idx / (L.c * L.c)) % L.m, b = idx / (L.c * L.c * L.m);
-  float g = 0.0f;
-  if (y < L.e && x < L.e) {
-    float zz = z[idx];
-    int o = ((b * L.m + m) * L.p + y / L.pool) * L.p + x / L.pool;
-    if (act_fn(zz, L.act, L.slope) == pout[o])
-      g = dp[o] * dact_fn(zz, L.act, L.slope);
-  }
-  dz[idx] = g;
 }
 
 // Input gradient of a conv level into the previous level's pooled
@@ -930,14 +790,6 @@ struct Workspace {
   long long total;
 };
 
-// Level k for the gradient stages (stages.cuh ConvGeom): level 0 reads the
-// augmented rows (B, C0, H, H), the others the pooled output before them.
-ConvGeom level_geom(const Net& n, int k) {
-  const Level& L = n.lv[k];
-  return {n.B, L.m, L.cin, L.f, L.c, L.e, L.cs, L.pad, L.s,
-          L.cin * L.s * L.s, L.s * L.s};
-}
-
 Workspace carve(const Net& n, float* base) {
   Workspace w;
   long long o = 0;
@@ -946,11 +798,11 @@ Workspace carve(const Net& n, float* base) {
   w.tyx = take(2LL * n.HW);
   w.a = take(B * n.C0 * n.HW);
   for (int k = 0; k < n.nlev; ++k) {
-    const Level& L = n.lv[k];
-    w.z[k] = take(B * L.m * L.c * L.c);
-    w.dz[k] = take(B * L.m * L.c * L.c);
-    w.p[k] = take(B * L.m * L.p * L.p);
-    w.dp[k] = take(B * L.m * L.p * L.p);
+    const ConvGeom& L = n.lv[k];
+    w.z[k] = take(B * L.M * L.c * L.c);
+    w.dz[k] = take(B * L.M * L.c * L.c);
+    w.p[k] = take(B * L.M * L.p * L.p);
+    w.dp[k] = take(B * L.M * L.p * L.p);
   }
   for (int j = 0; j < n.npre; ++j) {
     w.pz[j] = take(B * n.pre[j].w);
@@ -986,8 +838,8 @@ Workspace carve(const Net& n, float* base) {
   w.hdd = take(n.head == HEAD_RBF ? B * n.NC : 0);
   long long nwg = 0, nwc = 0;   // the levels run one after another: one
   for (int k = 0; k < n.nlev; ++k) {   // region
-    nwg = std::max(nwg, wgrad_part_floats(level_geom(n, k)));
-    nwc = std::max(nwc, wgrad_counters(level_geom(n, k)));
+    nwg = std::max(nwg, wgrad_part_floats(n.lv[k]));
+    nwc = std::max(nwc, wgrad_counters(n.lv[k]));
   }
   w.wgparts = take(nwg);
   w.gparts = take(GEMM_PART_CAP);
@@ -1234,22 +1086,19 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
   k_augment<<<blocks((long long)B * n.C0 * HW, T), T, 0, s>>>(
       B, n.C0, n.H, c.ag, in.x, w.tyx, in.fb, in.pb, w.a);
   LAUNCHED();
-  // forward: conv levels (input (B, Cin, S, S) at strides sb, sc)
+  // forward: conv levels
   const float* inp = w.a;
-  int sb = n.C0 * HW, sc = HW;
   for (int k = 0; k < n.nlev; ++k) {
-    const Level& L = n.lv[k];
-    k_conv_pool<<<blocks((long long)B * L.m * L.p * L.p, T), T, 0, s>>>(
-        B, L, inp, sb, sc, prm[2 * k], prm[2 * k + 1], w.z[k], w.p[k]);
+    const ConvGeom& L = n.lv[k];
+    k_conv_pool<<<blocks((long long)B * L.M * L.p * L.p, T), T, 0, s>>>(
+        L, inp, prm[2 * k], prm[2 * k + 1], w.z[k], w.p[k]);
     LAUNCHED();
     inp = w.p[k];
-    sb = L.m * L.p * L.p;
-    sc = L.p * L.p;
   }
-  const Level* last = n.nlev ? &n.lv[n.nlev - 1] : nullptr;
+  const ConvGeom* last = n.nlev ? &n.lv[n.nlev - 1] : nullptr;
   if (n.mean) {
-    k_mean_fwd<<<blocks((long long)B * last->m, T), T, 0, s>>>(
-        B * last->m, last->p * last->p, inp, w.fmean);
+    k_mean_fwd<<<blocks((long long)B * last->M, T), T, 0, s>>>(
+        B * last->M, last->p * last->p, inp, w.fmean);
     LAUNCHED();
     inp = w.fmean;
   }
@@ -1258,19 +1107,18 @@ int grad_stages(const StepCtx& c, cudaStream_t s, const StepIn& in,
                                   : dense_stages(c, s, in, inp, grad, cm);
   if (rc != 0) return rc;
   if (n.mean) {
-    k_mean_bwd<<<blocks((long long)B * last->m * last->p * last->p, T), T, 0,
-                 s>>>(B * last->m, last->p * last->p, w.dmean,
+    k_mean_bwd<<<blocks((long long)B * last->M * last->p * last->p, T), T, 0,
+                 s>>>(B * last->M, last->p * last->p, w.dmean,
                       w.dp[n.nlev - 1]);
     LAUNCHED();
   }
   // backward through the conv levels
   for (int k = n.nlev - 1; k >= 0; --k) {
-    const Level& L = n.lv[k];
-    k_pool_bwd<<<blocks((long long)B * L.m * L.c * L.c, T), T, 0, s>>>(
-        B, L, w.z[k], w.p[k], w.dp[k], w.dz[k]);
+    const ConvGeom& g = n.lv[k];
+    k_pool_bwd<<<blocks((long long)B * g.M * g.c * g.c, T), T, 0, s>>>(
+        g, w.z[k], w.p[k], w.dp[k], w.dz[k]);
     LAUNCHED();
     const float* lin = k ? w.p[k - 1] : w.a;
-    const ConvGeom g = level_geom(n, k);
     rc = conv_wgrad(s, g, w.dz[k], lin, w.wgparts, w.ctr + GEMM_TARGET,
                     grad[2 * k], grad[2 * k + 1]);
     if (rc != 0) return rc;

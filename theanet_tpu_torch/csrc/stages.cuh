@@ -1,12 +1,14 @@
 // Stage kernels shared by the fused-epoch kernels (megastep.cu,
 // megastep_deep.cu), each compiled into its own library: the injected-bit
-// uniforms, the activation registry, the step's warp field, the heads'
-// 16x16 tile, block reductions and fixed-order column sums, programmatic
-// dependent launch, the dense products at a small batch (split-K tiles),
-// the conv weight gradient (batch slices) and the conv input gradient's
-// staging, the weight cost and the old-accumulator momentum update with
-// max-norm. Every launch plan here depends on the shapes alone, and every
-// cross-block sum runs in that plan's fixed order (no atomics).
+// uniforms, the activation registry, the step's warp field and the
+// augmentation, the heads' 16x16 tile, block reductions and fixed-order
+// column sums, programmatic dependent launch, the dense products at a
+// small batch (split-K tiles), a conv level's forward (conv + pool) and
+// pool backward, the conv weight gradient (batch slices) and the conv
+// input gradient's staging, the weight cost and the old-accumulator
+// momentum update with max-norm. Every launch plan here depends on the
+// shapes alone, and every cross-block sum runs in that plan's fixed order
+// (no atomics).
 // ops/stage_plan.py mirrors the plans; every function here follows a line
 // of the plain PyTorch twins in theanet_tpu_torch/ops/.
 #pragma once
@@ -158,6 +160,76 @@ __global__ void k_warp(int H, WarpParams w, const int* __restrict__ ub,
     tyx[p] = fminf(fmaxf(ty, 0.0f), w.clip_hi);
     tyx[HW + p] = fminf(fmaxf(tx, 0.0f), w.clip_hi);
   }
+}
+
+// The augmentation's settings: ``warp`` whether k_warp ran this step;
+// ``color`` the ColorLayer's jitter (the deep family's nets only) with its
+// scale and log factors.
+struct AugParams {
+  int warp, nearest, invert, color;
+  float pflip, maxval, inv_maxval, logbal, loggam;
+};
+
+// x ** g for x in [0, 1] as exp(g log x), x == 0 giving 0 exactly.
+__device__ __forceinline__ float pow01(float x, float g) {
+  return x > 0.0f ? expf(__fmul_rn(g, logf(fmaxf(x, 1e-30f)))) : 0.0f;
+}
+
+// [Color ->] invert -> resample at the step's warp -> pflip. One thread per
+// output pixel, written sample-major (b, c, p) = the conv input layout and
+// the flat nets' flatten order; the input rows and the pflip and color
+// words are channel-major (r = c*B + b). Products and sums are rounded one
+// by one, as in the twins (ops/megastep.py augment): the resampled pixels
+// decide which pool windows tie.
+__global__ void k_augment(int B, int C0, int H, AugParams g,
+                          const float* __restrict__ x,
+                          const float* __restrict__ tyx,
+                          const int* __restrict__ fb,
+                          const int* __restrict__ pb, float* __restrict__ a) {
+  const int HW = H * H;
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * C0 * HW) return;
+  const int p = idx % HW, c = (idx / HW) % C0, b = idx / (HW * C0);
+  const int r = c * B + b;
+  const float* row = x + (size_t)r * HW;
+  float f0 = 1.0f, f1 = 1.0f, f2 = 1.0f;
+  if (g.color) {   // per-row factors from field-word rows 4-6, column r
+    f0 = expf(__fmul_rn(g.logbal, 2.0f * u01(fb[4 * HW + r]) - 1.0f));
+    f1 = expf(__fmul_rn(g.loggam, 2.0f * u01(fb[5 * HW + r]) - 1.0f));
+    f2 = expf(__fmul_rn(g.loggam, 2.0f * u01(fb[6 * HW + r]) - 1.0f));
+  }
+  auto tap = [&](int q) {
+    float v = row[q];
+    if (g.color) {
+      float xm = __fmul_rn(v, g.inv_maxval);
+      xm = fminf(fmaxf(__fmul_rn(xm, f0), 0.0f), 1.0f);
+      xm = pow01(xm, f1);
+      xm = 1.0f - pow01(1.0f - xm, f2);
+      v = __fmul_rn(xm, g.maxval);
+    }
+    return g.invert ? 1.0f - v : v;
+  };
+  float v;
+  if (!g.warp) {
+    v = tap(p);
+  } else if (g.nearest) {
+    int vy = (int)floorf(tyx[p] + 0.5f);
+    int vx = (int)floorf(tyx[HW + p] + 0.5f);
+    v = tap(vy * H + vx);
+  } else {
+    float ty = tyx[p], tx = tyx[HW + p];
+    int top = (int)ty, left = (int)tx;
+    float fy = ty - (float)top, fx = tx - (float)left;
+    int i00 = top * H + left;
+    float gy = 1.0f - fy, gx = 1.0f - fx;
+    v = __fadd_rn(__fadd_rn(__fadd_rn(
+            __fmul_rn(tap(i00), __fmul_rn(gy, gx)),
+            __fmul_rn(tap(i00 + 1), __fmul_rn(gy, fx))),
+            __fmul_rn(tap(i00 + H), __fmul_rn(fy, gx))),
+            __fmul_rn(tap(i00 + H + 1), __fmul_rn(fy, fx)));
+  }
+  if (g.pflip > 0.0f && u01(pb[(size_t)r * HW + p]) < g.pflip) v = 1.0f - v;
+  a[idx] = v;
 }
 
 // The most dynamic shared memory a block can opt in to on sm_90.
@@ -575,13 +647,96 @@ __device__ void block_colsum32(int R, int N, const float* __restrict__ x,
   }
 }
 
-// A conv level's geometry for its gradient stages: conv output (y, x) of
-// map m (B, M, c, c) reads input row y*cs + F-1-u - pad for tap u (zero off
-// the W x W input); the pools' windows cover y, x < e. ``in`` (B, Cin, W, W)
-// is addressed as b*sb + ci*sc + iy*W + ix.
+// A conv level: conv output (y, x) of map m (B, M, c, c) reads input row
+// y*cs + F-1-u - pad for tap u (zero off the W x W input): pad 0 valid,
+// F/2 'same', F-1 'full'. The gradient stages address ``in`` (B, Cin, W,
+// W) as b*sb + ci*sc + iy*W + ix. Its max-pool takes pool x pool windows
+// of act(z) to the pooled output (B, M, p, p); the windows cover y, x < e
+// (p*pool with ignore_border, else c). Pool 1 is the identity pool.
 struct ConvGeom {
   int B, M, Cin, F, c, e, cs, pad, W, sb, sc;
+  int p, pool, act;
+  float slope;
 };
+
+// The level of a batch of B inputs stored sample-major; ``ib`` the pool's
+// ignore_border.
+inline ConvGeom conv_level(int B, int Cin, int M, int F, int W, int c, int p,
+                           int pool, int ib, int pad, int cs, int act,
+                           float slope) {
+  return {B, M, Cin, F, c, ib ? p * pool : c, cs, pad, W, Cin * W * W, W * W,
+          p, pool, act, slope};
+}
+
+// A level's conv (true convolution at its pad and stride) + bias + act +
+// max-pool: one thread per pooled output; writes the pre-activations z of
+// its window and the pooled max. ``in`` is the level's input (B, Cin, W,
+// W). Taps are summed in the order u, v, ci, as in the twins
+// (ops/megastep.py _conv_true), with separately rounded multiplies and
+// adds (no FMA): the pool's gradient goes to every exact tie, and which
+// outputs tie depends on the order of the sum. A tap off the input adds
+// nothing, which is what the twin's zero product adds. (On the H100 the
+// taps' bounds worked out once an output and a 32-bit index from the
+// input's base ran 9-31% faster than a bounds test a tap and a
+// per-sample pointer, at mnist_cnn's and the GTSRB column's levels.)
+__global__ void k_conv_pool(ConvGeom L, const float* __restrict__ in,
+                            const float* __restrict__ w,
+                            const float* __restrict__ bias,
+                            float* __restrict__ z, float* __restrict__ pout) {
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= L.B * L.M * L.p * L.p) return;
+  const int F = L.F, Cin = L.Cin, S = L.W, c = L.c;
+  int j = idx % L.p, i = (idx / L.p) % L.p;
+  int m = (idx / (L.p * L.p)) % L.M, b = idx / (L.p * L.p * L.M);
+  const float* wm = w + m * F * F * Cin;
+  float best = -INFINITY;
+  for (int dy = 0; dy < L.pool; ++dy) {
+    int y = i * L.pool + dy;
+    if (y >= c) break;
+    for (int dx = 0; dx < L.pool; ++dx) {
+      int xx = j * L.pool + dx;
+      if (xx >= c) break;
+      // tap (u, v) reads input (y0 - u, x0 - v); [u0, u1) x [v0, v1) are
+      // the taps on the input (all of them at pad 0)
+      const int y0 = y * L.cs + F - 1 - L.pad;
+      const int x0 = xx * L.cs + F - 1 - L.pad;
+      const int u0 = max(0, y0 - S + 1), u1 = min(F, y0 + 1);
+      const int v0 = max(0, x0 - S + 1), v1 = min(F, x0 + 1);
+      float acc = 0.0f;
+      for (int u = u0; u < u1; ++u)
+        for (int v = v0; v < v1; ++v)
+          for (int ci = 0; ci < Cin; ++ci)
+            acc = __fadd_rn(acc, __fmul_rn(
+                wm[(u * F + v) * Cin + ci],
+                in[((b * Cin + ci) * S + y0 - u) * S + (x0 - v)]));
+      float zz = acc + bias[m];
+      z[((b * L.M + m) * c + y) * c + xx] = zz;
+      best = fmaxf(best, act_fn(zz, L.act, L.slope));
+    }
+  }
+  pout[idx] = best;
+}
+
+// A level's pool backward + act': one thread per conv output position;
+// the window's gradient ``dp`` reaches every element equal to its max,
+// positions outside the windows (ignore_border) get none.
+__global__ void k_pool_bwd(ConvGeom L, const float* __restrict__ z,
+                           const float* __restrict__ pout,
+                           const float* __restrict__ dp,
+                           float* __restrict__ dz) {
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= L.B * L.M * L.c * L.c) return;
+  int x = idx % L.c, y = (idx / L.c) % L.c;
+  int m = (idx / (L.c * L.c)) % L.M, b = idx / (L.c * L.c * L.M);
+  float g = 0.0f;
+  if (y < L.e && x < L.e) {
+    float zz = z[idx];
+    int o = ((b * L.M + m) * L.p + y / L.pool) * L.p + x / L.pool;
+    if (act_fn(zz, L.act, L.slope) == pout[o])
+      g = dp[o] * dact_fn(zz, L.act, L.slope);
+  }
+  dz[idx] = g;
+}
 
 // ---- Weight gradient, in kernel layout: dw[m, (u*F+v)*Cin + ci] =
 // sum_{b, y, x < e} dz[b,m,y,x] * in[b, ci, y*cs+F-1-u-pad, x*cs+F-1-v-pad],

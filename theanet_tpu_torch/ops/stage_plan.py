@@ -74,9 +74,10 @@ def cdiv(a, b):
 
 
 class ConvGeom(NamedTuple):
-    """A conv level for its gradient stages: conv output (y, x) of map m
-    (B, M, c, c) reads input row y*cs + F-1-u - pad for tap u (zero off the
-    W x W input); the pools' windows cover y, x < e."""
+    """A conv level for its gradient stages (stages.cuh ConvGeom's fields
+    that their plans read): conv output (y, x) of map m (B, M, c, c) reads
+    input row y*cs + F-1-u - pad for tap u (zero off the W x W input); the
+    pools' windows cover y, x < e."""
     B: int
     M: int
     Cin: int
@@ -323,8 +324,7 @@ def gemm_plan(M, N, K):
 
 def flagship_levels(spec):
     """The flagship's conv levels for the gradient stages, in the order the
-    step runs them: conv2, then conv1 (megastep.cu conv2_geom,
-    conv1_geom)."""
+    step runs them: conv2, then conv1 (megastep.cu make_dims)."""
     e1 = spec.p1 * spec.pool1 if spec.ib1 else spec.c1
     e2 = spec.p2 * spec.pool2 if spec.ib2 else spec.c2
     return [ConvGeom(spec.batch, spec.maps2, spec.maps1, spec.filt2,
@@ -340,8 +340,8 @@ def _as_deep(spec):
 
 
 def deep_levels(spec):
-    """The deep family's conv levels (megastep_deep.cu level_geom), first
-    to last; the step runs their gradients last to first."""
+    """The deep family's conv levels (megastep_deep.cu parse), first to
+    last; the step runs their gradients last to first."""
     spec = _as_deep(spec)
     out, cin = [], spec.in_ch
     for k, (side, pad, cs, c, po) in enumerate(spec.levels):
