@@ -190,13 +190,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (the deep family, no decline, no stage limit), the two input-
      gradient paths at the column's levels 2 and 3 on the same dz and
      weights (k_conv_dgrad_tiled's din equal to k_conv_dgrad's, bit for
-     bit; each timed beside the bound), the deep kernel
-     against its twin step-locked over GTSRB_LOCKED_STEPS steps from the
-     initial weights and random momenta (phase 19's rule: each state
-     tensor within 1e-5 of max(1, its largest value)); an epoch of kernel
-     and twin timed, its stages profiled, the tiled launches counted (2 a
-     step), the three stage kinds in us/step beside their bounds;
-     ``train.main`` on signs48 with
+     bit; each timed beside the bound), the two weight-gradient paths at
+     its three levels and at WGRAD_NARROW's levels on the same dz and
+     inputs (k_wgrad's and k_wgrad_tiled's dw and dbias within
+     WGRAD_PATH_RTOL of conv2d_weight's, the tiled path bit-equal from run
+     to run; each level's us beside its bound), the deep kernel against
+     its twin step-locked over GTSRB_LOCKED_STEPS steps from the initial
+     weights and random momenta (phase 19's rule: each state tensor within
+     1e-5 of max(1, its largest value)); an epoch of kernel and twin
+     timed, its stages profiled, the tiled launches counted (2 input-
+     gradient and 3 weight-gradient a step), the three stage kinds in
+     us/step beside their bounds; ``train.main`` on signs48 with
      the .prms (GTSRB_EPOCHS epochs, SEED pinned), one deep kernel launch
      an epoch and no other, the loss falling.
  26. (with ``--parent DIR``, an unpacked archive of the parent commit)
@@ -1460,7 +1464,8 @@ def phase9(torch, data, dev, card):
 # kernels' names, and the PyTorch call each is measured against (a
 # yardstick timed outside the path, TF32 off; the port never calls it).
 STAGE_KINDS = {
-    "conv weight gradient": (("k_wgrad",), "torch.nn.grad.conv2d_weight"),
+    "conv weight gradient": (("k_wgrad", "k_wgrad_tiled"),
+                             "torch.nn.grad.conv2d_weight"),
     "conv input gradient": (("k_conv2_dgrad_pool1_bwd", "k_conv_dgrad",
                              "k_conv_dgrad_tiled"),
                             "torch.nn.grad.conv2d_input"),
@@ -1634,6 +1639,13 @@ WIDE_DGRAD_TILE = ((20, 100, 21, 150, 4), (20, 150, 9, 250, 4),
 WIDE_WGRAD = ((4, 2, 1, 3, 1028, 1), (20, 4, 64, 5, 172, 1),
               (20, 4, 64, 5, 174, 1), (20, 4, 64, 5, 177, 1),
               (20, 4, 64, 5, 178, 1), (3000, 4, 3, 5, 300, 2))
+# wgrad_tile_plan's (B, M, Cin, F, e, cs) at the levels it takes: the GTSRB
+# column's at B 20 and 256, GEOM_SMALL's wgrad-passes-l1, one map of a
+# 7x7 filter on 256 input maps, a long batch on a strided level
+WIDE_WGRAD_TILE = ((20, 100, 3, 7, 42, 1), (20, 150, 100, 4, 18, 1),
+                   (20, 250, 150, 4, 6, 1), (256, 250, 150, 4, 6, 1),
+                   (4, 64, 64, 5, 8, 1), (1, 1, 256, 7, 3, 1),
+                   (3000, 64, 64, 3, 20, 2))
 
 
 def plan_mirrors():
@@ -1659,10 +1671,12 @@ def plan_mirrors():
         levels, dlevels, products = stage_shapes(spec)
         want, got = [], []
         for g in levels:
-            want.append(tuple(sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e,
-                                            g.cs)))
-            got.append(_build.stage_plan_c("stage_wgrad_plan", g.B, g.M,
-                                           g.Cin, g.F, g.e, g.cs, lib=lib))
+            for fn in ("wgrad_plan", "wgrad_tile_plan"):
+                want.append(tuple(getattr(sp, fn)(g.B, g.M, g.Cin, g.F, g.e,
+                                                  g.cs)))
+                got.append(_build.stage_plan_c("stage_" + fn, g.B, g.M,
+                                               g.Cin, g.F, g.e, g.cs,
+                                               lib=lib))
         for g in dlevels:
             want.append(tuple(sp.dgrad_plan(g.B, g.Cin, g.W, g.M, g.F)))
             got.append(_build.stage_plan_c("stage_dgrad_plan", g.B, g.Cin,
@@ -1687,12 +1701,17 @@ def plan_mirrors():
         want = tuple(sp.wgrad_plan(*shape))
         got = _build.stage_plan_c("stage_wgrad_plan", *shape)
         assert want == got, (shape, want, got)
+    for shape in WIDE_WGRAD + WIDE_WGRAD_TILE:
+        want = tuple(sp.wgrad_tile_plan(*shape))
+        got = _build.stage_plan_c("stage_wgrad_tile_plan", *shape)
+        assert want == got, (shape, want, got)
     for shape in WIDE_DGRAD_TILE:
         want = tuple(sp.dgrad_tile_plan(*shape))
         got = _build.stage_plan_c("stage_dgrad_tile_plan", *shape,
                                   lib="megastep_deep")
         assert want == got, (shape, want, got)
-    n_wide = len(WIDE_DGRAD) + len(WIDE_WGRAD) + len(WIDE_DGRAD_TILE)
+    n_wide = (len(WIDE_DGRAD) + 2 * len(WIDE_WGRAD) + len(WIDE_WGRAD_TILE)
+              + len(WIDE_DGRAD_TILE))
     print(f"  plan mirrors: {n_plans} stage plans of {len(PLAN_CONFIGS)} "
           f"configurations and {n_wide} of wide levels equal to "
           "csrc/stages.cuh's, and each mirrored workspace equal to its "
@@ -4178,6 +4197,99 @@ def dgrad_paths(torch, spec, dev, card):
           f"{b_ms * 1e3:.1f} us ({by})", flush=True)
 
 
+# The two weight-gradient paths and the yardstick sum each output in
+# different orders (the tiled path position by position in chunks, its
+# splits and clusters in order; k_wgrad by slices of the batch and position
+# groups; cuDNN its own): float32 roundings of sums of up to 35,280 terms,
+# held to this share of the larger of 1 and each tensor's largest value.
+WGRAD_PATH_RTOL = 1e-5
+# The narrow levels both weight-gradient paths are timed at beside the
+# GTSRB column's (the levels that keep k_wgrad): mnist_cnn's at BATCH_SZ 20
+# and 256, galaxy_rbf's
+WGRAD_NARROW = (("mnist_cnn", None), ("mnist_cnn", 256), ("galaxy_rbf", None))
+
+
+def wgrad_reference(torch, g, dz, x):
+    """(dw, dbias) of a level by torch.nn.grad.conv2d_weight (TF32 off) and
+    dz's sum, dw in kernel layout (M, F*F*Cin): tap (u, v, ci) reads input
+    row y*cs + F-1-u - pad, torch's kernel row F-1-u."""
+    w = torch.nn.grad.conv2d_weight(x, (g.M, g.Cin, g.F, g.F), dz,
+                                    stride=g.cs, padding=g.pad)
+    dw = w.flip(2, 3).permute(0, 2, 3, 1).reshape(g.M, -1)
+    return dw.contiguous(), dz.sum((0, 2, 3))
+
+
+def wgrad_paths(torch, levels, dev, card, title):
+    """At each of ``levels`` (stage_plan.ConvGeom), both weight-gradient
+    paths on the same seeded dz and input, k_wgrad_tiled on
+    wgrad_tile_shape whichever path the level's plan takes: each path's dw
+    and dbias within WGRAD_PATH_RTOL of the yardstick's
+    (wgrad_reference; all written over NaNs), the tiled path bit-equal
+    from one run to the next (torch.equal), then each path's us a launch
+    by CUDA events beside the level's bound (its operations at the f32
+    rate, or its bytes); the library's tiled launch count over the
+    checks. Returns [(level, k_wgrad us, tiled us, bound us)]."""
+    from theanet_tpu_torch.ops import _build
+    from theanet_tpu_torch.ops import stage_plan as sp
+
+    gen = torch.Generator(device=dev).manual_seed(MAIN_SEED)
+    launched = _build.wgrad_tiled_launched()
+    out, n_calls = [], 0
+    for g in levels:
+        x = torch.rand((g.B, g.Cin, g.W, g.W), device=dev, generator=gen)
+        dz = torch.randn((g.B, g.M, g.c, g.c), device=dev, generator=gen)
+        dz[:, :, g.e:] = 0.0
+        dz[:, :, :, g.e:] = 0.0
+        taps = g.F * g.F * g.Cin
+
+        def run(path):
+            dw = torch.full((g.M, taps), float("nan"), device=dev)
+            db = torch.full((g.M,), float("nan"), device=dev)
+            _build.deep_conv_wgrad_launch(g, path, dz, x, dw, db)
+            return dw, db
+
+        ref = wgrad_reference(torch, g, dz, x)
+        old, tiled, again = run(0), run(1), run(1)
+        torch.cuda.synchronize()
+        n_calls += 2
+        gaps = []
+        for r, a, b, c in zip(ref, old, tiled, again):
+            assert torch.equal(b, c), max_abs(b, c)
+            lim = WGRAD_PATH_RTOL * max(1.0, r.abs().max().item())
+            gaps += [max_abs(r, a) / lim, max_abs(r, b) / lim]
+            assert max(gaps[-2:]) <= 1.0, (g, max_abs(r, a), max_abs(r, b),
+                                           lim)
+        us = {}   # a launch and its counters' memset, outputs in place
+        for path in (0, 1):
+            dw, db = (torch.empty_like(t) for t in old)
+            us[path] = 1e3 * timed(torch, lambda p=path: _build
+                                   .deep_conv_wgrad_launch(g, p, dz, x, dw,
+                                                           db), 20)
+            n_calls += 21 * path
+        lf = 2 * g.B * g.M * g.e * g.e * taps + g.B * g.M * g.e * g.e
+        lb = 4 * (g.B * g.M * g.c * g.c + g.B * g.Cin * g.W * g.W
+                  + g.M * (taps + 1))
+        b_ms, by = bound(lb, lf)
+        out.append((g, us[0], us[1], b_ms * 1e3))
+        p = sp.wgrad_tile_shape(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+        takes = ("tiled" if sp.wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e,
+                                               g.cs).tiled else "k_wgrad")
+        print(f"  wgrad {g.Cin} -> {g.M} maps, F {g.F}, e {g.e}, B {g.B} "
+              f"(the epoch takes {takes}): k_wgrad and tiled dw, dbias "
+              f"within {max(gaps):.3f} of the limit ({WGRAD_PATH_RTOL:g} "
+              f"of max(1, largest)) of conv2d_weight, tiled bit-equal run "
+              f"to run; k_wgrad {us[0]:.1f} us, tiled {us[1]:.1f} us "
+              f"(tiles {p.bm} x {p.bn}, grid {p.grid()}, clusters of "
+              f"{p.cl}), bound {b_ms * 1e3:.1f} us ({by})", flush=True)
+    launched = _build.wgrad_tiled_launched() - launched
+    assert launched == n_calls, (launched, n_calls)
+    tot = [sum(v[i] for v in out) for i in (1, 2, 3)]
+    print(f"  {title} on {card}: k_wgrad {tot[0]:.1f} us, tiled "
+          f"{tot[1]:.1f} us, bound {tot[2]:.1f} us; {launched} tiled "
+          "launches counted by the library over these checks", flush=True)
+    return out
+
+
 def phase25(torch, dev, card):
     """The GTSRB column (params/gtsrb_mcdnn.prms) at its published widths:
     its route, the deep kernel against its twin step-locked, an epoch of
@@ -4213,16 +4325,29 @@ def phase25(torch, dev, card):
     x, y = step_rows(torch, data, 3, 20, dev)
     saved = deep.deep_epoch.launches
     dgrad_paths(torch, spec, dev, card)
+    wgrad_paths(torch, stage_plan.wgrad_tiled_levels(spec), dev, card,
+                "the weight-gradient stage a step")
+    for name, batch in WGRAD_NARROW:
+        narrow = plan_spec(name, batch)
+        wgrad_paths(torch, stage_shapes(narrow)[0], dev, card,
+                    f"{name}'s weight-gradient stage a step at B "
+                    f"{narrow.batch}")
     err = family_locked(torch, GTSRB, net, plan, x[:GTSRB_LOCKED_STEPS],
                         y[:GTSRB_LOCKED_STEPS], None, dev)
-    tiled = deep.deep_epoch.dgrad_tiled_launches
+    tiled = (deep.deep_epoch.dgrad_tiled_launches,
+             deep.deep_epoch.wgrad_tiled_launches)
     times = time_config(torch, GTSRB, dev, card, (net, plan, x, y))
-    tiled = deep.deep_epoch.dgrad_tiled_launches - tiled
-    n_levels = len(stage_plan.dgrad_tiled_levels(spec))
+    tiled = (deep.deep_epoch.dgrad_tiled_launches - tiled[0],
+             deep.deep_epoch.wgrad_tiled_launches - tiled[1])
+    n_levels = (len(stage_plan.dgrad_tiled_levels(spec)),
+                len(stage_plan.wgrad_tiled_levels(spec)))
     # time_config: 2 warm-ups, 6 timed calls, 2 profiled (one a warm-up)
-    assert n_levels == 2 and tiled == 10 * x.shape[0] * n_levels, tiled
-    print(f"  deep_epoch.dgrad_tiled_launches over time_config's 10 epochs "
-          f"of {x.shape[0]} steps: {tiled} ({n_levels} a step)", flush=True)
+    assert n_levels == (2, 3), n_levels
+    assert tiled == tuple(10 * x.shape[0] * n for n in n_levels), tiled
+    print(f"  deep_epoch.dgrad_tiled_launches and wgrad_tiled_launches over "
+          f"time_config's 10 epochs of {x.shape[0]} steps: {tiled[0]} and "
+          f"{tiled[1]} ({n_levels[0]} and {n_levels[1]} a step)",
+          flush=True)
     stage_lines(torch, GTSRB, dev, card)
     deep.deep_epoch.launches = saved   # the checks do not count
 
@@ -4275,7 +4400,12 @@ def parent_library(parent):
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
                    check=True, timeout=900)
     print(f"  built {src} in {time.time() - t0:.1f} s", flush=True)
-    return _build._bind("megastep", ctypes.CDLL(so))
+    lib = ctypes.CDLL(so)
+    # the stage-plan exports the parent has (a newer plan's export may be
+    # missing there; phase 26 calls none of them)
+    plans = {fn: n for fn, n in _build.STAGE_PLANS.items()
+             if hasattr(lib, fn)}
+    return _build._bind("megastep", lib, plans)
 
 
 @contextlib.contextmanager

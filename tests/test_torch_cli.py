@@ -274,8 +274,9 @@ def test_profile_dir_writes_a_trace_with_the_spans(tiny_data, monkeypatch,
         assert "\n  " + name + " " in table, name
     assert "\n  trainer.evaluate            2 " in table
     assert "host reads in the profiled round: 13\n" in err
-    # the CPU runs the twin: no tiled input-gradient launch
+    # the CPU runs the twin: no tiled input- or weight-gradient launch
     assert "tiled input-gradient launches in the profiled round: 0\n" in err
+    assert "tiled weight-gradient launches in the profiled round: 0\n" in err
     assert not tracing.RECORDER.on and tracing.take() == []
 
 

@@ -164,23 +164,35 @@ def test_plans_cover_once_in_order(name, batch):
 
 @pytest.mark.parametrize("name,batch", CONFIGS)
 def test_workspace_holds_every_plan(name, batch):
-    """The mirror's carve reserves one weight-gradient region of slices and
-    one of counters, each as large as the largest level's (the levels run
-    one after another), and the products' fixed GEMM_PART_CAP partials and
+    """The mirror's carve reserves one weight-gradient region of partial
+    sums and one of counters, each as large as the largest level's on the
+    path it takes (the levels run one after another), and the products' fixed GEMM_PART_CAP partials and
     GEMM_TARGET tile counters (a split product has fewer tiles), on top of
     the carve without them."""
     spec = _spec(name, batch)
     levels, _, products, total = _family(spec)
-    plans = [sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs) for g in levels]
-    parts = [p.part_floats(g.M) for p, g in zip(plans, levels)]
-    ctrs = [p.counters() for p in plans]
-    for p, g in zip(plans, levels):
+    parts, ctrs = [], []
+    for g in levels:
+        t = sp.wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+        if t.tiled:
+            # the clusters' sums of every tile where a tile has several
+            # clusters; a counter a (tile, cluster rank) then
+            several = t.ncl > 1
+            assert t.part_floats() == (t.ncl * t.tiles * t.bm * t.bn
+                                       if several else 0)
+            assert t.counters() == (t.tiles * t.cl if several else 0)
+            parts.append(t.part_floats())
+            ctrs.append(t.counters())
+            continue
+        p = sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
         # the clusters' sums where there are several, the slices' past one
         # pass; a counter a (map group, cluster rank)
         ncl = p.nslp // p.cl
         assert p.part_floats(g.M) == ((ncl if ncl > 1 else 0) + (
             p.nslp if p.passes > 1 else 0)) * g.M * p.nout
         assert p.counters() == p.ngr * p.cl
+        parts.append(p.part_floats(g.M))
+        ctrs.append(p.counters())
     assert sp.stage_floats(levels) == (max(parts, default=0)
                                        + max(ctrs, default=0)
                                        + sp.GEMM_PART_CAP + sp.GEMM_TARGET)
@@ -508,6 +520,7 @@ def test_tiled_launch_counter_follows_the_mirror(monkeypatch, name, steps):
 
     monkeypatch.setattr(td, "launch_deep", fake_launch)
     monkeypatch.setattr(_build, "dgrad_tiled_launched", lambda: issued[0])
+    monkeypatch.setattr(_build, "wgrad_tiled_launched", lambda: 0)
     monkeypatch.setattr(td.deep_epoch, "launches", 0)
     monkeypatch.setattr(td.deep_epoch, "dgrad_tiled_launches", 0)
     x = types.SimpleNamespace(device=torch.device("cuda"), shape=(steps,))
@@ -618,6 +631,178 @@ def test_wide_input_maps_fuse_through_the_tiled_path():
     assert tile.tiled and 4 * tile.smem_floats <= sp.SMEM_OPT_IN
     assert sp.stage_limit_reason(plan.spec) is None
     assert sp.dgrad_tiled_levels(plan.spec) == [g]
+
+
+# (B, M, Cin, F, e, cs) of the tiled weight gradient's walk: batches 1 to
+# 3000, maps and input maps 1 to 256, output sides 1 to 1100, filters 2 to
+# 7, strides 1 and 2
+WGRAD_TILE_GRID = [(B, M, cin, F, e, cs)
+                   for B in (1, 20, 3000) for M in (1, 7, 150, 256)
+                   for cin in (1, 3, 100, 256) for e in (1, 6, 42, 333, 1100)
+                   for F in range(2, 8) for cs in (1, 2)]
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_block_sound(p):
+    """The block of the tiled plan ``p`` (its tile shape and strides): the
+    computing threads' WT_R x WT_R sums cover the tile's bm x bn outputs
+    exactly once; in every chunk the staging walk copies every dz element
+    (position kk < WT_TK, map < bm) and every column element (kk, tap < bn)
+    exactly once, each warp instruction's 32 copies to 32 banks, and every
+    shared read of the sums lies among the copied elements."""
+    assert p.threads == sp.WT_THREADS and p.tmt * p.tnt <= p.threads
+    assert p.bmp % 8 == 4 and p.bnp % 8 == 4
+    own = np.zeros((p.bm, p.bn), dtype=np.int64)
+    reads_m, reads_n = set(), set()
+    for maps, taps in sp.wgrad_tile_positions(p).values():
+        own[np.ix_(maps, taps)] += 1
+        reads_m.update(maps)
+        reads_n.update(taps)
+    assert (own == 1).all()
+    ds, cs_ = sp.wgrad_tile_staging(p)
+    for got, width, stride in ((ds, p.bm, p.bmp), (cs_, p.bn, p.bnp)):
+        n = sp.WT_TK * stride
+        count = np.bincount(got[:, 1], minlength=n)
+        staged = (np.arange(n) % stride) < width
+        assert (count[staged] == 1).all() and (count[~staged] == 0).all()
+        # a warp instruction: lanes of warp w at their j-th copy
+        lane_j = np.zeros(p.threads, dtype=np.int64)
+        banks = {}
+        for t, off in got:
+            banks.setdefault((t // 32, lane_j[t]), []).append(off % 32)
+            lane_j[t] += 1
+        assert all(len(set(b)) == len(b) for b in banks.values())
+    # the reads: position k of a chunk at k * stride + a map (tap) < width
+    assert max(reads_m) < p.bm and max(reads_n) < p.bn
+    return True
+
+
+def _wgrad_tile_sound(g, p):
+    """The tiled plan ``p`` at level ``g``: the tiles cover the level's M x
+    nout outputs exactly once (each tile's block its bm x bn once,
+    _tile_block_sound); the splits cover the chunks once in order, each at
+    least WT_MIN_CH chunks, and the chunks every position of K once (the
+    last chunk's positions past K zero-filled); whole clusters of at most
+    WG_CLUSTER; the grid CUDA's; the tap table, both buffers and the
+    split's sums' tile within a block's shared memory."""
+    nout = g.F * g.F * g.Cin + 1
+    assert p.tiled == 1
+    assert 1 <= p.tmt <= sp.WT_MAX_T and 1 <= p.tnt <= sp.WT_MAX_T
+    assert (p.bm, p.bn) == (sp.WT_R * p.tmt, sp.WT_R * p.tnt)
+    assert (p.ntm - 1) * p.bm < g.M <= p.ntm * p.bm
+    assert (p.ntn - 1) * p.bn < nout <= p.ntn * p.bn
+    assert p.tiles == p.ntm * p.ntn
+    assert sorted(p.origin(t) for t in range(p.tiles)) == [
+        (i * p.bm, j * p.bn) for i in range(p.ntm) for j in range(p.ntn)]
+    K = g.B * g.e * g.e
+    assert (p.nch - 1) * sp.WT_TK < K <= p.nch * sp.WT_TK
+    _covers(p.splits(), p.nch)
+    assert min(c1 - c0 for c0, c1 in p.splits()) >= min(p.nch, sp.WT_MIN_CH)
+    assert 1 <= p.cl <= sp.WG_CLUSTER and p.ns == p.cl * p.ncl
+    assert p.ns <= max(1, p.nch // sp.WT_MIN_CH)
+    assert p.smem_floats == 2 * p.bn + max(
+        2 * sp.WT_TK * (p.bmp + p.bnp), p.bm * p.bn)
+    assert 4 * p.smem_floats <= sp.SMEM_OPT_IN
+    gx, gy = p.grid()
+    assert gx <= GRID_X and gy <= GRID_YZ
+    assert _tile_block_sound(p)
+
+
+def test_wgrad_tile_walks_over_a_grid():
+    """Over a grid of levels (batches 1 to 3000, 1 to 256 maps and input
+    maps, output sides 1 to 1100, filters 2 to 7, strides 1 and 2) the
+    tiled weight gradient's plan, whichever path the level takes, owns
+    every output by one tile and one thread, sums every position of K once
+    for it, reads only what its staging wrote (no bank conflict on the
+    writes), inside a block's shared memory (_wgrad_tile_sound); it fills
+    the card where tiles and chunks allow; the plan takes the tiled path
+    exactly where wgrad_plan needs more than one pass of thread tiles."""
+    n_tiled = 0
+    for B, M, cin, F, e, cs in WGRAD_TILE_GRID:
+        g = sp.ConvGeom(B, M, cin, F, e, e, cs, 0, (e - 1) * cs + F)
+        p = sp.wgrad_tile_shape(B, M, cin, F, e, cs)
+        _wgrad_tile_sound(g, p)
+        if p.tiles * (p.nch // sp.WT_MIN_CH) >= sp.WT_TARGET:
+            assert p.tiles * p.ns >= sp.SM_COUNT
+        q = sp.wgrad_tile_plan(B, M, cin, F, e, cs)
+        wide = sp.wgrad_plan(B, M, cin, F, e, cs).passes > 1
+        assert q == (p if wide else sp.WgradTilePlan(*[0] * 16))
+        n_tiled += q.tiled
+    assert 0 < n_tiled < len(WGRAD_TILE_GRID)
+
+
+COLUMN_WGRAD = {"level1": (3, 48, 100, 7), "level2": (100, 21, 150, 4),
+                "level3": (150, 9, 250, 4)}
+
+
+def test_wgrad_paths_by_shape():
+    """The GTSRB column's three weight-gradient levels take the tiled path,
+    filling the card at B 20, and GEOM_SMALL's wgrad-passes-l1 its level 1;
+    every level of every other configuration here (mnist_cnn at B 20 and
+    256, galaxy_rbf, synth_aux, the geometry, head and per-rank
+    configurations) and of the other GEOM_SMALL cases keeps k_wgrad."""
+    col = _spec(chip_smoke.GTSRB, None)
+    tiled = sp.wgrad_tiled_levels(col)
+    assert tiled == sp.deep_levels(col)
+    assert [(g.Cin, g.W, g.M, g.F) for g in tiled] == list(
+        COLUMN_WGRAD.values())
+    for g in tiled:
+        p = sp.wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+        assert g.B == 20 and np.prod(p.grid()) >= sp.SM_COUNT
+        assert sp.wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs).passes > 1
+    names = {n for n, _ in CONFIGS} - {chip_smoke.GTSRB}
+    assert {"mnist_cnn", "galaxy_rbf", "synth_aux", "flat_mlp"} <= names
+    assert set(chip_smoke.GEOM_CONFIGS) <= names
+    for name, batch in CONFIGS + [("mnist_cnn", 256)]:
+        if name == chip_smoke.GTSRB:
+            continue
+        spec = _spec(name, batch)
+        levels, _, _, _ = _family(spec)
+        assert sp.wgrad_tiled_levels(spec) == []
+        for g in levels:
+            assert sp.wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e,
+                                      g.cs).tiled == 0
+    for name in chip_smoke.GEOM_SMALL:
+        _, plan, _, _ = chip_smoke.geometry_small(torch, name, "cpu")
+        levels = sp.deep_levels(plan.spec)
+        want = levels[1:] if name == "wgrad-passes-l1" else []
+        assert sp.wgrad_tiled_levels(plan.spec) == want, name
+
+
+@pytest.mark.parametrize("name,steps", [(chip_smoke.GTSRB, 7),
+                                        ("galaxy_rbf", 5)])
+def test_wgrad_tiled_launch_counter_follows_the_mirror(monkeypatch, name,
+                                                       steps):
+    """deep_epoch.wgrad_tiled_launches adds what the C loop counted over a
+    call: with the C call and its counter stood in for by the mirror (a
+    tiled launch each wgrad_tiled_levels level a step), steps x 3 at the
+    column and 0 at galaxy_rbf, over two calls; the mnist_cnn
+    configurations run the flagship, whose levels the mirror keeps on
+    k_wgrad."""
+    import types
+
+    from theanet_tpu_torch.ops import _build
+
+    spec = _spec(name, None)
+    issued = [0]
+
+    def fake_launch(_name, kparams, kmoms, x_steps, *_args):
+        issued[0] += x_steps.shape[0] * len(sp.wgrad_tiled_levels(_args[-2]))
+        return kparams, kmoms, None
+
+    monkeypatch.setattr(td, "launch_deep", fake_launch)
+    monkeypatch.setattr(_build, "dgrad_tiled_launched", lambda: 0)
+    monkeypatch.setattr(_build, "wgrad_tiled_launched", lambda: issued[0])
+    monkeypatch.setattr(td.deep_epoch, "launches", 0)
+    monkeypatch.setattr(td.deep_epoch, "wgrad_tiled_launches", 0)
+    x = types.SimpleNamespace(device=torch.device("cuda"), shape=(steps,))
+    for _ in range(2):
+        td.deep_epoch([], [], x, None, None, 0.1, spec, None)
+    want = 2 * steps * (3 if name == chip_smoke.GTSRB else 0)
+    assert td.deep_epoch.wgrad_tiled_launches == want
+    assert td.deep_epoch.launches == 2
+    for batch in (None, 256):
+        assert sp.wgrad_tiled_levels(_spec("mnist_cnn", batch)) == []
 
 
 # ---------------------------------------------------- the orders against JAX
@@ -949,6 +1134,109 @@ def test_dgrad_tiled_matches_jax_at_the_column(level):
     _, _, dx = _jax_conv_grads(x, w, b, dz, 1, "valid")
     w_k = torch.from_numpy(w.transpose(0, 2, 3, 1).reshape(M, -1).copy())
     _close(dgrad_tiled(torch.from_numpy(dz), w_k, g, p), dx)
+
+
+def wgrad_tiled(dz, x, g, plan):
+    """A conv level's weight and bias gradients (kernel layout (M, F*F*Cin)
+    and (M,)) in k_wgrad_tiled's order: every position k of the plan's
+    chunks staged as its dz row of the maps and its im2col'd column of the
+    taps at the tap table's (du, dv) (zero off the input and past K, the
+    bias tap 1); each split's sum of an output carried position by
+    position through its chunks in order, a product added as fmaf adds it
+    (exact in float64, one rounding to float32; the double rounding
+    differs from fmaf's once in billions); a tile's splits added in split
+    order from 0 within each cluster of cl, the clusters' sums in cluster
+    order from 0. A position's sums do not depend on the tile that holds
+    the output, so every tile's are carried at once. ``dz`` (B, M, c, c),
+    ``x`` (B, Cin, W, W), ``g`` the level's ConvGeom."""
+    p, F, e, W = plan, g.F, g.e, g.W
+    nout = F * F * g.Cin + 1
+    k = torch.arange(p.nch * sp.WT_TK)
+    kv = k < g.B * e * e
+    kc = torch.where(kv, k, torch.zeros_like(k))
+    b, y, xx = kc // (e * e), kc % (e * e) // e, kc % e
+    D = torch.zeros((len(k), p.ntm * p.bm), dtype=dz.dtype)
+    D[:, :g.M] = dz[b, :, y, xx] * kv[:, None]
+    t = torch.arange(nout - 1)
+    ci, uv = t % g.Cin, t // g.Cin
+    du, dv = F - 1 - uv // F - g.pad, F - 1 - uv % F - g.pad
+    iy, ix = y[:, None] * g.cs + du[None, :], xx[:, None] * g.cs + dv[None, :]
+    inside = (iy >= 0) & (iy < W) & (ix >= 0) & (ix < W) & kv[:, None]
+    vals = x[b[:, None], ci[None, :], iy.clamp(0, W - 1), ix.clamp(0, W - 1)]
+    C = torch.zeros((len(k), p.ntn * p.bn), dtype=x.dtype)
+    C[:, :nout - 1] = torch.where(inside, vals, torch.zeros_like(vals))
+    C[:, nout - 1] = 1.0
+    # chunk p.nch: a zero chunk, the steps past a shorter split's end
+    Dc = torch.cat([D.double(), torch.zeros_like(D[:sp.WT_TK]).double()])
+    Cc = torch.cat([C.double(), torch.zeros_like(C[:sp.WT_TK]).double()])
+    Dc = Dc.reshape(p.nch + 1, sp.WT_TK, -1)
+    Cc = Cc.reshape(p.nch + 1, sp.WT_TK, -1)
+    spl = p.splits()
+    longest = max(c1 - c0 for c0, c1 in spl)
+    acc = torch.zeros((p.ns, Dc.shape[2], Cc.shape[2]), dtype=torch.float32)
+    for j in range(longest):
+        ch = torch.tensor([c0 + j if c0 + j < c1 else p.nch
+                           for c0, c1 in spl])
+        for kk in range(sp.WT_TK):
+            a, bb = Dc[ch, kk], Cc[ch, kk]
+            acc = (acc.double() + a[:, :, None] * bb[:, None, :]).float()
+    total = torch.zeros(acc.shape[1:], dtype=torch.float32)
+    for c in range(p.ncl):
+        csum = torch.zeros_like(total)
+        for r in range(p.cl):
+            csum = csum + acc[c * p.cl + r]
+        total = total + csum
+    return total[:g.M, :nout - 1], total[:g.M, nout - 1]
+
+
+@pytest.mark.parametrize("name", CONV_CASES)
+def test_wgrad_tiled_matches_jax(name):
+    """The tiled weight gradient's order model against jax.grad at every
+    conv case (their narrow levels keep k_wgrad; the tiled shape is held
+    here all the same: 'same' and 'full' taps off the input, strides,
+    positions past the pools' windows, splits in clusters at B 302 and
+    305), and with its splits forced to one and to a cluster of two."""
+    g, x, w, b, dz = _conv_case(name, seed=2)
+    dw, db, _ = _jax_conv_grads(x, w, b, dz, g.cs, CONV_CASES[name][6])
+    want_w = dw.transpose(0, 2, 3, 1).reshape(g.M, -1)
+    p = sp.wgrad_tile_shape(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+    if name.startswith("b30"):
+        assert p.ncl > 1
+    plans = [p, p._replace(ns=1, cl=1, ncl=1)]
+    if p.nch >= 2:
+        plans.append(p._replace(ns=2, cl=2, ncl=1))
+    for plan in plans:
+        got_w, got_b = wgrad_tiled(torch.from_numpy(dz), torch.from_numpy(x),
+                                   g, plan)
+        _close(got_w, want_w)
+        _close(got_b, db)
+
+
+@pytest.mark.parametrize("level", COLUMN_WGRAD)
+def test_wgrad_tiled_matches_jax_at_the_column(level):
+    """The tiled weight gradient at the GTSRB column's three levels at B 2
+    (the plans there: level 1 one tile and six clusters of 8 splits, level
+    2 17 tiles in one cluster of 8, level 3 38 tiles and K whole) against
+    jax.grad of the JAX ConvLayer."""
+    cin, W, M, F = COLUMN_WGRAD[level]
+    g = _geom(2, cin, W, M, F, 1, "valid", 0)
+    g = g._replace(e=g.c // 2 * 2)   # the pools' windows (pool 2)
+    p = sp.wgrad_tile_shape(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+    assert p == sp.wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+    assert {"level1": p.ncl > 1, "level2": p.tiles > 1 and p.ns > 1,
+            "level3": p.ns == 1 and p.ntm > 1}[level], p
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((g.B, cin, W, W)).astype(np.float32)
+    w = (rng.standard_normal((M, cin, F, F)) / F).astype(np.float32)
+    b = rng.standard_normal(M).astype(np.float32)
+    dz = rng.standard_normal((g.B, M, g.c, g.c)).astype(np.float32)
+    dz[:, :, g.e:] = 0.0
+    dz[:, :, :, g.e:] = 0.0
+    dw, db, _ = _jax_conv_grads(x, w, b, dz, 1, "valid")
+    got_w, got_b = wgrad_tiled(torch.from_numpy(dz), torch.from_numpy(x), g,
+                               p)
+    _close(got_w, dw.transpose(0, 2, 3, 1).reshape(M, -1))
+    _close(got_b, db)
 
 
 # (B, K in, N out): K cut into several slices, the last short; B 1

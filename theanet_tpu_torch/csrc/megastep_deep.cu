@@ -45,7 +45,8 @@
 // stages the flagship runs too (stages.cuh k_conv_pool, k_pool_bwd, after
 // k_augment), one weight-gradient stage (stages.cuh conv_wgrad: fixed
 // batch slices, a block a slice staging its rows once for every map and
-// tap, the slices added in order by clusters) and one input-gradient stage
+// tap, the slices added in order by clusters; at a level of many outputs
+// an output-tiled implicit GEMM, k_wgrad_tiled) and one input-gradient stage
 // (a block a row band, input map and sample on the sample's dz dilated by
 // the stride onto a zero canvas; at a level of many input maps a
 // register-tiled implicit GEMM on the same canvas, k_conv_dgrad_tiled)
@@ -230,13 +231,6 @@ __global__ void k_conv_dgrad(ConvGeom g, DgradPlan p,
 // band path 2,880 and 2,130): the sums alone 147 and 96, the rest the
 // staging at level 3; the sums are held by the shared-memory reads a
 // 4 x 3 tile needs for each FMA.
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait_group() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
 
 // Chunk ``ch``'s copies into buffer ``buf`` (stages.cuh layout: the two
 // weight buffers, then the two canvas buffers): the weights a row of cit
@@ -1231,6 +1225,14 @@ int epoch_loop(const int* is, const float* fs, void* const* ptrs,
   return ring ? ring_finish(*R, s) : 0;
 }
 
+// A level's ConvGeom from ``geom`` (B, M, Cin, F, c, e, cs, pad, W), its
+// input (B, Cin, W, W) contiguous.
+ConvGeom geom_level(const int* geom) {
+  const int Cin = geom[2], W = geom[8];
+  return {geom[0], geom[1], Cin, geom[3], geom[4], geom[5], geom[6], geom[7],
+          W, Cin * W * W, W * W};
+}
+
 }  // namespace
 
 extern "C" {
@@ -1258,6 +1260,48 @@ const char* deep_error_string(int code) {
 // every thread), for the wrappers' counter.
 long long deep_dgrad_tiled_launches() { return dgrad_tiled_launched.load(); }
 
+// The tiled weight-gradient launches the library has issued (every entry,
+// every thread), for the wrappers' counter.
+long long deep_wgrad_tiled_launches() { return wgrad_tiled_launched.load(); }
+
+// deep_conv_wgrad's scratch at a level for ``tiled``: its partial-sum
+// floats, then its counters.
+long long deep_conv_wgrad_floats(const int* geom, int tiled) {
+  const ConvGeom g = geom_level(geom);
+  if (tiled < 0) return wgrad_part_floats(g) + wgrad_counters(g);
+  if (tiled == 0) return wgrad_slice_part_floats(g) + wgrad_slice_counters(g);
+  const WgradTilePlan t = wgrad_tile_shape(g.B, g.M, g.Cin, g.F, g.e, g.cs);
+  return wgrad_tile_part_floats(t) + wgrad_tile_counters(t);
+}
+
+// One conv level's weight and bias gradients alone, for the card's checks:
+// ``geom`` as deep_conv_dgrad's, ``dz`` (B, M, c, c), ``in`` the level's
+// input (B, Cin, W, W), ``dw`` its kernel-layout weights' gradient (M,
+// F*F*Cin), ``dbias`` (M,), ``ws`` deep_conv_wgrad_floats floats (the
+// counters zeroed here); ``tiled`` 0 k_wgrad, 1 k_wgrad_tiled on
+// wgrad_tile_shape (at any level), -1 the path the epoch takes.
+int deep_conv_wgrad(const int* geom, int tiled, const float* dz,
+                    const float* in, float* dw, float* dbias, float* ws,
+                    int device, void* stream_) {
+  CHECK(cudaSetDevice(device));
+  const ConvGeom g = geom_level(geom);
+  const cudaStream_t s = (cudaStream_t)stream_;
+  if (tiled < 0) {
+    unsigned* ctr = (unsigned*)(ws + wgrad_part_floats(g));
+    CHECK(zero_counters(ctr, wgrad_counters(g), s));
+    return conv_wgrad(s, g, dz, in, ws, ctr, dw, dbias);
+  }
+  if (tiled == 0) {
+    unsigned* ctr = (unsigned*)(ws + wgrad_slice_part_floats(g));
+    CHECK(zero_counters(ctr, wgrad_slice_counters(g), s));
+    return launch_wgrad(s, g, dz, in, ws, ctr, dw, dbias);
+  }
+  const WgradTilePlan t = wgrad_tile_shape(g.B, g.M, g.Cin, g.F, g.e, g.cs);
+  unsigned* ctr = (unsigned*)(ws + wgrad_tile_part_floats(t));
+  CHECK(zero_counters(ctr, wgrad_tile_counters(t), s));
+  return launch_wgrad_tiled(s, g, t, dz, in, ws, ctr, dw, dbias);
+}
+
 // One conv level's input gradient alone, for the card's checks: ``geom``
 // the level's (B, M, Cin, F, c, e, cs, pad, W), ``w`` its kernel-layout
 // weights (M, F*F*Cin), ``dz`` (B, M, c, c), ``din`` (B, Cin, W, W);
@@ -1266,9 +1310,8 @@ long long deep_dgrad_tiled_launches() { return dgrad_tiled_launched.load(); }
 int deep_conv_dgrad(const int* geom, int tiled, const float* w,
                     const float* dz, float* din, int device, void* stream_) {
   CHECK(cudaSetDevice(device));
-  const ConvGeom g = {geom[0], geom[1], geom[2], geom[3], geom[4], geom[5],
-                      geom[6], geom[7], geom[8], 0, 0};
-  return conv_dgrad((cudaStream_t)stream_, g, w, dz, din, tiled);
+  return conv_dgrad((cudaStream_t)stream_, geom_level(geom), w, dz, din,
+                    tiled);
 }
 
 // One epoch: n_steps steps on ``stream`` of ``device``; parameters and

@@ -4,11 +4,11 @@
 // augmentation, the heads' 16x16 tile, block reductions and fixed-order
 // column sums, programmatic dependent launch, the dense products at a
 // small batch (split-K tiles), a conv level's forward (conv + pool) and
-// pool backward, the conv weight gradient (batch slices) and the conv
-// input gradient's staging, the weight cost and the old-accumulator
-// momentum update with max-norm. Every launch plan here depends on the
-// shapes alone, and every cross-block sum runs in that plan's fixed order
-// (no atomics).
+// pool backward, the conv weight gradient (batch slices; at wide levels
+// output tiles) and the conv input gradient's staging, the weight cost
+// and the old-accumulator momentum update with max-norm. Every launch
+// plan here depends on the shapes alone, and every cross-block sum runs
+// in that plan's fixed order (no atomics).
 // ops/stage_plan.py mirrors the plans; every function here follows a line
 // of the plain PyTorch twins in theanet_tpu_torch/ops/.
 #pragma once
@@ -18,6 +18,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 
 #define CHECK(expr)                        \
   do {                                     \
@@ -907,6 +908,15 @@ __device__ __forceinline__ void cp_float(float* dst, const float* src,
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
+// The thread's copies since the last commit form a group; cp_wait_group<N>
+// waits until at most N of its groups are in flight.
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
 
 // Output o of the group of maps from m0 (o = m*nout + tap) to dw or dbias.
 __device__ __forceinline__ void wgrad_store(float* dw, float* dbias, int m0,
@@ -1173,12 +1183,327 @@ k_wgrad(ConvGeom g, WgradPlan p, const float* __restrict__ dz,
   pdl_trigger();
 }
 
-// The level's weight and bias gradients, started by programmatic dependent
-// launch on clusters of wgrad_plan's cl slices; ``part`` holds
-// wgrad_part_floats, ``ctr`` wgrad_counters zeroed counters.
-inline int conv_wgrad(cudaStream_t s, const ConvGeom& g, const float* dz,
-                      const float* in, float* part, unsigned* ctr, float* dw,
-                      float* dbias) {
+// ---- The weight gradient at wide levels (k_wgrad_tiled): the same sums as
+// an output-tiled FP32 implicit GEMM, dw[m, n] = sum over k of dz[k, m] *
+// col[k, n], k = (b, y, x) the level's positions (y, x < e) in order, n =
+// (u, v, ci) the taps in kernel layout and the bias as tap nout-1 whose
+// input is 1, col[k, n] = in[b, ci, y*cs + F-1-u - pad, x*cs + F-1-v - pad]
+// (zero off the input).
+//
+// It replaces no TPU kernel of its own: it is a stage of the backward of
+// theanet_tpu/ops/megastep_deep.py::_kernel_deep, as k_wgrad is, and the
+// level's plan picks one of the two (the flagship's levels follow the same
+// rule).
+//
+// What bounds it on the card: operations. At the GTSRB column's three
+// levels at batch 20 (3 -> 100 maps at 7x7 on 48 x 48, 100 -> 150 and
+// 150 -> 250 at 4x4) a step's weight gradient is 5.02 GFLOP, 74.9 us at 67
+// TFLOP/s in f32, against a few MB of dz, inputs and weights.
+//
+// What the design does about it. k_wgrad gives a block a slice of the
+// batch for every output of a map group, a WG_TM x WG_TV tile a thread a
+// pass: at these levels (100 x 148 to 250 x 2401 outputs) a block takes 2
+// to 75 passes of tiles and restages its slice on every pass (0.69 GB of
+// 4-byte copies a step), its dz reads conflict 8- and 16-way in shared
+// memory, and its slices' sums go through device memory. Here a block owns
+// a tile of bm x bn outputs (maps x taps) and one range of K. It walks the
+// range in chunks of WT_TK positions, double-buffered by cp.async (the
+// next chunk's copies in flight while the block sums the current one), and
+// stages each chunk once for the whole tile: position-major dz_s[k][m] and
+// im2col'd columns col_s[k][n], rows padded to 4 mod 8 floats, a warp
+// instruction 8 positions x 4 maps or taps (four 32-byte sectors; no bank
+// conflict on the writes). The input side is staged as columns, not as
+// input rows under tap offsets: in kernel layout a tile's taps are
+// consecutive input maps at one or two (u, v), so a staged row would serve
+// one tap, and the columns keep the sums' reads contiguous. Each thread
+// sums a WT_R x WT_R register tile, two halves of 4 maps and of 4 taps so
+// that a warp's float4 reads of a position do not conflict, one exact FP32
+// FMA a product, position by position. K is split only as far as the grid
+// needs (about WT_TARGET blocks, two an SM), in whole chunks: a split's
+// sums stay in registers to its end, the splits of a tile add in split
+// order across a cluster of cl blocks through distributed shared memory,
+// and where several clusters share a tile the last block to finish a share
+// adds the clusters' sums in cluster order (a few MB, against k_wgrad's
+// slices of 43 M floats at the column). No TF32 and no atomic sum: one
+// order for given shapes.
+//
+// Measured alone on an H100 SXM (700 W) at the column's levels at batch
+// 20: 110.7, 220.8 and 83.1 us (k_wgrad 232.0, 1,523.2 and 1,776.7), 415
+// us a step against the 74.9 us bound.
+//
+// Which path a level takes (wgrad_tile_plan): the tiled one where one pass
+// of k_wgrad's thread tiles does not cover a map group's outputs
+// (wgrad_plan's passes > 1: the column's three levels). k_wgrad keeps the
+// narrow levels (mnist_cnn's, galaxy_rbf's, the aux and geometry configs'):
+// there one pass covers every output of a map group and its slice is
+// staged once, while their tiles (8 x 16 to 16 x 80 outputs) keep 2 to
+// 20 of a block's 256 threads summing. Measured alone (same card), the
+// tiled path is slower at every such level: mnist_cnn's two levels 63.3
+// against 55.3 us a step at batch 20 and 166.6 against 58.1 at 256 (its
+// 1 -> 4 map level 124.5 against 27.8), galaxy_rbf's 65.4 against 51.1.
+constexpr int WT_TK = 16;          // positions a K chunk
+constexpr int WT_R = 8;            // a thread's tile: WT_R maps x WT_R taps
+constexpr int WT_THREADS = 256;    // a block: 8 warps, two blocks an SM
+constexpr int WT_MAX_T = 32;       // thread rows (or columns) a tile, at most
+constexpr int WT_TARGET = 2 * SM_COUNT;   // blocks wanted
+constexpr int WT_MIN_CH = 4;       // chunks a split, at least
+constexpr int WT_STAGE_COST = 4;   // a staged float against a product, in
+                                   // the tile search
+
+struct WgradTilePlan {
+  int tiled;           // 1: the level takes the tiled path
+  int tmt, tnt;        // thread rows (maps) and columns (taps) of a tile
+  int bm, bn;          // a tile's maps and taps: WT_R * tmt, WT_R * tnt
+  int bmp, bnp;        // strides of their staged rows (4 mod 8)
+  int ntm, ntn, tiles;
+  long long nch;       // chunks of WT_TK positions in K = B * e * e
+  int ns, cl, ncl;     // splits of K (the grid's x), a cluster's, clusters
+  int threads;         // WT_THREADS
+  int smem_floats;     // the tap table, then the buffers or the sums' tile
+};
+
+// The tiled plan at a level, whichever path the level takes: the thread
+// grid tmt x tnt (each at most WT_MAX_T, at most WT_THREADS threads) with
+// the fewest padded outputs plus WT_STAGE_COST a staged float of a
+// position, then the most threads; then the splits, about WT_TARGET blocks
+// in all, each at least WT_MIN_CH chunks, whole clusters of WG_CLUSTER
+// past one cluster.
+inline WgradTilePlan wgrad_tile_shape(int B, int M, int Cin, int F, int e,
+                                      int cs) {
+  WgradTilePlan p = {};
+  const long long nout = (long long)F * F * Cin + 1;
+  long long best = -1;
+  for (int tm = 1; tm <= WT_MAX_T; ++tm)
+    for (int tn = 1; tn <= WT_MAX_T && tm * tn <= WT_THREADS; ++tn) {
+      const long long bm = WT_R * tm, bn = WT_R * tn;
+      const long long cost = cdivl(M, bm) * cdivl(nout, bn)
+                             * (bm * bn + WT_STAGE_COST * (bm + bn));
+      if (best < 0 || cost < best
+          || (cost == best && tm * tn > p.tmt * p.tnt)) {
+        best = cost;
+        p.tmt = tm;
+        p.tnt = tn;
+      }
+    }
+  p.tiled = 1;
+  p.bm = WT_R * p.tmt;
+  p.bn = WT_R * p.tnt;
+  p.bmp = p.bm + 4;
+  p.bnp = p.bn + 4;
+  p.ntm = cdiv(M, p.bm);
+  p.ntn = (int)cdivl(nout, p.bn);
+  p.tiles = p.ntm * p.ntn;
+  p.nch = cdivl((long long)B * e * e, WT_TK);
+  long long ns = std::min<long long>(cdiv(WT_TARGET, p.tiles),
+                                     std::max(1LL, p.nch / WT_MIN_CH));
+  if (ns > WG_CLUSTER) ns -= ns % WG_CLUSTER;
+  p.ns = (int)ns;
+  p.cl = std::min(WG_CLUSTER, p.ns);
+  p.ncl = p.ns / p.cl;
+  p.threads = WT_THREADS;
+  p.smem_floats = 2 * p.bn + std::max(2 * WT_TK * (p.bmp + p.bnp),
+                                      p.bm * p.bn);
+  return p;
+}
+
+// The tiled path's plan where the level takes it (wgrad_plan's passes > 1),
+// else tiled 0 (every field 0: k_wgrad on wgrad_plan).
+inline WgradTilePlan wgrad_tile_plan(int B, int M, int Cin, int F, int e,
+                                     int cs) {
+  if (wgrad_plan(B, M, Cin, F, e, cs).passes <= 1) return WgradTilePlan{};
+  return wgrad_tile_shape(B, M, Cin, F, e, cs);
+}
+
+// part: with several clusters, ncl x tiles x (bm x bn) cluster sums; ctr:
+// tiles x cl zeroed counters. The grid: (ns, tiles), clusters of cl
+// blocks along x; split s takes chunks [s nch / ns, (s + 1) nch / ns).
+__global__ void __launch_bounds__(WT_THREADS, 2)
+k_wgrad_tiled(ConvGeom g, WgradTilePlan p, const float* __restrict__ dz,
+              const float* __restrict__ in, float* __restrict__ part,
+              unsigned* __restrict__ ctr, float* __restrict__ dw,
+              float* __restrict__ dbias) {
+  extern __shared__ float sm[];
+  int2* tab = reinterpret_cast<int2*>(sm);   // the tap table (bn), then
+  float* bufs = sm + 2 * p.bn;               // two dz buffers (WT_TK x
+  float* dzs = bufs;                          // bmp) and two column
+  float* cols = bufs + 2 * WT_TK * p.bmp;     // buffers (WT_TK x bnp)
+  const int tid = threadIdx.x, F = g.F;
+  const int nout = F * F * g.Cin + 1, tile = blockIdx.y;
+  const int m0 = (tile % p.ntm) * p.bm, n0 = (tile / p.ntm) * p.bn;
+  // column nn, tap t = n0 + nn: its input at x from the position's input
+  // offset, at (du, dv) from the position's (y*cs, x*cs) (y packed as
+  // (du + 128) << 8 | (dv + 128)); y -1 the bias, -2 past nout
+  for (int nn = tid; nn < p.bn; nn += WT_THREADS) {
+    const int t = n0 + nn;
+    int2 v = make_int2(0, t == nout - 1 ? -1 : -2);
+    if (t < nout - 1) {
+      const int ci = t % g.Cin, uv = t / g.Cin;
+      const int du = F - 1 - uv / F - g.pad, dv = F - 1 - uv % F - g.pad;
+      v = make_int2(ci * g.sc + du * g.W + dv, (du + 128) << 8 | (dv + 128));
+    }
+    tab[nn] = v;
+  }
+  const long long K = (long long)g.B * g.e * g.e;
+  const long long c0 = blockIdx.x * p.nch / p.ns;
+  const long long c1 = (blockIdx.x + 1) * p.nch / p.ns;
+  // the thread's staging: position kk of each chunk, its maps and taps q,
+  // q + 16, ... (a warp instruction: 8 positions x 4 maps or taps); the
+  // position's digits (x, y, b), stepped WT_TK a chunk
+  const int wp = tid >> 5, ln = tid & 31;
+  const int kk = 8 * (wp & 1) + (ln & 7), q = 4 * (wp >> 1) + (ln >> 3);
+  Mixed d;
+  {
+    const long long k = c0 * WT_TK + kk, ee = (long long)g.e * g.e;
+    const long long b = k / ee;
+    const int r = (int)(k - b * ee);
+    d = {r % g.e, r / g.e, (int)b, 0};
+  }
+  const Mixed ds = mixed_of(WT_TK, g.e, g.e, 1 << 30);
+  const int cc = g.c * g.c;
+  const size_t dzb = (size_t)g.M * cc;   // dz floats a sample
+  auto stage = [&](long long ch, int buf) {
+    const bool kv = ch * WT_TK + kk < K;
+    const int ycs = d.d1 * g.cs, xcs = d.d0 * g.cs;
+    const float* dzk =
+        dz + (kv ? d.d2 * dzb + (size_t)m0 * cc + d.d1 * g.c + d.d0 : 0);
+    const float* ink = in + (kv ? d.d2 * (size_t)g.sb + ycs * g.W + xcs : 0);
+    float* dd = dzs + (buf * WT_TK + kk) * p.bmp;
+    float* cd = cols + (buf * WT_TK + kk) * p.bnp;
+    for (int mm = q; mm < p.bm; mm += 16) {
+      const bool ok = kv && m0 + mm < g.M;
+      cp_float(dd + mm, ok ? dzk + mm * cc : dz, ok);
+    }
+    for (int nn = q; nn < p.bn; nn += 16) {
+      const int2 t = tab[nn];
+      if (t.y == -1) {   // the bias's input
+        cd[nn] = 1.0f;
+        continue;
+      }
+      const int iy = ycs + (t.y >> 8) - 128, ix = xcs + (t.y & 255) - 128;
+      const bool ok = kv && t.y >= 0 && (unsigned)iy < (unsigned)g.W
+                      && (unsigned)ix < (unsigned)g.W;
+      cp_float(cd + nn, ok ? ink + t.x : in, ok);
+    }
+    mixed_step(d, ds, g.e, g.e, 1 << 30);
+  };
+  // the thread's sums: maps tm*4 + i and bm/2 + tm*4 + i, taps tn*4 + j
+  // and bn/2 + tn*4 + j (i, j < 4)
+  const int tm = tid % p.tmt, tn = tid / p.tmt;
+  const bool active = tid < p.tmt * p.tnt;
+  const int ha = p.bm / 2, hb = p.bn / 2;
+  float acc[WT_R][WT_R];
+#pragma unroll
+  for (int i = 0; i < WT_R; ++i)
+#pragma unroll
+    for (int j = 0; j < WT_R; ++j) acc[i][j] = 0.0f;
+  __syncthreads();   // the tap table
+  pdl_wait();
+  stage(c0, 0);
+  cp_commit();
+  for (long long ch = c0; ch < c1; ++ch) {
+    const int buf = (int)((ch - c0) & 1);
+    if (ch + 1 < c1) {
+      stage(ch + 1, buf ^ 1);
+      cp_commit();
+      cp_wait_group<1>();
+    } else {
+      cp_wait_group<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const float* a = dzs + buf * WT_TK * p.bmp + tm * 4;
+      const float* b = cols + buf * WT_TK * p.bnp + tn * 4;
+#pragma unroll
+      for (int k = 0; k < WT_TK; ++k, a += p.bmp, b += p.bnp) {
+        const float4 a0 = *reinterpret_cast<const float4*>(a);
+        const float4 a1 = *reinterpret_cast<const float4*>(a + ha);
+        const float4 b0 = *reinterpret_cast<const float4*>(b);
+        const float4 b1 = *reinterpret_cast<const float4*>(b + hb);
+        const float av[WT_R] = {a0.x, a0.y, a0.z, a0.w,
+                                a1.x, a1.y, a1.z, a1.w};
+        const float bv[WT_R] = {b0.x, b0.y, b0.z, b0.w,
+                                b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < WT_R; ++i)
+#pragma unroll
+          for (int j = 0; j < WT_R; ++j)
+            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();   // the buffer is restaged by the chunk after next
+  }
+  auto mrow = [&](int i) { return (i < 4 ? 0 : ha - 4) + tm * 4 + i; };
+  auto ncol = [&](int j) { return (j < 4 ? 0 : hb - 4) + tn * 4 + j; };
+  if (p.ns == 1) {   // K whole: the sums are the gradient
+    if (active)
+#pragma unroll
+      for (int i = 0; i < WT_R; ++i)
+#pragma unroll
+        for (int j = 0; j < WT_R; ++j) {
+          const int m = m0 + mrow(i), t = n0 + ncol(j);
+          if (m < g.M && t < nout)
+            wgrad_store(dw, dbias, m, nout, t, acc[i][j]);
+        }
+    pdl_trigger();
+    return;
+  }
+  // the split's sums over the (summed) buffers, bm x bn; then the
+  // cluster's splits: block r adds the r-th share of the tile's outputs
+  // from each block's shared memory in split order; then the clusters
+  float* red = bufs;
+  if (active)
+#pragma unroll
+    for (int i = 0; i < WT_R; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(red + mrow(i) * p.bn + ncol(4 * h)) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+  cluster_arrive();
+  cluster_wait();
+  const int r = blockIdx.x % p.cl, c = blockIdx.x / p.cl;
+  const int area = p.bm * p.bn, share = cdiv(area, p.cl);
+  const int o0 = r * share, o1 = min(area, o0 + share);
+  const long long TA = (long long)p.tiles * area;
+  float* tp = part + (long long)tile * area;   // the tile's cluster sums
+  for (int o = o0 + tid; o < o1; o += WT_THREADS) {
+    const int m = o / p.bn, n = o - m * p.bn;
+    if (m0 + m >= g.M || n0 + n >= nout) continue;
+    float v[WG_CLUSTER];
+#pragma unroll
+    for (int k = 0; k < WG_CLUSTER; ++k)
+      v[k] = k < p.cl ? ld_cluster(red + o, k) : 0.0f;
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < WG_CLUSTER; ++k)
+      if (k < p.cl) s += v[k];
+    if (p.ncl == 1) wgrad_store(dw, dbias, m0 + m, nout, n0 + n, s);
+    else tp[c * TA + o] = s;
+  }
+  // the block's reads of the others' shared memory are done (they exit
+  // only once every block of the cluster has arrived here)
+  cluster_arrive();
+  if (p.ncl > 1 && last_block(ctr + tile * p.cl + r, p.ncl)) {
+    for (int o = o0 + tid; o < o1; o += WT_THREADS) {
+      const int m = o / p.bn, n = o - m * p.bn;
+      if (m0 + m < g.M && n0 + n < nout)
+        wgrad_store(dw, dbias, m0 + m, nout, n0 + n,
+                    sum_slices<16>(tp + o, TA, p.ncl));
+    }
+  }
+  cluster_wait();
+  pdl_trigger();   // as k_wgrad: the next stage starts once this one ends
+}
+
+// Tiled weight-gradient launches issued since the library was loaded (the
+// deep family's epoch wrapper reads the count around each call).
+std::atomic<long long> wgrad_tiled_launched{0};
+
+// k_wgrad on wgrad_plan: ``part`` holds wgrad_slice_part_floats, ``ctr``
+// wgrad_slice_counters zeroed counters.
+inline int launch_wgrad(cudaStream_t s, const ConvGeom& g, const float* dz,
+                        const float* in, float* part, unsigned* ctr,
+                        float* dw, float* dbias) {
   const WgradPlan p = wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
   const size_t smem = sizeof(float) * p.smem_floats;
   if (!smem_opt_in(k_wgrad, smem)) return ERR_STAGE_SMEM;
@@ -1186,17 +1511,60 @@ inline int conv_wgrad(cudaStream_t s, const ConvGeom& g, const float* dz,
                    s, g, p, dz, in, part, ctr, dw, dbias));
   return 0;
 }
-
-// Floats of a level's weight-gradient slice and cluster sums, and its
-// counters.
-inline long long wgrad_part_floats(const ConvGeom& g) {
+inline long long wgrad_slice_part_floats(const ConvGeom& g) {
   const WgradPlan p = wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
   const long long ncl = p.nslp / p.cl;
   return ((ncl > 1 ? ncl : 0) + (p.passes > 1 ? p.nslp : 0)) * g.M * p.nout;
 }
-inline long long wgrad_counters(const ConvGeom& g) {
+inline long long wgrad_slice_counters(const ConvGeom& g) {
   const WgradPlan p = wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
   return (long long)p.ngr * p.cl;
+}
+
+// k_wgrad_tiled on the tiled plan ``t``: ``part`` holds
+// wgrad_tile_part_floats(t), ``ctr`` wgrad_tile_counters(t) zeroed
+// counters (both 0 with one cluster a tile).
+inline int launch_wgrad_tiled(cudaStream_t s, const ConvGeom& g,
+                              const WgradTilePlan& t, const float* dz,
+                              const float* in, float* part, unsigned* ctr,
+                              float* dw, float* dbias) {
+  const size_t smem = sizeof(float) * t.smem_floats;
+  if (!smem_opt_in(k_wgrad_tiled, smem)) return ERR_STAGE_SMEM;
+  CHECK(launch_pdl(k_wgrad_tiled, dim3(t.ns, t.tiles), dim3(t.threads), smem,
+                   t.cl, s, g, t, dz, in, part, ctr, dw, dbias));
+  ++wgrad_tiled_launched;
+  return 0;
+}
+inline long long wgrad_tile_part_floats(const WgradTilePlan& t) {
+  return t.ncl > 1 ? (long long)t.ncl * t.tiles * t.bm * t.bn : 0;
+}
+inline long long wgrad_tile_counters(const WgradTilePlan& t) {
+  return t.ncl > 1 ? (long long)t.tiles * t.cl : 0;
+}
+
+// The level's weight and bias gradients on the path its plans select,
+// started by programmatic dependent launch: k_wgrad on clusters of
+// wgrad_plan's cl slices, or at a wide level k_wgrad_tiled on
+// wgrad_tile_plan's tiles and splits. ``part`` holds wgrad_part_floats,
+// ``ctr`` wgrad_counters zeroed counters.
+inline int conv_wgrad(cudaStream_t s, const ConvGeom& g, const float* dz,
+                      const float* in, float* part, unsigned* ctr, float* dw,
+                      float* dbias) {
+  const WgradTilePlan t = wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
+  return t.tiled ? launch_wgrad_tiled(s, g, t, dz, in, part, ctr, dw, dbias)
+                 : launch_wgrad(s, g, dz, in, part, ctr, dw, dbias);
+}
+
+// Floats of a level's weight-gradient partial sums on the path conv_wgrad
+// takes (k_wgrad's slice and cluster sums, or k_wgrad_tiled's cluster
+// sums), and its counters.
+inline long long wgrad_part_floats(const ConvGeom& g) {
+  const WgradTilePlan t = wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
+  return t.tiled ? wgrad_tile_part_floats(t) : wgrad_slice_part_floats(g);
+}
+inline long long wgrad_counters(const ConvGeom& g) {
+  const WgradTilePlan t = wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs);
+  return t.tiled ? wgrad_tile_counters(t) : wgrad_slice_counters(g);
 }
 
 // ---- Input gradient: din[b, ci, i, j] = sum over m, u, v (in that order)
@@ -1544,9 +1912,9 @@ extern "C" {
 
 // The launch plans above at the given shapes, for the check of their
 // mirror in theanet_tpu_torch/ops/stage_plan.py on the card: wgrad_plan's
-// 17 fields in order, dgrad_plan's (rows,
-// nbands, dp, threads, smem_floats), dgrad_tile_plan's 12, gemm_plan's
-// (nks, kslice, part_floats).
+// 17 fields in order, wgrad_tile_plan's 16, dgrad_plan's (rows, nbands,
+// dp, threads, smem_floats), dgrad_tile_plan's 12, gemm_plan's (nks,
+// kslice, part_floats).
 void stage_wgrad_plan(int B, int M, int Cin, int F, int e, int cs,
                       long long* out) {
   const WgradPlan p = wgrad_plan(B, M, Cin, F, e, cs);
@@ -1555,6 +1923,15 @@ void stage_wgrad_plan(int B, int M, int Cin, int F, int e, int cs,
                          p.tiles, p.npg, p.threads, p.passes,
                          p.smem_floats};
   for (int k = 0; k < 17; ++k) out[k] = v[k];
+}
+
+void stage_wgrad_tile_plan(int B, int M, int Cin, int F, int e, int cs,
+                           long long* out) {
+  const WgradTilePlan p = wgrad_tile_plan(B, M, Cin, F, e, cs);
+  const long long v[] = {p.tiled, p.tmt, p.tnt, p.bm,  p.bn,  p.bmp,
+                         p.bnp,   p.ntm, p.ntn, p.tiles, p.nch, p.ns,
+                         p.cl,    p.ncl, p.threads, p.smem_floats};
+  for (int k = 0; k < 16; ++k) out[k] = v[k];
 }
 
 void stage_dgrad_plan(int B, int Cin, int W, int M, int F, long long* out) {

@@ -38,6 +38,7 @@ __all__ = ["build", "megastep_launch", "deep_launch",
            "megastep_grad_launch", "deep_grad_launch",
            "megastep_update_launch", "deep_update_launch",
            "dgrad_tiled_launched", "deep_conv_dgrad_launch",
+           "wgrad_tiled_launched", "deep_conv_wgrad_launch",
            "elastic_resample_launch", "fused_mlp_forward_launch",
            "fused_mlp_backward_launch", "conv3x3_forward_launch",
            "conv3x3_backward_launch", "floor_probe_launch",
@@ -135,7 +136,10 @@ ENTRY_POINTS = {
 }
 
 
-def _bind(name, lib):
+def _bind(name, lib, plans=None):
+    """Set the argument and result types of library ``name``'s exports on
+    ``lib``; ``plans`` the stage-plan exports to bind (default
+    STAGE_PLANS: every one)."""
     if name in ENTRY_POINTS:
         for fn, argtypes in ENTRY_POINTS[name].items():
             getattr(lib, fn).argtypes = argtypes
@@ -196,12 +200,19 @@ def _bind(name, lib):
         getattr(lib, fn).restype = ctypes.c_int
     lib.ring_buffer_bytes.argtypes = [ctypes.c_longlong]
     lib.ring_buffer_bytes.restype = ctypes.c_longlong
-    for fn, n_int in STAGE_PLANS.items():
+    for fn, n_int in (STAGE_PLANS if plans is None else plans).items():
         getattr(lib, fn).argtypes = [ctypes.c_int] * n_int + [ll]
         getattr(lib, fn).restype = None
     if prefix == "deep":
-        lib.deep_dgrad_tiled_launches.argtypes = []
-        lib.deep_dgrad_tiled_launches.restype = ctypes.c_longlong
+        for fn in ("deep_dgrad_tiled_launches", "deep_wgrad_tiled_launches"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_longlong
+        lib.deep_conv_wgrad_floats.argtypes = [ip, ctypes.c_int]
+        lib.deep_conv_wgrad_floats.restype = ctypes.c_longlong
+        lib.deep_conv_wgrad.argtypes = ([ip, ctypes.c_int]
+                                        + [ctypes.c_void_p] * 5
+                                        + [ctypes.c_int, ctypes.c_void_p])
+        lib.deep_conv_wgrad.restype = ctypes.c_int
         lib.deep_conv_dgrad.argtypes = ([ip, ctypes.c_int]
                                         + [ctypes.c_void_p] * 3
                                         + [ctypes.c_int, ctypes.c_void_p])
@@ -211,10 +222,12 @@ def _bind(name, lib):
 
 # stages.cuh's plan exports (both fused libraries): integer arguments, and
 # the integers each writes (ops/stage_plan.py's plan fields, in order)
-STAGE_PLANS = {"stage_wgrad_plan": 6, "stage_dgrad_plan": 5,
-               "stage_dgrad_tile_plan": 5, "stage_gemm_plan": 3}
-STAGE_PLAN_WIDTH = {"stage_wgrad_plan": 17, "stage_dgrad_plan": 5,
-                    "stage_dgrad_tile_plan": 12, "stage_gemm_plan": 3}
+STAGE_PLANS = {"stage_wgrad_plan": 6, "stage_wgrad_tile_plan": 6,
+               "stage_dgrad_plan": 5, "stage_dgrad_tile_plan": 5,
+               "stage_gemm_plan": 3}
+STAGE_PLAN_WIDTH = {"stage_wgrad_plan": 17, "stage_wgrad_tile_plan": 16,
+                    "stage_dgrad_plan": 5, "stage_dgrad_tile_plan": 12,
+                    "stage_gemm_plan": 3}
 
 
 def stage_plan_c(fn, *args, lib="megastep"):
@@ -493,6 +506,33 @@ def dgrad_tiled_launched():
     return build()["megastep_deep"].deep_dgrad_tiled_launches()
 
 
+def wgrad_tiled_launched():
+    """The tiled weight-gradient launches (k_wgrad_tiled) the deep library
+    has issued in this process, from every entry."""
+    return build()["megastep_deep"].deep_wgrad_tiled_launches()
+
+
+def _geom(g):
+    return (ctypes.c_int * 9)(g.B, g.M, g.Cin, g.F, g.c, g.e, g.cs, g.pad,
+                              g.W)
+
+
+def deep_conv_wgrad_launch(g, tiled, dz, x, dw, dbias):
+    """One deep conv level's weight and bias gradients alone on the current
+    stream: ``g`` its stage_plan.ConvGeom, ``dz`` (B, M, c, c), ``x`` its
+    input (B, Cin, W, W), ``dw`` (M, F*F*Cin) in kernel layout, ``dbias``
+    (M,), all contiguous f32 on one card; ``tiled`` 0 k_wgrad, 1
+    k_wgrad_tiled on stage_plan.wgrad_tile_shape (at any level), -1 the
+    path an epoch takes. The scratch is allocated here."""
+    lib = build()["megastep_deep"]
+    geom = _geom(g)
+    ws = torch.empty(max(1, lib.deep_conv_wgrad_floats(geom, tiled)),
+                     dtype=torch.float32, device=dw.device)
+    _entry("deep", lib, "conv_wgrad", geom, tiled, dz.data_ptr(),
+           x.data_ptr(), dw.data_ptr(), dbias.data_ptr(), ws.data_ptr(),
+           dev=dw.device)
+
+
 def deep_conv_dgrad_launch(g, tiled, w, dz, din):
     """One deep conv level's input gradient alone on the current stream:
     ``g`` its stage_plan.ConvGeom, ``w`` its kernel-layout weights (M,
@@ -500,9 +540,7 @@ def deep_conv_dgrad_launch(g, tiled, w, dz, din):
     f32 on one card; ``tiled`` 0 the band path (k_conv_dgrad), 1 the tiled
     one (an error where the level's plan has no tiles), -1 the path an
     epoch takes."""
-    geom = (ctypes.c_int * 9)(g.B, g.M, g.Cin, g.F, g.c, g.e, g.cs, g.pad,
-                              g.W)
-    _entry("deep", build()["megastep_deep"], "conv_dgrad", geom, tiled,
+    _entry("deep", build()["megastep_deep"], "conv_dgrad", _geom(g), tiled,
            w.data_ptr(), dz.data_ptr(), din.data_ptr(), dev=din.device)
 
 

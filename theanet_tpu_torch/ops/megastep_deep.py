@@ -13,9 +13,11 @@ max-norm update of every state tensor.
   * ``deep_epoch`` is the wrapper: CPU tensors go to the twin; CUDA tensors
     launch ``csrc/megastep_deep.cu`` (one C call per epoch) or raise. It
     counts its kernel launches in ``deep_epoch.launches``, and the tiled
-    input-gradient launches the C loop issued inside them (a wide level's
-    ``k_conv_dgrad_tiled``, ``stage_plan.dgrad_tiled_levels`` a step) in
-    ``deep_epoch.dgrad_tiled_launches``.
+    gradient launches the C loop issued inside them in
+    ``deep_epoch.dgrad_tiled_launches`` (a wide level's input gradient,
+    ``k_conv_dgrad_tiled``, ``stage_plan.dgrad_tiled_levels`` a step) and
+    ``deep_epoch.wgrad_tiled_launches`` (a wide level's weight gradient,
+    ``k_wgrad_tiled``, ``stage_plan.wgrad_tiled_levels`` a step).
 
 The grammar the port takes is the JAX family's: convs in every geometry
 the JAX family fuses ('valid' at any stride that divides in-F+1, 'same',
@@ -862,9 +864,10 @@ def deep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec,
 
     A CPU ``x_steps`` runs the plain twin. A CUDA ``x_steps`` launches the
     hand-written CUDA kernel (one C call per epoch), counts the launch in
-    ``deep_epoch.launches`` and the call's tiled input-gradient launches,
-    as the C loop counted them, in ``deep_epoch.dgrad_tiled_launches``;
-    any other device raises."""
+    ``deep_epoch.launches`` and the call's tiled input- and weight-gradient
+    launches, as the C loop counted them, in
+    ``deep_epoch.dgrad_tiled_launches`` and
+    ``deep_epoch.wgrad_tiled_launches``; any other device raises."""
     if x_steps.device.type == "cpu":
         return deep_epoch_reference(kparams, kmoms, x_steps, y_steps, bits,
                                     lr, spec, aux_steps)
@@ -872,16 +875,19 @@ def deep_epoch(kparams, kmoms, x_steps, y_steps, bits, lr, spec,
         raise ValueError(f"deep_epoch: no kernel for {x_steps.device}")
     from . import _build
 
-    tiled = _build.dgrad_tiled_launched()
+    dtiled = _build.dgrad_tiled_launched()
+    wtiled = _build.wgrad_tiled_launched()
     out = launch_deep("deep_epoch", kparams, kmoms, x_steps, y_steps, bits,
                       lr, spec, aux_steps)
     deep_epoch.launches += 1
-    deep_epoch.dgrad_tiled_launches += _build.dgrad_tiled_launched() - tiled
+    deep_epoch.dgrad_tiled_launches += _build.dgrad_tiled_launched() - dtiled
+    deep_epoch.wgrad_tiled_launches += _build.wgrad_tiled_launched() - wtiled
     return out
 
 
 deep_epoch.launches = 0
 deep_epoch.dgrad_tiled_launches = 0
+deep_epoch.wgrad_tiled_launches = 0
 
 
 # ------------------------------------------------- the data-parallel step

@@ -13,6 +13,13 @@ them on the CPU):
     each thread a WG_TM x WG_TV tile of outputs; the slices' partials added
     in slice order by clusters of ``cl`` blocks, then the clusters' in
     cluster order;
+  * ``wgrad_tile_plan``: the weight gradient of a wide level (where one pass
+    of ``wgrad_plan``'s thread tiles does not cover a map group) as an
+    output-tiled implicit GEMM, a block a (split of K, tile of ``bm`` maps x
+    ``bn`` taps), K in chunks of WT_TK positions staged once for the tile,
+    each thread a WT_R x WT_R tile of sums; the ``ns`` splits of a tile
+    added in split order by clusters of ``cl`` blocks, then the clusters'
+    in cluster order; ``tiled`` 0 where the level keeps ``wgrad_plan``;
   * ``dgrad_plan``: a conv level's input gradient, a block a (band of
     ``rows`` input rows, input map, sample) on a zero canvas of side ``dp``
     holding the sample's dz dilated by the stride;
@@ -36,8 +43,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-__all__ = ["WgradPlan", "DgradPlan", "DgradTilePlan", "GemmPlan", "ConvGeom",
-           "wgrad_plan", "dgrad_plan", "dgrad_tile_shape", "dgrad_tile_plan",
+__all__ = ["WgradPlan", "WgradTilePlan", "DgradPlan", "DgradTilePlan",
+           "GemmPlan", "ConvGeom", "wgrad_plan", "wgrad_tile_shape",
+           "wgrad_tile_plan", "wgrad_tiled_levels", "wgrad_tile_staging",
+           "wgrad_tile_positions", "dgrad_plan", "dgrad_tile_shape",
+           "dgrad_tile_plan",
            "dgrad_tiled_levels", "dgrad_tile_staging",
            "dgrad_tile_positions", "gemm_plan", "flagship_levels",
            "deep_levels",
@@ -58,6 +68,13 @@ WG_TM, WG_TV = 4, 8             # a weight-gradient thread's tile: maps x taps
 WG_MAX_THREADS = 256
 WG_TARGET = 96                  # slices wanted (a map group's share)
 WG_CLUSTER = 8                  # blocks a cluster, at most
+WT_TK = 16                      # positions a K chunk of the tiled wgrad
+WT_R = 8                        # a tiled wgrad thread's sums: maps x taps
+WT_THREADS = 256
+WT_MAX_T = 32                   # thread rows (or columns) a tile, at most
+WT_TARGET = 2 * SM_COUNT        # blocks wanted: two an SM
+WT_MIN_CH = 4                   # chunks a split, at least
+WT_STAGE_COST = 4               # a staged float against a product
 DG_TARGET = 2 * SM_COUNT
 DG_MIN_THREADS, DG_MAX_THREADS = 256, 1024
 DT_TCI, DT_TJ = 4, 3            # a tiled thread's sums: input maps x columns
@@ -142,6 +159,47 @@ class WgradPlan(NamedTuple):
             out.append((u // self.nbn, y0, min(self.ny, e - y0),
                         min(self.nbs, u1 - u)))
         return out
+
+
+class WgradTilePlan(NamedTuple):
+    tiled: int         # 1: the level takes the tiled path
+    tmt: int           # thread rows (maps) of a tile
+    tnt: int           # thread columns (taps)
+    bm: int            # a tile's maps, WT_R * tmt
+    bn: int            # a tile's taps (the bias the last), WT_R * tnt
+    bmp: int           # stride of a staged dz row, bm + 4
+    bnp: int           # stride of a staged column row, bn + 4
+    ntm: int           # tiles along the maps
+    ntn: int           # tiles along the taps
+    tiles: int         # the grid's y; tile t at maps (t % ntm) * bm, taps
+                       # (t // ntm) * bn
+    nch: int           # chunks of WT_TK positions in K = B * e * e
+    ns: int            # splits of K (the grid's x)
+    cl: int            # blocks a cluster
+    ncl: int           # clusters a tile
+    threads: int
+    smem_floats: int
+
+    def grid(self):
+        return (self.ns, self.tiles)
+
+    def splits(self):
+        """[(first chunk, end)] of each split, in order."""
+        return [(s * self.nch // self.ns, (s + 1) * self.nch // self.ns)
+                for s in range(self.ns)]
+
+    def origin(self, tile):
+        """(first map, first tap) of tile ``tile``."""
+        return (tile % self.ntm * self.bm, tile // self.ntm * self.bn)
+
+    def part_floats(self):
+        """The clusters' sums, with several clusters."""
+        return (self.ncl * self.tiles * self.bm * self.bn if self.ncl > 1
+                else 0)
+
+    def counters(self):
+        """A counter a (tile, cluster rank), with several clusters."""
+        return self.tiles * self.cl if self.ncl > 1 else 0
 
 
 class DgradPlan(NamedTuple):
@@ -235,6 +293,45 @@ def wgrad_plan(B, M, Cin, F, e, cs):
     return WgradPlan(nout, mg, ngr, ny, nbn, nu, nbs, nsl, cl,
                      cdiv(nsl, cl) * cl, (ny - 1) * cs + F, sp, tiles, npg,
                      threads, passes, max(nbs * unit(ny, mg), sums))
+
+
+def wgrad_tile_shape(B, M, Cin, F, e, cs):
+    """stages.cuh wgrad_tile_shape: the tiled plan at a level, whichever
+    path the level takes."""
+    nout = F * F * Cin + 1
+    best = None   # (cost, threads, tmt, tnt)
+    for tm in range(1, WT_MAX_T + 1):
+        tn = 1
+        while tn <= WT_MAX_T and tm * tn <= WT_THREADS:
+            bm, bn = WT_R * tm, WT_R * tn
+            cost = (cdiv(M, bm) * cdiv(nout, bn)
+                    * (bm * bn + WT_STAGE_COST * (bm + bn)))
+            if (best is None or cost < best[0]
+                    or (cost == best[0] and tm * tn > best[1])):
+                best = (cost, tm * tn, tm, tn)
+            tn += 1
+    tmt, tnt = best[2:]
+    bm, bn = WT_R * tmt, WT_R * tnt
+    ntm, ntn = cdiv(M, bm), cdiv(nout, bn)
+    tiles = ntm * ntn
+    nch = cdiv(B * e * e, WT_TK)
+    ns = min(cdiv(WT_TARGET, tiles), max(1, nch // WT_MIN_CH))
+    if ns > WG_CLUSTER:
+        ns -= ns % WG_CLUSTER
+    cl = min(WG_CLUSTER, ns)
+    bmp, bnp = bm + 4, bn + 4
+    return WgradTilePlan(1, tmt, tnt, bm, bn, bmp, bnp, ntm, ntn, tiles,
+                         nch, ns, cl, ns // cl, WT_THREADS,
+                         2 * bn + max(2 * WT_TK * (bmp + bnp), bm * bn))
+
+
+def wgrad_tile_plan(B, M, Cin, F, e, cs):
+    """stages.cuh wgrad_tile_plan: the tiled plan where the level takes
+    the tiled path (wgrad_plan's passes > 1), else every field 0
+    (k_wgrad on wgrad_plan)."""
+    if wgrad_plan(B, M, Cin, F, e, cs).passes <= 1:
+        return WgradTilePlan(*[0] * 16)
+    return wgrad_tile_shape(B, M, Cin, F, e, cs)
 
 
 def _dgrad_band_floats(rows, M, F, dp):
@@ -364,6 +461,18 @@ def dgrad_tiled_levels(spec):
             if dgrad_tile_plan(g.B, g.Cin, g.W, g.M, g.F).tiled]
 
 
+def wgrad_tiled_levels(spec):
+    """The step's conv levels (ConvGeom, in the order ``flagship_levels``
+    or ``deep_levels`` gives them) whose weight-gradient plan takes the
+    tiled path: k_wgrad_tiled launches a step."""
+    from .megastep import MegaSpec
+
+    levels = (flagship_levels(spec) if isinstance(spec, MegaSpec)
+              else deep_levels(spec))
+    return [g for g in levels
+            if wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs).tiled]
+
+
 def flagship_products(spec):
     """(name, M, N, K) of every product the flagship step runs on gemm."""
     B, NF, NH = spec.batch, spec.n_flat, spec.n_hid
@@ -396,14 +505,21 @@ def deep_products(spec):
 
 def stage_floats(levels):
     """The workspace floats of the stages' regions: the weight gradients'
-    sums and counters, one region each as large as the largest level's
-    (the levels run one after another); then the products' partials and
-    tile counters (a counter is a 32-bit word)."""
-    plans = [(wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs), g.M)
-             for g in levels]
-    return (max([p.part_floats(M) for p, M in plans], default=0)
-            + max([p.counters() for p, _ in plans], default=0)
-            + GEMM_PART_CAP + GEMM_TARGET)
+    sums and counters on the path each level takes, one region each as
+    large as the largest level's (the levels run one after another); then
+    the products' partials and tile counters (a counter is a 32-bit
+    word)."""
+    parts, ctrs = [0], [0]
+    for g in levels:
+        t = wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+        if t.tiled:
+            parts.append(t.part_floats())
+            ctrs.append(t.counters())
+        else:
+            p = wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+            parts.append(p.part_floats(g.M))
+            ctrs.append(p.counters())
+    return max(parts) + max(ctrs) + GEMM_PART_CAP + GEMM_TARGET
 
 
 def megastep_workspace_floats(spec):
@@ -510,6 +626,47 @@ def wgrad_positions(e, ny, nbt, npg):
     return out
 
 
+def wgrad_tile_staging(p):
+    """The copies the threads of a k_wgrad_tiled block make in every chunk,
+    each thread's in order: two arrays of (thread, shared-memory offset)
+    rows, the dz buffer's (position kk, map mm at kk * bmp + mm) and the
+    column buffer's (kk, tap nn at kk * bnp + nn). Thread t of warp w, lane
+    l stages position kk = 8 (w % 2) + l % 8 and the maps and taps q, q +
+    16, ... of q = 4 (w // 2) + l // 8: a warp instruction 8 positions x 4
+    maps or taps."""
+    import numpy as np
+
+    t = np.arange(p.threads)
+    w, ln = t // 32, t % 32
+    kk, q = 8 * (w % 2) + ln % 8, 4 * (w // 2) + ln // 8
+    out = []
+    for width, stride in ((p.bm, p.bmp), (p.bn, p.bnp)):
+        j = np.arange(cdiv(width, 16))
+        mm = q[:, None] + 16 * j[None, :]
+        keep = mm < width
+        off = kk[:, None] * stride + mm
+        out.append(np.stack([np.broadcast_to(t[:, None], mm.shape)[keep],
+                             off[keep]], 1))
+    return out[0], out[1]
+
+
+def wgrad_tile_positions(p):
+    """Each computing k_wgrad_tiled thread's place in its tile: {thread:
+    (maps, taps)}, the WT_R maps and WT_R taps of the tile whose sums it
+    keeps (tm = t % tmt, tn = t // tmt: maps tm*4 + i and bm/2 + tm*4 + i,
+    taps tn*4 + j and bn/2 + tn*4 + j, i, j < 4). At position k of a chunk
+    it reads the dz buffer at k * bmp + each map and the column buffer at
+    k * bnp + each tap."""
+    out = {}
+    for t in range(p.tmt * p.tnt):
+        tm, tn = t % p.tmt, t // p.tmt
+        out[t] = (tuple(h * p.bm // 2 + tm * 4 + i for h in (0, 1)
+                        for i in range(4)),
+                  tuple(h * p.bn // 2 + tn * 4 + j for h in (0, 1)
+                        for j in range(4)))
+    return out
+
+
 def dgrad_staging(g, p, band):
     """The canvas elements (map x row x column, flat) a dgrad block of row
     band ``band`` copies, as its threads walk them (dgrad_stage: of each
@@ -590,8 +747,8 @@ def stage_limit_reason(spec):
     DeepSpec or an MlpSpec), else None: a conv level whose weight- or
     input-gradient staging needs more shared memory, at one row a band (and
     for the weight gradient one map a block), than a block can opt in to (csrc/stages.cuh conv_wgrad and the dgrad
-    launches return ERR_STAGE_SMEM). Each input-gradient level is judged
-    by the path its plan selects; a tiled plan always fits."""
+    launches return ERR_STAGE_SMEM). Each level is judged by the path its
+    plans select; a tiled plan always fits."""
     from .megastep import MegaSpec
 
     if isinstance(spec, MegaSpec):
@@ -607,8 +764,11 @@ def stage_limit_reason(spec):
             return p
         return dgrad_plan(g.B, g.Cin, g.W, g.M, g.F)
 
-    need = [("weight", k, wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs))
-            for k, g in enumerate(levels)]
+    def wgrad(g):   # the plan of the path the level takes
+        p = wgrad_tile_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+        return p if p.tiled else wgrad_plan(g.B, g.M, g.Cin, g.F, g.e, g.cs)
+
+    need = [("weight", k, wgrad(g)) for k, g in enumerate(levels)]
     need += [("input", k, dgrad(g)) for k, g in enumerate(dlevels)]
     for kind, k, p in need:
         if 4 * p.smem_floats > SMEM_OPT_IN:

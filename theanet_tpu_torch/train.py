@@ -26,8 +26,9 @@ a card), with the port's spans on (``tracing.py``: ``theanet.*`` ranges
 beside the kernels), and writes the Chrome trace to
 ``<dir>/<head>_epoch1.json``, naming the file on stderr beside the
 round's spans by self time, its count of blocking device-to-host
-reads (``Trainer.host_reads``) and the deep family's tiled input-gradient
-launches in the round (``deep_epoch.dgrad_tiled_launches``). The JAX CLI's
+reads (``Trainer.host_reads``) and the deep family's tiled input- and
+weight-gradient launches in the round (``deep_epoch.dgrad_tiled_launches``,
+``deep_epoch.wgrad_tiled_launches``). The JAX CLI's
 THEANET_STEPWISE=1 is not ported: set, it stops the run with an error that
 names it.
 """
@@ -96,8 +97,8 @@ def _profiled(device, trainer, profile_dir, head):
     the block ends normally, write the Chrome trace, and print on stderr
     its path, each span name's calls and self time (host clock, profiler
     on), the block's blocking device-to-host reads and the deep family's
-    tiled input-gradient launches. Profiler and spans stop however the
-    block ends."""
+    tiled input- and weight-gradient launches. Profiler and spans stop
+    however the block ends."""
     from torch.profiler import ProfilerActivity, profile
 
     from .ops.megastep_deep import deep_epoch
@@ -107,6 +108,7 @@ def _profiled(device, trainer, profile_dir, head):
         acts.append(ProfilerActivity.CUDA)
     reads = trainer.host_reads
     tiled = deep_epoch.dgrad_tiled_launches
+    wtiled = deep_epoch.wgrad_tiled_launches
     with profile(activities=acts) as prof:
         tracing.take()
         tracing.enable(True)
@@ -117,6 +119,7 @@ def _profiled(device, trainer, profile_dir, head):
             records = tracing.take()
     reads = trainer.host_reads - reads
     tiled = deep_epoch.dgrad_tiled_launches - tiled
+    wtiled = deep_epoch.wgrad_tiled_launches - wtiled
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, head + "_epoch1.json")
     prof.export_chrome_trace(path)
@@ -136,6 +139,8 @@ def _profiled(device, trainer, profile_dir, head):
               file=sys.stderr)
     print("host reads in the profiled round:", reads, file=sys.stderr)
     print("tiled input-gradient launches in the profiled round:", tiled,
+          file=sys.stderr)
+    print("tiled weight-gradient launches in the profiled round:", wtiled,
           file=sys.stderr)
 
 
